@@ -1,0 +1,208 @@
+"""The port's ResNet-18, two-stream model and classifier against the JAX
+package, on the same weights: flax variables converted with
+video_analytics_tpu_torch.models.convert.flax_to_torch.  Tolerances are
+those tests/test_resnet.py holds the flax ResNet to against its torch
+oracle (2e-4)."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from video_analytics_tpu.config import (
+    PipelineConfig, PreprocessConfig, TVL1Config)
+from video_analytics_tpu.models.convert import torch_resnet_to_flax
+from video_analytics_tpu.models.resnet import flow_stream_resnet18 as jax_flow
+from video_analytics_tpu.models.resnet import resnet18 as jax_resnet18
+from video_analytics_tpu.models.two_stream import TwoStreamModel as JaxTS
+from video_analytics_tpu.runtime import pipeline as jax_pipeline
+from video_analytics_tpu_torch.models.convert import (
+    flax_to_torch, two_stream_flax_to_torch)
+from video_analytics_tpu_torch.models.resnet import (
+    flow_stream_resnet18, resnet18)
+from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+from video_analytics_tpu_torch.runtime import pipeline
+
+torch.set_num_threads(1)
+
+WIDTH = 8
+CLASSES = 5
+STACK = 3
+CFG = PipelineConfig(
+    preprocess=PreprocessConfig(resize_short=72, crop=64, flow_stack=STACK),
+    window=4, num_classes=CLASSES,
+    tvl1=TVL1Config(nscales=3, warps=2, outer_iterations=3,
+                    inner_iterations=5, median_filtering=5, epsilon=0.0))
+
+
+def _init(module, in_channels, seed):
+    """flax variables, initialised jitted at a small input (the weights
+    do not depend on the input size)."""
+    x = jnp.zeros((1, 32, 32, in_channels))
+    return jax.jit(module.init)(jax.random.PRNGKey(seed), x)
+
+
+def _numpy(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _randomize_batch_stats(variables, seed):
+    """Non-trivial BatchNorm statistics, so the conversion of mean and
+    var is exercised (flax initialises them to 0 and 1)."""
+    rng = np.random.default_rng(seed)
+    v = _numpy(variables)
+    v["batch_stats"] = jax.tree_util.tree_map(
+        lambda a: (rng.uniform(0.5, 1.5, a.shape) if a.min() == 1.0
+                   else rng.normal(0, 0.1, a.shape)).astype(np.float32),
+        v["batch_stats"])
+    return v
+
+
+@pytest.fixture(scope="module")
+def two_stream():
+    jm = JaxTS.create(num_classes=CLASSES, flow_stack=STACK, width=WIDTH)
+    variables = {"spatial": _init(jm.spatial, 3, 0),
+                 "temporal": _init(jm.temporal, 2 * STACK, 1)}
+    tm = TwoStreamModel.create(num_classes=CLASSES, flow_stack=STACK,
+                               width=WIDTH)
+    tm.load_state_dict(two_stream_flax_to_torch(_numpy(variables)))
+    return jm, variables, tm.eval()
+
+
+@pytest.mark.parametrize("stream", ["rgb", "flow"])
+def test_resnet_matches_flax(stream, rng):
+    in_ch = 3 if stream == "rgb" else 2 * STACK
+    jm = (jax_resnet18(num_classes=CLASSES, width=WIDTH) if stream == "rgb"
+          else jax_flow(stack=STACK, num_classes=CLASSES, width=WIDTH))
+    tm = (resnet18(num_classes=CLASSES, width=WIDTH) if stream == "rgb"
+          else flow_stream_resnet18(stack=STACK, num_classes=CLASSES,
+                                    width=WIDTH))
+    variables = _randomize_batch_stats(_init(jm, in_ch, 2), 3)
+    tm.load_state_dict(flax_to_torch(variables))
+    tm.eval()
+    x = rng.normal(0, 1, (2, 48, 48, in_ch)).astype(np.float32)
+    apply = jax.jit(jm.apply, static_argnames="return_features")
+    for features, shape in ((False, (2, CLASSES)),
+                            (True, (2, tm.feature_dim))):
+        ref = np.asarray(apply(variables, jnp.asarray(x),
+                               return_features=features))
+        with torch.no_grad():
+            ours = tm(torch.from_numpy(x), return_features=features).numpy()
+        assert ours.shape == ref.shape == shape
+        np.testing.assert_allclose(ours, ref, rtol=2e-4, atol=2e-4)
+
+
+def test_flax_to_torch_inverts_torch_resnet_to_flax():
+    """flax_to_torch is the inverse of the JAX package's converter."""
+    tm = resnet18(num_classes=CLASSES, width=WIDTH).init(
+        torch.Generator().manual_seed(4))
+    sd = {k: v for k, v in tm.state_dict().items()
+          if not k.endswith("num_batches_tracked")}
+    back = flax_to_torch(_numpy(torch_resnet_to_flax(sd)))
+    assert set(back) == set(tm.state_dict())
+    for k, v in sd.items():
+        assert torch.equal(back[k], v), k
+
+
+def test_seeded_init_repeats():
+    a = TwoStreamModel.create(CLASSES, STACK, width=WIDTH).init(
+        torch.Generator().manual_seed(0))
+    b = TwoStreamModel.create(CLASSES, STACK, width=WIDTH).init(
+        torch.Generator().manual_seed(0))
+    c = TwoStreamModel.create(CLASSES, STACK, width=WIDTH).init(
+        torch.Generator().manual_seed(1))
+    sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert not torch.equal(sa["spatial.conv1.weight"],
+                           sc["spatial.conv1.weight"])
+
+
+def test_two_stream_heads_match(two_stream, rng):
+    jm, variables, tm = two_stream
+    frames = rng.normal(0, 1, (3, 48, 48, 3)).astype(np.float32)
+    stacks = rng.normal(0, 0.5, (2, 48, 48, 2 * STACK)).astype(np.float32)
+    s_ref = jax.jit(jm.spatial_logits)(variables, jnp.asarray(frames))
+    t_ref = jax.jit(jm.temporal_logits)(variables, jnp.asarray(stacks))
+    with torch.no_grad():
+        s = tm.spatial_logits(torch.from_numpy(frames))
+        t = tm.temporal_logits(torch.from_numpy(stacks))
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_ref), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(t.numpy(), np.asarray(t_ref), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(tm.fuse(s, t).numpy(),
+                               np.asarray(jm.fuse(s_ref, t_ref)),
+                               rtol=2e-4, atol=2e-4)
+
+
+def _clip(t=4, h=80, w=96):
+    from tests.fixtures import moving_square_frames
+    return np.stack(moving_square_frames(t, h, w, step=(2, 1)))
+
+
+def test_classify_window_matches_reference(two_stream):
+    """The whole two-stream classifier at epsilon=0, where the port's
+    per-image ε stop and the reference's batch-wide one agree."""
+    jm, variables, tm = two_stream
+    frames = _clip()
+    ref = np.asarray(jax_pipeline.classify_window(jnp.asarray(frames),
+                                                  variables, jm, CFG))
+    ours = pipeline.classify_window(torch.from_numpy(frames), tm, CFG)
+    assert ours.shape == (CLASSES,)
+    np.testing.assert_allclose(ours.numpy(), ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("stage", ["compute_flow_sequence", "rgb_features",
+                                   "flow_features"])
+def test_pipeline_stage_matches_reference(stage, two_stream):
+    """Each stage the pipeline exposes, at epsilon=0: flow within the
+    TV-L1 batch tolerance (1e-3 abs), features within 2e-4."""
+    jm, variables, tm = two_stream
+    frames = _clip()
+    if stage == "compute_flow_sequence":
+        gray = (frames.astype(np.float32) @ np.float32([0.299, 0.587, 0.114]))
+        ref = jax_pipeline.compute_flow_sequence(jnp.asarray(gray), CFG)
+        ours = pipeline.compute_flow_sequence(torch.from_numpy(gray), CFG)
+        tol = dict(rtol=0, atol=1e-3)
+    elif stage == "rgb_features":
+        ref = jax_pipeline.rgb_features(jnp.asarray(frames),
+                                        variables["spatial"], jm.spatial,
+                                        CFG.preprocess)
+        ours = pipeline.rgb_features(torch.from_numpy(frames), tm.spatial,
+                                     CFG.preprocess)
+        tol = dict(rtol=2e-4, atol=2e-4)
+    else:
+        ref = jax_pipeline.flow_features(jnp.asarray(frames),
+                                         variables["temporal"], jm.temporal,
+                                         CFG)
+        ours = pipeline.flow_features(torch.from_numpy(frames), tm.temporal,
+                                      CFG)
+        tol = dict(rtol=2e-4, atol=2e-4)
+    assert ours.shape == ref.shape
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **tol)
+
+
+def test_classify_batch_is_per_window(two_stream):
+    """A batch of windows gives each window its own probabilities."""
+    _, _, tm = two_stream
+    a, b = _clip(), _clip()[::-1].copy()
+    batch = pipeline.classify_batch(torch.from_numpy(np.stack([a, b])), tm,
+                                    CFG)
+    for i, w in enumerate((a, b)):
+        one = pipeline.classify_window(torch.from_numpy(w), tm, CFG)
+        np.testing.assert_allclose(batch[i].numpy(), one.numpy(),
+                                   atol=1e-6)
+    assert np.allclose(batch.sum(-1).numpy(), 1.0, atol=1e-5)
+
+
+def test_unported_paths_raise(two_stream):
+    _, _, tm = two_stream
+    x = torch.from_numpy(_clip())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pipeline.classify_window(
+            x, tm, dataclasses.replace(CFG, flow_algo="farneback"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TwoStreamModel.create(arch="resnet50")

@@ -1,0 +1,111 @@
+"""The port's preprocessing and host-side clip shaping against the JAX
+package: same uint8 frames from numpy seeds through both.  Resizes are
+held to 1e-3 on [0, 255], the bound the reference states for its fused
+resize + crop (ops/preprocess.py, resize_short_center_crop)."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from video_analytics_tpu.config import PipelineConfig, PreprocessConfig
+from video_analytics_tpu.ingest import windows as jw
+from video_analytics_tpu.ops import preprocess as jp
+from video_analytics_tpu.runtime.pipeline import sample_window as jax_sample
+from video_analytics_tpu_torch.ingest import windows as tw
+from video_analytics_tpu_torch.ops import preprocess as tp
+from video_analytics_tpu_torch.runtime.pipeline import sample_window
+
+torch.set_num_threads(1)
+
+# (H, W, short, crop): landscape, portrait, square, upscale, and the
+# rounding-parity cases of the transport crop.
+GEOMETRIES = [(120, 160, 72, 64), (160, 120, 72, 64), (96, 96, 72, 64),
+              (50, 70, 72, 64), (121, 161, 64, 58), (90, 73, 64, 55),
+              (256, 256, 256, 224)]
+
+
+def _frames(rng, t, h, w):
+    return rng.integers(0, 256, (t, h, w, 3), dtype=np.uint8)
+
+
+@pytest.mark.parametrize("h,w,short,crop", GEOMETRIES)
+def test_crop_source_geometry_matches(h, w, short, crop):
+    assert tp.crop_source_geometry(h, w, short, crop) == \
+        jp.crop_source_geometry(h, w, short, crop)
+
+
+@pytest.mark.parametrize("h,w,short,crop", GEOMETRIES)
+def test_resize_short_center_crop_matches(h, w, short, crop, rng):
+    x = _frames(rng, 2, h, w)
+    ref = np.asarray(jp.resize_short_center_crop(jnp.asarray(x), short,
+                                                 crop))
+    ours = tp.resize_short_center_crop(torch.from_numpy(x), short, crop)
+    assert ours.shape == (2, crop, crop, 3) and ours.dtype == torch.float32
+    np.testing.assert_allclose(ours.numpy(), ref, atol=1e-3)
+
+
+@pytest.mark.parametrize("h,w", [(120, 160), (90, 73)])
+def test_transport_crop_is_exact(h, w, rng):
+    """Slicing on the host (ingest.windows.apply_transport_crop) and
+    passing src_hw gives the same crop as the full frame, as in JAX."""
+    cfg = PipelineConfig(preprocess=PreprocessConfig(resize_short=64,
+                                                     crop=56))
+    x = _frames(rng, 2, h, w)
+    sl, cfg2 = tw.apply_transport_crop(x, cfg)
+    ref_sl, ref_cfg2 = jw.apply_transport_crop(x, cfg)
+    assert np.array_equal(sl, ref_sl) and cfg2 == ref_cfg2
+    full = tp.resize_short_center_crop(torch.from_numpy(x), 64, 56)
+    via = tp.resize_short_center_crop(torch.from_numpy(sl), 64, 56,
+                                      src_hw=cfg2.preprocess.src_hw)
+    assert torch.equal(full, via)
+    assert tw.apply_transport_crop(sl, cfg2) == (sl, cfg2)
+
+
+def test_preprocess_clip_matches(rng):
+    cfg = PreprocessConfig(resize_short=72, crop=64)
+    x = _frames(rng, 3, 80, 100)
+    ref = np.asarray(jp.preprocess_clip(jnp.asarray(x), cfg))
+    ours = tp.preprocess_clip(torch.from_numpy(x), cfg).numpy()
+    # 1e-3 on [0, 255] is 1e-3 / 255 / min(std) after normalisation.
+    np.testing.assert_allclose(ours, ref, atol=1e-3 / 255 / 0.224)
+    with pytest.raises(NotImplementedError):
+        tp.preprocess_clip(torch.from_numpy(x),
+                           dataclasses.replace(cfg, random_crop=True))
+
+
+def test_rgb_to_gray_and_flow_stacks_match(rng):
+    x = _frames(rng, 2, 9, 11)
+    np.testing.assert_allclose(
+        tp.rgb_to_gray(torch.from_numpy(x)).numpy(),
+        np.asarray(jp.rgb_to_gray(jnp.asarray(x))), atol=1e-3)
+    flow = rng.normal(0, 15, (7, 9, 11, 2)).astype(np.float32)
+    for stack, stride in ((3, 1), (2, 2)):
+        ref = np.asarray(jp.stacked_flow_input(jnp.asarray(flow), stack,
+                                               20.0, stride=stride))
+        ours = tp.stacked_flow_input(torch.from_numpy(flow), stack, 20.0,
+                                     stride=stride).numpy()
+        assert ours.shape == ref.shape
+        np.testing.assert_allclose(ours, ref, atol=1e-6)
+
+
+@pytest.mark.parametrize("h,w,short,crop", [(120, 160, 64, 56),
+                                            (160, 120, 64, 58),
+                                            (64, 200, 64, 55),
+                                            (256, 256, 256, 224)])
+def test_host_normalize_square_matches(h, w, short, crop, rng):
+    x = _frames(rng, 2, h, w)
+    assert np.array_equal(tw.host_normalize_square(x, short, crop=crop),
+                          jw.host_normalize_square(x, short, crop=crop))
+    assert np.array_equal(tw.host_normalize_square(x, short),
+                          jw.host_normalize_square(x, short))
+
+
+def test_sample_window_matches():
+    for n, win in ((40, 16), (16, 16), (5, 16)):
+        assert np.array_equal(sample_window(n, win), jax_sample(n, win))
+        assert np.array_equal(
+            sample_window(n, win, np.random.default_rng(3)),
+            jax_sample(n, win, np.random.default_rng(3)))

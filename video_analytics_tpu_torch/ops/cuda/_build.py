@@ -1,0 +1,165 @@
+"""Build and load the port's CUDA kernels.
+
+All sources in ``video_analytics_tpu_torch/csrc/`` go through ``nvcc``
+into one shared library with a plain C interface, for ``sm_90a``
+(Hopper), which is loaded with ``ctypes``.  Nothing includes PyTorch's
+headers, so the build takes seconds.  It runs at first use, from the
+checkout's sources only, into ``video_analytics_tpu_torch/_build/<key>/``
+(listed in ``.gitignore``), where ``<key>`` hashes the sources, the
+generated median network and the flags: an edit rebuilds, an unchanged
+tree reuses the library.  A failed build raises with nvcc's output.
+
+Nothing here runs at import: ``nvcc`` and ``ctypes`` are touched only by
+``library()``, which the kernel wrappers call when they launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from typing import Optional
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(_PKG, "_build")
+SOURCES = ("warp_prep.cu", "tvl1_pd.cu", "median.cu")
+HEADERS = ("common.cuh",)
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+FLAGS = ("-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler",
+         "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# argtypes of every entry point of the library (csrc/*.cu).
+_SIGNATURES = {
+    "va_warp_prep": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "va_pd_step": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
+    "va_eps_reduce": (_P, _P, _P, _I, _I, _F, _F, _P),
+    "va_median": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "va_error_string": (_I,),
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_info: dict = {}
+
+
+def median_network_header() -> str:
+    """C source of ``va_median9`` / ``va_median25``: the pruned
+    selection networks of ``ops.median._median_network``, unrolled."""
+    from video_analytics_tpu_torch.ops.median import _median_network
+    lines = ["// Generated by video_analytics_tpu_torch/ops/cuda/_build.py",
+             "// from ops/median._median_network; do not edit.",
+             "#pragma once", ""]
+    for k2 in (9, 25):
+        network, wire = _median_network(k2)
+        lines.append(f"__device__ __forceinline__ float va_median{k2}"
+                     f"(float* w) {{")
+        for i, j in network:
+            if j < 0:
+                lines.append(f"  w[{i}] = w[{-1 - j}];")
+            else:
+                lines.append(f"  {{ const float lo = fminf(w[{i}], w[{j}]);"
+                             f" const float hi = fmaxf(w[{i}], w[{j}]);"
+                             f" w[{i}] = lo; w[{j}] = hi; }}")
+        lines.append(f"  return w[{wire}];")
+        lines.append("}")
+        lines.append("")
+    return "\n".join(lines)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin:"
+                           " the CUDA kernels cannot be built")
+    return path
+
+
+def _key(header: str) -> str:
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    h.update(header.encode())
+    h.update(" ".join((ARCH,) + FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _compile(out_dir: str, header: str) -> str:
+    lib_path = os.path.join(out_dir, "libva_kernels.so")
+    if os.path.exists(lib_path):
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "median_network.h"), "w") as f:
+        f.write(header)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), ARCH, *FLAGS, "-I", CSRC, "-I", out_dir, "-o", tmp,
+           *(os.path.join(CSRC, s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
+        f.write(" ".join(cmd) + "\n" + log)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    os.replace(tmp, lib_path)   # atomic: a concurrent process sees all or none
+    build_info.update(seconds=seconds, log=log)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            header = median_network_header()
+            out_dir = os.path.join(BUILD_ROOT, _key(header))
+            path = _compile(out_dir, header)
+            lib = ctypes.CDLL(path)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.va_error_string.restype = ctypes.c_char_p
+            build_info.setdefault("seconds", 0.0)
+            build_info["path"] = path
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        msg = library().va_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed: {msg} ({err})")
+
+
+def expect(t, name: str, shape, device) -> None:
+    """Raise unless `t` is a contiguous float32 tensor of `shape` on
+    `device`: what every kernel wrapper takes, checked before a pointer
+    goes to C."""
+    import torch
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected torch.float32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

@@ -1,0 +1,165 @@
+"""Preprocessing on the device: resize → crop → normalize → stack.
+
+Port of ``video_analytics_tpu/ops/preprocess.py`` (the eval branch, which
+is what serving runs).  Arrays stay NHWC at these public boundaries, as
+in the reference.  Numerics follow the same oracles:
+
+- resize: bilinear with half-pixel centers and no antialiasing —
+  cv2.resize(INTER_LINEAR) semantics;
+- center crop: torchvision's rounding, top = round((H - c)/2);
+- normalize: x/255 → (x - mean)/std with ImageNet statistics.
+
+The fused resize + center crop is the reference's
+``jax.image.scale_and_translate`` (linear, no antialias), which has no
+one-op PyTorch equal: the per-axis weight matrices are built on the host
+with the reference's formula (``ops.kernels.linear_weight_matrix``) and
+applied with ``torch.einsum``.  This is plain tensor code in the
+reference too (XLA, not a Pallas kernel).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from video_analytics_tpu_torch.config import PreprocessConfig
+from video_analytics_tpu_torch.ops.kernels import linear_weight_matrix
+
+
+def crop_source_geometry(h: int, w: int, short: int, crop: int):
+    """Geometry of the fused ``center_crop(resize_short(x), crop)``:
+    the (row, col) source window the cropped output actually samples,
+    plus the scale/translate that aligns the fractional offset on the
+    sliced window.
+
+    Returns ``((r0, r1, c0, c1), (sh, th), (sw, tw))`` — slice bounds
+    into the ORIGINAL (h, w) image and the per-axis scale and translation
+    valid for the slice.  Shared by the device path
+    (resize_short_center_crop) and the host transport crop
+    (ingest.windows.slice_crop_source).
+    """
+    if h <= w:
+        rh, rw = short, max(1, int(round(w * short / h)))
+    else:
+        rh, rw = max(1, int(round(h * short / w))), short
+    if rh < crop or rw < crop:
+        raise ValueError(f"cannot center-crop {crop} from {(rh, rw)}")
+    top = int(round((rh - crop) / 2.0))
+    left = int(round((rw - crop) / 2.0))
+
+    def axis_window(n_in: int, n_out: int, off: int):
+        k = n_in / n_out
+        lo = (off + 0.5) * k - 0.5
+        hi = (off + crop - 0.5) * k - 0.5
+        s0 = max(0, math.floor(lo))
+        s1 = min(n_in, math.ceil(hi) + 2)
+        # translation per jax's convention: in = (o+0.5)/s - t/s - 0.5
+        t = -(1.0 / k) * (off * k - s0)
+        return s0, s1, 1.0 / k, t
+
+    r0, r1, sh, th = axis_window(h, rh, top)
+    c0, c1, sw, tw = axis_window(w, rw, left)
+    return (r0, r1, c0, c1), (sh, th), (sw, tw)
+
+
+@functools.lru_cache(maxsize=32)
+def _crop_weights(n_in: int, n_out: int, scale: float, translation: float,
+                  device: torch.device) -> torch.Tensor:
+    """(n_in, n_out) weights of ``scale_and_translate`` along one axis.
+    There scale and translation are float32 arrays, so ``1 / scale`` and
+    ``translation / scale`` round in float32."""
+    s = np.float32(scale)
+    inv = np.float32(1.0) / s
+    shift = np.float32(translation) * inv
+    w = linear_weight_matrix(n_in, n_out, inv, shift)
+    return torch.from_numpy(w).to(device)
+
+
+def resize_short_center_crop(x: torch.Tensor, short: int, crop: int,
+                             src_hw: Optional[Tuple[int, int]] = None
+                             ) -> torch.Tensor:
+    """Fused ``center_crop(resize_short_side(x), crop)`` of
+    (..., H, W, C) → (..., crop, crop, C) float32.
+
+    Only the source window the cropped output samples is read.
+    ``src_hw=(H, W)``: `x` is ALREADY the host-sliced source window of
+    an (H, W) image (ingest.windows.slice_crop_source) — skip the slice
+    and use the same fractional offsets.
+    """
+    if src_hw is not None:
+        h, w = src_hw
+    else:
+        h, w = x.shape[-3], x.shape[-2]
+    (r0, r1, c0, c1), (sh, th), (sw, tw) = crop_source_geometry(
+        h, w, short, crop)
+    if src_hw is not None:
+        if x.shape[-3] != r1 - r0 or x.shape[-2] != c1 - c0:
+            raise ValueError(
+                f"src_hw={src_hw} expects a pre-sliced "
+                f"{(r1 - r0, c1 - c0)} window, got {tuple(x.shape[-3:-1])}")
+        sl = x.float()
+    else:
+        sl = x[..., r0:r1, c0:c1, :].float()
+    wh = _crop_weights(sl.shape[-3], crop, sh, th, x.device)
+    ww = _crop_weights(sl.shape[-2], crop, sw, tw, x.device)
+    return torch.einsum("...hwc,ho,wp->...opc", sl, wh, ww)
+
+
+def normalize(x: torch.Tensor, mean, std) -> torch.Tensor:
+    """uint8/float [0,255] (..., C) → ImageNet-normalized float32."""
+    mean = torch.tensor(mean, dtype=torch.float32, device=x.device)
+    std = torch.tensor(std, dtype=torch.float32, device=x.device)
+    return (x.float() / 255.0 - mean) / std
+
+
+def preprocess_clip(frames: torch.Tensor, cfg: PreprocessConfig
+                    ) -> torch.Tensor:
+    """(T, H, W, 3) uint8 RGB → (T, crop, crop, 3) normalized float32
+    (the eval transform; training's random crop is not ported yet)."""
+    if cfg.random_crop:
+        raise NotImplementedError(
+            "random_crop (training) is not ported yet; see ROADMAP.md")
+    x = resize_short_center_crop(frames, cfg.resize_short, cfg.crop,
+                                 src_hw=cfg.src_hw)
+    return normalize(x, cfg.mean, cfg.std)
+
+
+def rgb_to_gray(frames: torch.Tensor) -> torch.Tensor:
+    """(..., 3) RGB → (...,) gray float32 with cv2's BT.601 weights."""
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=torch.float32,
+                     device=frames.device)
+    return torch.tensordot(frames.float(), w, dims=([-1], [0]))
+
+
+def stack_flow_windows(flow: torch.Tensor, stack: int,
+                       stride: int = 1) -> torch.Tensor:
+    """(T-1, H, W, 2) flow fields → (N, H, W, 2*stack) stacked windows:
+    `stack` consecutive (u, v) fields as 2*stack channels, windows
+    starting at multiples of `stride`."""
+    t = flow.shape[0]
+    if t < stack:
+        raise ValueError(f"need >= {stack} flow fields, got {t}")
+    starts = range(0, t - stack + 1, stride)
+    wins = torch.stack([flow[s:s + stack] for s in starts])  # (N, L, H, W, 2)
+    n, _, h, w, _ = wins.shape
+    return wins.permute(0, 2, 3, 1, 4).reshape(n, h, w, 2 * stack)
+
+
+def normalize_flow_stack(x: torch.Tensor, bound: float = 20.0
+                         ) -> torch.Tensor:
+    """Clip flow to ±bound and scale to [-1, 1] — the dequantized-uint8
+    convention the flow stream is trained on."""
+    return x.clamp(-bound, bound) / bound
+
+
+def stacked_flow_input(flow: torch.Tensor, stack: int, bound: float = 20.0,
+                       stride: int = 1) -> torch.Tensor:
+    """``normalize_flow_stack(stack_flow_windows(flow, stack), bound)``
+    with the elementwise clip/scale done before the stacking, which
+    copies each field up to `stack` times."""
+    return stack_flow_windows(normalize_flow_stack(flow, bound), stack,
+                              stride)

@@ -1,0 +1,129 @@
+"""The two-stream classifier end to end on one device.
+
+Port of ``video_analytics_tpu/runtime/pipeline.py`` (the TV-L1 path).
+Decoded uint8 frames go to the device once; preprocessing, TV-L1 flow
+(the hand-written CUDA kernels on a GPU), both ResNet-18 streams,
+temporal pooling and fusion all run there, and the flow stays on the
+device between the solver and the flow-stream CNN.
+
+The reference vmaps ``classify_window`` over windows; here the batch is
+written out: ``classify_batch`` runs the flow of every window's frame
+pairs as one TV-L1 batch and each CNN once over all windows.  An image's
+flow does not depend on its batch (the per-image ε stop), so a window
+gets the same flow alone or in a batch.
+
+``classify_batch(..., plain=True)`` runs the flow through the kernels'
+plain PyTorch versions even on CUDA tensors: the reference the kernels
+are checked against.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from video_analytics_tpu_torch.config import PipelineConfig, PreprocessConfig
+from video_analytics_tpu_torch.flow.tvl1 import tvl1
+from video_analytics_tpu_torch.models.resnet import ResNet
+from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+from video_analytics_tpu_torch.ops import preprocess as pp
+
+
+def _check_algo(cfg: PipelineConfig) -> None:
+    if cfg.flow_algo != "tvl1":
+        raise NotImplementedError(
+            f"flow_algo={cfg.flow_algo!r} is not ported yet (tvl1 only); "
+            "Farneback and SpyNet are queued in ROADMAP.md")
+
+
+def compute_flow_sequence(gray: torch.Tensor,
+                          cfg: PipelineConfig) -> torch.Tensor:
+    """(T, H, W) gray sequence → (T-1, H, W, 2) consecutive-pair flow."""
+    _check_algo(cfg)
+    return tvl1(gray[:-1], gray[1:], cfg.tvl1)
+
+
+@torch.no_grad()
+def rgb_features(frames: torch.Tensor, model: ResNet,
+                 cfg: PreprocessConfig) -> torch.Tensor:
+    """(T, H, W, 3) uint8 → (T, 512) ResNet-18 penultimate features."""
+    return model(pp.preprocess_clip(frames, cfg), return_features=True)
+
+
+def _crop(frames: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
+    """(..., H, W, 3) uint8 → (..., crop, crop, 3) float32 on [0, 255]:
+    the eval resize + center crop that both streams start from."""
+    pre = cfg.preprocess
+    if pre.random_crop:
+        raise NotImplementedError(
+            "random_crop (training) is not ported yet; see ROADMAP.md")
+    return pp.resize_short_center_crop(frames, pre.resize_short, pre.crop,
+                                       src_hw=pre.src_hw)
+
+
+def _flow_stacks(x: torch.Tensor, cfg: PipelineConfig,
+                 plain: bool) -> torch.Tensor:
+    """(B, T, h, w, 3) cropped windows → (B, N, h, w, 2L) normalised flow
+    stacks, with one TV-L1 batch over all B·(T-1) frame pairs."""
+    _check_algo(cfg)
+    B, T = x.shape[:2]
+    gray = pp.rgb_to_gray(x)                           # (B, T, h, w)
+    flow = tvl1(gray[:, :-1].reshape(B * (T - 1), *gray.shape[2:]),
+                gray[:, 1:].reshape(B * (T - 1), *gray.shape[2:]),
+                cfg.tvl1, plain=plain)
+    flow = flow.reshape(B, T - 1, *flow.shape[1:])
+    pre = cfg.preprocess
+    return torch.stack([pp.stacked_flow_input(f, pre.flow_stack,
+                                              pre.flow_bound)
+                        for f in flow])
+
+
+@torch.no_grad()
+def flow_features(frames: torch.Tensor, model: ResNet,
+                  cfg: PipelineConfig) -> torch.Tensor:
+    """(T, H, W, 3) uint8 → (N, 512) flow-stream features: crop → gray →
+    flow → stack → CNN."""
+    stacks = _flow_stacks(_crop(frames, cfg)[None], cfg, plain=False)[0]
+    return model(stacks, return_features=True)
+
+
+@torch.no_grad()
+def classify_batch(windows: torch.Tensor, model: TwoStreamModel,
+                   cfg: PipelineConfig, plain: bool = False) -> torch.Tensor:
+    """(B, T, H, W, 3) uint8 windows → (B, C) fused probs.  Both streams
+    start from one resize + crop (the reference computes the same crop
+    once per stream)."""
+    B, T = windows.shape[:2]
+    pre = cfg.preprocess
+    x = _crop(windows, cfg)                            # (B, T, h, w, 3)
+    rgb = pp.normalize(x, pre.mean, pre.std)
+    s_logits = model.spatial(rgb.reshape(B * T, *rgb.shape[2:]))
+    s_logits = s_logits.reshape(B, T, -1).mean(dim=1)
+    stacks = _flow_stacks(x, cfg, plain)               # (B, N, h, w, 2L)
+    n = stacks.shape[1]
+    t_logits = model.temporal(stacks.reshape(B * n, *stacks.shape[2:]))
+    t_logits = t_logits.reshape(B, n, -1).mean(dim=1)
+    return model.fuse(s_logits, t_logits)
+
+
+def classify_window(frames: torch.Tensor, model: TwoStreamModel,
+                    cfg: PipelineConfig, plain: bool = False
+                    ) -> torch.Tensor:
+    """One clip window (T, H, W, 3) uint8 → fused class probs (C,)."""
+    return classify_batch(frames[None], model, cfg, plain=plain)[0]
+
+
+def sample_window(num_frames: int, window: int,
+                  rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Host-side frame-index sampling: one evenly-spaced (eval) or
+    random (train) window of `window` indices, clamped for short clips."""
+    if num_frames >= window:
+        if rng is None:
+            start = (num_frames - window) // 2
+        else:
+            start = int(rng.integers(0, num_frames - window + 1))
+        return np.arange(start, start + window)
+    idx = np.arange(window)
+    return np.clip(idx, 0, num_frames - 1)
