@@ -15,8 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from video_analytics_tpu_torch.config import TVL1Config
+from video_analytics_tpu_torch.config import FarnebackConfig, TVL1Config
+from video_analytics_tpu_torch.flow.farneback import (
+    farneback, farneback_sequence)
 from video_analytics_tpu_torch.flow.tvl1 import tvl1
+from video_analytics_tpu_torch.ops.cuda import farneback as fk
 from video_analytics_tpu_torch.ops.cuda import tvl1_solve as ts
 from video_analytics_tpu_torch.ops.cuda.warp import warp_prep, warp_prep_plain
 from video_analytics_tpu_torch.ops.kernels import centered_gradient
@@ -112,3 +115,101 @@ def test_wrappers_reject_bad_tensors(dev):
         ts.median5(uv, 5, out=torch.empty_like(uv[:, :1]))
     with pytest.raises(ValueError, match="on cpu"):
         warp_prep(i13, i0.cpu(), uv)
+
+
+# -- the Farneback kernels (K-D, K-E, K-F) ----------------------------------
+# Each holds a row of the TPU kernel table: K-D poly_prologue_pallas /
+# poly_expansion_pallas; K-E the warp + normal-equation halves of
+# _neq_corr_axis, warp_neq_corr_pallas, corr_solve_warp_from_T_pallas,
+# warp_emit_T_pallas, farneback_level_pallas; K-F _sep_corr_axis and the
+# average + solve halves of the same and corr_solve_from_T_pallas.
+
+@pytest.mark.parametrize("hw,scale,out_hw,poly", [
+    ((37, 53), 1.0, (37, 53), (5, 1.2)),       # finest level, ragged
+    ((96, 128), 0.5, (48, 64), (5, 1.2)),      # exact halving
+    ((96, 128), 0.25, (24, 32), (7, 1.5)),     # quartering, poly_n 7
+    ((67, 93), 0.5, (34, 46), (5, 1.2)),       # odd size, rounded level
+    ((67, 93), 0.6, (40, 56), (5, 1.2)),       # not a 2^k divisor
+    ((40, 64), 0.5, (40, 32), (5, 1.2)),       # one axis keeps its size
+])
+def test_fb_prologue_matches_plain(dev, hw, scale, out_hw, poly):
+    frames, _ = _images(dev, 3, *hw, seed=2)
+    n = fk.fb_prologue.launches
+    got = fk.fb_prologue(frames, scale, out_hw, *poly)
+    assert fk.fb_prologue.launches == n + 1
+    want = fk.fb_prologue_plain(frames, scale, out_hw, *poly)
+    assert got.shape == want.shape == (3, 5, *out_hw)
+    assert torch.equal(got, want)
+
+
+def _expansions(dev, b, h, w, seed=3):
+    i0, i1 = _images(dev, b, h, w, seed=seed)
+    R0 = fk.fb_prologue_plain(i0, 1.0, (h, w), 5, 1.2)
+    R1 = fk.fb_prologue_plain(i1, 1.0, (h, w), 5, 1.2)
+    return R0.contiguous(), R1.contiguous()
+
+
+@pytest.mark.parametrize("h,w", [(37, 53), (8, 9), (64, 32)])
+def test_fb_warp_neq_matches_plain(dev, h, w):
+    R0, R1 = _expansions(dev, 3, h, w)
+    g = torch.Generator(dev).manual_seed(4)
+    flow = 3.0 * torch.randn((3, 2, h, w), device=dev, generator=g)
+    # Exact integers, the clamp and far out of bounds: floor(p + d) and
+    # the gather's clamp read the same sum.
+    flow[0, :, : h // 2] = torch.round(flow[0, :, : h // 2])
+    flow[1, 0, :, :4] = -50.0
+    flow[1, 1, -3:] = 50.0
+    flow[2] = 0.0
+    n = fk.fb_warp_neq.launches
+    got = fk.fb_warp_neq(R0, R1, flow)
+    assert fk.fb_warp_neq.launches == n + 1
+    assert torch.equal(got, fk.fb_warp_neq_plain(R0, R1, flow))
+
+
+@pytest.mark.parametrize("gaussian,winsize", [(False, 15), (True, 15),
+                                              (False, 9), (True, 31)])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_sep_corr_matches_plain(dev, axis, gaussian, winsize):
+    from video_analytics_tpu_torch.ops.kernels import farneback_window_taps
+    taps = farneback_window_taps(winsize, gaussian)
+    R0, R1 = _expansions(dev, 2, 37, 53)
+    M = fk.fb_warp_neq_plain(R0, R1, torch.zeros((2, 2, 37, 53), device=dev))
+    n, n_solve = fk.sep_corr.launches, fk.sep_corr.launches_solve
+    assert torch.equal(fk.sep_corr(M, taps, axis),
+                       fk.sep_corr_plain(M, taps, axis))
+    assert torch.equal(fk.sep_corr(M[:, :3].contiguous(), taps, axis),
+                       fk.sep_corr_plain(M[:, :3], taps, axis))
+    got = fk.sep_corr(M, taps, axis, solve=True)
+    assert fk.sep_corr.launches == n + 3
+    assert fk.sep_corr.launches_solve == n_solve + 1
+    assert got.shape == (2, 2, 37, 53)
+    assert torch.equal(got, fk.sep_corr_plain(M, taps, axis, solve=True))
+
+
+@pytest.mark.parametrize("kw", [{}, {"poly_n": 7, "poly_sigma": 1.5},
+                                {"gaussian_window": True, "winsize": 9},
+                                {"pyr_scale": 0.6}])
+def test_farneback_kernels_match_plain(dev, kw):
+    cfg = FarnebackConfig(**kw)
+    i0, i1 = _images(dev, 3, 67, 93, seed=6)
+    got = farneback(i0, i1, cfg)
+    assert torch.equal(got, farneback(i0, i1, cfg, plain=True))
+    seq = torch.cat([i0[:1], i1])
+    assert torch.equal(farneback_sequence(seq, cfg),
+                       farneback(seq[:-1], seq[1:], cfg))
+
+
+def test_farneback_wrappers_reject_bad_tensors(dev):
+    R0, R1 = _expansions(dev, 2, 16, 24)
+    flow = torch.zeros((2, 2, 16, 24), device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        fk.fb_warp_neq(R0.double(), R1, flow)
+    with pytest.raises(ValueError, match="on cpu"):
+        fk.fb_warp_neq(R0, R1.cpu(), flow)
+    with pytest.raises(ValueError, match="odd number of taps"):
+        fk.sep_corr(R0, [0.5, 0.5], 0)
+    with pytest.raises(ValueError, match="C = 5"):
+        fk.sep_corr(flow, [1.0], 1, solve=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.fb_prologue(torch.zeros((2, 24, 16), device=dev).transpose(1, 2),
+                       1.0, (16, 24), 5, 1.2)

@@ -12,13 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from video_analytics_tpu.config import (
-    PipelineConfig, PreprocessConfig, TVL1Config)
+from video_analytics_tpu import config as jax_config
 from video_analytics_tpu.models.convert import torch_resnet_to_flax
 from video_analytics_tpu.models.resnet import flow_stream_resnet18 as jax_flow
 from video_analytics_tpu.models.resnet import resnet18 as jax_resnet18
 from video_analytics_tpu.models.two_stream import TwoStreamModel as JaxTS
 from video_analytics_tpu.runtime import pipeline as jax_pipeline
+from video_analytics_tpu_torch.config import (
+    PipelineConfig, PreprocessConfig, TVL1Config)
 from video_analytics_tpu_torch.models.convert import (
     flax_to_torch, two_stream_flax_to_torch)
 from video_analytics_tpu_torch.models.resnet import (
@@ -36,6 +37,20 @@ CFG = PipelineConfig(
     window=4, num_classes=CLASSES,
     tvl1=TVL1Config(nscales=3, warps=2, outer_iterations=3,
                     inner_iterations=5, median_filtering=5, epsilon=0.0))
+
+
+def _jax(cfg: PipelineConfig) -> jax_config.PipelineConfig:
+    """The JAX package's config with the port config's values."""
+    return jax_config.PipelineConfig(**{
+        **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)},
+        "preprocess": jax_config.PreprocessConfig(
+            **dataclasses.asdict(cfg.preprocess)),
+        "farneback": jax_config.FarnebackConfig(
+            **dataclasses.asdict(cfg.farneback)),
+        "tvl1": jax_config.TVL1Config(**dataclasses.asdict(cfg.tvl1))})
+
+
+JAX_CFG = _jax(CFG)
 
 
 def _init(module, in_channels, seed):
@@ -149,7 +164,7 @@ def test_classify_window_matches_reference(two_stream):
     jm, variables, tm = two_stream
     frames = _clip()
     ref = np.asarray(jax_pipeline.classify_window(jnp.asarray(frames),
-                                                  variables, jm, CFG))
+                                                  variables, jm, JAX_CFG))
     ours = pipeline.classify_window(torch.from_numpy(frames), tm, CFG)
     assert ours.shape == (CLASSES,)
     np.testing.assert_allclose(ours.numpy(), ref, atol=1e-4)
@@ -164,20 +179,20 @@ def test_pipeline_stage_matches_reference(stage, two_stream):
     frames = _clip()
     if stage == "compute_flow_sequence":
         gray = (frames.astype(np.float32) @ np.float32([0.299, 0.587, 0.114]))
-        ref = jax_pipeline.compute_flow_sequence(jnp.asarray(gray), CFG)
+        ref = jax_pipeline.compute_flow_sequence(jnp.asarray(gray), JAX_CFG)
         ours = pipeline.compute_flow_sequence(torch.from_numpy(gray), CFG)
         tol = dict(rtol=0, atol=1e-3)
     elif stage == "rgb_features":
         ref = jax_pipeline.rgb_features(jnp.asarray(frames),
                                         variables["spatial"], jm.spatial,
-                                        CFG.preprocess)
+                                        JAX_CFG.preprocess)
         ours = pipeline.rgb_features(torch.from_numpy(frames), tm.spatial,
                                      CFG.preprocess)
         tol = dict(rtol=2e-4, atol=2e-4)
     else:
         ref = jax_pipeline.flow_features(jnp.asarray(frames),
                                          variables["temporal"], jm.temporal,
-                                         CFG)
+                                         JAX_CFG)
         ours = pipeline.flow_features(torch.from_numpy(frames), tm.temporal,
                                       CFG)
         tol = dict(rtol=2e-4, atol=2e-4)
@@ -203,6 +218,6 @@ def test_unported_paths_raise(two_stream):
     x = torch.from_numpy(_clip())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipeline.classify_window(
-            x, tm, dataclasses.replace(CFG, flow_algo="farneback"))
+            x, tm, dataclasses.replace(CFG, flow_algo="spynet"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TwoStreamModel.create(arch="resnet50")

@@ -10,10 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from video_analytics_tpu.config import PipelineConfig, PreprocessConfig
+from video_analytics_tpu import config as jax_config
 from video_analytics_tpu.ingest import windows as jw
 from video_analytics_tpu.ops import preprocess as jp
 from video_analytics_tpu.runtime.pipeline import sample_window as jax_sample
+from video_analytics_tpu_torch.config import PipelineConfig, PreprocessConfig
 from video_analytics_tpu_torch.ingest import windows as tw
 from video_analytics_tpu_torch.ops import preprocess as tp
 from video_analytics_tpu_torch.runtime.pipeline import sample_window
@@ -55,8 +56,11 @@ def test_transport_crop_is_exact(h, w, rng):
                                                      crop=56))
     x = _frames(rng, 2, h, w)
     sl, cfg2 = tw.apply_transport_crop(x, cfg)
-    ref_sl, ref_cfg2 = jw.apply_transport_crop(x, cfg)
-    assert np.array_equal(sl, ref_sl) and cfg2 == ref_cfg2
+    ref_sl, ref_cfg2 = jw.apply_transport_crop(
+        x, jax_config.PipelineConfig(preprocess=jax_config.PreprocessConfig(
+            **dataclasses.asdict(cfg.preprocess))))
+    assert np.array_equal(sl, ref_sl)
+    assert dataclasses.asdict(cfg2) == dataclasses.asdict(ref_cfg2)
     full = tp.resize_short_center_crop(torch.from_numpy(x), 64, 56)
     via = tp.resize_short_center_crop(torch.from_numpy(sl), 64, 56,
                                       src_hw=cfg2.preprocess.src_hw)
@@ -67,7 +71,9 @@ def test_transport_crop_is_exact(h, w, rng):
 def test_preprocess_clip_matches(rng):
     cfg = PreprocessConfig(resize_short=72, crop=64)
     x = _frames(rng, 3, 80, 100)
-    ref = np.asarray(jp.preprocess_clip(jnp.asarray(x), cfg))
+    ref = np.asarray(jp.preprocess_clip(
+        jnp.asarray(x),
+        jax_config.PreprocessConfig(**dataclasses.asdict(cfg))))
     ours = tp.preprocess_clip(torch.from_numpy(x), cfg).numpy()
     # 1e-3 on [0, 255] is 1e-3 / 255 / min(std) after normalisation.
     np.testing.assert_allclose(ours, ref, atol=1e-3 / 255 / 0.224)

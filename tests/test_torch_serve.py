@@ -101,7 +101,7 @@ def test_cli_serve_refuses_missing_cuda_and_unported_algo(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         main(["serve", "--device", "cuda", *SMALL_ARGS])
-    assert main(["serve", "--device", "cpu", "--algo", "farneback",
+    assert main(["serve", "--device", "cpu", "--algo", "spynet",
                  *SMALL_ARGS]) == 2
 
 

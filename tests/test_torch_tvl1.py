@@ -19,10 +19,11 @@ import torch
 
 from tests.fixtures import smooth_pair
 from tests.np_tvl1 import tvl1_np
-from video_analytics_tpu.config import TVL1Config
+from video_analytics_tpu.config import TVL1Config as JaxTVL1Config
 from video_analytics_tpu.flow.tvl1 import _solve_warp, _warp_step, tvl1_jit
 from video_analytics_tpu.ops import kernels as jk
 from video_analytics_tpu.ops.median import median_filter2d as jax_median
+from video_analytics_tpu_torch.config import TVL1Config
 from video_analytics_tpu_torch.flow.tvl1 import tvl1
 from video_analytics_tpu_torch.ops import kernels as tk
 from video_analytics_tpu_torch.ops.cuda import _build
@@ -34,6 +35,11 @@ from video_analytics_tpu_torch.ops.median import (
 torch.set_num_threads(1)
 
 # Small config keeps the CPU reference fast; same spec as the defaults.
+def _jax(cfg: TVL1Config) -> JaxTVL1Config:
+    """The JAX package's config with the port config's values."""
+    return JaxTVL1Config(**dataclasses.asdict(cfg))
+
+
 FAST = TVL1Config(nscales=3, warps=2, outer_iterations=4,
                   inner_iterations=10, median_filtering=5)
 PAIRS = [(1.4, -0.8), (0.3, 0.1), (3.5, -2.4)]
@@ -163,7 +169,7 @@ def test_pd_solve_plain_matches_solve_warp(epsilon):
     ref_u, ref_v = _solve_warp(jnp.asarray(i0), I1w,
                                jnp.asarray(prep[:, 0].numpy()),
                                jnp.asarray(prep[:, 1].numpy()),
-                               u0, v0, u0, v0, cfg)
+                               u0, v0, u0, v0, _jax(cfg))
     ours = ts.pd_solve_plain(prep, torch.from_numpy(uv), cfg)
     np.testing.assert_allclose(ours[:, 0].numpy(), np.asarray(ref_u),
                                rtol=1e-5, atol=1e-5)
@@ -220,7 +226,7 @@ def test_wrappers_take_plain_versions_on_cpu():
 def test_tvl1_matches_reference_one_pair(seed, motion):
     f1, f2 = _pair(seed, *motion)
     ref = np.asarray(tvl1_jit(jnp.asarray(f1[None]), jnp.asarray(f2[None]),
-                              FAST))[0]
+                              _jax(FAST)))[0]
     ours = tvl1(torch.from_numpy(f1[None]), torch.from_numpy(f2[None]),
                 FAST)[0].numpy()
     epe = np.linalg.norm(ours - ref, axis=-1)
@@ -245,7 +251,8 @@ def test_tvl1_batch_matches_reference_at_epsilon_zero():
     pairs = [_pair(s, *m) for s, m in enumerate(PAIRS)]
     prev = np.stack([p[0] for p in pairs])
     nxt = np.stack([p[1] for p in pairs])
-    ref = np.asarray(tvl1_jit(jnp.asarray(prev), jnp.asarray(nxt), cfg))
+    ref = np.asarray(tvl1_jit(jnp.asarray(prev), jnp.asarray(nxt),
+                              _jax(cfg)))
     ours = tvl1(torch.from_numpy(prev), torch.from_numpy(nxt), cfg).numpy()
     assert ours.shape == (3, 48, 64, 2)
     assert np.abs(ours - ref).max() < 1e-3, np.abs(ours - ref).max()

@@ -7,12 +7,13 @@ plain tensor code in PyTorch, and runs every computation that the JAX
 package wrote as a Pallas TPU kernel as a CUDA kernel written by hand for
 Hopper (``csrc/``, built by ``ops/cuda/_build.py`` at first use).
 
-The slice ported so far is the two-stream serve path under
-``PipelineConfig()``: TV-L1 flow, two ResNet-18s, late fusion, and the
-``ClipServer`` line protocol (``tpuva-torch serve``).
+Ported so far: the two-stream serve path (TV-L1 or Farneback flow, two
+ResNet-18s, late fusion, the ``ClipServer`` line protocol:
+``tpuva-torch serve``) and the flow alone (``tpuva-torch compute-flow``).
 
-Importing this package imports no JAX; the configuration dataclasses
-are shared with the JAX package (``video_analytics_tpu_torch.config``).
+Importing this package imports no JAX and nothing of the JAX package: it
+keeps its own copies of the configuration dataclasses (``config.py``) and
+of the host-side video and flow I/O (``io/``).
 """
 
 __version__ = "0.1.0"

@@ -1,28 +1,120 @@
-"""Command line of the PyTorch/CUDA port: ``tpuva-torch serve``.
+"""Command line of the PyTorch/CUDA port: ``tpuva-torch``.
 
-Port of the ``serve`` subcommand of ``video_analytics_tpu/cli/main.py``,
-with the same flags (less those of parts not ported yet: checkpoints,
-BatchNorm folding, backbones other than ResNet-18) and the same
-stdin/stdout line protocol.  The model is initialised from ``--seed``.
+Port of the ``extract-frames``, ``compute-flow`` and ``serve`` subcommands
+of ``video_analytics_tpu/cli/main.py``, with the same flags (less those
+of parts not ported yet: checkpoints, BatchNorm folding, backbones other
+than ResNet-18, SpyNet; and less ``compute-flow``'s ``--exact`` and
+``--no-bucket``, which choose between paths the port does not have: its
+warp is always the exact gather, its flow always at the native
+resolution) and, for ``serve``, the same stdin/stdout line protocol.  The
+model is initialised from ``--seed``.
 
 Usage::
 
-    tpuva-torch serve --warmup            # on the first CUDA device
-    tpuva-torch serve --device cpu ...    # plain PyTorch, no kernels
+    tpuva-torch serve --warmup                    # first CUDA device
+    tpuva-torch serve --algo farneback --warmup
+    tpuva-torch compute-flow clip.mp4 out/ --algo farneback
+    tpuva-torch serve --device cpu ...            # plain PyTorch, no kernels
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from typing import List, Optional
 
 
-def _tvl1_config(args):
-    """TVL1Config from the --tv-* flags the user set (the dataclass
-    defaults stay the single source of the cv2 parameter values)."""
-    from video_analytics_tpu_torch.config import TVL1Config
+def _chunked(n: int, size: int):
+    for s in range(0, n, size):
+        yield s, min(s + size, n)
+
+
+def _load_frames(src: str, max_frames: Optional[int]):
+    from video_analytics_tpu_torch.io.video import (
+        VideoReader, read_frames_dir)
+    if os.path.isdir(src):
+        return read_frames_dir(src, max_frames=max_frames)
+    with VideoReader(src) as r:
+        return r.read_all(max_frames=max_frames)
+
+
+def cmd_extract_frames(args) -> int:
+    """Decode a clip to frame JPEGs (host only)."""
+    from video_analytics_tpu_torch.io.video import VideoReader, write_frames
+    with VideoReader(args.video) as r:
+        frames = r.read_all(max_frames=args.max_frames)
+    paths = write_frames(frames, args.out_dir, quality=args.quality)
+    print(json.dumps({"frames": len(paths), "out_dir": args.out_dir,
+                      "height": int(frames.shape[1]),
+                      "width": int(frames.shape[2])}))
+    return 0
+
+
+def _write_flow(out_dir: str, idx: int, flow, fmt: str, bound: float
+                ) -> None:
+    """One (H, W, 2) flow field in the chosen storage format."""
+    from video_analytics_tpu_torch.io.flowio import (
+        flow_to_color, quantize_flow, write_flo)
+    if fmt == "flo":
+        write_flo(os.path.join(out_dir, f"flow_{idx:06d}.flo"), flow)
+        return
+    import cv2
+    if fmt == "viz":
+        rgb = flow_to_color(flow, max_mag=bound)
+        cv2.imwrite(os.path.join(out_dir, f"flow_viz_{idx:06d}.png"),
+                    cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))
+    else:
+        q = quantize_flow(flow, bound=bound)
+        cv2.imwrite(os.path.join(out_dir, f"flow_x_{idx:06d}.jpg"), q[..., 0])
+        cv2.imwrite(os.path.join(out_dir, f"flow_y_{idx:06d}.jpg"), q[..., 1])
+
+
+def cmd_compute_flow(args) -> int:
+    """Dense flow of every consecutive frame pair of a clip or frames
+    directory, at the native resolution, `--batch` pairs per call."""
+    import torch
+    from video_analytics_tpu_torch.config import PipelineConfig
+    from video_analytics_tpu_torch.ops.preprocess import rgb_to_gray
+    from video_analytics_tpu_torch.runtime.pipeline import compute_flow
+    from video_analytics_tpu_torch.utils.device import require_cuda
+
+    if args.algo == "spynet":
+        print(json.dumps({"error": "--algo spynet is not ported yet "
+                          "(tvl1 and farneback are; see ROADMAP.md)"}),
+              file=sys.stderr)
+        return 2
+    device = require_cuda(args.device)
+    frames = _load_frames(args.src, args.max_frames)
+    if len(frames) < 2:
+        print("error: need at least 2 frames for flow", file=sys.stderr)
+        return 2
+    fb, tv = _flow_configs(args)
+    cfg = PipelineConfig(flow_algo=args.algo, farneback=fb, tvl1=tv)
+    os.makedirs(args.out_dir, exist_ok=True)
+    written = 0
+    with torch.no_grad():
+        gray = rgb_to_gray(torch.from_numpy(frames).to(device))
+        for s, e in _chunked(len(frames) - 1, args.batch):
+            flow = compute_flow(gray[s:e], gray[s + 1:e + 1], cfg)
+            for i, f in enumerate(flow.cpu().numpy()):
+                _write_flow(args.out_dir, s + i + 1, f, args.format,
+                            args.bound)
+                written += 1
+    print(json.dumps({"flows": written, "algo": args.algo,
+                      "format": args.format, "out_dir": args.out_dir}))
+    return 0
+
+
+def _flow_configs(args):
+    """(FarnebackConfig, TVL1Config) from the --fb-* and --tv-* flags the
+    user set (the dataclass defaults stay the single source of the cv2
+    parameter values)."""
+    from video_analytics_tpu_torch.config import FarnebackConfig, TVL1Config
+    fb_map = {"fb_pyr_scale": "pyr_scale", "fb_levels": "levels",
+              "fb_winsize": "winsize", "fb_iterations": "iterations",
+              "fb_poly_n": "poly_n", "fb_poly_sigma": "poly_sigma"}
     tv_map = {"tv_tau": "tau", "tv_lambda": "lambda_",
               "tv_theta": "theta", "tv_nscales": "nscales",
               "tv_warps": "warps", "tv_epsilon": "epsilon",
@@ -30,9 +122,15 @@ def _tvl1_config(args):
               "tv_outer": "outer_iterations",
               "tv_scale_step": "scale_step",
               "tv_median": "median_filtering"}
-    return TVL1Config(**{field: getattr(args, arg)
-                         for arg, field in tv_map.items()
-                         if getattr(args, arg, None) is not None})
+
+    def pick(m):
+        return {field: getattr(args, arg) for arg, field in m.items()
+                if getattr(args, arg, None) is not None}
+
+    fb_kw = pick(fb_map)
+    if getattr(args, "fb_gaussian", False):
+        fb_kw["gaussian_window"] = True
+    return FarnebackConfig(**fb_kw), TVL1Config(**pick(tv_map))
 
 
 def _pipeline_config(args):
@@ -40,13 +138,24 @@ def _pipeline_config(args):
         PipelineConfig, PreprocessConfig)
     pre = PreprocessConfig(resize_short=args.resize_short, crop=args.crop,
                            flow_stack=args.flow_stack)
+    fb, tv = _flow_configs(args)
     return PipelineConfig(preprocess=pre, num_classes=args.num_classes,
-                          tvl1=_tvl1_config(args), flow_algo=args.algo,
+                          farneback=fb, tvl1=tv, flow_algo=args.algo,
                           window=args.window)
 
 
 def _add_flow_args(p) -> None:
-    """The cv2 DualTVL1OpticalFlow parameter surface."""
+    """The cv2 flow-parameter surface (calcOpticalFlowFarneback /
+    DualTVL1OpticalFlow_create), per algorithm, with cv2's defaults."""
+    fb = p.add_argument_group("farneback (cv2.calcOpticalFlowFarneback)")
+    fb.add_argument("--fb-pyr-scale", type=float, default=None)
+    fb.add_argument("--fb-levels", type=int, default=None)
+    fb.add_argument("--fb-winsize", type=int, default=None)
+    fb.add_argument("--fb-iterations", type=int, default=None)
+    fb.add_argument("--fb-poly-n", type=int, default=None)
+    fb.add_argument("--fb-poly-sigma", type=float, default=None)
+    fb.add_argument("--fb-gaussian", action="store_true",
+                    help="cv2.OPTFLOW_FARNEBACK_GAUSSIAN window")
     tv = p.add_argument_group("tvl1 (cv2 DualTVL1OpticalFlow defaults)")
     tv.add_argument("--tv-tau", type=float, default=None)
     tv.add_argument("--tv-lambda", dest="tv_lambda", type=float,
@@ -80,7 +189,7 @@ def _load_class_names(class_index: Optional[str]) -> Optional[List[str]]:
     """classInd.txt → id-ordered name list (None without a file)."""
     if not class_index:
         return None
-    from video_analytics_tpu.io.dataset import read_class_index
+    from video_analytics_tpu_torch.io.dataset import read_class_index
     ci = read_class_index(class_index)
     classes: List[str] = [None] * len(ci)
     for name, idx in ci.items():
@@ -97,9 +206,10 @@ def cmd_serve(args) -> int:
     from video_analytics_tpu_torch.runtime.serve import ClipServer
     from video_analytics_tpu_torch.utils.device import require_cuda
 
-    if args.algo != "tvl1":
-        print(json.dumps({"error": f"--algo {args.algo} is not ported yet "
-                          "(tvl1 only; see ROADMAP.md)"}), file=sys.stderr)
+    if args.algo == "spynet":
+        print(json.dumps({"error": "--algo spynet is not ported yet "
+                          "(tvl1 and farneback are; see ROADMAP.md)"}),
+              file=sys.stderr)
         return 2
     device = require_cuda(args.device)
     cfg = _pipeline_config(args)
@@ -127,14 +237,46 @@ def cmd_serve(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpuva-torch",
-        description="video analytics on PyTorch/CUDA (two-stream + TV-L1)")
+        description="video analytics on PyTorch/CUDA (two-stream + "
+                    "TV-L1 or Farneback optical flow)")
     sub = p.add_subparsers(dest="command", required=True)
+
+    ef = sub.add_parser("extract-frames", help="decode video to frame JPEGs")
+    ef.add_argument("video")
+    ef.add_argument("out_dir")
+    ef.add_argument("--max-frames", type=int, default=None)
+    ef.add_argument("--quality", type=int, default=95)
+    ef.set_defaults(fn=cmd_extract_frames)
+
+    cf = sub.add_parser("compute-flow",
+                        help="dense optical flow for a clip/frames dir")
+    cf.add_argument("src")
+    cf.add_argument("out_dir")
+    cf.add_argument("--algo", choices=["tvl1", "farneback", "spynet"],
+                    default="tvl1",
+                    help="flow algorithm (spynet is not ported yet)")
+    cf.add_argument("--format", choices=["flo", "jpg", "viz"],
+                    default="flo",
+                    help="flo = raw .flo files; jpg = quantized uint8 "
+                         "x/y pairs (two-stream storage convention); "
+                         "viz = HSV color-wheel PNGs for inspection")
+    cf.add_argument("--bound", type=float, default=20.0,
+                    help="jpg quantization range / viz magnitude "
+                         "saturation, in px")
+    cf.add_argument("--batch", type=int, default=8,
+                    help="frame pairs per flow call")
+    cf.add_argument("--max-frames", type=int, default=None)
+    cf.add_argument("--device", default="cuda",
+                    help="torch device; 'cuda' fails without a GPU")
+    _add_flow_args(cf)
+    cf.set_defaults(fn=cmd_compute_flow)
+
     sv = sub.add_parser(
         "serve",
         help="long-running classify server (JSON lines on stdin/stdout)")
     sv.add_argument("--algo", choices=["tvl1", "farneback", "spynet"],
                     default="tvl1",
-                    help="flow algorithm (tvl1 is the one ported so far)")
+                    help="flow algorithm (spynet is not ported yet)")
     sv.add_argument("--class-index", default=None,
                     help="UCF101 classInd.txt for names")
     _add_model_args(sv)

@@ -26,4 +26,31 @@ constexpr int NT = TX * TY;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// Correlation taps, passed to a kernel by value: the host's float array
+// copied into the launch parameters, so no tap lives in device memory.
+constexpr int MAX_TAPS = 31;
+struct Taps {
+  float k[MAX_TAPS];
+  int n;
+};
+inline Taps make_taps(const float* k, int n) {
+  Taps t;
+  t.n = n;
+  for (int i = 0; i < MAX_TAPS; ++i) t.k[i] = i < n ? k[i] : 0.0f;
+  return t;
+}
+
+// Bilinear sample of plane P (row length W) at (y0 + fy, x0 + fx), in
+// the operation order of ops/kernels.bilinear_sample.
+__device__ __forceinline__ float lerp2(const float* __restrict__ P, int W,
+                                       int y0, int x0, float fy, float fx) {
+  const float p00 = P[y0 * W + x0];
+  const float p01 = P[y0 * W + x0 + 1];
+  const float p10 = P[(y0 + 1) * W + x0];
+  const float p11 = P[(y0 + 1) * W + x0 + 1];
+  const float top = p00 * (1.0f - fx) + p01 * fx;
+  const float bot = p10 * (1.0f - fx) + p11 * fx;
+  return top * (1.0f - fy) + bot * fy;
+}
+
 }  // namespace va

@@ -30,17 +30,6 @@
 
 namespace {
 
-__device__ __forceinline__ float lerp2(const float* __restrict__ P, int W,
-                                       int y0, int x0, float fy, float fx) {
-  const float p00 = P[y0 * W + x0];
-  const float p01 = P[y0 * W + x0 + 1];
-  const float p10 = P[(y0 + 1) * W + x0];
-  const float p11 = P[(y0 + 1) * W + x0 + 1];
-  const float top = p00 * (1.0f - fx) + p01 * fx;
-  const float bot = p10 * (1.0f - fx) + p11 * fx;
-  return top * (1.0f - fy) + bot * fy;
-}
-
 __global__ void __launch_bounds__(va::NT)
 warp_prep_kernel(const float* __restrict__ i13, const float* __restrict__ i0,
                  const float* __restrict__ uv, float* __restrict__ prep,
@@ -64,9 +53,9 @@ warp_prep_kernel(const float* __restrict__ i13, const float* __restrict__ i0,
   const float fy = ys - (float)yi;
   const float fx = xs - (float)xi;
 
-  const float I1w = lerp2(I1, W, yi, xi, fy, fx);
-  const float I1wx = lerp2(I1x, W, yi, xi, fy, fx);
-  const float I1wy = lerp2(I1y, W, yi, xi, fy, fx);
+  const float I1w = va::lerp2(I1, W, yi, xi, fy, fx);
+  const float I1wx = va::lerp2(I1x, W, yi, xi, fy, fx);
+  const float I1wy = va::lerp2(I1y, W, yi, xi, fy, fx);
 
   float* out = prep + (size_t)b * 4 * hw;
   out[o] = I1wx;

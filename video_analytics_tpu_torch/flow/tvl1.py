@@ -1,9 +1,8 @@
 """TV-L1 dense optical flow (Zach, Pock, Bischof 2007) on the GPU.
 
 Port of ``video_analytics_tpu/flow/tvl1.py``.  Parameter names and
-defaults mirror OpenCV's ``DualTVL1OpticalFlow`` (``TVL1Config``, shared
-with the JAX package); the iteration structure follows the IPOL
-reference implementation:
+defaults mirror OpenCV's ``DualTVL1OpticalFlow`` (``TVL1Config``); the
+iteration structure follows the IPOL reference implementation:
 
 per scale (coarse→fine): centred gradient of I1, then ``warps`` times
   - warp I1 and ∇I1 by the current flow and form the linearised residual

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 All sources in ``video_analytics_tpu_torch/csrc/`` go through ``nvcc``
-into one shared library with a plain C interface, for ``sm_90a``
-(Hopper), which is loaded with ``ctypes``.  Nothing includes PyTorch's
-headers, so the build takes seconds.  It runs at first use, from the
+(one process per source, all started together, then one link) into one
+shared library with a plain C interface, for ``sm_90a`` (Hopper), which
+is loaded with ``ctypes``.  Nothing includes PyTorch's headers, so the
+build takes seconds.  It runs at first use, from the
 checkout's sources only, into ``video_analytics_tpu_torch/_build/<key>/``
 (listed in ``.gitignore``), where ``<key>`` hashes the sources, the
 generated median network and the flags: an edit rebuilds, an unchanged
@@ -29,11 +30,12 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
-SOURCES = ("warp_prep.cu", "tvl1_pd.cu", "median.cu")
+SOURCES = ("warp_prep.cu", "tvl1_pd.cu", "median.cu", "fb_prologue.cu",
+           "fb_warp_neq.cu", "sep_corr.cu")
 HEADERS = ("common.cuh",)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-FLAGS = ("-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler",
-         "-fPIC", "-Xptxas", "-v")
+FLAGS = ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+         "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +46,10 @@ _SIGNATURES = {
     "va_pd_step": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
     "va_eps_reduce": (_P, _P, _P, _I, _I, _F, _F, _P),
     "va_median": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "va_fb_prologue": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P,
+                       _P, _P, _P, _I, _F, _F, _F, _F, _P),
+    "va_fb_warp_neq": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "va_sep_corr": (_P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P),
     "va_error_string": (_I,),
 }
 
@@ -101,20 +107,35 @@ def _compile(out_dir: str, header: str) -> str:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "median_network.h"), "w") as f:
         f.write(header)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), ARCH, *FLAGS, "-I", CSRC, "-I", out_dir, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as obj_dir:
+        objects = [os.path.join(obj_dir, s[:-3] + ".o") for s in SOURCES]
+        cmds = [[nvcc, ARCH, *FLAGS, "-I", CSRC, "-I", out_dir, "-c", "-o",
+                 obj, os.path.join(CSRC, src)]
+                for src, obj in zip(SOURCES, objects)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        outputs = [proc.communicate()[0] for proc in procs]
+        failed = [i for i, proc in enumerate(procs) if proc.returncode != 0]
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        if not failed:
+            cmds.append([nvcc, ARCH, "-shared", "-o", tmp, *objects])
+            link = subprocess.run(cmds[-1], capture_output=True, text=True)
+            outputs.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed = [len(cmds) - 1]
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
+    log = "\n".join(" ".join(cmd) + "\n" + text
+                    for cmd, text in zip(cmds, outputs))
     with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
+        f.write(log)
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            " ".join(cmds[i]) + "\n" + outputs[i] for i in failed))
     os.replace(tmp, lib_path)   # atomic: a concurrent process sees all or none
     build_info.update(seconds=seconds, log=log)
     return lib_path

@@ -32,6 +32,18 @@ def gaussian_kernel_1d(sigma: float, n: Optional[int] = None) -> np.ndarray:
     return (g / g.sum()).astype(np.float32)
 
 
+def farneback_window_taps(winsize: int, gaussian: bool
+                          ) -> Tuple[float, ...]:
+    """Farneback 1D window-average taps: the winsize box window, or
+    cv2's OPTFLOW_FARNEBACK_GAUSSIAN (σ = m·0.3 over [-m, m],
+    m = winsize//2).  Single source for a cv2-parity-sensitive constant
+    used by flow/farneback.py and the sep_corr kernel."""
+    if gaussian:
+        m = winsize // 2
+        return tuple(float(t) for t in gaussian_kernel_1d(m * 0.3, n=m))
+    return tuple([1.0 / winsize] * winsize)
+
+
 def _conv1d(x: torch.Tensor, k: np.ndarray, dim: int) -> torch.Tensor:
     """Correlate (B, H, W) with a 1D kernel along H (dim=1) or W (dim=2),
     VALID: an unrolled shift-and-add in the reference's order, so each

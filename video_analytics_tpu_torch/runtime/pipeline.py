@@ -1,16 +1,17 @@
 """The two-stream classifier end to end on one device.
 
-Port of ``video_analytics_tpu/runtime/pipeline.py`` (the TV-L1 path).
-Decoded uint8 frames go to the device once; preprocessing, TV-L1 flow
-(the hand-written CUDA kernels on a GPU), both ResNet-18 streams,
-temporal pooling and fusion all run there, and the flow stays on the
-device between the solver and the flow-stream CNN.
+Port of ``video_analytics_tpu/runtime/pipeline.py`` (the TV-L1 and the
+Farneback paths).  Decoded uint8 frames go to the device once;
+preprocessing, optical flow (the hand-written CUDA kernels on a GPU),
+both ResNet-18 streams, temporal pooling and fusion all run there, and
+the flow stays on the device between the solver and the flow-stream CNN.
 
 The reference vmaps ``classify_window`` over windows; here the batch is
 written out: ``classify_batch`` runs the flow of every window's frame
-pairs as one TV-L1 batch and each CNN once over all windows.  An image's
-flow does not depend on its batch (the per-image ε stop), so a window
-gets the same flow alone or in a batch.
+pairs as one batch and each CNN once over all windows.  With TV-L1 an
+image's flow does not depend on its batch (the per-image ε stop); with
+Farneback every pixel's arithmetic is its own pair's.  So a window gets
+the same flow alone or in a batch, and pairs never span two windows.
 
 ``classify_batch(..., plain=True)`` runs the flow through the kernels'
 plain PyTorch versions even on CUDA tensors: the reference the kernels
@@ -25,6 +26,8 @@ import numpy as np
 import torch
 
 from video_analytics_tpu_torch.config import PipelineConfig, PreprocessConfig
+from video_analytics_tpu_torch.flow.farneback import (
+    farneback, farneback_sequence)
 from video_analytics_tpu_torch.flow.tvl1 import tvl1
 from video_analytics_tpu_torch.models.resnet import ResNet
 from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
@@ -32,17 +35,54 @@ from video_analytics_tpu_torch.ops import preprocess as pp
 
 
 def _check_algo(cfg: PipelineConfig) -> None:
-    if cfg.flow_algo != "tvl1":
+    if cfg.flow_algo == "spynet":
         raise NotImplementedError(
-            f"flow_algo={cfg.flow_algo!r} is not ported yet (tvl1 only); "
-            "Farneback and SpyNet are queued in ROADMAP.md")
+            "flow_algo='spynet' is not ported yet (tvl1 and farneback "
+            "are); SpyNet is queued in ROADMAP.md")
+
+
+def compute_flow(gray_prev: torch.Tensor, gray_next: torch.Tensor,
+                 cfg: PipelineConfig) -> torch.Tensor:
+    """(B, H, W) gray pairs → (B, H, W, 2) flow with the configured
+    algorithm."""
+    _check_algo(cfg)
+    if cfg.flow_algo == "tvl1":
+        return tvl1(gray_prev, gray_next, cfg.tvl1)
+    return farneback(gray_prev, gray_next, cfg.farneback)
+
+
+def _sequence_flow(gray: torch.Tensor, cfg: PipelineConfig,
+                   plain: bool) -> torch.Tensor:
+    """(B, T, H, W) gray sequences → (B, T-1, H, W, 2) consecutive-pair
+    flow, all B·(T-1) pairs in one flow batch; pairs never span two
+    sequences."""
+    _check_algo(cfg)
+    if cfg.flow_algo == "farneback":
+        return farneback_sequence(gray, cfg.farneback, plain=plain)
+    B, T = gray.shape[:2]
+    flow = tvl1(gray[:, :-1].reshape(B * (T - 1), *gray.shape[2:]),
+                gray[:, 1:].reshape(B * (T - 1), *gray.shape[2:]),
+                cfg.tvl1, plain=plain)
+    return flow.reshape(B, T - 1, *flow.shape[1:])
 
 
 def compute_flow_sequence(gray: torch.Tensor,
                           cfg: PipelineConfig) -> torch.Tensor:
-    """(T, H, W) gray sequence → (T-1, H, W, 2) consecutive-pair flow."""
-    _check_algo(cfg)
-    return tvl1(gray[:-1], gray[1:], cfg.tvl1)
+    """(T, H, W) gray sequence → (T-1, H, W, 2) consecutive-pair flow.
+
+    Same result as ``compute_flow(gray[:-1], gray[1:], cfg)``; for
+    Farneback the per-frame pyramid prep and polynomial expansions run
+    once per frame (``flow/farneback.farneback_sequence``) instead of
+    once for each side of each pair."""
+    return _sequence_flow(gray[None], cfg, plain=False)[0]
+
+
+@torch.no_grad()
+def flow_from_frames(frames: torch.Tensor, cfg: PipelineConfig
+                     ) -> torch.Tensor:
+    """(T, H, W, 3) uint8 RGB → (T-1, H, W, 2) dense flow at input
+    resolution (the compute-flow CLI surface)."""
+    return compute_flow_sequence(pp.rgb_to_gray(frames), cfg)
 
 
 @torch.no_grad()
@@ -66,14 +106,8 @@ def _crop(frames: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
 def _flow_stacks(x: torch.Tensor, cfg: PipelineConfig,
                  plain: bool) -> torch.Tensor:
     """(B, T, h, w, 3) cropped windows → (B, N, h, w, 2L) normalised flow
-    stacks, with one TV-L1 batch over all B·(T-1) frame pairs."""
-    _check_algo(cfg)
-    B, T = x.shape[:2]
-    gray = pp.rgb_to_gray(x)                           # (B, T, h, w)
-    flow = tvl1(gray[:, :-1].reshape(B * (T - 1), *gray.shape[2:]),
-                gray[:, 1:].reshape(B * (T - 1), *gray.shape[2:]),
-                cfg.tvl1, plain=plain)
-    flow = flow.reshape(B, T - 1, *flow.shape[1:])
+    stacks, with one flow batch over all B·(T-1) frame pairs."""
+    flow = _sequence_flow(pp.rgb_to_gray(x), cfg, plain)
     pre = cfg.preprocess
     return torch.stack([pp.stacked_flow_input(f, pre.flow_stack,
                                               pre.flow_bound)

@@ -129,7 +129,8 @@ class ClipServer:
     def _load_windows(self, path: str) -> np.ndarray:
         """Decode only the snippet windows the protocol consumes,
         host-normalised to one shape when normalize=True."""
-        from video_analytics_tpu.io.video import decode_snippet_windows
+        from video_analytics_tpu_torch.io.video import (
+            decode_snippet_windows)
         wins = decode_snippet_windows(path, self.window, self.num_windows,
                                       max_frames=self.max_frames,
                                       repeat_short=True)
