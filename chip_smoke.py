@@ -7,10 +7,10 @@ Run from the root of a checkout, with no arguments:
 
 It imports no JAX, and fails (non-zero exit, no result line) where
 ``torch.cuda.is_available()`` is false or the package is not beside it.
-OpenCV is needed by the last phase only, as by the command it drives.
-Phases, each reported on a JSON line:
+OpenCV is needed by the phases that drive the command line (7, 9, 10), as
+by the commands themselves.  Phases, each reported on a JSON line:
 
-1. build: compile every CUDA kernel of both serve paths from
+1. build: compile every CUDA kernel of the port from
    ``video_analytics_tpu_torch/csrc/`` with nvcc for sm_90a (one nvcc per
    source, all started together);
 2. kernels: call each kernel's wrapper at the serve path's shapes (15
@@ -48,10 +48,31 @@ Phases, each reported on a JSON line:
    flo`` on a 16-frame 240×320 frames directory written to a temporary
    directory, with the launch counts of K-D, K-E, K-F set to 0 just
    before the command and held to the expected numbers just after; 15
-   ``.flo`` files, one read back.
+   ``.flo`` files, one read back;
+8. tvl1_chunk_kernels: K-G ``pd_chunk`` (several primal-dual iterations
+   per launch on shared-memory tiles) against its plain version at the
+   five TV-L1 level sizes of a 1080×1920 frame (2 pairs), with and without
+   the round-opening median, at a full and a remainder chunk, with all
+   bands active and with some frozen: the state bit for bit, the band
+   error sums to 1e-5 relative; one whole warp through
+   ``pd_solve_chunked`` against the per-iteration ``pd_solve`` (bit for
+   bit at ε = 0, within 10·ε with the gates engaged), both timed;
+9. tvl1_1080p: ``tpuva-torch compute-flow --algo tvl1`` with
+   ``TVL1Config()`` on a frames directory of 11 frames of 1080×1920 (10
+   pairs, ``--batch 8``), the launch counts of the TV-L1 kernels set to 0
+   just before and held to the expected numbers just after (K-G on every
+   level, the per-iteration kernels not at all); the first pair's flow
+   against the plain path's and the scene's motion; one flow call of 2
+   pairs timed and profiled;
+10. stage_chain: a checkpoint written from seed 0 and read back, then
+   ``extract-features`` on the flow directory of phase 9 and on its
+   frames, and ``classify-clip --checkpoint ... --windows 3`` on a 1080p
+   clip, at full width; features and probabilities against the same steps
+   taken on tensors with the kernels' plain versions.
 
 Then it prints the kernel table (``{"kernels": [...]}``: for each kernel
-its launches on its serve path (``sep_corr``'s two instantiations, the
+its launches on its main path (the serve requests; for K-G the
+``compute-flow`` command of phase 9; ``sep_corr``'s two instantiations, the
 one-plane correlation and the five-plane one with the solve epilogue,
 have a row each), its time, its plain version's, the time
 of one PyTorch call that computes the same function where there is one,
@@ -153,8 +174,6 @@ def profile_request(torch, np, server, frames, request_ms):
     the device time per kernel name, the summed and the merged (union)
     device intervals, and the union's share of the profiled request's
     wall and of the median unprofiled request."""
-    from torch.profiler import ProfilerActivity, profile
-
     from video_analytics_tpu_torch.ingest.windows import apply_transport_crop
     from video_analytics_tpu_torch.ops import preprocess as pp
     from video_analytics_tpu_torch.runtime import pipeline
@@ -185,11 +204,26 @@ def profile_request(torch, np, server, frames, request_ms):
         model.fuse(s_logits, t_logits).cpu()
         lap("flow_cnn_and_fuse")
 
+    median_ms = float(np.median(request_ms))
+    prof = device_profile(torch, lambda: server._classify(
+        server._windows_from_frames(frames)))
+    busy_ms = prof["device_busy_ms"]
+    return {"stage_ms": stages, "stage_sum_ms": sum(stages.values()), **prof,
+            "unprofiled_median_ms": median_ms,
+            "busy_share_of_unprofiled": busy_ms / median_ms}
+
+
+def device_profile(torch, fn):
+    """One call of fn() under torch.profiler: its wall time (host clock,
+    with a sync), the device time per kernel name, the summed and the
+    merged (union) device intervals, and the union's share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        server._classify(server._windows_from_frames(frames))
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     spans, per_name = [], {}
@@ -206,14 +240,10 @@ def profile_request(torch, np, server, frames, request_ms):
             busy_ms += (b - max(a, end)) / 1e3
             end = b
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]
-    median_ms = float(np.median(request_ms))
-    return {"stage_ms": stages, "stage_sum_ms": sum(stages.values()),
-            "profiled_wall_ms": wall_ms, "device_events": len(spans),
+    return {"profiled_wall_ms": wall_ms, "device_events": len(spans),
             "device_sum_ms": sum(ms for ms, _ in per_name.values()),
             "device_busy_ms": busy_ms,
             "busy_share_of_profiled": busy_ms / wall_ms,
-            "unprofiled_median_ms": median_ms,
-            "busy_share_of_unprofiled": busy_ms / median_ms,
             "top_device_ms": [{"name": name[:80], "ms": ms, "count": n}
                               for name, (ms, n) in top]}
 
@@ -557,14 +587,454 @@ def compute_flow_phase(np):
     return launches
 
 
+FULL_HD = (1080, 1920)     # a native-resolution frame: every TV-L1 level
+                           # of it is above the whole-plane size rule
+HD_PAIRS = 2               # pairs per flow call in the K-G checks
+TOL_CHUNK_ERR = 1e-5       # K-G band sums, relative (their order differs)
+
+
+def chunk_bound(B, h, w, iters, median_k):
+    """Bound of one K-G launch: 10 planes read and 6 written once, against
+    ~70 float operations per pixel and iteration plus, with the median,
+    113 compare-exchanges (a min and a max) on each of u and v."""
+    px = B * h * w
+    return bound(16 * 4 * px,
+                 (70 * iters + (2 * 2 * 113 if median_k > 1 else 0)) * px)
+
+
+def tvl1_chunk_kernels_phase(torch, np, dev, sweep: bool):
+    """K-G ``pd_chunk`` against its plain version at the five level sizes
+    of a 1080x1920 frame, and ``pd_solve_chunked`` against the
+    per-iteration ``pd_solve``.  Returns (max_abs_err, (ms, plain_ms,
+    None), bound) of a full chunk at 1080x1920."""
+    from video_analytics_tpu_torch.config import TVL1Config
+    from video_analytics_tpu_torch.flow.tvl1 import (
+        _level_sizes, whole_plane_level)
+    from video_analytics_tpu_torch.ops.cuda import tvl1_solve as ts
+    from video_analytics_tpu_torch.ops.cuda.warp import warp_prep_plain
+    from video_analytics_tpu_torch.ops.kernels import centered_gradient
+
+    cfg = TVL1Config()
+    K, k = cfg.inner_iterations, cfg.median_filtering
+    report, max_err, max_sum_err = {}, 0.0, 0.0
+    table = None
+    for h, w in _level_sizes(*FULL_HD, cfg):
+        check(not whole_plane_level(h, w, k), f"{h}x{w} is a whole-plane level")
+        band, chunk = ts.chunk_params(h, w, cfg)
+        tile, halo = ts.chunk_tile(chunk, cfg)
+        n_bands = -(-h // band)
+        i0 = torch.from_numpy(np.stack([scene(np, b, h, w, seed=b)
+                                        for b in range(HD_PAIRS)])).to(dev)
+        i1 = torch.from_numpy(np.stack([scene(np, b + 1, h, w, seed=b)
+                                        for b in range(HD_PAIRS)])).to(dev)
+        i1x, i1y = centered_gradient(i1)
+        i13 = torch.stack([i1, i1x, i1y], dim=1).contiguous()
+        yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+        uv = torch.from_numpy(np.stack([np.stack(
+            [2.5 * np.sin(6 * yy + b), -2.0 * np.cos(5 * xx - b)])
+            for b in range(HD_PAIRS)]).astype(np.float32)).to(dev)
+        prep = warp_prep_plain(i13, i0, uv)
+        on = torch.ones((HD_PAIRS, n_bands), dtype=torch.int32, device=dev)
+        # A state with live dual variables: two iterations from p = 0.
+        state, _ = ts.pd_chunk_plain(
+            prep, torch.cat([uv, torch.zeros((HD_PAIRS, 4, h, w), device=dev)],
+                            dim=1), on, cfg, 2, band, False)
+        act = on.clone()
+        act[0, 1::2] = 0                      # some bands frozen
+        act[1, :1] = 0
+        out = torch.empty_like(state)
+        rest = K % chunk or chunk
+        for iters in sorted({chunk, rest}):
+            for do_median in (True, False):
+                for flags in (on, act):
+                    out.fill_(float("nan"))
+                    err = ts.pd_chunk(prep, state, flags, cfg, iters, band,
+                                      tile, halo, do_median, out)
+                    want, want_err = ts.pd_chunk_plain(
+                        prep, state, flags, cfg, iters, band, do_median)
+                    e = (out - want).abs().max().item()
+                    what = (f"pd_chunk at {h}x{w}, {iters} iterations, "
+                            f"median {do_median}")
+                    check(torch.equal(out, want), f"{what}: max abs {e}")
+                    rel = ((err - want_err).abs()
+                           / want_err.abs().clamp(min=1e-30)).max().item()
+                    check(rel <= TOL_CHUNK_ERR,
+                          f"{what}: band sums differ by {rel} relative")
+                    max_err, max_sum_err = max(max_err, e), max(max_sum_err,
+                                                                rel)
+        times = {
+            "ms": cuda_ms(torch, lambda: ts.pd_chunk(
+                prep, state, on, cfg, chunk, band, tile, halo, False, out)),
+            "ms_with_median": cuda_ms(torch, lambda: ts.pd_chunk(
+                prep, state, on, cfg, chunk, band, tile, halo, True, out)),
+            "ms_all_frozen": cuda_ms(torch, lambda: ts.pd_chunk(
+                prep, state, torch.zeros_like(on), cfg, chunk, band, tile,
+                halo, False, out)),
+            "plain_ms": cuda_ms(torch, lambda: ts.pd_chunk_plain(
+                prep, state, on, cfg, chunk, band, False), 3)}
+        b_ms, b_by = chunk_bound(HD_PAIRS, h, w, chunk, 0)
+        bm_ms, _ = chunk_bound(HD_PAIRS, h, w, chunk, k)
+        report[f"{h}x{w}"] = {"band": band, "chunk": chunk, "tile": tile,
+                              "halo": halo, **times, "bound_ms": b_ms,
+                              "bound_by": b_by,
+                              "bound_ms_with_median": bm_ms}
+        if (h, w) == FULL_HD:
+            table = ((times["ms"], times["plain_ms"], None), (b_ms, b_by))
+            # One whole warp, both solvers.  At epsilon = 0 no flag clears
+            # and the tiling cannot show: bit for bit.
+            exact = dataclasses.replace(cfg, epsilon=0.0, outer_iterations=2)
+            got = ts.pd_solve_chunked(prep, uv, exact, band, chunk, False)
+            chain = ts.pd_solve(prep, uv, exact)
+            check(torch.equal(got, chain),
+                  "pd_solve_chunked(adaptive=False) != pd_solve at epsilon 0: "
+                  f"{(got - chain).abs().max().item()}")
+            check(torch.equal(got, ts.pd_solve_chunked(prep, uv, exact, band,
+                                                       chunk, True)),
+                  "adaptive differs from non-adaptive with no band converged")
+            # With the default epsilon the gates decide: the sums' order may
+            # flip a round, so the bound is the reference's 10 * epsilon.
+            got = ts.pd_solve_chunked(prep, uv, cfg, band, chunk, False)
+            chain = ts.pd_solve(prep, uv, cfg)
+            gated = (got - chain).abs().max().item()
+            check(gated <= 10 * cfg.epsilon,
+                  f"pd_solve_chunked vs pd_solve, gated: {gated}")
+            adaptive = ts.pd_solve_chunked(prep, uv, cfg, band, chunk, True)
+            a_dev = (adaptive - chain).abs().max().item()
+            check(a_dev <= 10 * cfg.epsilon,
+                  f"adaptive pd_solve_chunked vs pd_solve: {a_dev}")
+            report["one_warp_1080x1920"] = {
+                "pairs": HD_PAIRS,
+                "gated_max_abs_vs_chain": gated,
+                "adaptive_max_abs_vs_chain": a_dev,
+                "chunked_adaptive_ms": cuda_ms(
+                    torch, lambda: ts.pd_solve_chunked(prep, uv, cfg, band,
+                                                       chunk, True), 2),
+                "chunked_ms": cuda_ms(
+                    torch, lambda: ts.pd_solve_chunked(prep, uv, cfg, band,
+                                                       chunk, False), 2),
+                "chain_ms": cuda_ms(
+                    torch, lambda: ts.pd_solve(prep, uv, cfg), 2),
+                "launches_chunked": cfg.outer_iterations * -(-K // chunk),
+                "launches_chain": cfg.outer_iterations * (K + 2)}
+            if sweep:
+                sw = {}
+                for c in (2, 3, 4, 5, 6, 8, 10, 15):
+                    t, _ = ts.chunk_tile(c, cfg)
+                    sw[c] = {"tile": t, "ms": cuda_ms(
+                        torch, lambda: ts.pd_solve_chunked(
+                            prep, uv, cfg, _TILE_ROWS * t, c, False), 2)}
+                report["chunk_sweep_1080x1920"] = sw
+    emit({"phase": "tvl1_chunk_kernels", "pairs": HD_PAIRS,
+          "state_max_abs_err": max_err, "state_bit_exact": True,
+          "band_sum_max_rel_err": max_sum_err, "tolerance": TOL_CHUNK_ERR,
+          "by_level": report})
+    return max_err, table[0], table[1]
+
+
+_TILE_ROWS = 4     # tile rows per gating band in the chunk sweep
+
+HD_FRAMES = 11             # 10 pairs: one stack of the flow stream's fields
+CLIP_FRAMES = 24           # the classify-clip phase's 1080p clip
+CLIP_WINDOWS = 3
+
+
+def hd_frames(np, n: int, seed: int):
+    """n RGB frames of 1080x1920, uint8: one texture translating by VEL
+    pixels per frame, its three channels at different gains."""
+    planes = [scene(np, t, *FULL_HD, seed=seed) for t in range(n)]
+    return np.stack([np.stack([g * img for g in (1.0, 0.85, 0.7)], axis=-1)
+                     for img in planes]).round().astype(np.uint8)
+
+
+def run_cli(argv):
+    """The port's command line in this process.  Returns (exit code, the
+    JSON object of its last output line or None)."""
+    import contextlib
+    import io
+
+    from video_analytics_tpu_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    return rc, json.loads(lines[-1]) if lines else None
+
+
+def tvl1_1080p_phase(torch, np, dev, work: str):
+    """``compute-flow --algo tvl1`` with ``TVL1Config()`` on a frames
+    directory of 1080x1920 frames under `work`, with the launch counts of
+    the TV-L1 kernels set to 0 just before the command and held to the
+    expected numbers just after; the first pair's flow against the plain
+    path's.  Returns (launches per kernel, frames directory, flow
+    directory)."""
+    from video_analytics_tpu_torch.cli.main import _load_frames
+    from video_analytics_tpu_torch.config import TVL1Config
+    from video_analytics_tpu_torch.flow.tvl1 import _level_sizes, tvl1
+    from video_analytics_tpu_torch.io.flowio import read_flo
+    from video_analytics_tpu_torch.io.video import write_frames
+    from video_analytics_tpu_torch.ops.cuda import tvl1_solve as ts
+    from video_analytics_tpu_torch.ops.cuda.warp import warp_prep
+    from video_analytics_tpu_torch.ops.preprocess import rgb_to_gray
+
+    cfg = TVL1Config()
+    src, out = os.path.join(work, "frames_1080p"), os.path.join(work,
+                                                                "flow_1080p")
+    write_frames(hd_frames(np, HD_FRAMES, seed=5), src)
+    kernels = {"tvl1_pd_chunk": ts.pd_chunk, "warp_prep": warp_prep,
+               "median5": ts.median5, "tvl1_pd_step": ts.pd_step,
+               "tvl1_eps_reduce": ts.eps_reduce}
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    rc, res = run_cli(["compute-flow", src, out, "--algo", "tvl1", "--format",
+                       "flo", "--batch", str(CF_BATCH), "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    check(rc == 0 and res["flows"] == HD_FRAMES - 1,
+          f"compute-flow --algo tvl1 exited {rc}: {res}")
+
+    # Each flow call of --batch pairs runs, per level, `warps` times one
+    # warp_prep and one chunked solve (outer_iterations rounds of
+    # ceil(K / chunk) launches), then the scale-end median.  Every level of
+    # a 1080x1920 frame is above the size rule: the per-iteration kernels
+    # are not launched at all.
+    calls = -(-(HD_FRAMES - 1) // CF_BATCH)
+    levels = _level_sizes(*FULL_HD, cfg)
+    per_call = sum(
+        cfg.warps * cfg.outer_iterations
+        * -(-cfg.inner_iterations // ts.chunk_params(h, w, cfg)[1])
+        for h, w in levels)
+    expected = {"tvl1_pd_chunk": calls * per_call,
+                "warp_prep": calls * len(levels) * cfg.warps,
+                "median5": calls * len(levels), "tvl1_pd_step": 0,
+                "tvl1_eps_reduce": 0}
+    check(launches == expected,
+          f"compute-flow --algo tvl1 launched {launches}, expected {expected}")
+    files = sorted(f for f in os.listdir(out) if f.endswith(".flo"))
+    check(len(files) == HD_FRAMES - 1, f"{len(files)} .flo files")
+    flow = read_flo(os.path.join(out, files[0]))
+    check(flow.shape == (*FULL_HD, 2) and bool(np.isfinite(flow).all()),
+          f"flow read back: {flow.shape}")
+    mean = flow[64:-64, 64:-64].reshape(-1, 2).mean(0).tolist()
+    check(abs(mean[0] - VEL[0]) < TOL_MEAN_FLOW
+          and abs(mean[1] - VEL[1]) < TOL_MEAN_FLOW,
+          f"1080p TV-L1 mean flow {mean}, expected {VEL}")
+
+    # The same pair through the plain versions, from the same decoded
+    # frames.  The kernels' states are bit-equal to the plain versions'; a
+    # band's error sum is taken in another order and can flip a flag at the
+    # threshold, which moves the flow by less than the reference's bound
+    # for a skipped round, 10 * epsilon.
+    with torch.no_grad():
+        gray = rgb_to_gray(torch.from_numpy(_load_frames(src, 3)).to(dev))
+        plain = tvl1(gray[:1], gray[1:2], cfg, plain=True)[0].cpu().numpy()
+        dev_abs = float(np.abs(flow - plain).max())
+        check(dev_abs <= 10 * cfg.epsilon,
+              f"1080p flow vs the plain path: max abs {dev_abs}")
+        # With no gate to flip (epsilon = 0, at a smaller depth) the whole
+        # pyramid is the plain path's to the bit.
+        exact = dataclasses.replace(cfg, epsilon=0.0, warps=2,
+                                    outer_iterations=2)
+        e_exact = float((tvl1(gray[:1], gray[1:2], exact)
+                         - tvl1(gray[:1], gray[1:2], exact, plain=True)
+                         ).abs().max())
+        check(e_exact == 0.0,
+              f"1080p flow at epsilon 0 vs the plain path: {e_exact}")
+
+        def flow_call():
+            return tvl1(gray[:2], gray[1:3], cfg)
+
+        def chain_call():
+            return tvl1(gray[:2], gray[1:3], cfg,
+                        whole_plane=lambda h, w, k: True)
+
+        chain_dev = float((flow_call() - chain_call()).abs().max())
+        check(chain_dev <= 10 * cfg.epsilon,
+              f"1080p flow, chunked vs per-iteration path: {chain_dev}")
+        call_ms = cuda_ms(torch, flow_call, 2)
+        chain_ms = cuda_ms(torch, chain_call, 2)
+        prof = device_profile(torch, flow_call)
+    emit({"phase": "tvl1_1080p", "frames": HD_FRAMES, "batch": CF_BATCH,
+          "command_seconds": seconds,
+          "command_seconds_per_pair": seconds / (HD_FRAMES - 1),
+          "launches": launches, "mean_flow": mean,
+          "max_abs_vs_plain_path": dev_abs,
+          "bit_equal_to_plain_path": bool(np.array_equal(flow, plain)),
+          "tolerance": 10 * cfg.epsilon,
+          "max_abs_vs_plain_path_at_epsilon_0": e_exact,
+          "flow_call_pairs": 2, "flow_call_ms": call_ms,
+          "flow_call_ms_per_pair": call_ms / 2,
+          "flow_call_ms_per_iteration_path": chain_ms,
+          "max_abs_vs_per_iteration_path": chain_dev,
+          "busy_share_of_unprofiled": prof["device_busy_ms"] / call_ms,
+          "profile": prof})
+    return launches, src, out
+
+
+def stage_chain_phase(torch, np, dev, work: str, frames_dir: str,
+                      flow_dir: str):
+    """A checkpoint written from seed 0, then ``extract-features`` on the
+    stored flow and on the frames of the phase before, and ``classify-clip
+    --checkpoint`` on a 1080p clip, each at full width and held against
+    the same steps taken on tensors with the kernels' plain versions."""
+    from video_analytics_tpu_torch.cli.main import _load_frames
+    from video_analytics_tpu_torch.config import PipelineConfig
+    from video_analytics_tpu_torch.ingest.windows import apply_transport_crop
+    from video_analytics_tpu_torch.io.flowio import read_flow_dir
+    from video_analytics_tpu_torch.io.video import synthesize_video
+    from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+    from video_analytics_tpu_torch.ops import preprocess as pp
+    from video_analytics_tpu_torch.ops.cuda import tvl1_solve as ts
+    from video_analytics_tpu_torch.ops.cuda.warp import warp_prep
+    from video_analytics_tpu_torch.runtime import pipeline
+    from video_analytics_tpu_torch.runtime.checkpoint import (
+        load_variables, save_variables)
+    from video_analytics_tpu_torch.runtime.evaluate import classify_clip_file
+
+    cfg = PipelineConfig()
+    pre = cfg.preprocess
+
+    def make():
+        return TwoStreamModel.create(num_classes=cfg.num_classes,
+                                     flow_stack=pre.flow_stack, width=64)
+
+    ckpt = os.path.join(work, "two_stream.msgpack")
+    written = make().init(torch.Generator().manual_seed(0))
+    save_variables(ckpt, written.flax_variables())
+    model = make()
+    model.load_flax_variables(load_variables(ckpt, model.flax_variables()))
+    for k, v in written.state_dict().items():
+        check(torch.equal(model.state_dict()[k], v),
+              f"checkpoint round trip changed {k}")
+    model = model.to(dev).eval()
+    dim = model.temporal.feature_dim
+
+    def close(got, want, what):
+        e = float(np.abs(got - want).max())
+        check(got.shape == want.shape and bool(np.isfinite(got).all())
+              and e <= TOL_PROBS * max(1.0, float(np.abs(want).max())),
+              f"{what}: max abs {e}")
+        return e
+
+    # 1. The stored flow of compute-flow: resize, per-axis rescale, crop.
+    out1 = os.path.join(work, "features_flow.npz")
+    rc, res = run_cli(["extract-features", flow_dir, out1, "--stream", "flow",
+                       "--checkpoint", ckpt, "--device", "cuda"])
+    check(rc == 0 and res.get("source") == "flow_dir"
+          and res["flow"] == [1, dim], f"extract-features (flow dir): {res}")
+    with torch.no_grad():
+        f = torch.from_numpy(read_flow_dir(flow_dir)).to(dev)
+        h, w = f.shape[1], f.shape[2]
+        f = pp.resize_short_side(f, pre.resize_short)
+        f = f * torch.tensor([f.shape[2] / w, f.shape[1] / h], device=dev)
+        f = pp.center_crop(f, pre.crop)
+        want = model.temporal(pp.stacked_flow_input(
+            f, pre.flow_stack, pre.flow_bound), return_features=True)
+    e_stored = close(np.load(out1)["flow"], want.cpu().numpy(),
+                     "flow features of the stored flow")
+
+    # 2. The frames: both streams, TV-L1 on the 224² crop (the
+    # per-iteration kernels; no level there is above the size rule).
+    kernels = {"warp_prep": warp_prep, "tvl1_pd_step": ts.pd_step,
+               "median5": ts.median5, "tvl1_eps_reduce": ts.eps_reduce,
+               "tvl1_pd_chunk": ts.pd_chunk}
+    out2 = os.path.join(work, "features_frames.npz")
+    zero_counts(kernels)
+    rc, res = run_cli(["extract-features", frames_dir, out2, "--stream",
+                       "both", "--algo", "tvl1", "--checkpoint", ckpt,
+                       "--device", "cuda"])
+    xf_launches = read_counts(kernels)
+    check(rc == 0 and res["rgb"] == [HD_FRAMES, dim]
+          and res["flow"] == [1, dim], f"extract-features (frames): {res}")
+    check(xf_launches.pop("tvl1_pd_chunk") == 0,
+          "the 224² crop reached the chunked solver")
+    for name, n in xf_launches.items():
+        check(n > 0, f"extract-features did not launch {name}")
+    with torch.no_grad():
+        frames, fcfg = apply_transport_crop(_load_frames(frames_dir, None),
+                                            cfg)
+        x = torch.from_numpy(frames).to(dev)
+        want_rgb = pipeline.rgb_features(x, model.spatial, fcfg.preprocess)
+        stacks = pipeline._flow_stacks(pipeline._crop(x, fcfg)[None], fcfg,
+                                       plain=True)[0]
+        want_flow = model.temporal(stacks, return_features=True)
+    got = np.load(out2)
+    e_rgb = close(got["rgb"], want_rgb.cpu().numpy(), "rgb features")
+    e_flow = close(got["flow"], want_flow.cpu().numpy(),
+                   "flow features of the frames")
+
+    # 3. A 1080p clip through classify-clip.
+    clip = synthesize_video(os.path.join(work, "clip_1080p.mp4"),
+                            hd_frames(np, CLIP_FRAMES, seed=6))
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    rc, res = run_cli(["classify-clip", clip, "--checkpoint", ckpt,
+                       "--windows", str(CLIP_WINDOWS), "--topk",
+                       str(cfg.num_classes), "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    cc_launches = read_counts(kernels)
+    check(rc == 0 and len(res["topk"]) == cfg.num_classes,
+          f"classify-clip: {rc}")
+    probs = np.zeros(cfg.num_classes, np.float32)
+    for entry in res["topk"]:
+        probs[entry["class_id"]] = entry["prob"]
+    check(abs(float(probs.sum()) - 1.0) < 1e-4, f"probs sum {probs.sum()}")
+    check(res["top1"] == int(probs.argmax()), "top1 is not the argmax")
+    plain = classify_clip_file(clip, model, cfg, dev,
+                               num_windows=CLIP_WINDOWS, plain=True)
+    e_probs = float(np.abs(plain - probs).max())
+    check(e_probs <= TOL_PROBS,
+          f"classify-clip probs vs plain versions: {e_probs} > {TOL_PROBS}")
+    emit({"phase": "stage_chain", "checkpoint_bytes": os.path.getsize(ckpt),
+          "features_max_abs_vs_tensors": {"stored_flow": e_stored,
+                                          "rgb": e_rgb, "flow": e_flow},
+          "extract_features_launches": xf_launches,
+          "classify_clip": {"frames": CLIP_FRAMES, "windows": CLIP_WINDOWS,
+                            "seconds": seconds, "top1": res["top1"],
+                            "probs_max_abs_vs_plain": e_probs,
+                            "launches": cc_launches},
+          "tolerance": TOL_PROBS})
+
+
+
+def native_phases(torch, np, dev, chain: bool = True):
+    """The native-resolution flow command and, with `chain`, the stage
+    commands that read what it wrote, in one temporary directory.  Returns
+    the flow command's launches per kernel."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as work:
+        launches, frames_dir, flow_dir = tvl1_1080p_phase(torch, np, dev,
+                                                          work)
+        if chain:
+            stage_chain_phase(torch, np, dev, work, frames_dir, flow_dir)
+    return launches
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import numpy as np
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default=None,
+                    choices=["tvl1_chunk_kernels", "tvl1_1080p",
+                             "stage_chain"],
+                    help="run the build and this phase alone (stage_chain "
+                         "with tvl1_1080p, whose directories it reads), for "
+                         "work on it; prints no result line")
+    ap.add_argument("--sweep-chunk", action="store_true",
+                    help="with the tvl1_chunk_kernels phase: also time one "
+                         "1080x1920 warp at several iterations per launch")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -603,6 +1073,14 @@ def main() -> int:
           "nvcc_seconds": _build.build_info.get("seconds"),
           "library": os.path.relpath(_build.build_info["path"], HERE),
           "ptxas": ptxas})
+
+    if args.only == "tvl1_chunk_kernels":
+        tvl1_chunk_kernels_phase(torch, np, dev, args.sweep_chunk)
+    elif args.only:
+        native_phases(torch, np, dev, args.only == "stage_chain")
+    if args.only:
+        print(gpu, flush=True)
+        return 0
 
     # -- 2. kernels against their plain versions ----------------------------
     cfg = TVL1Config()
@@ -754,6 +1232,11 @@ def main() -> int:
     fb_launches = farneback_serve_phase(torch, np, dev, model)
     cf_launches = compute_flow_phase(np)
 
+    # -- 8-10. native-resolution TV-L1 and the stage chain -------------------
+    kg_err, kg_times, kg_bound = tvl1_chunk_kernels_phase(
+        torch, np, dev, args.sweep_chunk)
+    hd_launches = native_phases(torch, np, dev)
+
     # -- the kernel table -----------------------------------------------------
     # TV-L1 bounds at 224², 15 pairs.  Planes moved: warp_prep reads I1 and
     # its gradients, I0 and the flow and writes 4; pd_step reads prep, the
@@ -768,11 +1251,13 @@ def main() -> int:
               "median5": bound(4 * 4 * px, 2 * 2 * 113 * px),
               "tvl1_eps_reduce": bound(4 * PAIRS * blocks + 8 * PAIRS,
                                        PAIRS * blocks),
-              **fb_bounds}
+              **fb_bounds, "tvl1_pd_chunk": kg_bound}
     errs.update(fb_errs)
+    errs["tvl1_pd_chunk"] = kg_err
     launches.update(fb_launches)
+    launches["tvl1_pd_chunk"] = hd_launches["tvl1_pd_chunk"]
     table_ms = {**{name: (*t, None) for name, t in times[SIZES[0]].items()},
-                **fb_times}
+                **fb_times, "tvl1_pd_chunk": kg_times}
     src = "video_analytics_tpu_torch/csrc/"
     pallas = "video_analytics_tpu/ops/pallas/"
     fbk = pallas + "farneback_kernels.py:"
@@ -784,6 +1269,8 @@ def main() -> int:
              [pallas + "tvl1_solve.py:191", pallas + "tvl1_solve.py:584"]),
             ("tvl1_eps_reduce", "tvl1_pd.cu", pallas + "tvl1_solve.py:165",
              [pallas + "tvl1_solve.py:191"]),
+            ("tvl1_pd_chunk", "tvl1_pd_chunk.cu", pallas + "tvl1_solve.py:890",
+             [pallas + "tvl1_solve.py:720", pallas + "tvl1_solve.py:1001"]),
             ("fb_prologue", "fb_prologue.cu", fbk + "1191", [fbk + "990"]),
             ("fb_warp_neq", "fb_warp_neq.cu", fbk + "471",
              [fbk + "263", fbk + "697", fbk + "772", fbk + "946",
@@ -802,7 +1289,9 @@ def main() -> int:
                        "bound_by": bounds[name][1],
                        "library_ms": table_ms[name][2],
                        **({"launches_compute_flow": cf_launches[name]}
-                          if name in cf_launches else {})}
+                          if name in cf_launches else {}),
+                       **({"launches_tvl1_1080p": hd_launches[name]}
+                          if name in hd_launches else {})}
                       for name, source, replaces, also in rows]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,13 @@
 """The port's command line on the CPU (``--device cpu``): extract-frames,
-compute-flow and serve with Farneback, driven end to end on a synthetic
-clip, in the pattern of tests/test_cli.py.  compute-flow is also held
-against the JAX package's command at the native resolution
-(``--no-bucket``): Farneback within 1e-4 end-point error, as in
-tests/test_torch_farneback.py."""
+compute-flow, extract-features, classify-clip and serve, driven end to
+end on a synthetic clip, in the pattern of tests/test_cli.py.
+compute-flow is also held against the JAX package's command at the
+native resolution (``--no-bucket``): Farneback within 1e-4 end-point
+error, as in tests/test_torch_farneback.py.  extract-features (frames
+and stored flow) and classify-clip are held against the JAX package's
+commands on the same clip and the same checkpoint file, with Farneback
+and with TV-L1 at ε = 0 (with ε > 0 the reference's XLA solver stops a
+batch on its slowest pair, the port each pair on its own)."""
 
 import io
 import json
@@ -162,3 +166,191 @@ def test_serve_farneback_on_cpu(monkeypatch, capsys, tiny_clip, tmp_path):
     for entry in lines[1]["topk"]:
         assert entry["class_name"] == names[entry["class_id"]]
     assert lines[2]["ok"] is True
+
+
+# -- the stage chain: extract-features and classify-clip ----------------------
+
+MODEL = ["--num-classes", "5", "--width", "8", "--flow-stack", "3",
+         "--resize-short", "72", "--crop", "64"]
+ALGOS = {"farneback": ["--algo", "farneback", "--fb-levels", "1",
+                       "--fb-iterations", "1"],
+         "tvl1": ["--algo", "tvl1", *TV_FAST, "--tv-epsilon", "0"]}
+TOL_FEATURES = 2e-4      # features and logits, as tests/test_torch_models.py
+TOL_PROBS = 1e-4         # fused probabilities, as classify_window there
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    """A checkpoint of a small two-stream model, written by the port from
+    a seed, with BatchNorm statistics away from their initial 0 and 1."""
+    from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+    from video_analytics_tpu_torch.runtime.checkpoint import save_variables
+    tm = TwoStreamModel.create(num_classes=5, flow_stack=3, width=8)
+    tm.init(torch.Generator().manual_seed(11))
+    g = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        for name, buf in tm.named_buffers():
+            if name.endswith("running_mean"):
+                buf.normal_(0, 0.1, generator=g)
+            elif name.endswith("running_var"):
+                buf.uniform_(0.5, 1.5, generator=g)
+    path = str(tmp_path_factory.mktemp("ckpt") / "two_stream.msgpack")
+    save_variables(path, tm.flax_variables())
+    return path
+
+
+@pytest.fixture(scope="module")
+def frames_dir(tmp_path_factory, tiny_clip):
+    out = str(tmp_path_factory.mktemp("stage") / "frames")
+    assert main(["extract-frames", tiny_clip, out, "--max-frames", "6"]) == 0
+    return out
+
+
+def run_jax_cli(capsys, argv):
+    capsys.readouterr()
+    rc = jax_main(argv)
+    out = capsys.readouterr().out.strip().splitlines()
+    return rc, json.loads(out[-1]) if out else None
+
+
+@pytest.mark.parametrize("algo", ["farneback", "tvl1"])
+def test_extract_features_from_frames_matches_reference(
+        tmp_path, frames_dir, checkpoint, capsys, algo):
+    ours_npz, ref_npz = str(tmp_path / "ours.npz"), str(tmp_path / "ref.npz")
+    args = ["--stream", "both", *MODEL, *ALGOS[algo], "--checkpoint",
+            checkpoint]
+    rc, res = run_cli(capsys, ["extract-features", frames_dir, ours_npz,
+                               *args, *CPU])
+    assert rc == 0
+    assert res == {"rgb": [6, 64], "flow": [3, 64], "out": ours_npz}
+    rc, ref_res = run_jax_cli(capsys, ["extract-features", frames_dir,
+                                       ref_npz, *args])
+    assert rc == 0 and ref_res == {**res, "out": ref_npz}
+    ours, ref = np.load(ours_npz), np.load(ref_npz)
+    for stream in ("rgb", "flow"):
+        assert np.isfinite(ours[stream]).all()
+        np.testing.assert_allclose(ours[stream], ref[stream],
+                                   rtol=TOL_FEATURES, atol=TOL_FEATURES)
+
+
+@pytest.mark.parametrize("fmt", ["flo", "jpg"])
+def test_extract_features_from_flow_dir_matches_reference(
+        tmp_path, frames_dir, checkpoint, capsys, fmt):
+    """compute-flow's output directory is extract-features' input: the
+    stored flow is resized to the model's crop with its values rescaled
+    per axis, as in the reference."""
+    flow_dir = str(tmp_path / "flow")
+    rc, _ = run_cli(capsys, ["compute-flow", frames_dir, flow_dir, "--algo",
+                             "farneback", "--format", fmt, *CPU])
+    assert rc == 0
+    ours_npz, ref_npz = str(tmp_path / "ours.npz"), str(tmp_path / "ref.npz")
+    args = ["--stream", "flow", *MODEL, "--checkpoint", checkpoint]
+    rc, res = run_cli(capsys, ["extract-features", flow_dir, ours_npz, *args,
+                               *CPU])
+    assert rc == 0
+    assert res == {"flow": [3, 64], "out": ours_npz, "source": "flow_dir"}
+    rc, ref_res = run_jax_cli(capsys, ["extract-features", flow_dir, ref_npz,
+                                       *args])
+    assert rc == 0 and ref_res == {**res, "out": ref_npz}
+    ours, ref = np.load(ours_npz)["flow"], np.load(ref_npz)["flow"]
+    assert np.abs(ours).max() > 1e-3
+    np.testing.assert_allclose(ours, ref, rtol=TOL_FEATURES,
+                               atol=TOL_FEATURES)
+    # --max-frames caps the stored flows that are read.
+    rc, res = run_cli(capsys, ["extract-features", flow_dir, ours_npz, *args,
+                               "--max-frames", "4", *CPU])
+    assert rc == 0 and res["flow"] == [2, 64]
+
+
+@pytest.mark.parametrize("algo", ["farneback", "tvl1"])
+def test_classify_clip_matches_reference(tmp_path, tiny_clip, checkpoint,
+                                         capsys, algo):
+    args = [*MODEL, *ALGOS[algo], "--checkpoint", checkpoint, "--window", "4",
+            "--windows", "2", "--topk", "5"]
+    rc, res = run_cli(capsys, ["classify-clip", tiny_clip, *args, *CPU])
+    assert rc == 0 and res["video"] == tiny_clip
+    rc, ref = run_jax_cli(capsys, ["classify-clip", tiny_clip, *args])
+    assert rc == 0
+    ours_p = {e["class_id"]: e["prob"] for e in res["topk"]}
+    ref_p = {e["class_id"]: e["prob"] for e in ref["topk"]}
+    assert sorted(ours_p) == sorted(ref_p) == list(range(5))
+    assert abs(sum(ours_p.values()) - 1.0) < 1e-5
+    for i in range(5):
+        assert abs(ours_p[i] - ref_p[i]) <= TOL_PROBS, (i, ours_p, ref_p)
+    probs = [e["prob"] for e in res["topk"]]
+    assert probs == sorted(probs, reverse=True)
+    assert res["top1"] == res["topk"][0]["class_id"]
+    if ref["topk"][0]["prob"] - ref["topk"][1]["prob"] > 2 * TOL_PROBS:
+        assert res["top1"] == ref["top1"]
+    assert all(e["class_name"] is None for e in res["topk"])
+
+
+def test_fold_bn_and_arch_flags(tmp_path, frames_dir, checkpoint, capsys):
+    """--fold-bn answers as the unfolded model (an exact composition in
+    float32, so the features' own 2e-4); --arch reaches the model."""
+    outs = [str(tmp_path / n) for n in ("a.npz", "b.npz", "c.npz")]
+    base = ["--stream", "rgb", *MODEL, "--max-frames", "2", *CPU]
+    with_ckpt = [*base, "--checkpoint", checkpoint]
+    assert main(["extract-features", frames_dir, outs[0], *with_ckpt]) == 0
+    assert main(["extract-features", frames_dir, outs[1], *with_ckpt,
+                 "--fold-bn"]) == 0
+    rc, res = run_cli(capsys, ["extract-features", frames_dir, outs[2], *base,
+                               "--arch", "resnet50"])
+    assert rc == 0 and res["rgb"] == [2, 256]
+    a, b = (np.load(o)["rgb"] for o in outs[:2])
+    assert np.abs(a).max() > 1e-3
+    np.testing.assert_allclose(b, a, rtol=TOL_FEATURES, atol=TOL_FEATURES)
+    # A checkpoint of another architecture is refused, not half loaded.
+    with pytest.raises(ValueError, match="does not match the model"):
+        main(["extract-features", frames_dir, outs[2], *with_ckpt, "--arch",
+              "resnet50"])
+
+
+def test_serve_loads_checkpoint(monkeypatch, capsys, tiny_clip, checkpoint):
+    """serve --checkpoint answers with the probabilities classify-clip
+    gives for the same clip and file, whatever --seed says."""
+    args = [*MODEL, *ALGOS["farneback"], "--checkpoint", checkpoint,
+            "--window", "4", "--topk", "5", *CPU]
+    rc, one = run_cli(capsys, ["classify-clip", tiny_clip, *args])
+    assert rc == 0
+    monkeypatch.setattr(sys, "stdin", io.StringIO(
+        json.dumps({"path": tiny_clip, "id": 7}) + "\n"
+        + json.dumps({"cmd": "shutdown"}) + "\n"))
+    assert main(["serve", *args, "--seed", "5", "--raw"]) == 0
+    lines = [json.loads(ln)
+             for ln in capsys.readouterr().out.strip().splitlines()]
+    served = next(ln for ln in lines if ln.get("id") == 7)
+    got = {e["class_id"]: e["prob"] for e in served["topk"]}
+    want = {e["class_id"]: e["prob"] for e in one["topk"]}
+    for i in range(5):
+        assert abs(got[i] - want[i]) <= 1e-6, (i, got, want)
+
+
+def test_stage_commands_errors(tmp_path, tiny_clip, frames_dir, capsys,
+                               monkeypatch):
+    """Too few frames or stored flows, rgb features from a flow directory
+    and the unported algorithm exit 2; the default device is CUDA and
+    fails without a card."""
+    out = str(tmp_path / "o.npz")
+    small = [*MODEL, *CPU]
+    assert main(["extract-features", tiny_clip, out, "--stream", "flow",
+                 "--max-frames", "3", *small]) == 2
+    flow_dir = tmp_path / "flowdir"
+    flow_dir.mkdir()
+    (flow_dir / "flow_x_000001.jpg").write_bytes(b"x")
+    assert main(["extract-features", str(flow_dir), out, "--stream", "rgb",
+                 *small]) == 2
+    stored = str(tmp_path / "stored")
+    assert main(["compute-flow", frames_dir, stored, "--algo", "farneback",
+                 "--max-frames", "3", *CPU]) == 0
+    assert main(["extract-features", stored, out, "--stream", "flow",
+                 *small]) == 2
+    for cmd in (["extract-features", tiny_clip, out], ["classify-clip",
+                                                       tiny_clip]):
+        assert main([*cmd, "--algo", "spynet", *small]) == 2
+    capsys.readouterr()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cmd in (["extract-features", tiny_clip, out], ["classify-clip",
+                                                       tiny_clip]):
+        with pytest.raises(RuntimeError, match="is_available"):
+            main([*cmd, *MODEL])

@@ -117,6 +117,100 @@ def test_wrappers_reject_bad_tensors(dev):
         warp_prep(i13, i0.cpu(), uv)
 
 
+# -- K-G: the chunked large-plane solver ------------------------------------
+
+def _chunk_inputs(dev, b, h, w, n_bands, seed=0):
+    """prep from a real warp, a random solver state and band flags with
+    some bands frozen."""
+    i0, i13, uv = _level(dev, b, h, w)
+    prep = warp_prep_plain(i13, i0, uv)
+    g = torch.Generator(dev).manual_seed(seed)
+    state = torch.cat([uv, 0.3 * torch.randn((b, 4, h, w), device=dev,
+                                             generator=g)], dim=1)
+    act = (torch.rand((b, n_bands), device=dev, generator=g) < 0.7).to(
+        torch.int32)
+    act[0, 0] = 1
+    return prep, state, act
+
+
+@pytest.mark.parametrize("k", [0, 3, 5])
+@pytest.mark.parametrize("h,w,band,tile,halo,iters", [
+    (61, 96, 16, 16, 8, 3),        # ragged last band, tile = band
+    (75, 131, 32, 16, 9, 7),       # two tile rows per band, W remainder
+    (20, 23, 40, 40, 12, 10),      # H and W below one tile, one band
+    (130, 70, 48, 48, 8, 6),       # the 64-wide window of the main path
+    (97, 150, 24, 12, 4, 1),       # one iteration per launch
+])
+def test_pd_chunk_matches_plain(dev, k, h, w, band, tile, halo, iters):
+    """State bit for bit (same operations in the same order, no FMA
+    contraction); the band sums to 1e-5 relative (their order differs)."""
+    cfg = TVL1Config(median_filtering=k)
+    n_bands = -(-h // band)
+    prep, state, act = _chunk_inputs(dev, 2, h, w, n_bands, seed=h + k)
+    for do_median in (True, False):
+        if do_median and halo < iters + k // 2:
+            continue
+        out = torch.full_like(state, float("nan"))
+        n = ts.pd_chunk.launches
+        err = ts.pd_chunk(prep, state, act, cfg, iters, band, tile, halo,
+                          do_median, out)
+        assert ts.pd_chunk.launches == n + 1
+        want, want_err = ts.pd_chunk_plain(prep, state, act, cfg, iters,
+                                           band, do_median)
+        assert torch.equal(out, want), (out - want).abs().max().item()
+        assert err.shape == want_err.shape
+        assert ((err - want_err).abs() <= 1e-5 * want_err.abs()).all()
+        assert (err[act == 0] == 0).all()
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_pd_solve_chunked_matches_plain(dev, adaptive):
+    """At ε = 0 no flag ever clears, so kernels and plain versions agree
+    bit for bit, and adaptive=False equals the per-iteration chain; with
+    the gate engaged a band's flag may flip on the order of its sum, so
+    the bound is 10·ε."""
+    cfg = dataclasses.replace(FAST, epsilon=0.0, inner_iterations=7)
+    i0, i13, uv = _level(dev, 2, 150, 131)
+    prep = warp_prep_plain(i13, i0, uv)
+    band, chunk = 2 * ts.chunk_tile(3, cfg)[0], 3
+    got = ts.pd_solve_chunked(prep, uv, cfg, band, chunk, adaptive)
+    want = ts.pd_solve_chunked_plain(prep, uv, cfg, band, chunk, adaptive)
+    assert torch.equal(got, want)
+    assert torch.equal(got, ts.pd_solve(prep, uv, cfg))
+    gated = dataclasses.replace(cfg, epsilon=0.05)
+    got = ts.pd_solve_chunked(prep, uv, gated, band, chunk, adaptive)
+    want = ts.pd_solve_chunked_plain(prep, uv, gated, band, chunk, adaptive)
+    assert (got - want).abs().max().item() <= 10 * gated.epsilon
+
+
+def test_tvl1_chunked_levels_match_plain(dev):
+    """``tvl1`` above the size rule (320x300 > 87,381 px): the finest
+    level takes K-G, the coarser ones the per-iteration chain."""
+    i0, i1 = _images(dev, 2, 320, 300, seed=3)
+    cfg = TVL1Config(nscales=2, warps=2, outer_iterations=2,
+                     inner_iterations=8, epsilon=0.0)
+    n = ts.pd_chunk.launches
+    got = tvl1(i0, i1, cfg)
+    band, chunk = ts.chunk_params(320, 300, cfg)
+    assert ts.pd_chunk.launches - n == 2 * 2 * -(-8 // chunk)
+    assert torch.equal(got, tvl1(i0, i1, cfg, plain=True))
+
+
+def test_pd_chunk_rejects_bad_arguments(dev):
+    cfg = TVL1Config()
+    prep, state, act = _chunk_inputs(dev, 1, 40, 40, 1)
+    out = torch.empty_like(state)
+    with pytest.raises(ValueError, match="halo"):
+        ts.pd_chunk(prep, state, act, cfg, 5, 40, 40, 5, True, out)
+    with pytest.raises(ValueError, match="alias"):
+        ts.pd_chunk(prep, state, act, cfg, 2, 40, 40, 4, True, state)
+    with pytest.raises(ValueError, match="act"):
+        ts.pd_chunk(prep, state, act.long(), cfg, 2, 40, 40, 4, True, out)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        # a 120-wide window needs more shared memory than a block has
+        ts.pd_chunk(prep, state, act, cfg, 2, 40, 100, 10, True, out)
+
+
 # -- the Farneback kernels (K-D, K-E, K-F) ----------------------------------
 # Each holds a row of the TPU kernel table: K-D poly_prologue_pallas /
 # poly_expansion_pallas; K-E the warp + normal-equation halves of

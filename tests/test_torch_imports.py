@@ -1,8 +1,9 @@
-"""The port stands alone: a fresh interpreter in which ``jax``, ``flax``
-and the JAX package cannot be imported imports every module of
-``video_analytics_tpu_torch`` and ``chip_smoke``, and answers a serve
+"""The port stands alone: a fresh interpreter in which ``jax``, ``flax``,
+``msgpack`` and the JAX package cannot be imported imports every module
+of ``video_analytics_tpu_torch`` and ``chip_smoke``, answers a serve
 request on the CPU from a clip written by the port's own
-``synthesize_video``."""
+``synthesize_video``, and writes, reads back and classifies from a
+checkpoint."""
 
 import os
 import subprocess
@@ -12,7 +13,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CODE = r"""
 import sys
-for name in ("jax", "flax", "video_analytics_tpu"):
+for name in ("jax", "flax", "msgpack", "video_analytics_tpu"):
     sys.modules[name] = None          # any import of it raises ImportError
 
 import importlib, io, json, os, pkgutil, tempfile
@@ -24,9 +25,10 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
-assert len(names) >= 22, names
+assert len(names) >= 32, names
 for sub in ("io.video", "io.dataset", "io.flowio", "flow.farneback",
-            "ops.cuda.farneback"):
+            "ops.cuda.farneback", "ops.cuda.tvl1_solve",
+            "runtime.checkpoint", "runtime.evaluate"):
     assert pkg.__name__ + "." + sub in names, sub
 import chip_smoke                      # import only; main() needs a GPU
 
@@ -53,11 +55,21 @@ with tempfile.TemporaryDirectory() as d:
     server.serve_forever(
         stdin=io.StringIO(json.dumps({"paths": [clip, clip], "id": 3}) + "\n"),
         stdout=out)
+    from video_analytics_tpu_torch.runtime.checkpoint import (
+        load_variables, save_variables)
+    from video_analytics_tpu_torch.runtime.evaluate import classify_clip_file
+    ckpt = os.path.join(d, "two_stream.msgpack")
+    save_variables(ckpt, model.flax_variables())
+    again = TwoStreamModel.create(num_classes=4, flow_stack=2, width=8)
+    again.load_flax_variables(load_variables(ckpt, again.flax_variables()))
+    probs = [classify_clip_file(clip, m.eval(), cfg, "cpu")
+             for m in (model, again)]
+assert probs[0].shape == (4,) and np.array_equal(probs[0], probs[1]), probs
 resp = json.loads(out.getvalue().splitlines()[0])
 assert resp["id"] == 3 and len(resp["results"]) == 2, resp
 for r in resp["results"]:
     assert 0 <= r["top1"] < 4 and len(r["topk"]) == 2, r
-bad = [m for m in ("jax", "flax", "video_analytics_tpu")
+bad = [m for m in ("jax", "flax", "msgpack", "video_analytics_tpu")
        if sys.modules.get(m) is not None]
 assert not bad, bad
 print("served", server.served)

@@ -1,5 +1,6 @@
-"""The port's ResNet-18, two-stream model and classifier against the JAX
-package, on the same weights: flax variables converted with
+"""The port's ResNets (18, 34, 50 and the folded-BatchNorm form),
+two-stream model and classifier against the JAX package, on the same
+weights: flax variables converted with
 video_analytics_tpu_torch.models.convert.flax_to_torch.  Tolerances are
 those tests/test_resnet.py holds the flax ResNet to against its torch
 oracle (2e-4)."""
@@ -13,6 +14,8 @@ import pytest
 import torch
 
 from video_analytics_tpu import config as jax_config
+from video_analytics_tpu.models import resnet as jax_resnet
+from video_analytics_tpu.models.convert import fold_batchnorm as jax_fold
 from video_analytics_tpu.models.convert import torch_resnet_to_flax
 from video_analytics_tpu.models.resnet import flow_stream_resnet18 as jax_flow
 from video_analytics_tpu.models.resnet import resnet18 as jax_resnet18
@@ -20,8 +23,9 @@ from video_analytics_tpu.models.two_stream import TwoStreamModel as JaxTS
 from video_analytics_tpu.runtime import pipeline as jax_pipeline
 from video_analytics_tpu_torch.config import (
     PipelineConfig, PreprocessConfig, TVL1Config)
+from video_analytics_tpu_torch.models import resnet as port_resnet
 from video_analytics_tpu_torch.models.convert import (
-    flax_to_torch, two_stream_flax_to_torch)
+    flax_to_torch, fold_batchnorm, torch_to_flax, two_stream_flax_to_torch)
 from video_analytics_tpu_torch.models.resnet import (
     flow_stream_resnet18, resnet18)
 from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
@@ -108,6 +112,110 @@ def test_resnet_matches_flax(stream, rng):
             ours = tm(torch.from_numpy(x), return_features=features).numpy()
         assert ours.shape == ref.shape == shape
         np.testing.assert_allclose(ours, ref, rtol=2e-4, atol=2e-4)
+
+
+def _assert_same_tree(a, b, path=""):
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and set(a) == set(b), (path, set(a) ^ set(b))
+        for k in a:
+            _assert_same_tree(a[k], b[k], f"{path}/{k}")
+    else:
+        assert np.array_equal(np.asarray(a), np.asarray(b)), path
+
+
+@pytest.mark.parametrize("arch", ["resnet34", "resnet50"])
+def test_deeper_resnets_match_flax(arch, rng):
+    """ResNet-34 (BasicBlocks, 3-4-6-3) and ResNet-50 (Bottlenecks) on
+    flax's weights: logits and penultimate features within 2e-4; and
+    ``torch_to_flax`` gives the flax tree back, leaf for leaf."""
+    jm = getattr(jax_resnet, arch)(num_classes=CLASSES, width=WIDTH,
+                                   in_channels=4)
+    tm = getattr(port_resnet, arch)(num_classes=CLASSES, width=WIDTH,
+                                    in_channels=4)
+    variables = _randomize_batch_stats(_init(jm, 4, 5), 6)
+    tm.load_state_dict(flax_to_torch(variables))
+    tm.eval()
+    assert tm.feature_dim == jm.feature_dim == WIDTH * 8 * (
+        4 if arch == "resnet50" else 1)
+    _assert_same_tree(torch_to_flax(tm.state_dict()), variables)
+    x = rng.normal(0, 1, (2, 40, 40, 4)).astype(np.float32)
+    apply = jax.jit(jm.apply, static_argnames="return_features")
+    for features in (False, True):
+        ref = np.asarray(apply(variables, jnp.asarray(x),
+                               return_features=features))
+        with torch.no_grad():
+            ours = tm(torch.from_numpy(x), return_features=features).numpy()
+        assert ours.shape == ref.shape
+        np.testing.assert_allclose(ours, ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["resnet18", "resnet50"])
+def test_folded_resnet_matches_flax(arch, rng):
+    """The folded-BatchNorm form: the port's ``fold_batchnorm`` gives the
+    JAX package's folded tree (1e-6: the two divide and take the root in
+    their own libraries), the folded port model agrees with the folded
+    flax model on it within 2e-4, and both with the unfolded model."""
+    jm = getattr(jax_resnet, arch)(num_classes=CLASSES, width=WIDTH)
+    variables = _randomize_batch_stats(_init(jm, 3, 7), 8)
+    folded_ref = _numpy(jax_fold(jax.tree_util.tree_map(jnp.asarray,
+                                                        variables)))
+    folded = fold_batchnorm(variables)
+    assert set(folded) == {"params"}
+    flat_ref = jax.tree_util.tree_leaves_with_path(folded_ref)
+    flat = jax.tree_util.tree_leaves_with_path(folded)
+    assert [p for p, _ in flat] == [p for p, _ in flat_ref]
+    for (path, a), (_, b) in zip(flat, flat_ref):
+        assert a.dtype == np.float32, path
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
+
+    tm = getattr(port_resnet, arch)(num_classes=CLASSES, width=WIDTH)
+    tm.load_state_dict(flax_to_torch(variables))
+    tf = tm.clone(fold_bn=True)
+    assert not any(isinstance(m, torch.nn.BatchNorm2d) for m in tf.modules())
+    tf.load_state_dict(flax_to_torch(folded))
+    _assert_same_tree(torch_to_flax(tf.state_dict()), folded)
+    tm.eval(), tf.eval()
+    x = rng.normal(0, 1, (2, 40, 40, 3)).astype(np.float32)
+    ref = np.asarray(jax.jit(jm.clone(fold_bn=True).apply)(
+        folded_ref, jnp.asarray(x)))
+    with torch.no_grad():
+        ours = tf(torch.from_numpy(x)).numpy()
+        unfolded = tm(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(ours, ref, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(ours, unfolded, rtol=2e-4, atol=2e-4)
+
+
+def test_two_stream_folded_matches_unfolded(two_stream, rng):
+    """``TwoStreamModel.folded()`` answers as the model it was made from
+    (2e-4) and as the JAX package's folded model on folded variables."""
+    jm, variables, tm = two_stream
+    tf = tm.folded()
+    assert not tf.training
+    assert not any(isinstance(m, torch.nn.BatchNorm2d) for m in tf.modules())
+    frames = rng.normal(0, 1, (3, 48, 48, 3)).astype(np.float32)
+    stacks = rng.normal(0, 0.5, (2, 48, 48, 2 * STACK)).astype(np.float32)
+    jf, fv = jm.folded(), JaxTS.fold_variables(variables)
+    ref = jf.classify(fv, jnp.asarray(frames), jnp.asarray(stacks))
+    with torch.no_grad():
+        probs = [m.fuse(m.spatial_logits(torch.from_numpy(frames)),
+                        m.temporal_logits(torch.from_numpy(stacks))).numpy()
+                 for m in (tf, tm)]
+    np.testing.assert_allclose(probs[0], np.asarray(ref), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(probs[0], probs[1], rtol=2e-4, atol=2e-4)
+    _assert_same_tree(tf.flax_variables(),
+                      TwoStreamModel.fold_variables(tm.flax_variables()))
+
+
+def test_flax_variables_round_trip(two_stream):
+    """``flax_variables`` is the reference's tree: the one the model was
+    loaded from, leaf for leaf; loading it again changes nothing."""
+    _, variables, tm = two_stream
+    _assert_same_tree(tm.flax_variables(), _numpy(variables))
+    other = TwoStreamModel.create(num_classes=CLASSES, flow_stack=STACK,
+                                  width=WIDTH)
+    other.load_flax_variables(tm.flax_variables())
+    for k, v in tm.state_dict().items():
+        assert torch.equal(other.state_dict()[k], v), k
 
 
 def test_flax_to_torch_inverts_torch_resnet_to_flax():
@@ -219,5 +327,9 @@ def test_unported_paths_raise(two_stream):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipeline.classify_window(
             x, tm, dataclasses.replace(CFG, flow_algo="spynet"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TwoStreamModel.create(arch="resnet50")
+    with pytest.raises(ValueError, match="unknown arch"):
+        TwoStreamModel.create(arch="resnet101")
+    for arch, dim in (("resnet34", 8 * WIDTH), ("resnet50", 32 * WIDTH)):
+        m = TwoStreamModel.create(CLASSES, STACK, width=WIDTH, arch=arch)
+        assert m.spatial.feature_dim == m.temporal.feature_dim == dim
+        assert m.temporal.in_channels == 2 * STACK

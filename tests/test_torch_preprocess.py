@@ -4,6 +4,7 @@ held to 1e-3 on [0, 255], the bound the reference states for its fused
 resize + crop (ops/preprocess.py, resize_short_center_crop)."""
 
 import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -46,6 +47,62 @@ def test_resize_short_center_crop_matches(h, w, short, crop, rng):
     ours = tp.resize_short_center_crop(torch.from_numpy(x), short, crop)
     assert ours.shape == (2, crop, crop, 3) and ours.dtype == torch.float32
     np.testing.assert_allclose(ours.numpy(), ref, atol=1e-3)
+
+
+@pytest.mark.parametrize("h,w,short,crop", GEOMETRIES)
+def test_resize_short_side_and_center_crop_match(h, w, short, crop, rng):
+    """The two steps the stored-flow branch of extract-features takes one
+    after the other, on two-channel float fields of about ±60: the resize
+    within 1e-3 (the bound this file holds every resize to: the same
+    weights, sums in another order), the crop the same window."""
+    x = rng.normal(0, 15, (3, h, w, 2)).astype(np.float32)
+    ref = jp.resize_short_side(jnp.asarray(x), short)
+    ours = tp.resize_short_side(torch.from_numpy(x), short)
+    assert tuple(ours.shape) == ref.shape and min(ours.shape[1:3]) == short
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-3)
+    ref_c = np.asarray(jp.center_crop(ref, crop))
+    ours_c = tp.center_crop(torch.from_numpy(np.array(ref)), crop)
+    assert np.array_equal(ours_c.numpy(), ref_c)
+    with pytest.raises(ValueError, match="center-crop"):
+        tp.center_crop(ours, max(ours.shape[1:3]) + 1)
+
+
+@pytest.mark.parametrize("fmt", ["flo", "jpg"])
+def test_read_flow_dir_round_trip(fmt, tmp_path, rng):
+    """What compute-flow writes, read back: .flo files to the bit, the
+    quantized JPEG pairs within the quantization step plus JPEG's loss,
+    and as the JAX package's reader reads them."""
+    import cv2
+    from video_analytics_tpu.io import flowio as jf
+    from video_analytics_tpu_torch.io import flowio as tf
+    yy, xx = np.mgrid[0:40, 0:56].astype(np.float32)
+    flows = np.stack([np.stack([8 * np.sin(xx / 9 + t), 6 * np.cos(yy / 7)],
+                               axis=-1) for t in range(4)]).astype(np.float32)
+    d = str(tmp_path / "flow")
+    os.makedirs(d)
+    for i, f in enumerate(flows):
+        if fmt == "flo":
+            tf.write_flo(os.path.join(d, f"flow_{i + 1:06d}.flo"), f)
+        else:
+            q = tf.quantize_flow(f, bound=20.0)
+            assert np.array_equal(q, jf.quantize_flow(f, bound=20.0))
+            for path, plane in zip(tf.flow_pair_paths(d, i + 1),
+                                   (q[..., 0], q[..., 1])):
+                cv2.imwrite(path, plane)
+    assert tf.flow_pair_paths(d, 3) == jf.flow_pair_paths(d, 3)
+    back = tf.read_flow_dir(d, bound=20.0)
+    assert back.shape == flows.shape and back.dtype == np.float32
+    assert np.array_equal(back, jf.read_flow_dir(d, bound=20.0))
+    if fmt == "flo":
+        assert np.array_equal(back, flows)
+    else:
+        assert np.abs(back - flows).max() < 0.5
+        q = rng.integers(0, 256, (5, 6, 2), dtype=np.uint8)
+        assert np.array_equal(tf.dequantize_flow(q, 20.0),
+                              jf.dequantize_flow(q, 20.0))
+    assert tf.read_flow_dir(d, max_flows=2).shape == (2, 40, 56, 2)
+    with pytest.raises(IOError, match="no .flo"):
+        tf.read_flow_dir(str(tmp_path))
 
 
 @pytest.mark.parametrize("h,w", [(120, 160), (90, 73)])

@@ -8,8 +8,10 @@ package wrote as a Pallas TPU kernel as a CUDA kernel written by hand for
 Hopper (``csrc/``, built by ``ops/cuda/_build.py`` at first use).
 
 Ported so far: the two-stream serve path (TV-L1 or Farneback flow, two
-ResNet-18s, late fusion, the ``ClipServer`` line protocol:
-``tpuva-torch serve``) and the flow alone (``tpuva-torch compute-flow``).
+ResNets, late fusion, the ``ClipServer`` line protocol: ``tpuva-torch
+serve``) and the stage chain ``extract-frames`` → ``compute-flow`` (at the
+native resolution) → ``extract-features`` / ``classify-clip``, with
+checkpoints in the reference's msgpack format.
 
 Importing this package imports no JAX and nothing of the JAX package: it
 keeps its own copies of the configuration dataclasses (``config.py``) and

@@ -1,19 +1,24 @@
 """Command line of the PyTorch/CUDA port: ``tpuva-torch``.
 
-Port of the ``extract-frames``, ``compute-flow`` and ``serve`` subcommands
-of ``video_analytics_tpu/cli/main.py``, with the same flags (less those
-of parts not ported yet: checkpoints, BatchNorm folding, backbones other
-than ResNet-18, SpyNet; and less ``compute-flow``'s ``--exact`` and
-``--no-bucket``, which choose between paths the port does not have: its
-warp is always the exact gather, its flow always at the native
-resolution) and, for ``serve``, the same stdin/stdout line protocol.  The
-model is initialised from ``--seed``.
+Port of the ``extract-frames``, ``compute-flow``, ``extract-features``,
+``classify-clip`` and ``serve`` subcommands of
+``video_analytics_tpu/cli/main.py``, with the same flags and the same
+JSON lines (less SpyNet and its ``--spynet-checkpoint``; and less
+``compute-flow``'s ``--exact`` and ``--no-bucket``, which choose between
+paths the port does not have: its warp is always the exact gather, its
+flow always at the native resolution) and, for ``serve``, the same
+stdin/stdout line protocol.  The model is initialised from a seed
+(``serve --seed``, 0 elsewhere) unless ``--checkpoint`` names a msgpack
+file, which either package may have written.  Every command that computes
+runs on the first CUDA device unless ``--device`` says otherwise.
 
 Usage::
 
     tpuva-torch serve --warmup                    # first CUDA device
-    tpuva-torch serve --algo farneback --warmup
-    tpuva-torch compute-flow clip.mp4 out/ --algo farneback
+    tpuva-torch serve --algo farneback --checkpoint two_stream.msgpack
+    tpuva-torch compute-flow clip.mp4 flow/ --algo tvl1
+    tpuva-torch extract-features flow/ feats.npz --stream flow
+    tpuva-torch classify-clip clip.mp4 --checkpoint two_stream.msgpack
     tpuva-torch serve --device cpu ...            # plain PyTorch, no kernels
 """
 
@@ -80,10 +85,7 @@ def cmd_compute_flow(args) -> int:
     from video_analytics_tpu_torch.runtime.pipeline import compute_flow
     from video_analytics_tpu_torch.utils.device import require_cuda
 
-    if args.algo == "spynet":
-        print(json.dumps({"error": "--algo spynet is not ported yet "
-                          "(tvl1 and farneback are; see ROADMAP.md)"}),
-              file=sys.stderr)
+    if _spynet_refused(args):
         return 2
     device = require_cuda(args.device)
     frames = _load_frames(args.src, args.max_frames)
@@ -134,14 +136,18 @@ def _flow_configs(args):
 
 
 def _pipeline_config(args):
+    """Build a PipelineConfig from the shared model/preprocess args
+    (_add_model_args); fields not exposed keep their defaults."""
     from video_analytics_tpu_torch.config import (
         PipelineConfig, PreprocessConfig)
     pre = PreprocessConfig(resize_short=args.resize_short, crop=args.crop,
                            flow_stack=args.flow_stack)
     fb, tv = _flow_configs(args)
-    return PipelineConfig(preprocess=pre, num_classes=args.num_classes,
-                          farneback=fb, tvl1=tv, flow_algo=args.algo,
-                          window=args.window)
+    kw = dict(preprocess=pre, num_classes=args.num_classes,
+              farneback=fb, tvl1=tv, flow_algo=args.algo)
+    if getattr(args, "window", None) is not None:
+        kw["window"] = args.window
+    return PipelineConfig(**kw)
 
 
 def _add_flow_args(p) -> None:
@@ -171,18 +177,166 @@ def _add_flow_args(p) -> None:
                     help="median kernel between warps (0/1/3/5)")
 
 
-def _add_model_args(p) -> None:
+def _add_model_args(p, window: bool = True) -> None:
+    """Args that determine the model/pipeline geometry: they must match
+    whatever wrote the checkpoint."""
     p.add_argument("--num-classes", type=int, default=101)
-    p.add_argument("--arch", choices=["resnet18"], default="resnet18",
-                   help="backbone for both streams")
+    p.add_argument("--arch", choices=["resnet18", "resnet34", "resnet50"],
+                   default="resnet18", help="backbone for both streams")
     p.add_argument("--flow-stack", type=int, default=10,
                    help="L consecutive flow fields per temporal input")
     p.add_argument("--crop", type=int, default=224)
     p.add_argument("--resize-short", type=int, default=256)
     p.add_argument("--width", type=int, default=64,
                    help="ResNet base width (64 = standard ResNet-18)")
-    p.add_argument("--window", type=int, default=16,
-                   help="frames per sliding window")
+    p.add_argument("--fold-bn", action="store_true",
+                   help="fold BatchNorms into conv weights at load "
+                        "time (inference only; exact f32 composition)")
+    p.add_argument("--checkpoint", default=None,
+                   help="msgpack checkpoint of both streams (written by "
+                        "this package or the JAX one); without it the "
+                        "weights are random")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cuda' fails without a GPU")
+    if window:
+        p.add_argument("--window", type=int, default=16,
+                       help="frames per sliding window")
+
+
+def _spynet_refused(args) -> bool:
+    if args.algo != "spynet":
+        return False
+    print(json.dumps({"error": "--algo spynet is not ported yet "
+                      "(tvl1 and farneback are; see ROADMAP.md)"}),
+          file=sys.stderr)
+    return True
+
+
+def _load_two_stream(args, device):
+    """The two-stream model on `device`, in eval mode: made from --arch,
+    --width, --num-classes and --flow-stack, initialised from a seed
+    (serve's --seed, else 0), then loaded from --checkpoint and folded
+    (--fold-bn) where asked."""
+    import torch
+    from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+    from video_analytics_tpu_torch.runtime.checkpoint import load_variables
+    model = TwoStreamModel.create(num_classes=args.num_classes,
+                                  flow_stack=args.flow_stack,
+                                  width=args.width, arch=args.arch)
+    seed = getattr(args, "seed", 0)
+    model.init(torch.Generator().manual_seed(seed))
+    if args.checkpoint:
+        model.load_flax_variables(
+            load_variables(args.checkpoint, model.flax_variables()))
+    if args.fold_bn:
+        model = model.folded()
+    return model.to(device).eval()
+
+
+def _is_flow_dir(src: str) -> bool:
+    if not os.path.isdir(src):
+        return False
+    names = os.listdir(src)
+    return any(n.startswith("flow_x_") or n.endswith(".flo")
+               for n in names)
+
+
+def cmd_extract_features(args) -> int:
+    """Penultimate CNN features of a clip, a frames directory or a stored
+    flow directory (``compute-flow``'s output), to an .npz file."""
+    import numpy as np
+    import torch
+    from video_analytics_tpu_torch.ingest.windows import apply_transport_crop
+    from video_analytics_tpu_torch.ops.preprocess import (
+        center_crop, resize_short_side, stacked_flow_input)
+    from video_analytics_tpu_torch.runtime.pipeline import (
+        flow_features, rgb_features)
+    from video_analytics_tpu_torch.utils.device import require_cuda
+
+    if _spynet_refused(args):
+        return 2
+    device = require_cuda(args.device)
+    cfg = _pipeline_config(args)
+    model = _load_two_stream(args, device)
+
+    out = {}
+    if _is_flow_dir(args.src):
+        # Stored-flow input (the stage-artifact handoff: compute-flow
+        # output dir → flow-stream features).
+        if args.stream in ("rgb", "both"):
+            print("error: rgb features need frames, got a flow dir",
+                  file=sys.stderr)
+            return 2
+        from video_analytics_tpu_torch.io.flowio import read_flow_dir
+        flows = read_flow_dir(args.src, bound=args.bound,
+                              max_flows=args.max_frames)
+        need = cfg.preprocess.flow_stack
+        if len(flows) < need:
+            print(f"error: need >= {need} stored flows", file=sys.stderr)
+            return 2
+        # Match the frames-path geometry (flow_features): resize short
+        # side + center crop, with the (u, v) values scaled by the
+        # per-axis resize factors so a checkpoint trained at `crop` sees
+        # the same input distribution through the stage-handoff chain.
+        with torch.no_grad():
+            f = torch.from_numpy(flows).to(device)
+            h, w = f.shape[1], f.shape[2]
+            f = resize_short_side(f, cfg.preprocess.resize_short)
+            f = f * torch.tensor([f.shape[2] / w, f.shape[1] / h],
+                                 dtype=torch.float32, device=device)
+            f = center_crop(f, cfg.preprocess.crop)
+            stacks = stacked_flow_input(f, cfg.preprocess.flow_stack,
+                                        cfg.preprocess.flow_bound)
+            out["flow"] = model.temporal(
+                stacks, return_features=True).cpu().numpy()
+        np.savez(args.out, **out)
+        print(json.dumps({k: list(v.shape) for k, v in out.items()}
+                         | {"out": args.out, "source": "flow_dir"}))
+        return 0
+
+    frames = _load_frames(args.src, args.max_frames)
+    # Transport crop: only the source window the fused resize+crop
+    # samples crosses to the device.
+    frames, cfg = apply_transport_crop(frames, cfg)
+    x = torch.from_numpy(frames).to(device)
+    if args.stream in ("rgb", "both"):
+        out["rgb"] = rgb_features(x, model.spatial,
+                                  cfg.preprocess).cpu().numpy()
+    if args.stream in ("flow", "both"):
+        need = cfg.preprocess.flow_stack + 1
+        if len(frames) < need:
+            print(f"error: flow features need >= {need} frames",
+                  file=sys.stderr)
+            return 2
+        out["flow"] = flow_features(x, model.temporal, cfg).cpu().numpy()
+    np.savez(args.out, **out)
+    print(json.dumps({k: list(v.shape) for k, v in out.items()}
+                     | {"out": args.out}))
+    return 0
+
+
+def cmd_classify_clip(args) -> int:
+    """Two-stream classification of one clip: top-k classes as JSON."""
+    import numpy as np
+    from video_analytics_tpu_torch.runtime.evaluate import classify_clip_file
+    from video_analytics_tpu_torch.utils.device import require_cuda
+
+    if _spynet_refused(args):
+        return 2
+    device = require_cuda(args.device)
+    cfg = _pipeline_config(args)
+    model = _load_two_stream(args, device)
+    classes = _load_class_names(args.class_index)
+    probs = classify_clip_file(args.video, model, cfg, device,
+                               num_windows=args.windows)
+    topk = np.argsort(probs)[::-1][:args.topk]
+    result = {"video": args.video,
+              "top1": int(topk[0]),
+              "topk": [{"class_id": int(i),
+                        "class_name": classes[i] if classes else None,
+                        "prob": float(probs[i])} for i in topk]}
+    print(json.dumps(result))
+    return 0
 
 
 def _load_class_names(class_index: Optional[str]) -> Optional[List[str]]:
@@ -201,22 +355,14 @@ def cmd_serve(args) -> int:
     """Long-running classify server over a stdin/stdout line protocol
     (runtime/serve.py).  --warmup builds the kernels and runs the path
     once before the first request."""
-    import torch
-    from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
     from video_analytics_tpu_torch.runtime.serve import ClipServer
     from video_analytics_tpu_torch.utils.device import require_cuda
 
-    if args.algo == "spynet":
-        print(json.dumps({"error": "--algo spynet is not ported yet "
-                          "(tvl1 and farneback are; see ROADMAP.md)"}),
-              file=sys.stderr)
+    if _spynet_refused(args):
         return 2
     device = require_cuda(args.device)
     cfg = _pipeline_config(args)
-    model = TwoStreamModel.create(num_classes=args.num_classes,
-                                  flow_stack=args.flow_stack,
-                                  width=args.width, arch=args.arch)
-    model.init(torch.Generator().manual_seed(args.seed))
+    model = _load_two_stream(args, device)
     server = ClipServer(model, cfg, device,
                         classes=_load_class_names(args.class_index),
                         num_windows=args.windows, topk=args.topk,
@@ -271,6 +417,36 @@ def build_parser() -> argparse.ArgumentParser:
     _add_flow_args(cf)
     cf.set_defaults(fn=cmd_compute_flow)
 
+    xf = sub.add_parser("extract-features",
+                        help="CNN features for a clip/frames dir/flow dir")
+    xf.add_argument("src")
+    xf.add_argument("out", help="output .npz path")
+    xf.add_argument("--stream", choices=["rgb", "flow", "both"],
+                    default="rgb")
+    xf.add_argument("--algo", choices=["tvl1", "farneback", "spynet"],
+                    default="tvl1",
+                    help="flow algorithm (spynet is not ported yet)")
+    _add_model_args(xf, window=False)
+    xf.add_argument("--max-frames", type=int, default=None)
+    xf.add_argument("--bound", type=float, default=20.0,
+                    help="dequantization bound for stored uint8 flow")
+    _add_flow_args(xf)
+    xf.set_defaults(fn=cmd_extract_features)
+
+    cc = sub.add_parser("classify-clip",
+                        help="two-stream classification of one clip")
+    cc.add_argument("video")
+    cc.add_argument("--algo", choices=["tvl1", "farneback", "spynet"],
+                    default="tvl1",
+                    help="flow algorithm (spynet is not ported yet)")
+    cc.add_argument("--class-index", default=None,
+                    help="UCF101 classInd.txt for names")
+    _add_model_args(cc)
+    cc.add_argument("--topk", type=int, default=5)
+    cc.add_argument("--windows", type=int, default=1)
+    _add_flow_args(cc)
+    cc.set_defaults(fn=cmd_classify_clip)
+
     sv = sub.add_parser(
         "serve",
         help="long-running classify server (JSON lines on stdin/stdout)")
@@ -291,8 +467,6 @@ def build_parser() -> argparse.ArgumentParser:
                     help="skip host shape normalisation")
     sv.add_argument("--seed", type=int, default=0,
                     help="seed of the random model weights")
-    sv.add_argument("--device", default="cuda",
-                    help="torch device; 'cuda' fails without a GPU")
     _add_flow_args(sv)
     sv.set_defaults(fn=cmd_serve)
     return p

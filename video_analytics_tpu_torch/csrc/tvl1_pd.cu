@@ -42,9 +42,12 @@
 // 10 f32 (4 solver constants, u, v, 4 dual planes) and writes 6, ~64 B,
 // for ~60 flops: ~48 MB per launch at 15 pairs of 224^2, much of which
 // stays in the 50 MB L2 between launches.  Temporal blocking (several
-// iterations per launch with a wider halo, the TPU's banded K7 scheme) or
-// one image per thread-block cluster would cut that traffic; they are
-// later work once this simple version is measured.
+// iterations per launch with a wider halo) cuts that traffic: it is
+// tvl1_pd_chunk.cu, which flow/tvl1.py takes for the levels the reference
+// sends to its banded solver (above ~295^2 with the 5x5 median).  This
+// kernel stays the path of the smaller levels, the 224^2 serve path among
+// them; moving those to the chunked kernel, or one image per thread-block
+// cluster, is later work.
 
 #include "common.cuh"
 

@@ -8,7 +8,10 @@ per scale (coarse→fine): centred gradient of I1, then ``warps`` times
   - warp I1 and ∇I1 by the current flow and form the linearised residual
     (K-A ``ops/cuda/warp.warp_prep``),
   - run the primal-dual solver with its median between outer rounds and
-    the per-image ε stop (K-B/K-C ``ops/cuda/tvl1_solve.pd_solve``),
+    the ε stop: per image, one launch per iteration (K-B/K-C
+    ``ops/cuda/tvl1_solve.pd_solve``), or, at a level too large for the
+    reference's whole-plane solver, several iterations per launch with
+    row bands that stop on their own (K-G ``pd_solve_chunked``),
 then the scale-end median (K-C) and the upscale of the flow to the next
 finer level by 1/scale_step.
 
@@ -17,7 +20,11 @@ kernels; on CPU tensors, or with ``plain=True``, their plain PyTorch
 versions.  The pyramid (Gaussian blur + linear resize) and the centred
 gradient are plain tensor code, as they are XLA in the reference.  What
 the reference does only for the TPU (lane packing, VMEM gates, warp
-bands, batch rounding) has no counterpart here.
+bands, batch rounding) has no counterpart here, with one exception: the
+size rule that sends a level to the banded solver changes the result
+(bands stop on their own ε test), so the port keeps its own copy of it
+(``whole_plane_level``) and native-resolution flow takes the same path in
+both packages.
 
 Each image stops on its own ε test, as the reference's Pallas solvers
 do; so an image's flow does not depend on the batch it rides in.
@@ -25,14 +32,16 @@ do; so an image's flow does not depend on the batch it rides in.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
 from video_analytics_tpu_torch.config import TVL1Config
 from video_analytics_tpu_torch.ops.cuda.tvl1_solve import (
-    median5, median5_plain, pd_solve, pd_solve_plain)
+    chunk_params, median5, median5_plain, pd_solve, pd_solve_chunked,
+    pd_solve_chunked_plain, pd_solve_plain)
 from video_analytics_tpu_torch.ops.cuda.warp import warp_prep, warp_prep_plain
 from video_analytics_tpu_torch.ops.kernels import (
     centered_gradient, gaussian_blur, resize_area_like)
@@ -63,24 +72,41 @@ def _downscale(img: torch.Tensor, out_hw: Tuple[int, int],
     return resize_area_like(sm, out_hw)
 
 
+def whole_plane_level(h: int, w: int, median: int) -> bool:
+    """Whether the reference solves an (h, w) level with its whole-plane
+    solver (True) or its banded one (False): its working-set rule,
+    (12 + k² + 2)·h·w floats under 13 MiB with a k×k median, 12·h·w
+    without (``ops/pallas/tvl1_solve.solver_fits_vmem``).  With the
+    default 5×5 median the banded solver takes every level above 87,381
+    pixels, about 295²."""
+    planes = 12 + (median * median + 2 if median > 1 else 0)
+    return planes * h * w * 4 < 13 * 1024 * 1024
+
+
 def tvl1(prev: torch.Tensor, nxt: torch.Tensor,
-         cfg: TVL1Config = TVL1Config(), plain: bool = False
+         cfg: TVL1Config = TVL1Config(),
+         initial_flow: Optional[torch.Tensor] = None, plain: bool = False,
+         whole_plane: Callable[[int, int, int], bool] = whole_plane_level
          ) -> torch.Tensor:
     """Dense TV-L1 flow for a batch of gray frame pairs.
 
     Args:
       prev, nxt: (B, H, W) in [0, 255] (float or uint8), on one device.
-      cfg: TVL1Config.  ``use_initial_flow`` is not supported yet.
+      cfg: TVL1Config.
+      initial_flow: optional (B, H, W, 2) seed, used when
+        ``cfg.use_initial_flow`` (cv2.OPTFLOW_USE_INITIAL_FLOW).
       plain: run the plain PyTorch versions of the kernels even on CUDA
         tensors (the reference the kernels are checked against).
+      whole_plane: the size rule (h, w, median) → bool that keeps a level
+        on the per-iteration solver; the others take the chunked one.
+        Tests pass their own to reach the chunked solver at a small size.
 
     Returns:
       (B, H, W, 2) float32 flow (dx, dy): prev(p) ≈ next(p + flow(p)).
     """
-    if cfg.use_initial_flow:
-        raise NotImplementedError("use_initial_flow is not ported yet")
     warp = warp_prep_plain if plain else warp_prep
     solve = pd_solve_plain if plain else pd_solve
+    solve_chunked = pd_solve_chunked_plain if plain else pd_solve_chunked
     median = median5_plain if plain else median5
 
     I0_full = prev.float().contiguous()
@@ -98,7 +124,11 @@ def tvl1(prev: torch.Tensor, nxt: torch.Tensor,
     for s in range(len(sizes) - 1, -1, -1):
         lh, lw = sizes[s]
         I0, I1 = I0s[s].contiguous(), I1s[s]
-        if uv is None:
+        if uv is None and cfg.use_initial_flow and initial_flow is not None:
+            seed = initial_flow.float().permute(0, 3, 1, 2)
+            seed = resize_area_like(seed.reshape(B * 2, H, W), (lh, lw))
+            uv = (seed * cfg.scale_step ** s).reshape(B, 2, lh, lw)
+        elif uv is None:
             uv = torch.zeros((B, 2, lh, lw), dtype=torch.float32,
                              device=I0.device)
         else:
@@ -106,8 +136,14 @@ def tvl1(prev: torch.Tensor, nxt: torch.Tensor,
             uv = (up * (1.0 / cfg.scale_step)).reshape(B, 2, lh, lw)
         I1x, I1y = centered_gradient(I1)
         i13 = torch.stack([I1, I1x, I1y], dim=1).contiguous()
+        if whole_plane(lh, lw, cfg.median_filtering):
+            level_solve = solve
+        else:
+            band, chunk = chunk_params(lh, lw, cfg)
+            level_solve = functools.partial(solve_chunked, band=band,
+                                            chunk=chunk)
         for _ in range(cfg.warps):
-            uv = solve(warp(i13, I0, uv), uv, cfg)
+            uv = level_solve(warp(i13, I0, uv), uv, cfg)
         if cfg.median_filtering > 1:
             uv = median(uv, cfg.median_filtering)
     return uv.permute(0, 2, 3, 1)

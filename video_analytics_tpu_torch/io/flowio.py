@@ -8,7 +8,10 @@ wheel, imported where it is used).
 
 from __future__ import annotations
 
+import os
+import re
 import struct
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -42,6 +45,46 @@ def quantize_flow(flow: np.ndarray, bound: float = 20.0) -> np.ndarray:
     clip to [-bound, bound] then linearly map to [0, 255]."""
     f = np.clip(np.asarray(flow, np.float32), -bound, bound)
     return np.round((f + bound) * (255.0 / (2.0 * bound))).astype(np.uint8)
+
+
+def dequantize_flow(q: np.ndarray, bound: float = 20.0) -> np.ndarray:
+    return q.astype(np.float32) * (2.0 * bound / 255.0) - bound
+
+
+def read_flow_dir(flow_dir: str, bound: float = 20.0,
+                  max_flows: Optional[int] = None) -> np.ndarray:
+    """Load a stored flow directory → (T, H, W, 2) float32.
+
+    Accepts either Middlebury .flo files (flow_%06d.flo) or the
+    two-stream quantized-uint8 convention (flow_x/flow_y JPEG pairs):
+    what ``compute-flow`` writes."""
+    names = os.listdir(flow_dir)
+    flos = sorted(n for n in names if re.match(r"flow_\d{6}\.flo$", n))
+    if flos:
+        if max_flows is not None:
+            flos = flos[:max_flows]
+        return np.stack([read_flo(os.path.join(flow_dir, n)) for n in flos])
+    xs = sorted(n for n in names if n.startswith("flow_x_"))
+    if not xs:
+        raise IOError(f"no .flo or flow_x_*/flow_y_* files in {flow_dir}")
+    if max_flows is not None:
+        xs = xs[:max_flows]
+    import cv2
+    flows = []
+    for nx in xs:
+        ny = nx.replace("flow_x_", "flow_y_")
+        fx = cv2.imread(os.path.join(flow_dir, nx), cv2.IMREAD_GRAYSCALE)
+        fy = cv2.imread(os.path.join(flow_dir, ny), cv2.IMREAD_GRAYSCALE)
+        if fx is None or fy is None:
+            raise IOError(f"unreadable flow pair {nx}/{ny}")
+        flows.append(dequantize_flow(np.stack([fx, fy], -1), bound))
+    return np.stack(flows)
+
+
+def flow_pair_paths(out_dir: str, index: int) -> Tuple[str, str]:
+    """Storage convention for quantized flow: flow_x/flow_y JPEG pairs."""
+    return (os.path.join(out_dir, f"flow_x_{index:06d}.jpg"),
+            os.path.join(out_dir, f"flow_y_{index:06d}.jpg"))
 
 
 def flow_to_color(flow: np.ndarray, max_mag: float = None) -> np.ndarray:

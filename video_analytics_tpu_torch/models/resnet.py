@@ -1,11 +1,17 @@
-"""ResNet-18 family as ``nn.Module``s.
+"""ResNet family as ``nn.Module``s.
 
 Port of ``video_analytics_tpu/models/resnet.py``: the torchvision
-``resnet18`` structure (7x7/2 stem, 3x3/2 max-pool, four stages of
-BasicBlocks, global average pool, fc), with torchvision's parameter
-names, so ``models/convert.flax_to_torch`` maps the JAX package's
-variables onto it one for one.  The flow-stream variant differs only in
-its stem's input channels (2·L stacked flow components).
+structure (7x7/2 stem, 3x3/2 max-pool, four stages of BasicBlocks for
+ResNet-18/34 or Bottleneck blocks for ResNet-50, global average pool,
+fc), with torchvision's parameter names, so
+``models/convert.flax_to_torch`` maps the JAX package's variables onto
+it one for one.  The flow-stream variant differs only in its stem's
+input channels (2·L stacked flow components).
+
+``fold_bn=True`` is the inference-only folded form of the reference
+(``_conv_norm``): every convolution carries a bias, the folded
+BatchNorm's shift, and the norm slots are identities;
+``models/convert.fold_batchnorm`` makes its weights.
 
 Inputs are NHWC at ``ResNet.forward``, as in the reference; inside, the
 network runs NCHW in PyTorch's channels-last memory format.  Convolutions
@@ -20,18 +26,34 @@ import torch
 import torch.nn as nn
 
 
+def _conv(in_ch: int, out_ch: int, kernel: int, strides: int, padding: int,
+          fold_bn: bool) -> nn.Conv2d:
+    return nn.Conv2d(in_ch, out_ch, kernel, strides, padding, bias=fold_bn)
+
+
+def _norm(ch: int, fold_bn: bool) -> nn.Module:
+    return nn.Identity() if fold_bn else nn.BatchNorm2d(ch)
+
+
+def _downsample(in_ch: int, out_ch: int, strides: int, fold_bn: bool
+                ) -> Optional[nn.Sequential]:
+    if in_ch == out_ch and strides == 1:
+        return None
+    return nn.Sequential(_conv(in_ch, out_ch, 1, strides, 0, fold_bn),
+                         _norm(out_ch, fold_bn))
+
+
 class BasicBlock(nn.Module):
-    def __init__(self, in_ch: int, filters: int, strides: int = 1):
+    expansion = 1
+
+    def __init__(self, in_ch: int, filters: int, strides: int = 1,
+                 fold_bn: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, filters, 3, strides, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(filters)
-        self.conv2 = nn.Conv2d(filters, filters, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(filters)
-        self.downsample: Optional[nn.Sequential] = None
-        if in_ch != filters or strides != 1:
-            self.downsample = nn.Sequential(
-                nn.Conv2d(in_ch, filters, 1, strides, bias=False),
-                nn.BatchNorm2d(filters))
+        self.conv1 = _conv(in_ch, filters, 3, strides, 1, fold_bn)
+        self.bn1 = _norm(filters, fold_bn)
+        self.conv2 = _conv(filters, filters, 3, 1, 1, fold_bn)
+        self.bn2 = _norm(filters, fold_bn)
+        self.downsample = _downsample(in_ch, filters, strides, fold_bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x if self.downsample is None else self.downsample(x)
@@ -40,34 +62,70 @@ class BasicBlock(nn.Module):
         return torch.relu(y + residual)
 
 
+class BottleneckBlock(nn.Module):
+    """torchvision Bottleneck (ResNet-50 family, v1.5: the stride sits on
+    the 3x3 conv2).  Output channels = filters * 4."""
+    expansion = 4
+
+    def __init__(self, in_ch: int, filters: int, strides: int = 1,
+                 fold_bn: bool = False):
+        super().__init__()
+        out_ch = filters * self.expansion
+        self.conv1 = _conv(in_ch, filters, 1, 1, 0, fold_bn)
+        self.bn1 = _norm(filters, fold_bn)
+        self.conv2 = _conv(filters, filters, 3, strides, 1, fold_bn)
+        self.bn2 = _norm(filters, fold_bn)
+        self.conv3 = _conv(filters, out_ch, 1, 1, 0, fold_bn)
+        self.bn3 = _norm(out_ch, fold_bn)
+        self.downsample = _downsample(in_ch, out_ch, strides, fold_bn)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        residual = x if self.downsample is None else self.downsample(x)
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = torch.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        return torch.relu(y + residual)
+
+
 class ResNet(nn.Module):
-    """torchvision-compatible BasicBlock ResNet (18/34 family)."""
+    """torchvision-compatible ResNet (18/34 BasicBlock, 50 Bottleneck)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  num_classes: int = 1000, in_channels: int = 3,
-                 width: int = 64):
+                 width: int = 64, bottleneck: bool = False,
+                 fold_bn: bool = False):
         super().__init__()
+        self.stage_sizes = tuple(stage_sizes)
         self.in_channels = in_channels
         self.num_classes = num_classes
         self.width = width
-        self.conv1 = nn.Conv2d(in_channels, width, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(width)
+        self.bottleneck = bottleneck
+        self.fold_bn = fold_bn
+        self.conv1 = _conv(in_channels, width, 7, 2, 3, fold_bn)
+        self.bn1 = _norm(width, fold_bn)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
+        block_cls = BottleneckBlock if bottleneck else BasicBlock
         ch = width
         for stage, num_blocks in enumerate(stage_sizes):
             filters = width * 2 ** stage
             blocks = []
             for block in range(num_blocks):
                 strides = 2 if stage > 0 and block == 0 else 1
-                blocks.append(BasicBlock(ch, filters, strides))
-                ch = filters
+                blocks.append(block_cls(ch, filters, strides, fold_bn))
+                ch = filters * block_cls.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
         self.num_stages = len(stage_sizes)
         self.fc = nn.Linear(ch, num_classes)
 
+    def clone(self, fold_bn: bool) -> "ResNet":
+        """The same architecture with freshly made weights, in the folded
+        or the unfolded form."""
+        return ResNet(self.stage_sizes, self.num_classes, self.in_channels,
+                      self.width, self.bottleneck, fold_bn)
+
     @property
     def feature_dim(self) -> int:
-        return self.width * 8
+        return self.width * 8 * (4 if self.bottleneck else 1)
 
     def init(self, generator: torch.Generator) -> "ResNet":
         """Seeded initialisation in place, following the reference's flax
@@ -109,6 +167,18 @@ def resnet18(num_classes: int = 1000, in_channels: int = 3,
              width: int = 64) -> ResNet:
     return ResNet((2, 2, 2, 2), num_classes=num_classes,
                   in_channels=in_channels, width=width)
+
+
+def resnet34(num_classes: int = 1000, in_channels: int = 3,
+             width: int = 64) -> ResNet:
+    return ResNet((3, 4, 6, 3), num_classes=num_classes,
+                  in_channels=in_channels, width=width)
+
+
+def resnet50(num_classes: int = 1000, in_channels: int = 3,
+             width: int = 64) -> ResNet:
+    return ResNet((3, 4, 6, 3), num_classes=num_classes,
+                  in_channels=in_channels, width=width, bottleneck=True)
 
 
 def flow_stream_resnet18(stack: int = 10, num_classes: int = 101,

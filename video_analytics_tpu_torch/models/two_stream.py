@@ -8,13 +8,17 @@ flax modules and variables apart; here ``TwoStreamModel`` is an
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import torch
 import torch.nn as nn
 
+from video_analytics_tpu_torch.models import convert
 from video_analytics_tpu_torch.models.resnet import (
-    ResNet, flow_stream_resnet18, resnet18)
+    ResNet, resnet18, resnet34, resnet50)
+
+_ARCHS = {"resnet18": resnet18, "resnet34": resnet34,
+             "resnet50": resnet50}
 
 
 class TwoStreamModel(nn.Module):
@@ -31,15 +35,49 @@ class TwoStreamModel(nn.Module):
     def create(cls, num_classes: int = 101, flow_stack: int = 10,
                fusion_weights: Tuple[float, float] = (1.0, 1.5),
                width: int = 64, arch: str = "resnet18") -> "TwoStreamModel":
-        if arch != "resnet18":
-            raise NotImplementedError(
-                f"arch {arch!r} is not ported yet (resnet18 only); "
-                "see ROADMAP.md")
-        return cls(resnet18(num_classes=num_classes, width=width),
-                   flow_stream_resnet18(stack=flow_stack,
-                                        num_classes=num_classes,
-                                        width=width),
+        if arch not in _ARCHS:
+            raise ValueError(f"unknown arch {arch!r}; "
+                             f"choose from {sorted(_ARCHS)}")
+        build = _ARCHS[arch]
+        return cls(build(num_classes=num_classes, width=width),
+                   build(num_classes=num_classes, width=width,
+                         in_channels=2 * flow_stack),
                    fusion_weights=fusion_weights)
+
+    # -- variables in the reference's layout ----------------------------------
+
+    def flax_variables(self) -> Dict[str, Any]:
+        """Both streams' weights as the reference's variable tree
+        (``{"spatial": {"params", "batch_stats"}, "temporal": ...}``, numpy
+        leaves): what ``runtime/checkpoint.save_variables`` writes."""
+        return convert.two_stream_torch_to_flax(self.state_dict())
+
+    def load_flax_variables(self, variables: Mapping[str, Any]
+                            ) -> "TwoStreamModel":
+        """Take both streams' weights from the reference's variable tree,
+        e.g. one read by ``runtime/checkpoint.load_variables``."""
+        self.load_state_dict(convert.two_stream_flax_to_torch(variables))
+        return self
+
+    def folded(self) -> "TwoStreamModel":
+        """Inference-only form with every BatchNorm folded into its
+        preceding convolution (``models/convert.fold_batchnorm``): the
+        reference's ``folded()`` and ``fold_variables`` in one step, since
+        the module owns its weights."""
+        out = TwoStreamModel(self.spatial.clone(fold_bn=True),
+                             self.temporal.clone(fold_bn=True),
+                             self.fusion_weights)
+        out.load_flax_variables(self.fold_variables(self.flax_variables()))
+        device = next(self.parameters()).device
+        return out.to(device).train(self.training)
+
+    @staticmethod
+    def fold_variables(variables: Mapping[str, Any]) -> Dict[str, Any]:
+        """Fold both streams' variables for a folded() model; other
+        entries pass through."""
+        return {k: (convert.fold_batchnorm(v)
+                    if k in ("spatial", "temporal") else v)
+                for k, v in variables.items()}
 
     def init(self, generator: torch.Generator) -> "TwoStreamModel":
         """Seeded initialisation of both streams (see ``ResNet.init``):

@@ -1,12 +1,15 @@
-"""K-B and K-C: the TV-L1 primal-dual solver of one warp and its median.
+"""K-B, K-C and K-G: the TV-L1 primal-dual solver of one warp, its median
+and the chunked solver of large planes.
 
-Replaces the solver of ``video_analytics_tpu/ops/pallas/tvl1_solve.py``
-(``tvl1_solve_warp``, ``tvl1_solve_warp_packed`` and the solver half of
-``tvl1_scale_pallas``) and its in-kernel k×k median.  The kernels are
+Replaces the solvers of ``video_analytics_tpu/ops/pallas/tvl1_solve.py``
+(``tvl1_solve_warp``, ``tvl1_solve_warp_packed``, the solver half of
+``tvl1_scale_pallas``, and ``tvl1_solve_warp_banded`` with its kernel
+``_run_chunk``) and their in-kernel k×k median.  The kernels are
 ``csrc/tvl1_pd.cu`` (``pd_step``, one primal-dual iteration over the
-batch, and ``eps_reduce``, the per-image convergence test) and
-``csrc/median.cu`` (``median5``); their source notes give the design and
-what bounds each on the H100.
+batch, and ``eps_reduce``, the per-image convergence test),
+``csrc/median.cu`` (``median5``) and ``csrc/tvl1_pd_chunk.cu``
+(``pd_chunk``, several iterations per launch on shared-memory tiles);
+their source notes give the design and what bounds each on the H100.
 
 ``pd_solve`` drives one warp: ``outer_iterations`` rounds, each a median
 of the images still active, ``inner_iterations`` primal-dual steps with
@@ -15,6 +18,12 @@ Each image stops on its own test, as the Pallas solvers do; the reference
 XLA solver instead runs until the slowest image of the batch converges
 (ROADMAP F1).  The CUDA path keeps the per-image flags on the device and
 launches every round without reading them back, so the host never waits.
+
+``pd_solve_chunked`` drives one warp of a plane too large for that chain
+to be the right tool (``flow/tvl1.py`` sends it every level the
+reference sends to its banded solver): each round is ``ceil(K / chunk)``
+launches of ``pd_chunk``, the first of which opens with the median, and
+rows are gated in bands on their own ε test, as in the reference.
 """
 
 from __future__ import annotations
@@ -90,12 +99,12 @@ median5.launches = 0
 
 # -- K-B: one primal-dual iteration -----------------------------------------
 
-def pd_step_plain(prep: torch.Tensor, uv: torch.Tensor, p: torch.Tensor,
-                  cfg: TVL1Config, with_err: bool = False):
-    """Plain PyTorch version of one ``pd_step`` on every image: the body
-    of the reference's ``_solve_warp`` loop (``flow/tvl1.py:149-181``).
-    Returns (uv, p, err) with err the (B,) mean squared update, or None
-    unless ``with_err``."""
+def _pd_step_fields(prep: torch.Tensor, uv: torch.Tensor, p: torch.Tensor,
+                    cfg: TVL1Config, with_sq: bool):
+    """One primal-dual iteration on every image: the body of the
+    reference's ``_solve_warp`` loop (``flow/tvl1.py:149-181``).  Returns
+    (uv, p, sq) with sq the (B, H, W) squared update (un-u)² + (vn-v)², or
+    None unless ``with_sq``."""
     l_t, theta, taut = _solver_constants(cfg)
     I1wx, I1wy, grad, rho_c = prep.unbind(1)
     u, v = uv[:, 0], uv[:, 1]
@@ -109,10 +118,7 @@ def pd_step_plain(prep: torch.Tensor, uv: torch.Tensor, p: torch.Tensor,
     v2 = v + d * I1wy
     un = v1 + theta * divergence(p11, p12)
     vn = v2 + theta * divergence(p21, p22)
-    err = None
-    if with_err:
-        n_px = u.shape[1] * u.shape[2]
-        err = ((un - u) ** 2 + (vn - v) ** 2).sum(dim=(1, 2)) / n_px
+    sq = (un - u) ** 2 + (vn - v) ** 2 if with_sq else None
     ux, uy = forward_gradient(un)
     vx, vy = forward_gradient(vn)
     inv_u = 1.0 / (1.0 + taut * torch.sqrt(ux * ux + uy * uy))
@@ -120,7 +126,19 @@ def pd_step_plain(prep: torch.Tensor, uv: torch.Tensor, p: torch.Tensor,
     p = torch.stack([(p11 + taut * ux) * inv_u, (p12 + taut * uy) * inv_u,
                      (p21 + taut * vx) * inv_v, (p22 + taut * vy) * inv_v],
                     dim=1)
-    return torch.stack([un, vn], dim=1), p, err
+    return torch.stack([un, vn], dim=1), p, sq
+
+
+def pd_step_plain(prep: torch.Tensor, uv: torch.Tensor, p: torch.Tensor,
+                  cfg: TVL1Config, with_err: bool = False):
+    """Plain PyTorch version of one ``pd_step`` on every image.  Returns
+    (uv, p, err) with err the (B,) mean squared update, or None unless
+    ``with_err``."""
+    uv_new, p, sq = _pd_step_fields(prep, uv, p, cfg, with_err)
+    err = None
+    if with_err:
+        err = sq.sum(dim=(1, 2)) / (uv.shape[2] * uv.shape[3])
+    return uv_new, p, err
 
 
 def pd_blocks(H: int, W: int) -> int:
@@ -266,3 +284,230 @@ def pd_solve(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config
             p, p_next = p_next, p
         eps_reduce(partial, active, err, H * W, cfg.epsilon)
     return cur
+
+
+# -- K-G: several iterations per launch, for large planes --------------------
+
+_CHUNK_SIDE = 64       # window side S of pd_chunk: 11 planes of S² floats
+_TILE_ROWS_PER_BAND = 4
+_CHUNK_IO_ITERS = 2.0  # one window load + tile store, in iterations' cost
+
+
+def _median_radius(cfg: TVL1Config) -> int:
+    return cfg.median_filtering // 2 if cfg.median_filtering > 1 else 0
+
+
+def chunk_tile(chunk: int, cfg: TVL1Config) -> Tuple[int, int]:
+    """(tile, halo) of ``pd_chunk`` for `chunk` iterations per launch: the
+    halo covers the iterations plus the median's radius, and the tile is
+    what a 64×64 window (176 KB of the 227 KB of shared memory a block may
+    have) leaves inside it."""
+    halo = chunk + _median_radius(cfg)
+    tile = _CHUNK_SIDE - 2 * halo
+    if tile < 1:
+        raise ValueError(f"chunk {chunk} leaves no tile inside a "
+                         f"{_CHUNK_SIDE}-wide window (halo {halo})")
+    return tile, halo
+
+
+def chunk_params(h: int, w: int, cfg: TVL1Config) -> Tuple[int, int]:
+    """(band, chunk) of ``pd_solve_chunked`` for an (h, w) plane.
+
+    chunk = iterations per launch.  A launch iterates its whole S×S
+    window to deliver a T×T tile, T = S − 2·(chunk + median radius), so
+    the redundant work grows as (S/T)² with the chunk, while a small
+    chunk pays the window's load and the tile's store more often.  The
+    cost per round in window-pixel iterations, with one load-and-store
+    priced at `_CHUNK_IO_ITERS` iterations, is minimised over the chunk.
+    band = rows per gating band: `_TILE_ROWS_PER_BAND` tile rows, so no
+    tile straddles a band edge; coarse enough that a band's ε test is a
+    mean over many pixels, fine enough that still rows of a large frame
+    stop on their own."""
+    K = cfg.inner_iterations
+    best = None
+    for chunk in range(1, K + 1):
+        tile = _CHUNK_SIDE - 2 * (chunk + _median_radius(cfg))
+        if tile < 8:
+            break
+        n_chunks = -(-K // chunk)
+        cost = (K + n_chunks * _CHUNK_IO_ITERS) * (_CHUNK_SIDE / tile) ** 2
+        if best is None or cost < best[0]:
+            best = (cost, chunk, tile)
+    _, chunk, tile = best
+    return _TILE_ROWS_PER_BAND * tile, chunk
+
+
+def _expect_band_flags(act: torch.Tensor, B: int, n_bands: int, device
+                       ) -> None:
+    if (act.dtype != torch.int32 or tuple(act.shape) != (B, n_bands)
+            or act.device != device or not act.is_contiguous()):
+        raise ValueError(f"act: expected a contiguous ({B}, {n_bands}) int32 "
+                         f"tensor on {device}, got {tuple(act.shape)} "
+                         f"{act.dtype} on {act.device}")
+
+
+def pd_chunk_plain(prep: torch.Tensor, state: torch.Tensor,
+                   act: torch.Tensor, cfg: TVL1Config, iters: int, band: int,
+                   do_median: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``pd_chunk``: iterate the whole planes,
+    then keep the new values in the rows of active bands only.  Returns
+    (state, err) with err (B, n_bands) the summed squared update of the
+    last iteration over each active band, 0 for a frozen one."""
+    B, _, H, W = state.shape
+    n_bands = -(-H // band)
+    uv, p = state[:, :2], state[:, 2:]
+    if do_median and cfg.median_filtering > 1:
+        uv = median5_plain(uv, cfg.median_filtering)
+    sq = None
+    for i in range(iters):
+        uv, p, sq = _pd_step_fields(prep, uv, p, cfg, i == iters - 1)
+    pad = n_bands * band - H
+    sq = torch.nn.functional.pad(sq, (0, 0, 0, pad))
+    err = sq.reshape(B, n_bands, band * W).sum(dim=2)
+    on = act.bool()
+    rows = on.repeat_interleave(band, dim=1)[:, :H].view(B, 1, H, 1)
+    new = torch.where(rows, torch.cat([uv, p], dim=1), state)
+    return new, torch.where(on, err, torch.zeros_like(err))
+
+
+def pd_chunk(prep: torch.Tensor, state: torch.Tensor, act: torch.Tensor,
+             cfg: TVL1Config, iters: int, band: int, tile: int, halo: int,
+             do_median: bool, state_out: torch.Tensor) -> torch.Tensor:
+    """`iters` primal-dual iterations of every active band, on CUDA tensors.
+
+    prep (B, 4, H, W) from ``warp_prep``; state (B, 6, H, W) holds u, v,
+    p11, p12, p21, p22 and is read; the new state goes to the distinct
+    buffer state_out (frozen bands are copied forward).  act
+    (B, ceil(H / band)) int32 gates each band of `band` rows.  With
+    ``do_median`` the k×k median of u and v (``cfg.median_filtering``)
+    runs first.  `tile` and `halo` are the block's tile side and window
+    margin (``chunk_tile``): halo ≥ iters + k // 2.  Returns err
+    (B, n_bands): each band's summed squared update of the last
+    iteration, 0 for a frozen band."""
+    B, _, H, W = state.shape
+    dev = state.device
+    if not state.is_cuda:
+        raise ValueError("pd_chunk launches a CUDA kernel: pass CUDA tensors "
+                         "(pd_chunk_plain is the CPU version)")
+    _build.expect(prep, "prep", (B, 4, H, W), dev)
+    _build.expect(state, "state", (B, 6, H, W), dev)
+    _build.expect(state_out, "state_out", (B, 6, H, W), dev)
+    if state_out.data_ptr() == state.data_ptr():
+        raise ValueError("pd_chunk: state_out must not alias state")
+    n_bands = -(-H // band)
+    _expect_band_flags(act, B, n_bands, dev)
+    k = cfg.median_filtering if do_median and cfg.median_filtering > 1 else 0
+    if k not in (0, 3, 5):
+        raise ValueError(f"pd_chunk takes a median of 3 or 5, got {k}")
+    if halo < iters + k // 2:
+        raise ValueError(f"pd_chunk: halo {halo} < iters {iters} + median "
+                         f"radius {k // 2}")
+    partial = torch.empty((B, n_bands, -(-band // tile) * -(-W // tile)),
+                          dtype=torch.float32, device=dev)
+    l_t, theta, taut = _solver_constants(cfg)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check(lib.va_pd_chunk(
+        prep.data_ptr(), state.data_ptr(), state_out.data_ptr(),
+        act.data_ptr(), partial.data_ptr(), B, H, W, band, tile, halo, iters,
+        k, l_t, theta, taut, stream), "pd_chunk")
+    pd_chunk.launches += 1
+    return partial.sum(dim=2)
+
+
+pd_chunk.launches = 0
+
+
+def _band_flags(err_band: torch.Tensor, band_px: torch.Tensor, n_px: int,
+                eps2: float, adaptive: bool) -> torch.Tensor:
+    """(B, n_bands) bool: which bands run this round
+    (``tvl1_solve.py:1054-1070``).  An image whose summed error is under
+    ε² per pixel has stopped.  With ``adaptive`` a band runs if it or a
+    neighbouring band has not met ε² per pixel on its own."""
+    conv = err_band.sum(dim=1) / n_px < eps2
+    if not adaptive:
+        return (~conv)[:, None].expand_as(err_band)
+    active = err_band >= eps2 * band_px
+    run = active.clone()
+    run[:, :-1] |= active[:, 1:]
+    run[:, 1:] |= active[:, :-1]
+    return run & ~conv[:, None]
+
+
+def _solve_chunked(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config,
+                   band: int, chunk: int, adaptive: bool, plain: bool
+                   ) -> torch.Tensor:
+    B, _, H, W = uv.shape
+    dev = uv.device
+    K = cfg.inner_iterations
+    eps2 = cfg.epsilon * cfg.epsilon
+    n_bands = -(-H // band)
+    band_px = torch.tensor(
+        [min(band, H - band * i) * W for i in range(n_bands)],
+        dtype=torch.float32, device=dev)
+    chunk_sizes = [min(chunk, K - c0) for c0 in range(0, K, chunk)]
+    state = torch.cat([uv, torch.zeros((B, 4, H, W), dtype=torch.float32,
+                                       device=dev)], dim=1)
+    if not plain:
+        tile, halo = chunk_tile(chunk, cfg)
+        if band % tile:
+            raise ValueError(f"band {band} is not a multiple of the tile "
+                             f"{tile} that chunk {chunk} gives")
+        spare = torch.empty_like(state)
+    err_band = torch.full((B, n_bands), math.inf, dtype=torch.float32,
+                          device=dev)
+    for _ in range(cfg.outer_iterations):
+        run = _band_flags(err_band, band_px, H * W, eps2, adaptive)
+        if plain and not bool(run.any()):
+            break
+        act = run.to(torch.int32).contiguous()
+        for ci, iters in enumerate(chunk_sizes):
+            if plain:
+                state, err = pd_chunk_plain(prep, state, act, cfg, iters,
+                                            band, ci == 0)
+            else:
+                err = pd_chunk(prep, state, act, cfg, iters, band, tile,
+                               halo, ci == 0, spare)
+                state, spare = spare, state
+        err_band = torch.where(run, err, err_band)
+    return state[:, :2].contiguous()
+
+
+def pd_solve_chunked_plain(prep: torch.Tensor, uv: torch.Tensor,
+                           cfg: TVL1Config, band: int, chunk: int,
+                           adaptive: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of ``pd_solve_chunked``.  Reads the flags on
+    the host each round and stops once all are clear."""
+    return _solve_chunked(prep, uv, cfg, band, chunk, adaptive, plain=True)
+
+
+def pd_solve_chunked(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config,
+                     band: int, chunk: int, adaptive: bool = True
+                     ) -> torch.Tensor:
+    """All primal-dual iterations of one TV-L1 warp of a large plane:
+    the counterpart of the reference's ``tvl1_solve_warp_banded``.
+
+    The dual variables start at zero.  Each of ``outer_iterations``
+    rounds is ``ceil(inner_iterations / chunk)`` launches of
+    ``pd_chunk``, the first with the median.  An image stops when its
+    summed error falls under ε² per pixel; with ``adaptive`` each band of
+    `band` rows stops on its own ε test unless a neighbouring band still
+    runs, and a stopped band runs again when a neighbour's test fails.
+    A running band iterates from the chunk's start state of its frozen
+    neighbours, whose rows are not written: the result depends on
+    (band, chunk), as in the reference.  With ``adaptive=False`` it does
+    not, and equals ``pd_solve``'s up to the order of the ε sums.  The
+    flags stay on the device; nothing is read back.
+
+    Args:
+      prep: (B, 4, H, W) from ``warp_prep``.
+      uv: (B, 2, H, W) flow at the warp's start; not modified.
+      band, chunk: rows per gating band (a multiple of the tile that
+        ``chunk_tile(chunk, cfg)`` gives) and iterations per launch
+        (``chunk_params`` picks both).
+
+    Returns:
+      (B, 2, H, W) float32 flow after the warp.
+    """
+    return _solve_chunked(prep, uv, cfg, band, chunk, adaptive,
+                          plain=not uv.is_cuda)

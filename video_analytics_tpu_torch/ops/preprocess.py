@@ -1,8 +1,8 @@
 """Preprocessing on the device: resize → crop → normalize → stack.
 
 Port of ``video_analytics_tpu/ops/preprocess.py`` (the eval branch, which
-is what serving runs).  Arrays stay NHWC at these public boundaries, as
-in the reference.  Numerics follow the same oracles:
+is what serving and the stage commands run).  Arrays stay NHWC at these
+public boundaries, as in the reference.  Numerics follow the same oracles:
 
 - resize: bilinear with half-pixel centers and no antialiasing —
   cv2.resize(INTER_LINEAR) semantics;
@@ -27,7 +27,48 @@ import numpy as np
 import torch
 
 from video_analytics_tpu_torch.config import PreprocessConfig
-from video_analytics_tpu_torch.ops.kernels import linear_weight_matrix
+from video_analytics_tpu_torch.ops.kernels import (
+    linear_weight_matrix, resize_weights)
+
+
+@functools.lru_cache(maxsize=32)
+def _resize_weights(n_in: int, n_out: int, device: torch.device
+                    ) -> torch.Tensor:
+    return torch.from_numpy(resize_weights(n_in, n_out)).to(device)
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of (..., H, W, C) to (..., h, w, C) float32:
+    cv2.INTER_LINEAR parity, half-pixel centers, no antialias (the
+    reference's ``jax.image.resize(linear, antialias=False)``, with its
+    per-axis weight matrices)."""
+    wh = _resize_weights(x.shape[-3], out_hw[0], x.device)
+    ww = _resize_weights(x.shape[-2], out_hw[1], x.device)
+    return torch.einsum("...hwc,ho,wp->...opc", x.float(), wh, ww)
+
+
+def _short_side_hw(h: int, w: int, short: int) -> Tuple[int, int]:
+    """(h, w) scaled so that the short side equals `short`, keeping aspect
+    (torchvision Resize(int) semantics)."""
+    if h <= w:
+        return short, max(1, int(round(w * short / h)))
+    return max(1, int(round(h * short / w))), short
+
+
+def resize_short_side(x: torch.Tensor, short: int) -> torch.Tensor:
+    """Resize (..., H, W, C) so the short side equals `short`, keeping
+    aspect."""
+    return resize_bilinear(x, _short_side_hw(x.shape[-3], x.shape[-2],
+                                             short))
+
+
+def center_crop(x: torch.Tensor, crop: int) -> torch.Tensor:
+    h, w = x.shape[-3], x.shape[-2]
+    if h < crop or w < crop:
+        raise ValueError(f"cannot center-crop {crop} from {(h, w)}")
+    top = int(round((h - crop) / 2.0))
+    left = int(round((w - crop) / 2.0))
+    return x[..., top:top + crop, left:left + crop, :]
 
 
 def crop_source_geometry(h: int, w: int, short: int, crop: int):
@@ -42,10 +83,7 @@ def crop_source_geometry(h: int, w: int, short: int, crop: int):
     (resize_short_center_crop) and the host transport crop
     (ingest.windows.slice_crop_source).
     """
-    if h <= w:
-        rh, rw = short, max(1, int(round(w * short / h)))
-    else:
-        rh, rw = max(1, int(round(h * short / w))), short
+    rh, rw = _short_side_hw(h, w, short)
     if rh < crop or rw < crop:
         raise ValueError(f"cannot center-crop {crop} from {(rh, rw)}")
     top = int(round((rh - crop) / 2.0))

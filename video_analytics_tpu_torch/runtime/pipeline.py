@@ -42,13 +42,15 @@ def _check_algo(cfg: PipelineConfig) -> None:
 
 
 def compute_flow(gray_prev: torch.Tensor, gray_next: torch.Tensor,
-                 cfg: PipelineConfig) -> torch.Tensor:
+                 cfg: PipelineConfig,
+                 initial_flow: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, H, W) gray pairs → (B, H, W, 2) flow with the configured
-    algorithm."""
+    algorithm.  `initial_flow` (B, H, W, 2) seeds the coarsest level when
+    the algorithm's config sets ``use_initial_flow``."""
     _check_algo(cfg)
     if cfg.flow_algo == "tvl1":
-        return tvl1(gray_prev, gray_next, cfg.tvl1)
-    return farneback(gray_prev, gray_next, cfg.farneback)
+        return tvl1(gray_prev, gray_next, cfg.tvl1, initial_flow)
+    return farneback(gray_prev, gray_next, cfg.farneback, initial_flow)
 
 
 def _sequence_flow(gray: torch.Tensor, cfg: PipelineConfig,
