@@ -16,15 +16,21 @@ by the commands themselves.  Phases, each reported on a JSON line:
 2. kernels: call each kernel's wrapper at the serve path's shapes (15
    frame pairs at the five pyramid sizes of a 224² crop) and hold it
    against its plain PyTorch version on the same inputs, with the
-   tolerance stated; time both with CUDA events; check that an image
-   stops on its own ε test (an easy pair's flow is the same alone and
-   batched with a hard pair);
+   tolerance stated; time both with CUDA events; tvl1_warp_kernel: K-H
+   ``pd_solve_warp`` (one launch per warp, an image per thread-block
+   cluster) against ``pd_solve_plain`` at those sizes and two ragged ones,
+   at ε = 0 (bit for bit) and with ε engaged, at medians 5, 3 and none,
+   timed beside the per-iteration chain and the non-adaptive chunked
+   solver on the same warp; check that an image stops on its own ε test
+   (an easy pair's flow is the same alone and batched with a hard pair);
 3. serve: build ``ClipServer`` at full width (two ResNet-18s of width 64,
    101 classes, 16-frame windows, ``TVL1Config()``) from seed 0, warm it
    up, answer a ping and three classify requests on seeded frames, with
-   every kernel's launch counter reset just before the requests and
-   required to be > 0 after them; hold the fused probabilities against
-   the same window run through the plain versions;
+   every kernel's launch counter reset just before the requests and held
+   to the expected numbers after them (25 ``warp_prep``, 25
+   ``pd_solve_warp``, 5 ``median5`` per request and none of the
+   per-iteration kernels); hold the fused probabilities against the same
+   window run through the plain versions;
 4. profile: where one request's time goes.  Stage times on the host
    clock with a sync after each stage, then one request under
    ``torch.profiler``: device time per kernel name, the sum and the union
@@ -57,6 +63,11 @@ by the commands themselves.  Phases, each reported on a JSON line:
    error sums to 1e-5 relative; one whole warp through
    ``pd_solve_chunked`` against the per-iteration ``pd_solve`` (bit for
    bit at ε = 0, within 10·ε with the gates engaged), both timed;
+   ``band_flags`` against its plain version; tvl1_midsize:
+   ``compute-flow --algo tvl1`` on 3 frames of 280×300, whose finest level
+   fits no cluster and is under the size rule, so it takes the
+   per-iteration chain (K-B, the ε reduction and K-C counted and held to
+   the expected numbers; the coarser levels take K-H);
 9. tvl1_1080p: ``tpuva-torch compute-flow --algo tvl1`` with
    ``TVL1Config()`` on a frames directory of 11 frames of 1080×1920 (10
    pairs, ``--batch 8``), the launch counts of the TV-L1 kernels set to 0
@@ -71,8 +82,9 @@ by the commands themselves.  Phases, each reported on a JSON line:
    taken on tensors with the kernels' plain versions.
 
 Then it prints the kernel table (``{"kernels": [...]}``: for each kernel
-its launches on its main path (the serve requests; for K-G the
-``compute-flow`` command of phase 9; ``sep_corr``'s two instantiations, the
+its launches on its main path (the serve requests; for K-G and
+``band_flags`` the ``compute-flow`` command of phase 9; for K-B and the ε
+reduction the command of tvl1_midsize; ``sep_corr``'s two instantiations, the
 one-plane correlation and the five-plane one with the solve epilogue,
 have a row each), its time, its plain version's, the time
 of one PyTorch call that computes the same function where there is one,
@@ -274,11 +286,12 @@ def read_fb_counts(fk):
             "sep_corr_x_solve": fk.sep_corr.launches_solve}
 
 
-def serve_requests(server, frames, zero, read):
+def serve_requests(server, frames, zero, read, per_request=None):
     """Answer SERVE_REQUESTS classify requests with every launch count
-    set to 0 (`zero()`) just before and read (`read()`) just after.
-    Returns (request_ms, probabilities of each request, launches per
-    kernel)."""
+    set to 0 (`zero()`) just before and read (`read()`) just after; every
+    count must be > 0 or, with `per_request`, SERVE_REQUESTS times the
+    number given there.  Returns (request_ms, probabilities of each
+    request, launches per kernel)."""
     zero()
     request_ms, outs = [], []
     for _ in range(SERVE_REQUESTS):
@@ -287,7 +300,12 @@ def serve_requests(server, frames, zero, read):
         request_ms.append(1e3 * (time.perf_counter() - t0))
     launches = read()
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the serve path")
+        if per_request is None:
+            check(n > 0, f"kernel {name} was not launched on the serve path")
+        else:
+            check(n == SERVE_REQUESTS * per_request[name],
+                  f"kernel {name}: {n} launches over {SERVE_REQUESTS} "
+                  f"requests, expected {per_request[name]} per request")
     return request_ms, outs, launches
 
 
@@ -587,6 +605,236 @@ def compute_flow_phase(np):
     return launches
 
 
+def tvl1_level_inputs(torch, np, dev, h, w, pairs):
+    """(i0, i13, uv) of one TV-L1 level: `pairs` frame pairs of the moving
+    scene, the second frame with its centred gradient, and a smooth start
+    flow a few pixels off."""
+    from video_analytics_tpu_torch.ops.kernels import centered_gradient
+
+    i0 = torch.from_numpy(np.stack([scene(np, b, h, w, seed=b)
+                                    for b in range(pairs)])).to(dev)
+    i1 = torch.from_numpy(np.stack([scene(np, b + 1, h, w, seed=b)
+                                    for b in range(pairs)])).to(dev)
+    i1x, i1y = centered_gradient(i1)
+    i13 = torch.stack([i1, i1x, i1y], dim=1).contiguous()
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    uv = torch.from_numpy(np.stack([np.stack(
+        [2.5 * np.sin(6 * yy + b), -2.0 * np.cos(5 * xx - b)])
+        for b in range(pairs)]).astype(np.float32)).to(dev)
+    return i0, i13, uv
+
+
+# Levels K-H is checked at beside the serve sizes: 150 rows make strips of
+# 19 with a last one of 17; 17 rows make strips of 3, 3, 3, 3, 3, 2 and two
+# empty ones; at 256² (the size before the crop) the constants do not fit
+# in shared memory beside the state.
+RAGGED = ((150, 201), (17, 40), (256, 256))
+
+
+def warp_bound(rounds, h, w, inner, median_k):
+    """Bound of one K-H launch: prep, u and v read and u, v written once,
+    against ~70 float operations per pixel and iteration plus, with the
+    median, 113 compare-exchanges (a min and a max) on each of u and v per
+    round, for the rounds each image of this run took."""
+    px = h * w
+    per_round = 70 * inner + (2 * 2 * 113 if median_k > 1 else 0)
+    return bound(8 * 4 * px * len(rounds), per_round * px * sum(rounds))
+
+
+def tvl1_warp_kernel_phase(torch, np, dev):
+    """K-H ``pd_solve_warp`` against ``pd_solve_plain``, and one warp of
+    the serve path through the three designs.  Returns (max_abs_err, (ms,
+    plain_ms, None), bound) of one warp of 15 pairs at 224² with
+    ``TVL1Config()``."""
+    from video_analytics_tpu_torch.config import TVL1Config
+    from video_analytics_tpu_torch.ops.cuda import _build
+    from video_analytics_tpu_torch.ops.cuda import tvl1_solve as ts
+    from video_analytics_tpu_torch.ops.cuda.warp import warp_prep_plain
+
+    cfg = TVL1Config()
+    lib = _build.library()
+    report, max_err, table = {}, 0.0, None
+    for h, w in [(s, s) for s in SIZES] + list(RAGGED):
+        i0, i13, uv = tvl1_level_inputs(torch, np, dev, h, w, PAIRS)
+        prep = warp_prep_plain(i13, i0, uv)
+        geom = ts.warp_geometry(h, w)
+        check(geom is not None, f"{h}x{w} does not fit a cluster")
+        rows, consts, smem = geom
+        check(lib.va_pd_warp_smem(h, w) == smem
+              and lib.va_pd_warp_consts_in_smem(h, w) == int(consts),
+              f"warp_geometry({h}, {w}) = {geom}, the library says "
+              f"{lib.va_pd_warp_smem(h, w)} B, constants in shared memory "
+              f"{lib.va_pd_warp_consts_in_smem(h, w)}")
+        clusters = lib.va_pd_warp_max_clusters(h, w, PAIRS)
+        check(clusters >= 1, f"no cluster of {h}x{w} can be resident: "
+                             f"{clusters}")
+        entry = {"strip_rows": rows, "constants_in_shared_memory": consts,
+                 "smem_bytes": smem, "max_active_clusters": clusters}
+        rounds = torch.zeros(PAIRS, dtype=torch.int32, device=dev)
+
+        def held(c, what, exact):
+            """K-H against the plain version under config c.  Returns
+            whether the two are equal to the bit."""
+            nonlocal max_err
+            n = ts.pd_solve_warp.launches
+            got = ts.pd_solve_warp(prep, uv, c, rounds)
+            check(ts.pd_solve_warp.launches == n + 1, "launch not counted")
+            want = ts.pd_solve_plain(prep, uv, c)
+            e = (got - want).abs().max().item()
+            equal = torch.equal(got, want)
+            # With the test engaged a round may flip at the threshold on
+            # the order of the sum: the reference's bound for that.
+            check(equal if exact else e <= 10 * c.epsilon,
+                  f"pd_solve_warp at {h}x{w}, {what}: max abs {e}")
+            max_err = max(max_err, e)
+            return equal
+
+        # epsilon = 0: no test can flip, every bit must agree.
+        for k in (5, 3, 0):
+            held(dataclasses.replace(cfg, epsilon=0.0, outer_iterations=2,
+                                     median_filtering=k),
+                 f"epsilon 0, median {k}", True)
+            check(bool((rounds == 2).all()), f"rounds {rounds.tolist()}")
+        # The whole warp with the test engaged: on this scene to the bit at
+        # the finest serve size, as the native-resolution kernel is held.
+        entry["equal_with_epsilon"] = held(cfg, "TVL1Config()",
+                                           (h, w) == (SIZES[0], SIZES[0]))
+        entry["rounds"] = rounds.tolist()
+        check(min(entry["rounds"]) >= 1 and max(entry["rounds"])
+              <= cfg.outer_iterations, f"rounds {entry['rounds']}")
+        b_ms, b_by = warp_bound(entry["rounds"], h, w, cfg.inner_iterations,
+                                cfg.median_filtering)
+        exact = dataclasses.replace(cfg, epsilon=0.0)
+        entry.update(
+            ms=cuda_ms(torch, lambda: ts.pd_solve_warp(prep, uv, cfg), 5),
+            bound_ms=b_ms, bound_by=b_by,
+            ms_epsilon_0=cuda_ms(
+                torch, lambda: ts.pd_solve_warp(prep, uv, exact), 5),
+            bound_ms_epsilon_0=warp_bound(
+                [cfg.outer_iterations] * PAIRS, h, w, cfg.inner_iterations,
+                cfg.median_filtering)[0])
+        # A warp on which every image passes the test in round 1.
+        loose = dataclasses.replace(cfg, epsilon=100.0)
+        held(loose, "every image converged in round 1", True)
+        check(bool((rounds == 1).all()), f"rounds {rounds.tolist()}")
+        entry["ms_converged_in_round_1"] = cuda_ms(
+            torch, lambda: ts.pd_solve_warp(prep, uv, loose), 5)
+        if (h, w) == (SIZES[0], SIZES[0]):
+            # The same warp through the three designs.
+            band, chunk = ts.chunk_params(h, w, cfg)
+            chain = ts.pd_solve(prep, uv, cfg)
+            got = ts.pd_solve_warp(prep, uv, cfg)
+            entry["max_abs_vs_chain"] = (got - chain).abs().max().item()
+            check(entry["max_abs_vs_chain"] <= 10 * cfg.epsilon,
+                  f"pd_solve_warp vs the chain: {entry['max_abs_vs_chain']}")
+            entry.update(
+                chain_ms=cuda_ms(torch, lambda: ts.pd_solve(prep, uv, cfg), 3),
+                chunked_ms=cuda_ms(torch, lambda: ts.pd_solve_chunked(
+                    prep, uv, cfg, band, chunk, False), 3),
+                chunked_band_chunk=[band, chunk],
+                plain_ms=cuda_ms(
+                    torch, lambda: ts.pd_solve_plain(prep, uv, cfg), 1),
+                launches={"pd_solve_warp": 1,
+                          "chain": cfg.outer_iterations
+                          * (cfg.inner_iterations + 2),
+                          "chunked": cfg.outer_iterations
+                          * -(-cfg.inner_iterations // chunk) + 9})
+            table = ((entry["ms"], entry["plain_ms"], None), (b_ms, b_by))
+        report[f"{h}x{w}"] = entry
+
+    # One image and three windows' worth (more clusters than the card holds
+    # at once), and a level that fits no cluster.
+    for B in (1, 45):
+        i0, i13, uv = tvl1_level_inputs(torch, np, dev, SIZES[0], SIZES[0], B)
+        prep = warp_prep_plain(i13, i0, uv)
+        short = dataclasses.replace(cfg, epsilon=0.0, outer_iterations=1)
+        check(torch.equal(ts.pd_solve_warp(prep, uv, short),
+                          ts.pd_solve_plain(prep, uv, short)),
+              f"pd_solve_warp at batch {B}")
+    check(ts.warp_geometry(280, 280) is None
+          and lib.va_pd_warp_smem(280, 280) < 0, "280x280 fits a cluster?")
+    emit({"phase": "tvl1_warp_kernel", "pairs": PAIRS,
+          "max_abs_err": max_err, "tolerance": 0.0,
+          "tolerance_where_a_round_may_flip": 10 * cfg.epsilon,
+          "by_level": report})
+    return max_err, table[0], table[1]
+
+
+MID = (280, 300)       # finest level: under the size rule, fits no cluster
+MID_FRAMES = 3
+
+
+def tvl1_midsize_phase(torch, np, dev):
+    """``compute-flow --algo tvl1`` on frames of 280x300: the finest level
+    takes the per-iteration chain (K-B, its ε reduction, K-C), the coarser
+    ones K-H.  Returns the launches per kernel."""
+    import tempfile
+
+    from video_analytics_tpu_torch.cli.main import _load_frames
+    from video_analytics_tpu_torch.config import TVL1Config
+    from video_analytics_tpu_torch.flow.tvl1 import (
+        _level_sizes, level_solver, tvl1)
+    from video_analytics_tpu_torch.io.flowio import read_flo
+    from video_analytics_tpu_torch.io.video import write_frames
+    from video_analytics_tpu_torch.ops.cuda import tvl1_solve as ts
+    from video_analytics_tpu_torch.ops.cuda.warp import warp_prep
+    from video_analytics_tpu_torch.ops.preprocess import rgb_to_gray
+
+    cfg = TVL1Config()
+    takes = [level_solver(h, w, cfg.median_filtering)
+             for h, w in _level_sizes(*MID, cfg)]
+    check(takes[0] == "chain" and set(takes[1:]) == {"warp"},
+          f"levels of {MID} take {takes}")
+    kernels = {"tvl1_pd_step": ts.pd_step, "tvl1_eps_reduce": ts.eps_reduce,
+               "median5": ts.median5, "warp_prep": warp_prep,
+               "tvl1_pd_warp": ts.pd_solve_warp, "tvl1_pd_chunk": ts.pd_chunk}
+    planes = [scene(np, t, *MID, seed=7) for t in range(MID_FRAMES)]
+    frames = np.stack([np.stack([g * img for g in (1.0, 0.85, 0.7)], axis=-1)
+                       for img in planes]).round().astype(np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "frames"), os.path.join(tmp, "flow")
+        write_frames(frames, src)
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        rc, res = run_cli(["compute-flow", src, out, "--algo", "tvl1",
+                           "--format", "flo", "--batch", str(CF_BATCH),
+                           "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts(kernels)
+        check(rc == 0 and res["flows"] == MID_FRAMES - 1,
+              f"compute-flow --algo tvl1 at {MID} exited {rc}: {res}")
+        flow = read_flo(os.path.join(out, sorted(os.listdir(out))[0]))
+        gray = rgb_to_gray(torch.from_numpy(_load_frames(src, 3)).to(dev))
+    n_chain, n_warp = takes.count("chain"), takes.count("warp")
+    rounds = cfg.warps * cfg.outer_iterations
+    expected = {"tvl1_pd_step": n_chain * rounds * cfg.inner_iterations,
+                "tvl1_eps_reduce": n_chain * rounds,
+                "median5": n_chain * rounds + len(takes),
+                "warp_prep": len(takes) * cfg.warps,
+                "tvl1_pd_warp": n_warp * cfg.warps, "tvl1_pd_chunk": 0}
+    check(launches == expected,
+          f"compute-flow at {MID} launched {launches}, expected {expected}")
+    check(flow.shape == (*MID, 2) and bool(np.isfinite(flow).all()),
+          f"flow read back: {flow.shape}")
+    mean = flow[32:-32, 32:-32].reshape(-1, 2).mean(0).tolist()
+    check(abs(mean[0] - VEL[0]) < TOL_MEAN_FLOW
+          and abs(mean[1] - VEL[1]) < TOL_MEAN_FLOW,
+          f"mean flow {mean} at {MID}, expected {VEL}")
+    # With no test to flip, at a smaller depth, the pyramid through the chain
+    # and K-H is the plain path's to the bit.
+    with torch.no_grad():
+        exact = dataclasses.replace(cfg, epsilon=0.0, warps=2,
+                                    outer_iterations=2)
+        e = float((tvl1(gray[:2], gray[1:3], exact)
+                   - tvl1(gray[:2], gray[1:3], exact, plain=True)).abs().max())
+    check(e == 0.0, f"flow at {MID}, epsilon 0, vs the plain path: {e}")
+    emit({"phase": "tvl1_midsize", "size": list(MID), "levels_take": takes,
+          "seconds": seconds, "launches": launches, "mean_flow": mean,
+          "max_abs_vs_plain_path_at_epsilon_0": e})
+    return launches
+
+
 FULL_HD = (1080, 1920)     # a native-resolution frame: every TV-L1 level
                            # of it is above the whole-plane size rule
 HD_PAIRS = 2               # pairs per flow call in the K-G checks
@@ -604,9 +852,10 @@ def chunk_bound(B, h, w, iters, median_k):
 
 def tvl1_chunk_kernels_phase(torch, np, dev, sweep: bool):
     """K-G ``pd_chunk`` against its plain version at the five level sizes
-    of a 1080x1920 frame, and ``pd_solve_chunked`` against the
-    per-iteration ``pd_solve``.  Returns (max_abs_err, (ms, plain_ms,
-    None), bound) of a full chunk at 1080x1920."""
+    of a 1080x1920 frame, ``band_flags`` against its plain version, and
+    ``pd_solve_chunked`` against the per-iteration ``pd_solve``.  Returns
+    {name: (max_abs_err, (ms, plain_ms, None), bound)} for K-G (a full
+    chunk) and ``band_flags`` at 1080x1920."""
     from video_analytics_tpu_torch.config import TVL1Config
     from video_analytics_tpu_torch.flow.tvl1 import (
         _level_sizes, whole_plane_level)
@@ -617,7 +866,7 @@ def tvl1_chunk_kernels_phase(torch, np, dev, sweep: bool):
     cfg = TVL1Config()
     K, k = cfg.inner_iterations, cfg.median_filtering
     report, max_err, max_sum_err = {}, 0.0, 0.0
-    table = None
+    table = {}
     for h, w in _level_sizes(*FULL_HD, cfg):
         check(not whole_plane_level(h, w, k), f"{h}x{w} is a whole-plane level")
         band, chunk = ts.chunk_params(h, w, cfg)
@@ -643,13 +892,18 @@ def tvl1_chunk_kernels_phase(torch, np, dev, sweep: bool):
         act[0, 1::2] = 0                      # some bands frozen
         act[1, :1] = 0
         out = torch.empty_like(state)
+        partial = torch.empty(
+            (HD_PAIRS, n_bands, ts.chunk_partials(h, w, band, tile)),
+            device=dev)
         rest = K % chunk or chunk
         for iters in sorted({chunk, rest}):
             for do_median in (True, False):
                 for flags in (on, act):
                     out.fill_(float("nan"))
-                    err = ts.pd_chunk(prep, state, flags, cfg, iters, band,
-                                      tile, halo, do_median, out)
+                    partial.fill_(float("nan"))
+                    ts.pd_chunk(prep, state, flags, cfg, iters, band, tile,
+                                halo, do_median, out, partial)
+                    err = partial.sum(dim=2)
                     want, want_err = ts.pd_chunk_plain(
                         prep, state, flags, cfg, iters, band, do_median)
                     e = (out - want).abs().max().item()
@@ -662,14 +916,29 @@ def tvl1_chunk_kernels_phase(torch, np, dev, sweep: bool):
                           f"{what}: band sums differ by {rel} relative")
                     max_err, max_sum_err = max(max_err, e), max(max_sum_err,
                                                                 rel)
+        # A band frozen in two launches running is left alone the second
+        # time: `out` holds the first launch's copy of it.
+        ts.pd_chunk(prep, state, act, cfg, chunk, band, tile, halo, False,
+                    out, partial)
+        want, _ = ts.pd_chunk_plain(prep, state, act, cfg, chunk, band, False)
+        ts.pd_chunk(prep, state, act, cfg, chunk, band, tile, halo, False,
+                    out, partial, act)
+        check(torch.equal(out, want),
+              f"pd_chunk at {h}x{w} with prev_act: the frozen rows moved")
+        off = torch.zeros_like(on)
         times = {
             "ms": cuda_ms(torch, lambda: ts.pd_chunk(
                 prep, state, on, cfg, chunk, band, tile, halo, False, out)),
             "ms_with_median": cuda_ms(torch, lambda: ts.pd_chunk(
                 prep, state, on, cfg, chunk, band, tile, halo, True, out)),
+            "ms_with_error_sums": cuda_ms(torch, lambda: ts.pd_chunk(
+                prep, state, on, cfg, chunk, band, tile, halo, False, out,
+                partial)),
             "ms_all_frozen": cuda_ms(torch, lambda: ts.pd_chunk(
-                prep, state, torch.zeros_like(on), cfg, chunk, band, tile,
-                halo, False, out)),
+                prep, state, off, cfg, chunk, band, tile, halo, False, out)),
+            "ms_all_frozen_before_too": cuda_ms(torch, lambda: ts.pd_chunk(
+                prep, state, off, cfg, chunk, band, tile, halo, False, out,
+                None, off)),
             "plain_ms": cuda_ms(torch, lambda: ts.pd_chunk_plain(
                 prep, state, on, cfg, chunk, band, False), 3)}
         b_ms, b_by = chunk_bound(HD_PAIRS, h, w, chunk, 0)
@@ -678,8 +947,42 @@ def tvl1_chunk_kernels_phase(torch, np, dev, sweep: bool):
                               "halo": halo, **times, "bound_ms": b_ms,
                               "bound_by": b_by,
                               "bound_ms_with_median": bm_ms}
+        # band_flags: sums near the two thresholds, some bands not run.
+        gen = torch.Generator(dev).manual_seed(h)
+        eps2 = cfg.epsilon ** 2
+        n_part = partial.shape[2]
+        sums = (torch.rand(partial.shape, device=dev, generator=gen)
+                * (2 * eps2 * band * w / n_part))
+        sums[0] *= 0.5
+        kept = torch.rand((HD_PAIRS, n_bands), device=dev, generator=gen)
+        flag_err = 0.0
+        for adaptive in (True, False):
+            errs = [(kept * 2 * eps2 * band * w).clone() for _ in range(2)]
+            nxt = [torch.full_like(act, -1) for _ in range(2)]
+            ts.band_flags(sums, act, errs[0], nxt[0], band, h, w,
+                          cfg.epsilon, adaptive)
+            ts.band_flags_plain(sums, act, errs[1], nxt[1], band, h, w,
+                                cfg.epsilon, adaptive)
+            rel = ((errs[0] - errs[1]).abs() / errs[1].abs()).max().item()
+            check(rel <= TOL_CHUNK_ERR and torch.equal(nxt[0], nxt[1]),
+                  f"band_flags at {h}x{w}, adaptive {adaptive}: sums differ "
+                  f"by {rel} relative, flags {nxt[0].tolist()} vs "
+                  f"{nxt[1].tolist()}")
+            flag_err = max(flag_err, (errs[0] - errs[1]).abs().max().item())
+        times["band_flags_ms"] = cuda_ms(torch, lambda: ts.band_flags(
+            sums, on, errs[0], nxt[0], band, h, w, cfg.epsilon, True))
+        times["band_flags_plain_ms"] = cuda_ms(
+            torch, lambda: ts.band_flags_plain(
+                sums, on, errs[1], nxt[1], band, h, w, cfg.epsilon, True))
         if (h, w) == FULL_HD:
-            table = ((times["ms"], times["plain_ms"], None), (b_ms, b_by))
+            table["tvl1_pd_chunk"] = (
+                max_err, (times["ms"], times["plain_ms"], None), (b_ms, b_by))
+            # Read: the partials, the flags, the errors; written: errors and
+            # flags.  One add per partial.
+            table["tvl1_band_flags"] = (
+                flag_err, (times["band_flags_ms"],
+                           times["band_flags_plain_ms"], None),
+                bound(4 * sums.numel() + 16 * act.numel(), sums.numel()))
             # One whole warp, both solvers.  At epsilon = 0 no flag clears
             # and the tiling cannot show: bit for bit.
             exact = dataclasses.replace(cfg, epsilon=0.0, outer_iterations=2)
@@ -714,7 +1017,8 @@ def tvl1_chunk_kernels_phase(torch, np, dev, sweep: bool):
                                                        chunk, False), 2),
                 "chain_ms": cuda_ms(
                     torch, lambda: ts.pd_solve(prep, uv, cfg), 2),
-                "launches_chunked": cfg.outer_iterations * -(-K // chunk),
+                "launches_chunked": cfg.outer_iterations * -(-K // chunk)
+                + cfg.outer_iterations - 1,
                 "launches_chain": cfg.outer_iterations * (K + 2)}
             if sweep:
                 sw = {}
@@ -728,7 +1032,7 @@ def tvl1_chunk_kernels_phase(torch, np, dev, sweep: bool):
           "state_max_abs_err": max_err, "state_bit_exact": True,
           "band_sum_max_rel_err": max_sum_err, "tolerance": TOL_CHUNK_ERR,
           "by_level": report})
-    return max_err, table[0], table[1]
+    return table
 
 
 _TILE_ROWS = 4     # tile rows per gating band in the chunk sweep
@@ -781,9 +1085,10 @@ def tvl1_1080p_phase(torch, np, dev, work: str):
     src, out = os.path.join(work, "frames_1080p"), os.path.join(work,
                                                                 "flow_1080p")
     write_frames(hd_frames(np, HD_FRAMES, seed=5), src)
-    kernels = {"tvl1_pd_chunk": ts.pd_chunk, "warp_prep": warp_prep,
-               "median5": ts.median5, "tvl1_pd_step": ts.pd_step,
-               "tvl1_eps_reduce": ts.eps_reduce}
+    kernels = {"tvl1_pd_chunk": ts.pd_chunk, "tvl1_band_flags": ts.band_flags,
+               "warp_prep": warp_prep, "median5": ts.median5,
+               "tvl1_pd_step": ts.pd_step, "tvl1_eps_reduce": ts.eps_reduce,
+               "tvl1_pd_warp": ts.pd_solve_warp}
     zero_counts(kernels)
     t0 = time.perf_counter()
     rc, res = run_cli(["compute-flow", src, out, "--algo", "tvl1", "--format",
@@ -796,9 +1101,10 @@ def tvl1_1080p_phase(torch, np, dev, work: str):
 
     # Each flow call of --batch pairs runs, per level, `warps` times one
     # warp_prep and one chunked solve (outer_iterations rounds of
-    # ceil(K / chunk) launches), then the scale-end median.  Every level of
-    # a 1080x1920 frame is above the size rule: the per-iteration kernels
-    # are not launched at all.
+    # ceil(K / chunk) launches, with one of band_flags between rounds), then
+    # the scale-end median.  Every level of a 1080x1920 frame is above the
+    # size rule: neither the per-iteration kernels nor the cluster solver
+    # are launched at all.
     calls = -(-(HD_FRAMES - 1) // CF_BATCH)
     levels = _level_sizes(*FULL_HD, cfg)
     per_call = sum(
@@ -806,9 +1112,11 @@ def tvl1_1080p_phase(torch, np, dev, work: str):
         * -(-cfg.inner_iterations // ts.chunk_params(h, w, cfg)[1])
         for h, w in levels)
     expected = {"tvl1_pd_chunk": calls * per_call,
+                "tvl1_band_flags": calls * len(levels) * cfg.warps
+                * (cfg.outer_iterations - 1),
                 "warp_prep": calls * len(levels) * cfg.warps,
                 "median5": calls * len(levels), "tvl1_pd_step": 0,
-                "tvl1_eps_reduce": 0}
+                "tvl1_eps_reduce": 0, "tvl1_pd_warp": 0}
     check(launches == expected,
           f"compute-flow --algo tvl1 launched {launches}, expected {expected}")
     files = sorted(f for f in os.listdir(out) if f.endswith(".flo"))
@@ -934,10 +1242,11 @@ def stage_chain_phase(torch, np, dev, work: str, frames_dir: str,
     e_stored = close(np.load(out1)["flow"], want.cpu().numpy(),
                      "flow features of the stored flow")
 
-    # 2. The frames: both streams, TV-L1 on the 224² crop (the
-    # per-iteration kernels; no level there is above the size rule).
-    kernels = {"warp_prep": warp_prep, "tvl1_pd_step": ts.pd_step,
-               "median5": ts.median5, "tvl1_eps_reduce": ts.eps_reduce,
+    # 2. The frames: both streams, TV-L1 on the 224² crop (every level
+    # there fits a cluster: K-H, and neither the chain nor K-G).
+    kernels = {"warp_prep": warp_prep, "tvl1_pd_warp": ts.pd_solve_warp,
+               "median5": ts.median5, "tvl1_pd_step": ts.pd_step,
+               "tvl1_eps_reduce": ts.eps_reduce,
                "tvl1_pd_chunk": ts.pd_chunk}
     out2 = os.path.join(work, "features_frames.npz")
     zero_counts(kernels)
@@ -947,10 +1256,11 @@ def stage_chain_phase(torch, np, dev, work: str, frames_dir: str,
     xf_launches = read_counts(kernels)
     check(rc == 0 and res["rgb"] == [HD_FRAMES, dim]
           and res["flow"] == [1, dim], f"extract-features (frames): {res}")
-    check(xf_launches.pop("tvl1_pd_chunk") == 0,
-          "the 224² crop reached the chunked solver")
     for name, n in xf_launches.items():
-        check(n > 0, f"extract-features did not launch {name}")
+        if name in ("warp_prep", "tvl1_pd_warp", "median5"):
+            check(n > 0, f"extract-features did not launch {name}")
+        else:
+            check(n == 0, f"the 224² crop launched {name} {n} times")
     with torch.no_grad():
         frames, fcfg = apply_transport_crop(_load_frames(frames_dir, None),
                                             cfg)
@@ -1026,7 +1336,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default=None,
-                    choices=["tvl1_chunk_kernels", "tvl1_1080p",
+                    choices=["tvl1_warp_kernel", "tvl1_midsize",
+                             "tvl1_chunk_kernels", "tvl1_1080p",
                              "stage_chain"],
                     help="run the build and this phase alone (stage_chain "
                          "with tvl1_1080p, whose directories it reads), for "
@@ -1051,7 +1362,6 @@ def main(argv=None) -> int:
     from video_analytics_tpu_torch.ops.cuda import tvl1_solve as ts
     from video_analytics_tpu_torch.ops.cuda.warp import (
         warp_prep, warp_prep_plain)
-    from video_analytics_tpu_torch.ops.kernels import centered_gradient
     from video_analytics_tpu_torch.runtime.serve import ClipServer
     from video_analytics_tpu_torch.utils.device import require_cuda
 
@@ -1074,7 +1384,11 @@ def main(argv=None) -> int:
           "library": os.path.relpath(_build.build_info["path"], HERE),
           "ptxas": ptxas})
 
-    if args.only == "tvl1_chunk_kernels":
+    if args.only == "tvl1_warp_kernel":
+        tvl1_warp_kernel_phase(torch, np, dev)
+    elif args.only == "tvl1_midsize":
+        tvl1_midsize_phase(torch, np, dev)
+    elif args.only == "tvl1_chunk_kernels":
         tvl1_chunk_kernels_phase(torch, np, dev, args.sweep_chunk)
     elif args.only:
         native_phases(torch, np, dev, args.only == "stage_chain")
@@ -1089,16 +1403,7 @@ def main(argv=None) -> int:
             "tvl1_eps_reduce": 0.0}
     times = {}
     for size in SIZES:
-        i0 = torch.from_numpy(np.stack([scene(np, b, size, size, seed=b)
-                                        for b in range(PAIRS)])).to(dev)
-        i1 = torch.from_numpy(np.stack([scene(np, b + 1, size, size, seed=b)
-                                        for b in range(PAIRS)])).to(dev)
-        i1x, i1y = centered_gradient(i1)
-        i13 = torch.stack([i1, i1x, i1y], dim=1).contiguous()
-        yy, xx = np.mgrid[0:size, 0:size] / size
-        uv = torch.from_numpy(np.stack([np.stack(
-            [2.5 * np.sin(6 * yy + b), -2.0 * np.cos(5 * xx - b)])
-            for b in range(PAIRS)]).astype(np.float32)).to(dev)
+        i0, i13, uv = tvl1_level_inputs(torch, np, dev, size, size, PAIRS)
 
         prep = warp_prep(i13, i0, uv)
         prep_ref = warp_prep_plain(i13, i0, uv)
@@ -1171,6 +1476,8 @@ def main(argv=None) -> int:
           "max_abs_err": errs, "median5_bit_exact": True,
           "ms_kernel_vs_plain": times})
 
+    kh_err, kh_times, kh_bound = tvl1_warp_kernel_phase(torch, np, dev)
+
     # Per-image ε stop: an easy pair's flow must not depend on its batch.
     size = SIZES[0]
     easy = (scene(np, 0, size, size, 99, vel=(0.3, 0.1)),
@@ -1208,11 +1515,19 @@ def main(argv=None) -> int:
     pong = server.handle_request({"cmd": "ping", "id": 1})
     check(pong.get("ok") is True and pong.get("id") == 1, f"ping: {pong}")
 
-    kernels = {"warp_prep": warp_prep, "tvl1_pd_step": ts.pd_step,
-               "median5": ts.median5, "tvl1_eps_reduce": ts.eps_reduce}
+    # Every level of a 224² crop fits a cluster: per request and level 5
+    # warps of one warp_prep and one pd_solve_warp each, and the scale-end
+    # median; the per-iteration kernels not at all.
+    kernels = {"warp_prep": warp_prep, "tvl1_pd_warp": ts.pd_solve_warp,
+               "median5": ts.median5, "tvl1_pd_step": ts.pd_step,
+               "tvl1_eps_reduce": ts.eps_reduce}
+    n_levels = len(SIZES)
     request_ms, outs, launches = serve_requests(
         server, frames, lambda: zero_counts(kernels),
-        lambda: read_counts(kernels))
+        lambda: read_counts(kernels),
+        {"warp_prep": n_levels * cfg.warps,
+         "tvl1_pd_warp": n_levels * cfg.warps, "median5": n_levels,
+         "tvl1_pd_step": 0, "tvl1_eps_reduce": 0})
     probs = outs[0]
     e = check_probs(torch, np, server, frames, probs)
     emit({"phase": "serve", "warmup_s": warm_s, "request_ms": request_ms,
@@ -1233,8 +1548,8 @@ def main(argv=None) -> int:
     cf_launches = compute_flow_phase(np)
 
     # -- 8-10. native-resolution TV-L1 and the stage chain -------------------
-    kg_err, kg_times, kg_bound = tvl1_chunk_kernels_phase(
-        torch, np, dev, args.sweep_chunk)
+    kg = tvl1_chunk_kernels_phase(torch, np, dev, args.sweep_chunk)
+    mid_launches = tvl1_midsize_phase(torch, np, dev)
     hd_launches = native_phases(torch, np, dev)
 
     # -- the kernel table -----------------------------------------------------
@@ -1243,7 +1558,10 @@ def main(argv=None) -> int:
     # flow and the dual (10) and writes 6; median5 reads and writes u, v;
     # eps_reduce reads the per-block sums.  Operations per pixel: 3
     # bilinear samples and the prep (~45); one primal-dual step (~70); 113
-    # compare-exchanges of a min and a max per plane.
+    # compare-exchanges of a min and a max per plane.  pd_solve_warp's is
+    # that of the rounds its images took (warp_bound).  The per-iteration
+    # kernels are no longer on the serve path: their launches are those of
+    # the mid-size compute-flow command, whose finest level takes them.
     px = PAIRS * SIZES[0] * SIZES[0]
     blocks = ts.pd_blocks(SIZES[0], SIZES[0])
     bounds = {"warp_prep": bound(10 * 4 * px, 45 * px),
@@ -1251,13 +1569,21 @@ def main(argv=None) -> int:
               "median5": bound(4 * 4 * px, 2 * 2 * 113 * px),
               "tvl1_eps_reduce": bound(4 * PAIRS * blocks + 8 * PAIRS,
                                        PAIRS * blocks),
-              **fb_bounds, "tvl1_pd_chunk": kg_bound}
+              **fb_bounds, "tvl1_pd_warp": kh_bound,
+              **{name: v[2] for name, v in kg.items()}}
     errs.update(fb_errs)
-    errs["tvl1_pd_chunk"] = kg_err
+    errs["tvl1_pd_warp"] = kh_err
+    errs.update({name: v[0] for name, v in kg.items()})
     launches.update(fb_launches)
-    launches["tvl1_pd_chunk"] = hd_launches["tvl1_pd_chunk"]
+    for name in ("tvl1_pd_step", "tvl1_eps_reduce"):
+        launches[name] = mid_launches[name]
+    for name in kg:
+        launches[name] = hd_launches[name]
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was launched on no path")
     table_ms = {**{name: (*t, None) for name, t in times[SIZES[0]].items()},
-                **fb_times, "tvl1_pd_chunk": kg_times}
+                **fb_times, "tvl1_pd_warp": kh_times,
+                **{name: v[1] for name, v in kg.items()}}
     src = "video_analytics_tpu_torch/csrc/"
     pallas = "video_analytics_tpu/ops/pallas/"
     fbk = pallas + "farneback_kernels.py:"
@@ -1269,8 +1595,12 @@ def main(argv=None) -> int:
              [pallas + "tvl1_solve.py:191", pallas + "tvl1_solve.py:584"]),
             ("tvl1_eps_reduce", "tvl1_pd.cu", pallas + "tvl1_solve.py:165",
              [pallas + "tvl1_solve.py:191"]),
+            ("tvl1_pd_warp", "tvl1_pd_warp.cu", pallas + "tvl1_solve.py:584",
+             [pallas + "tvl1_solve.py:191", pallas + "tvl1_solve.py:415"]),
             ("tvl1_pd_chunk", "tvl1_pd_chunk.cu", pallas + "tvl1_solve.py:890",
              [pallas + "tvl1_solve.py:720", pallas + "tvl1_solve.py:1001"]),
+            ("tvl1_band_flags", "tvl1_pd_chunk.cu",
+             pallas + "tvl1_solve.py:1001", []),
             ("fb_prologue", "fb_prologue.cu", fbk + "1191", [fbk + "990"]),
             ("fb_warp_neq", "fb_warp_neq.cu", fbk + "471",
              [fbk + "263", fbk + "697", fbk + "772", fbk + "946",
@@ -1291,7 +1621,9 @@ def main(argv=None) -> int:
                        **({"launches_compute_flow": cf_launches[name]}
                           if name in cf_launches else {}),
                        **({"launches_tvl1_1080p": hd_launches[name]}
-                          if name in hd_launches else {})}
+                          if name in hd_launches else {}),
+                       **({"launches_tvl1_midsize": mid_launches[name]}
+                          if name in mid_launches else {})}
                       for name, source, replaces, also in rows]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

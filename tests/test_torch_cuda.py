@@ -151,16 +151,36 @@ def test_pd_chunk_matches_plain(dev, k, h, w, band, tile, halo, iters):
         if do_median and halo < iters + k // 2:
             continue
         out = torch.full_like(state, float("nan"))
+        partial = torch.full(
+            (2, n_bands, ts.chunk_partials(h, w, band, tile)), float("nan"),
+            device=dev)
         n = ts.pd_chunk.launches
-        err = ts.pd_chunk(prep, state, act, cfg, iters, band, tile, halo,
-                          do_median, out)
+        ts.pd_chunk(prep, state, act, cfg, iters, band, tile, halo,
+                    do_median, out, partial)
         assert ts.pd_chunk.launches == n + 1
+        err = partial.sum(dim=2)
         want, want_err = ts.pd_chunk_plain(prep, state, act, cfg, iters,
                                            band, do_median)
         assert torch.equal(out, want), (out - want).abs().max().item()
         assert err.shape == want_err.shape
         assert ((err - want_err).abs() <= 1e-5 * want_err.abs()).all()
         assert (err[act == 0] == 0).all()
+        # Without error sums the state is the same; a band frozen in the
+        # launch before as well is left alone (its rows are there already).
+        again = torch.full_like(state, float("nan"))
+        ts.pd_chunk(prep, state, act, cfg, iters, band, tile, halo,
+                    do_median, again)
+        assert torch.equal(again, want)
+        ts.pd_chunk(prep, state, act, cfg, iters, band, tile, halo,
+                    do_median, again, None, act)
+        assert torch.equal(again, want)
+        fresh = torch.full_like(state, float("nan"))
+        ts.pd_chunk(prep, state, act, cfg, iters, band, tile, halo,
+                    do_median, fresh, None, act)
+        rows = (act == 0).repeat_interleave(band, dim=1)[:, None, :h, None]
+        rows = rows.expand_as(fresh)
+        assert fresh[rows].isnan().all()
+        assert torch.equal(fresh[~rows], want[~rows])
 
 
 @pytest.mark.parametrize("adaptive", [False, True])
@@ -185,14 +205,15 @@ def test_pd_solve_chunked_matches_plain(dev, adaptive):
 
 def test_tvl1_chunked_levels_match_plain(dev):
     """``tvl1`` above the size rule (320x300 > 87,381 px): the finest
-    level takes K-G, the coarser ones the per-iteration chain."""
+    level takes K-G, the coarser one (256x240) the cluster solver."""
     i0, i1 = _images(dev, 2, 320, 300, seed=3)
     cfg = TVL1Config(nscales=2, warps=2, outer_iterations=2,
                      inner_iterations=8, epsilon=0.0)
-    n = ts.pd_chunk.launches
+    n, n_warp = ts.pd_chunk.launches, ts.pd_solve_warp.launches
     got = tvl1(i0, i1, cfg)
     band, chunk = ts.chunk_params(320, 300, cfg)
     assert ts.pd_chunk.launches - n == 2 * 2 * -(-8 // chunk)
+    assert ts.pd_solve_warp.launches - n_warp == 2
     assert torch.equal(got, tvl1(i0, i1, cfg, plain=True))
 
 
@@ -207,8 +228,97 @@ def test_pd_chunk_rejects_bad_arguments(dev):
     with pytest.raises(ValueError, match="act"):
         ts.pd_chunk(prep, state, act.long(), cfg, 2, 40, 40, 4, True, out)
     with pytest.raises(RuntimeError, match="CUDA launch failed"):
-        # a 120-wide window needs more shared memory than a block has
+        # a 120-wide window is wider than the kernel's 64-wide grid
         ts.pd_chunk(prep, state, act, cfg, 2, 40, 100, 10, True, out)
+    with pytest.raises(ValueError, match="partial"):
+        ts.pd_chunk(prep, state, act, cfg, 2, 40, 40, 4, True, out,
+                    torch.empty((1, 1, 7), device=dev))
+
+
+@pytest.mark.parametrize("adaptive", [True, False])
+@pytest.mark.parametrize("b,h,w,band,n_part", [(1, 61, 96, 16, 6),
+                                              (45, 40, 33, 40, 1),
+                                              (3, 1080, 53, 24, 70)])
+def test_band_flags_matches_plain(dev, b, h, w, band, n_part, adaptive):
+    """Flags equal; the kept band sums to 1e-5 relative (their order
+    differs).  Sums are drawn on both sides of the thresholds, none within
+    rounding of one."""
+    g = torch.Generator(dev).manual_seed(h + n_part)
+    n_bands = -(-h // band)
+    eps = 0.05
+    scale = eps * eps * band * w
+    partial = torch.rand((b, n_bands, n_part), device=dev,
+                         generator=g) * (2 * scale / n_part)
+    partial[0] *= 0.05
+    act = (torch.rand((b, n_bands), device=dev, generator=g) < 0.7).to(
+        torch.int32)
+    old = torch.rand((b, n_bands), device=dev, generator=g) * 2 * scale
+    old[-1, :1] = float("inf")
+    act[-1, :1] = 0
+    errs = [old.clone(), old.clone()]
+    nxt = [torch.full_like(act, -1), torch.full_like(act, -1)]
+    n = ts.band_flags.launches
+    ts.band_flags(partial, act, errs[0], nxt[0], band, h, w, eps, adaptive)
+    assert ts.band_flags.launches == n + 1
+    ts.band_flags_plain(partial, act, errs[1], nxt[1], band, h, w, eps,
+                        adaptive)
+    assert torch.equal(nxt[0], nxt[1])
+    finite = errs[1].isfinite()
+    assert torch.equal(errs[0].isfinite(), finite)
+    assert ((errs[0] - errs[1])[finite].abs()
+            <= 1e-5 * errs[1][finite].abs()).all()
+    with pytest.raises(ValueError, match="alias"):
+        ts.band_flags(partial, act, errs[0], act, band, h, w, eps, adaptive)
+
+
+# -- K-H: one warp in one launch, an image per thread-block cluster ----------
+
+@pytest.mark.parametrize("k", [0, 3, 5])
+@pytest.mark.parametrize("b,h,w", [
+    (1, 37, 53),         # strips of 5 rows, the last of 2
+    (3, 17, 40),         # strips of 3, 3, 3, 3, 3, 2 and two empty ones
+    (45, 19, 23),        # more clusters than the card holds; a 1-row strip
+    (2, 150, 201),       # 10 pixels a thread in registers
+    (1, 248, 296),       # over 8,192 px a strip: constants through L2
+])
+def test_pd_solve_warp_matches_plain(dev, b, h, w, k):
+    """ε = 0: bit for bit (same operations in the same order, no FMA
+    contraction).  With the test engaged a round may flip at the threshold
+    on the order of the sum, which moves the flow by less than 10·ε."""
+    cfg = dataclasses.replace(FAST, epsilon=0.0, median_filtering=k,
+                              outer_iterations=2)
+    i0, i13, uv = _level(dev, b, h, w)
+    prep = warp_prep_plain(i13, i0, uv)
+    rounds = torch.zeros(b, dtype=torch.int32, device=dev)
+    n = ts.pd_solve_warp.launches
+    got = ts.pd_solve_warp(prep, uv, cfg, rounds)
+    assert ts.pd_solve_warp.launches == n + 1
+    assert torch.equal(got, ts.pd_solve_plain(prep, uv, cfg))
+    assert (rounds == 2).all()
+    gated = dataclasses.replace(cfg, epsilon=0.05, outer_iterations=6)
+    got = ts.pd_solve_warp(prep, uv, gated, rounds)
+    want = ts.pd_solve_plain(prep, uv, gated)
+    assert (got - want).abs().max().item() <= 10 * gated.epsilon
+    assert (got - ts.pd_solve(prep, uv, gated)).abs().max().item() \
+        <= 10 * gated.epsilon
+    assert ((rounds >= 1) & (rounds <= 6)).all()
+
+
+def test_pd_solve_warp_refuses_what_it_cannot_launch(dev):
+    cfg = TVL1Config()
+    z = lambda *shape: torch.zeros(shape, device=dev)
+    n = ts.pd_solve_warp.launches
+    with pytest.raises(ValueError, match="does not fit"):
+        ts.pd_solve_warp(z(1, 4, 280, 280), z(1, 2, 280, 280), cfg)
+    with pytest.raises(ValueError, match="dtype"):
+        ts.pd_solve_warp(z(1, 4, 32, 32).double(), z(1, 2, 32, 32), cfg)
+    with pytest.raises(ValueError, match="median"):
+        ts.pd_solve_warp(z(1, 4, 32, 32), z(1, 2, 32, 32),
+                         TVL1Config(median_filtering=7))
+    with pytest.raises(ValueError, match="active"):
+        ts.pd_solve_warp(z(1, 4, 32, 32), z(1, 2, 32, 32), cfg,
+                         torch.zeros(2, dtype=torch.int32, device=dev))
+    assert ts.pd_solve_warp.launches == n
 
 
 # -- the Farneback kernels (K-D, K-E, K-F) ----------------------------------

@@ -19,8 +19,12 @@
 // Design.  The TPU kernel keeps a whole image's solver state resident in
 // VMEM for all 300 iterations of a warp.  A 224^2 image's state is ~10
 // f32 planes, ~2 MB, far over the 227 KB of shared memory an H100 block
-// has, so that design does not carry over.  This kernel instead runs one
-// launch per iteration over every image of the batch:
+// has.  A cluster of eight blocks holds it: that is tvl1_pd_warp.cu, the
+// solver of every level that fits a cluster (flow/tvl1.level_solver).  This
+// kernel is the solver of the levels that do not and are still under the
+// reference's size rule for its banded solver (about 74,000 to 87,000
+// pixels, e.g. 240x320 and 280^2).  It runs one launch per iteration over
+// every image of the batch:
 //   - each 32x8 block stages p with a one-pixel halo on the left and top
 //     (for the divergence) in shared memory, computes (un, vn) for its
 //     tile plus a one-pixel halo on the right and bottom (recomputing the
@@ -41,13 +45,11 @@
 // Bound on the H100: memory bandwidth.  Per pixel and iteration it reads
 // 10 f32 (4 solver constants, u, v, 4 dual planes) and writes 6, ~64 B,
 // for ~60 flops: ~48 MB per launch at 15 pairs of 224^2, much of which
-// stays in the 50 MB L2 between launches.  Temporal blocking (several
-// iterations per launch with a wider halo) cuts that traffic: it is
-// tvl1_pd_chunk.cu, which flow/tvl1.py takes for the levels the reference
-// sends to its banded solver (above ~295^2 with the 5x5 median).  This
-// kernel stays the path of the smaller levels, the 224^2 serve path among
-// them; moving those to the chunked kernel, or one image per thread-block
-// cluster, is later work.
+// stays in the 50 MB L2 between launches.  What a request loses on this
+// chain is the host's time for ~320 launches a warp, not the kernel's:
+// tvl1_pd_warp.cu (one launch a warp) and tvl1_pd_chunk.cu (several
+// iterations per launch, for the large planes) are the designs that
+// remove it.
 
 #include "common.cuh"
 

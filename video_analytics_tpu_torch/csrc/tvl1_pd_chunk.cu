@@ -18,18 +18,32 @@
 //
 // Design.  The six state planes (u, v, p11, p12, p21, p22) cross device
 // memory once per chunk instead of once per iteration:
-//   - a thread block owns a T x T tile of one image and loads an S x S
-//     window of all ten planes (S = T + 2*halo) into shared memory,
-//     together with 1/max(grad, 1e-10), computed once per chunk;
-//   - it then iterates the whole window in place.  un needs only its own
-//     u and the dual of the pixel, its left and its upper neighbour; the
-//     new dual needs only its own old value and un of the pixel, its right
-//     and its lower neighbour.  So each iteration is two in-place phases
-//     with a barrier after each, and no second copy of the window;
+//   - a thread block owns a T x T tile of one image and works on the S x S
+//     window around it (S = T + 2*halo <= 64), laid out on a fixed 64 x 64
+//     grid.  Its 256 threads each own 16 pixels of that grid for the whole
+//     chunk (column tid % 64, rows tid / 64 + 4k) and keep those pixels'
+//     constants in registers: I1wx, I1wy, rho_c, l_t*grad and
+//     1/max(grad, 1e-10), 80 registers of the 128 a thread may have.  Shared
+//     memory holds only the six state planes, 96 KB, so two blocks share an
+//     SM and one's window load overlaps the other's iterations.  (The state
+//     of a thread's own pixels does not fit in registers as well: two
+//     windows of 11 values a pixel are 90 K registers, the SM has 64 K.)
+//   - each iteration is two in-place phases with a barrier after each.  un
+//     needs only its own u and the dual of the pixel, its left and its upper
+//     neighbour; the new dual needs only its own old value and un of the
+//     pixel, its right and its lower neighbour.  No second copy of the window;
 //   - values at the window's edge miss a neighbour and are wrong; the
 //     error moves one pixel inwards per iteration (two more for a 5x5
 //     median).  With halo >= iters + k/2 it never reaches the tile, whose
-//     values equal those of iterating the whole plane, to the last bit;
+//     values equal those of iterating the whole plane, to the last bit.
+//     Conversely, with n iterations to go only the pixels within n of the
+//     tile can still reach a result: phase A keeps its values on the tile
+//     and n rings around it, phase B on n - 1, the median runs on the first
+//     phase A's region.  In the iterations the region only gates the
+//     stores: a thread's pixels are fixed, so columns outside would only
+//     idle lanes, and skipping rows by whole warps put a branch between a
+//     thread's pixels, which cost more than the rows saved (0.47 ms a
+//     launch at 1080x1920 with the branches, see PERF.md);
 //   - the image's true borders come from global coordinates: the forward
 //     difference is 0 on the last row and column, the divergence passes
 //     p through on the first, the median clamps its window to the image.
@@ -41,29 +55,35 @@
 //   - rows are grouped in gating bands of `band` rows.  A tile never
 //     straddles a band edge: grid y = band index * tiles_per_band + tile
 //     row in the band.  A block whose band's flag is 0 copies its tile
-//     forward and reports 0 (tvl1_solve.py:844-848);
-//   - on the chunk's last iteration each block sums (un-u)^2 + (vn-v)^2
-//     over its tile, per thread and then in a fixed tree order, and writes
-//     one float.  No float atomics: a run repeats bit for bit.
+//     forward (tvl1_solve.py:844-848), unless the band was frozen in the
+//     launch before as well (`prev_act`): then both buffers already hold
+//     the same rows and the block returns at once;
+//   - with `partial`, on the chunk's last iteration each block sums
+//     (un-u)^2 + (vn-v)^2 over its tile, per thread, then a shuffle tree,
+//     then the warps in turn, and writes one float (0 from a frozen block).
+//     No float atomics: a run repeats bit for bit.  va_band_flags sums a
+//     band's partials in a fixed order, applies the image's and the bands'
+//     tests and writes the next round's flags, all on the device.
 //
 // Bound on the H100.  Per launch the function must read 10 planes and
 // write 6 (64 B per pixel, 19 ps at 3.35 TB/s) for iters * ~70 float
 // operations per pixel (1 ps per iteration at 67 TFLOP/s): bytes are the
 // larger term below 18 iterations per launch.  This kernel reads (S/T)^2
-// times the pixels it writes and iterates all of the window.  Keeping each
-// thread's own pixels in registers (only neighbours need shared memory)
-// and shrinking the iterated region as the error moves in are later
-// tuning work.
+// times the pixels it writes.
 
 #include "common.cuh"
 #include "median_network.h"
 
+
 namespace {
 
-constexpr int CX = 32;               // threads along a row: one warp
-constexpr int CY = 32;
-constexpr int CNT = CX * CY;         // 1024 threads
-constexpr int N_SMEM_PLANES = 11;    // 6 state, 4 constants, 1/grad
+constexpr int GS = 64;               // side of the window grid; its row stride
+constexpr int GNT = 256;             // threads per block
+constexpr int GROWS = GNT / GS;      // grid rows the threads cover at once: 4
+constexpr int GPPT = GS / GROWS;     // pixels a thread owns: 16
+constexpr int GNW = GNT / 32;        // warps per block
+constexpr int PLANE = GS * GS;
+constexpr int N_SMEM_PLANES = 6;     // u, v, p11, p12, p21, p22
 
 struct ChunkGeom {
   int H, W;
@@ -71,7 +91,7 @@ struct ChunkGeom {
   int n_bands;      // cdiv(H, band)
   int tiles_band;   // tile rows per band: cdiv(band, T)
   int T;            // tile side
-  int S;            // window side: T + 2 * halo
+  int S;            // window side: T + 2 * halo, at most GS
   int halo;
   int iters;
   int median_k;     // 0 (no median in this chunk), 3 or 5
@@ -79,14 +99,14 @@ struct ChunkGeom {
 
 template <int K>
 __device__ __forceinline__ float window_median(const float* __restrict__ st,
-                                               int S, int r, int c) {
+                                               int i) {
   constexpr int R = K / 2;
   float w[K * K];
 #pragma unroll
   for (int dy = 0; dy < K; ++dy)
 #pragma unroll
     for (int dx = 0; dx < K; ++dx)
-      w[dy * K + dx] = st[(r - R + dy) * S + (c - R + dx)];
+      w[dy * K + dx] = st[i + (dy - R) * GS + (dx - R)];
   if constexpr (K == 3) {
     return va_median9(w);
   } else {
@@ -94,16 +114,16 @@ __device__ __forceinline__ float window_median(const float* __restrict__ st,
   }
 }
 
-__global__ void __launch_bounds__(CNT, 1)
+__global__ void __launch_bounds__(GNT, 2)
 pd_chunk_kernel(const float* __restrict__ prep,
                 const float* __restrict__ state_in,
                 float* __restrict__ state_out, const int* __restrict__ act,
-                float* __restrict__ partial, ChunkGeom g, float l_t,
-                float theta, float taut) {
+                const int* __restrict__ prev_act, float* __restrict__ partial,
+                ChunkGeom g, float l_t, float theta, float taut) {
   extern __shared__ float sm[];
-  const int H = g.H, W = g.W, S = g.S, SS = g.S * g.S;
+  const int H = g.H, W = g.W, S = g.S;
   const size_t hw = (size_t)H * W;
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * CX + tx;
+  const int tid = threadIdx.x, tx = tid % GS, ty = tid / GS;
   const int b = blockIdx.z;
   const int band_i = blockIdx.y / g.tiles_band;
   const int y0 = band_i * g.band + (blockIdx.y % g.tiles_band) * g.T;
@@ -111,185 +131,282 @@ pd_chunk_kernel(const float* __restrict__ prep,
   const int x0 = blockIdx.x * g.T;
   const int x1 = min(x0 + g.T, W);
   float* my_partial =
-      partial + ((size_t)b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+      partial == nullptr
+          ? nullptr
+          : partial + ((size_t)b * gridDim.y + blockIdx.y) * gridDim.x +
+                blockIdx.x;
   const float* sin_g = state_in + (size_t)b * 6 * hw;
   float* sout_g = state_out + (size_t)b * 6 * hw;
 
   if (y0 >= y1) {  // a tile row past the band's or the image's end
-    if (tid == 0) *my_partial = 0.0f;
+    if (my_partial != nullptr && tid == 0) *my_partial = 0.0f;
     return;
   }
-  if (!act[b * g.n_bands + band_i]) {  // uniform: frozen band, copy forward
-    for (int y = y0 + ty; y < y1; y += CY)
-      for (int x = x0 + tx; x < x1; x += CX) {
-        const size_t o = (size_t)y * W + x;
+  const int flag = b * g.n_bands + band_i;
+  if (!act[flag]) {  // uniform: a frozen band
+    // Frozen in the launch before too: that launch copied these rows from
+    // the buffer this one would write, so both hold them already.
+    if (prev_act == nullptr || prev_act[flag]) {
+      for (int y = y0 + ty; y < y1; y += GROWS)
+        for (int x = x0 + tx; x < x1; x += GS) {
+          const size_t o = (size_t)y * W + x;
 #pragma unroll
-        for (int k = 0; k < 6; ++k) sout_g[k * hw + o] = sin_g[k * hw + o];
-      }
-    if (tid == 0) *my_partial = 0.0f;
+          for (int k = 0; k < 6; ++k) sout_g[k * hw + o] = sin_g[k * hw + o];
+        }
+    }
+    if (my_partial != nullptr && tid == 0) *my_partial = 0.0f;
     return;
   }
 
   float* su = sm;
-  float* sv = sm + SS;
-  float* sp = sm + 2 * SS;           // p11, p12, p21, p22
-  float* swx = sm + 6 * SS;
-  float* swy = sm + 7 * SS;
-  float* sgr = sm + 8 * SS;
-  float* srho = sm + 9 * SS;
-  float* sinv = sm + 10 * SS;
-  float* red = sm + N_SMEM_PLANES * SS;   // CNT floats
+  float* sv = sm + PLANE;
+  float* sp = sm + 2 * PLANE;        // p11, p12, p21, p22
+  float* red = sm + N_SMEM_PLANES * PLANE;   // GNW floats
   const float* prep_g = prep + (size_t)b * 4 * hw;
-  const int oy = y0 - g.halo, ox = x0 - g.halo;
+  const int halo = g.halo, iters = g.iters;
+  const int oy = y0 - halo, ox = x0 - halo;
+  const int th_ = y1 - y0, tw_ = x1 - x0;    // the tile's rows and columns
   const bool med = g.median_k > 1;
+  // This thread's column, and the window's rows, inside the image.
+  const int gx = ox + tx;
+  const bool col_win = tx < S;
+  const bool col_in = col_win && gx >= 0 && gx < W;
+  const int rimg0 = max(0, -oy), rimg1 = min(S, H - oy);
 
-  // The constants, and either the state or (before a median) raw u and v
-  // at clamped coordinates, staged where p11 and p12 will live.
-  for (int r = ty; r < S; r += CY)
-    for (int c = tx; c < S; c += CX) {
-      const int gy = oy + r, gx = ox + c, i = r * S + c;
-      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      const size_t o = (size_t)gy * W + gx;
-      const float gr = in ? prep_g[2 * hw + o] : 0.0f;
-      swx[i] = in ? prep_g[o] : 0.0f;
-      swy[i] = in ? prep_g[hw + o] : 0.0f;
-      sgr[i] = gr;
-      srho[i] = in ? prep_g[3 * hw + o] : 0.0f;
-      sinv[i] = 1.0f / fmaxf(gr, 1e-10f);
-      if (med) {
-        const size_t oc = (size_t)min(max(gy, 0), H - 1) * W +
-                          min(max(gx, 0), W - 1);
-        sp[i] = sin_g[oc];
-        sp[SS + i] = sin_g[hw + oc];
-      } else {
+  // The constants of this thread's pixels, and either the state or (before
+  // a median) raw u and v at clamped coordinates, staged where p11 and p12
+  // will live.
+  float cwx[GPPT], cwy[GPPT], crho[GPPT], cth[GPPT], cinv[GPPT];
 #pragma unroll
-        for (int k = 0; k < 6; ++k) sm[k * SS + i] = in ? sin_g[k * hw + o] : 0.0f;
-      }
+  for (int k = 0; k < GPPT; ++k) {
+    const int r = ty + GROWS * k, i = r * GS + tx;
+    const bool in = col_in && r >= rimg0 && r < rimg1;
+    const size_t o = in ? (size_t)(oy + r) * W + gx : 0;
+    const float gr = in ? prep_g[2 * hw + o] : 0.0f;
+    cwx[k] = in ? prep_g[o] : 0.0f;
+    cwy[k] = in ? prep_g[hw + o] : 0.0f;
+    crho[k] = in ? prep_g[3 * hw + o] : 0.0f;
+    cth[k] = l_t * gr;
+    cinv[k] = 1.0f / fmaxf(gr, 1e-10f);
+    if (!col_win || r >= S) continue;
+    if (med) {
+      const size_t oc = (size_t)min(max(oy + r, 0), H - 1) * W +
+                        min(max(gx, 0), W - 1);
+      sp[i] = sin_g[oc];
+      sp[PLANE + i] = sin_g[hw + oc];
+    } else {
+#pragma unroll
+      for (int q = 0; q < 6; ++q)
+        sm[q * PLANE + i] = in ? sin_g[q * hw + o] : 0.0f;
     }
+  }
   __syncthreads();
   if (med) {
-    const int R = g.median_k / 2;
-    for (int r = ty; r < S; r += CY)
-      for (int c = tx; c < S; c += CX) {
-        const int i = r * S + c;
-        if (r < R || r >= S - R || c < R || c >= S - R) {
-          su[i] = sp[i];               // window leaves the tile: in the halo
-          sv[i] = sp[SS + i];
-        } else if (g.median_k == 3) {
-          su[i] = window_median<3>(sp, S, r, c);
-          sv[i] = window_median<3>(sp + SS, S, r, c);
-        } else {
-          su[i] = window_median<5>(sp, S, r, c);
-          sv[i] = window_median<5>(sp + SS, S, r, c);
-        }
+    // Wanted where the first phase A runs: the tile and `iters` rings.
+    const int r0 = max(halo - iters, rimg0);
+    const int r1 = min(halo + th_ + iters, rimg1);
+    const bool col = col_in && tx >= halo - iters && tx < halo + tw_ + iters;
+#pragma unroll 1
+    for (int k = 0; k < GPPT; ++k) {
+      const int r = ty + GROWS * k, i = r * GS + tx;
+      if (!col || r < r0 || r >= r1) continue;
+      if (g.median_k == 3) {
+        su[i] = window_median<3>(sp, i);
+        sv[i] = window_median<3>(sp + PLANE, i);
+      } else {
+        su[i] = window_median<5>(sp, i);
+        sv[i] = window_median<5>(sp + PLANE, i);
       }
+    }
     __syncthreads();
-    for (int r = ty; r < S; r += CY)
-      for (int c = tx; c < S; c += CX) {
-        const int gy = oy + r, gx = ox + c, i = r * S + c;
-        const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-        const size_t o = (size_t)gy * W + gx;
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          sp[k * SS + i] = in ? sin_g[(2 + k) * hw + o] : 0.0f;
-      }
+    for (int k = 0; k < GPPT; ++k) {
+      const int r = ty + GROWS * k, i = r * GS + tx;
+      if (!col_win || r >= S) continue;
+      const bool in = col_in && r >= rimg0 && r < rimg1;
+      const size_t o = in ? (size_t)(oy + r) * W + gx : 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        sp[q * PLANE + i] = in ? sin_g[(2 + q) * hw + o] : 0.0f;
+    }
     __syncthreads();
   }
 
-  const int ry1 = g.halo + (y1 - y0), rx1 = g.halo + (x1 - x0);
+  // In the iterations every load is in bounds whatever the pixel (the six
+  // planes are one array; the first two have no upper or left reader, the
+  // last four no lower or right one), the edges are selects, and only the
+  // stores are predicated:
+  // no branch separates a thread's pixels, so the compiler interleaves them.
+  // A neighbour outside the window or the image is read but never selected
+  // into a result that is kept.
+  const bool x_first = gx == 0, x_last = gx >= W - 1;
   float e = 0.0f;
-  for (int it = 0; it < g.iters; ++it) {
-    const bool last = it == g.iters - 1;
-    // Phase A: (u, v) <- (un, vn), in place.
-    for (int r = ty; r < S; r += CY)
-      for (int c = tx; c < S; c += CX) {
-        const int gy = oy + r, gx = ox + c, i = r * S + c;
-        if (gy < 0 || gy >= H || gx < 0 || gx >= W) continue;
-        const float wx = swx[i], wy = swy[i];
+  for (int it = 0; it < iters; ++it) {
+    const int m = iters - it;          // iterations to go, this one included
+    const bool sum_e = my_partial != nullptr && m == 1;
+    // Phase A: (u, v) <- (un, vn), in place, on the tile and m rings.
+    {
+      const int r0 = max(halo - m, rimg0);
+      const int r1 = min(halo + th_ + m, rimg1);
+      const bool col = col_in && tx >= halo - m && tx < halo + tw_ + m;
+#pragma unroll
+      for (int k = 0; k < GPPT; ++k) {
+        const int r = ty + GROWS * k, i = r * GS + tx;
+        const bool y_first = oy + r == 0;
+        const float wx = cwx[k], wy = cwy[k];
         const float uu = su[i], vv = sv[i];
-        const float rho = srho[i] + wx * uu + wy * vv;
-        const float th = l_t * sgr[i];
-        const float d = rho < -th ? l_t : (rho > th ? -l_t : -rho * sinv[i]);
+        const float p11 = sp[i], p12 = sp[PLANE + i];
+        const float p21 = sp[2 * PLANE + i], p22 = sp[3 * PLANE + i];
+        const float l11 = sp[i - 1], a12 = sp[PLANE + i - GS];
+        const float l21 = sp[2 * PLANE + i - 1], a22 = sp[3 * PLANE + i - GS];
+        const float rho = crho[k] + wx * uu + wy * vv;
+        const float th = cth[k];
+        const float d = rho < -th ? l_t : (rho > th ? -l_t : -rho * cinv[k]);
         const float v1 = uu + d * wx;
         const float v2 = vv + d * wy;
-        const float p11 = sp[i], p12 = sp[SS + i];
-        const float p21 = sp[2 * SS + i], p22 = sp[3 * SS + i];
-        // A neighbour outside the window reads as 0: such a value is in
-        // the halo's outer ring, which no result depends on.
-        const float d11 = gx == 0 ? p11 : p11 - (c > 0 ? sp[i - 1] : 0.0f);
-        const float d12 = gy == 0 ? p12 : p12 - (r > 0 ? sp[SS + i - S] : 0.0f);
-        const float d21 =
-            gx == 0 ? p21 : p21 - (c > 0 ? sp[2 * SS + i - 1] : 0.0f);
-        const float d22 =
-            gy == 0 ? p22 : p22 - (r > 0 ? sp[3 * SS + i - S] : 0.0f);
+        const float d11 = x_first ? p11 : p11 - l11;
+        const float d12 = y_first ? p12 : p12 - a12;
+        const float d21 = x_first ? p21 : p21 - l21;
+        const float d22 = y_first ? p22 : p22 - a22;
         const float un = v1 + theta * (d11 + d12);
         const float vn = v2 + theta * (d21 + d22);
-        if (last && r >= g.halo && r < ry1 && c >= g.halo && c < rx1) {
+        if (sum_e) {                   // uniform
           const float du = un - uu, dv = vn - vv;
-          e += du * du + dv * dv;
+          const bool tile = r >= halo && r < halo + th_ && tx >= halo &&
+                            tx < halo + tw_;
+          e += tile ? du * du + dv * dv : 0.0f;
         }
-        su[i] = un;
-        sv[i] = vn;
+        if (col && r >= r0 && r < r1) {
+          su[i] = un;
+          sv[i] = vn;
+        }
       }
+    }
     __syncthreads();
-    // Phase B: the dual variables from the forward gradient of (un, vn).
-    for (int r = ty; r < S; r += CY)
-      for (int c = tx; c < S; c += CX) {
-        const int gy = oy + r, gx = ox + c, i = r * S + c;
-        if (gy < 0 || gy >= H || gx < 0 || gx >= W) continue;
+    // Phase B: the dual variables from the forward gradient of (un, vn),
+    // on the tile and m - 1 rings.
+    {
+      const int r0 = max(halo - (m - 1), rimg0);
+      const int r1 = min(halo + th_ + (m - 1), rimg1);
+      const bool col =
+          col_in && tx >= halo - (m - 1) && tx < halo + tw_ + (m - 1);
+#pragma unroll
+      for (int k = 0; k < GPPT; ++k) {
+        const int r = ty + GROWS * k, i = r * GS + tx;
+        const bool y_last = oy + r >= H - 1;
         const float un = su[i], vn = sv[i];
-        const bool right = c + 1 < S, below = r + 1 < S;
-        const float ux = gx < W - 1 ? (right ? su[i + 1] : 0.0f) - un : 0.0f;
-        const float uy = gy < H - 1 ? (below ? su[i + S] : 0.0f) - un : 0.0f;
-        const float vx = gx < W - 1 ? (right ? sv[i + 1] : 0.0f) - vn : 0.0f;
-        const float vy = gy < H - 1 ? (below ? sv[i + S] : 0.0f) - vn : 0.0f;
+        const float ru = su[i + 1], bu = su[i + GS];
+        const float rv = sv[i + 1], bv = sv[i + GS];
+        const float p11 = sp[i], p12 = sp[PLANE + i];
+        const float p21 = sp[2 * PLANE + i], p22 = sp[3 * PLANE + i];
+        const float ux = x_last ? 0.0f : ru - un;
+        const float uy = y_last ? 0.0f : bu - un;
+        const float vx = x_last ? 0.0f : rv - vn;
+        const float vy = y_last ? 0.0f : bv - vn;
         const float inv_u = 1.0f / (1.0f + taut * sqrtf(ux * ux + uy * uy));
         const float inv_v = 1.0f / (1.0f + taut * sqrtf(vx * vx + vy * vy));
-        sp[i] = (sp[i] + taut * ux) * inv_u;
-        sp[SS + i] = (sp[SS + i] + taut * uy) * inv_u;
-        sp[2 * SS + i] = (sp[2 * SS + i] + taut * vx) * inv_v;
-        sp[3 * SS + i] = (sp[3 * SS + i] + taut * vy) * inv_v;
+        if (col && r >= r0 && r < r1) {
+          sp[i] = (p11 + taut * ux) * inv_u;
+          sp[PLANE + i] = (p12 + taut * uy) * inv_u;
+          sp[2 * PLANE + i] = (p21 + taut * vx) * inv_v;
+          sp[3 * PLANE + i] = (p22 + taut * vy) * inv_v;
+        }
       }
-    __syncthreads();
-  }
-
-  for (int r = g.halo + ty; r < ry1; r += CY)
-    for (int c = g.halo + tx; c < rx1; c += CX) {
-      const size_t o = (size_t)(oy + r) * W + (ox + c);
-      const int i = r * S + c;
-#pragma unroll
-      for (int k = 0; k < 6; ++k) sout_g[k * hw + o] = sm[k * SS + i];
     }
-
-  red[tid] = e;
-  __syncthreads();
-  for (int s = CNT / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] += red[tid + s];
     __syncthreads();
   }
-  if (tid == 0) *my_partial = red[0];
+
+  if (tx >= halo && tx < halo + tw_) {
+#pragma unroll
+    for (int k = 0; k < GPPT; ++k) {
+      const int r = ty + GROWS * k, i = r * GS + tx;
+      if (r < halo || r >= halo + th_) continue;
+      const size_t o = (size_t)(oy + r) * W + gx;
+#pragma unroll
+      for (int q = 0; q < 6; ++q) sout_g[q * hw + o] = sm[q * PLANE + i];
+    }
+  }
+
+  if (my_partial != nullptr) {   // uniform
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) e += __shfl_xor_sync(0xffffffffu, e, d);
+    if ((tid & 31) == 0) red[tid >> 5] = e;
+    __syncthreads();
+    if (tid == 0) {
+      float t = 0.0f;
+      for (int w = 0; w < GNW; ++w) t += red[w];
+      *my_partial = t;
+    }
+  }
+}
+
+// One block per image.  A band that ran (act) takes the sum of its blocks'
+// partials as its error, the others keep theirs; the image has converged
+// when the bands' errors sum to less than eps2 a pixel; a band runs next
+// round unless the image has converged or, with `adaptive`, it and both its
+// neighbours are under eps2 a pixel on their own.
+__global__ void __launch_bounds__(GNT)
+band_flags_kernel(const float* __restrict__ partial, int n_part,
+                  const int* __restrict__ act, float* __restrict__ err_band,
+                  int* __restrict__ act_next, int n_bands, int band, int H,
+                  int W, float n_px, float eps2, int adaptive) {
+  extern __shared__ float serr[];      // n_bands errors, then the verdict
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  for (int j = tid >> 5; j < n_bands; j += GNW) {   // a warp per band
+    const int o = b * n_bands + j;
+    float v;
+    if (act[o]) {
+      v = 0.0f;
+      for (int q = lane; q < n_part; q += 32)
+        v += partial[(size_t)o * n_part + q];
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+      if (lane == 0) err_band[o] = v;
+    } else {
+      v = err_band[o];
+    }
+    if (lane == 0) serr[j] = v;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float t = 0.0f;
+    for (int j = 0; j < n_bands; ++j) t += serr[j];
+    serr[n_bands] = t / n_px < eps2 ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+  const bool converged = serr[n_bands] != 0.0f;
+  for (int j = tid; j < n_bands; j += GNT) {
+    bool run = !converged;
+    if (run && adaptive) {
+      run = false;
+      for (int q = max(j - 1, 0); q <= min(j + 1, n_bands - 1); ++q) {
+        const float px = (float)(min(band, H - band * q) * W);
+        run = run || serr[q] >= eps2 * px;
+      }
+    }
+    act_next[b * n_bands + j] = run ? 1 : 0;
+  }
 }
 
 }  // namespace
 
-// Bytes of dynamic shared memory a block of window side S needs.
-VA_EXPORT int va_pd_chunk_smem(int S) {
-  return (N_SMEM_PLANES * S * S + CNT) * (int)sizeof(float);
-}
-
 // prep: (B, 4, H, W) I1wx, I1wy, grad, rho_c; state_in/state_out:
 // (B, 6, H, W) u, v, p11, p12, p21, p22, distinct buffers; act:
-// (B, cdiv(H, band)) int32, one flag per gating band; partial:
-// (B, n_bands * cdiv(band, T), cdiv(W, T)) one error sum per block (0 from
-// a frozen block).  halo >= iters + median_k / 2; median_k in {0, 3, 5}.
+// (B, cdiv(H, band)) int32, one flag per gating band; prev_act: null, or the
+// flags of the launch before, whose state_out was this launch's state_in
+// and whose state_in this launch's state_out; partial: null, or
+// (B, n_bands * cdiv(band, T), cdiv(W, T)), one error sum per block (0 from
+// a frozen block).  halo >= iters + median_k / 2; T + 2 * halo <= 64;
+// median_k in {0, 3, 5}.
 VA_EXPORT int va_pd_chunk(const float* prep, const float* state_in,
-                          float* state_out, const int* act, float* partial,
-                          int B, int H, int W, int band, int T, int halo,
-                          int iters, int median_k, float l_t, float theta,
-                          float taut, void* stream) {
+                          float* state_out, const int* act,
+                          const int* prev_act, float* partial, int B, int H,
+                          int W, int band, int T, int halo, int iters,
+                          int median_k, float l_t, float theta, float taut,
+                          void* stream) {
   if (iters < 1 || T < 1 || band < 1 ||
       (median_k != 0 && median_k != 3 && median_k != 5) ||
-      halo < iters + median_k / 2)
+      halo < iters + median_k / 2 || T + 2 * halo > GS)
     return (int)cudaErrorInvalidValue;
   ChunkGeom g;
   g.H = H;
@@ -302,17 +419,37 @@ VA_EXPORT int va_pd_chunk(const float* prep, const float* state_in,
   g.halo = halo;
   g.iters = iters;
   g.median_k = median_k;
-  const int smem = va_pd_chunk_smem(g.S);
+  constexpr int smem = (N_SMEM_PLANES * PLANE + GNW) * (int)sizeof(float);
   // Above 48 KB a kernel must opt in to its dynamic shared memory.
-  cudaError_t err = cudaFuncSetAttribute(
-      pd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it: the next launch must not see it
-    return (int)err;
+  static bool opted_in = false;
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        pd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it: the next launch must not see it
+      return (int)err;
+    }
+    opted_in = true;
   }
-  const dim3 block(CX, CY);
   const dim3 grid(va::cdiv(W, T), g.n_bands * g.tiles_band, B);
-  pd_chunk_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      prep, state_in, state_out, act, partial, g, l_t, theta, taut);
+  pd_chunk_kernel<<<grid, GNT, smem, (cudaStream_t)stream>>>(
+      prep, state_in, state_out, act, prev_act, partial, g, l_t, theta, taut);
+  return (int)cudaGetLastError();
+}
+
+// partial: (B, n_bands, n_part) from the round's last va_pd_chunk; act:
+// (B, n_bands) the flags that round ran with; err_band: (B, n_bands), updated
+// in place for the bands that ran; act_next: (B, n_bands), the next round's
+// flags, a buffer other than act.
+VA_EXPORT int va_band_flags(const float* partial, const int* act,
+                            float* err_band, int* act_next, int B,
+                            int n_bands, int n_part, int band, int H, int W,
+                            float eps2, int adaptive, void* stream) {
+  if (B < 1 || n_bands < 1 || n_bands != va::cdiv(H, band) || n_part < 1)
+    return (int)cudaErrorInvalidValue;
+  const int smem = (n_bands + 1) * (int)sizeof(float);
+  band_flags_kernel<<<B, GNT, smem, (cudaStream_t)stream>>>(
+      partial, n_part, act, err_band, act_next, n_bands, band, H, W,
+      (float)(H * W), eps2, adaptive);
   return (int)cudaGetLastError();
 }

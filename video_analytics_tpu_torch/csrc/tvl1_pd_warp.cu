@@ -1,0 +1,561 @@
+// K-H tvl1_pd_warp: the whole TV-L1 primal-dual solve of one warp in one
+// launch, one image per thread-block cluster, the solver state resident
+// in (distributed) shared memory from the first iteration to the last.
+//
+// Replaces the solvers of video_analytics_tpu/ops/pallas/tvl1_solve.py
+// that keep an image's state on chip for a whole warp: tvl1_solve_warp,
+// tvl1_solve_warp_packed and the solver half of tvl1_scale_pallas.  It
+// computes what the per-iteration chain of tvl1_pd.cu + median.cu computes
+// (ops/cuda/tvl1_solve.pd_solve): up to `outer` rounds, each the k x k
+// median of (u, v) (k in {0, 3, 5}, replicate border), `inner` iterations of
+//   rho = rho_c + I1wx*u + I1wy*v
+//   d   = l_t if rho < -l_t*grad, -l_t if rho > l_t*grad,
+//         else -rho / max(grad, 1e-10)
+//   un  = u + d*I1wx + theta * div(p11, p12)   (vn likewise with p21, p22)
+//   p  <- (p + taut*grad(un)) / (1 + taut*|grad(un)|)
+// and the test  mean((un-u)^2 + (vn-v)^2) of the last iteration < eps^2,
+// after which the image's state is final.  The dual starts at zero.
+//
+// Design.  One block has 227 KB of shared memory, a 224^2 image's six state
+// planes are 1.2 MB; a cluster of eight blocks has 8 x 227 KB.  So:
+//   - grid (8, B), cluster (8, 1, 1): block r of an image's cluster owns the
+//     strip of RS = ceil(H / 8) rows from r * RS (a late block's strip may
+//     be short or empty; it still takes part in every barrier).  u, v, p11,
+//     p12, p21, p22 of the strip live in its shared memory for the whole
+//     warp: device memory is read once (prep, u, v) and written once (u, v);
+//   - an iteration is two in-place phases.  Phase A forms (un, vn) from the
+//     pixel's own u, v and the dual of the pixel, its left and its upper
+//     neighbour; phase B forms the new dual from un of the pixel, its right
+//     and its lower neighbour.  Neither writes what the other's neighbours
+//     read.  The row above a strip (p12, p22) and the row below it (un, vn)
+//     live in halo rows of the strip's own planes, which the neighbouring
+//     block fills through distributed shared memory
+//     (cluster.map_shared_rank) as it computes them: a remote store is not
+//     waited for, a remote load in every iteration would be.  A cluster
+//     barrier follows each phase, two an iteration at ~1 us each.  (Split
+//     into arrive and wait, with the pixels that read no halo row worked on
+//     between the halves after a block barrier, the warp took 1.1 times as
+//     long: the second pass over a thread's pixels costs more than the
+//     wait.)  The phases are free of branches (edges
+//     are selects on loads that are always in bounds), so the compiler
+//     interleaves a thread's pixels;
+//   - a thread owns the same pixels of the strip throughout (pixel tid +
+//     k * 512 of the strip as one flat array, so neighbouring threads read
+//     neighbouring words).  The constants of prep never change during a
+//     warp.  Each thread keeps l_t*grad and 1/max(grad, 1e-10) of its
+//     pixels in registers (2 x 13 at 224^2); I1wx, I1wy and rho_c of the
+//     strip lie in shared memory beside the state where nine planes fit
+//     (up to 224^2: 229,632 B), and are read from prep, through L2, each
+//     iteration where they do not (256^2; no slower per pixel there).  The
+//     kernel is instantiated for 4, 8, 13, 16 and 20 pixels a thread;
+//   - the unrolled phases must not let the compiler hoist what is invariant
+//     over the iterations (every pixel's addresses and edge predicates): it
+//     spills them, 544 B a thread at 13 pixels, and the warp takes 1.5 times
+//     as long.  The thread's index and flag words are therefore copied
+//     through an opaque move once an iteration (`opaque`);
+//   - the median gathers its window from the raw u, v of the strip and of
+//     up to two rows of each neighbour (read through distributed shared
+//     memory, clamped to the image), writes the result to the strip's rows
+//     of the output buffer, and after a cluster barrier each thread reads
+//     back what it wrote.  No scratch plane: the dual carries over between
+//     rounds;
+//   - the test stays inside.  Each block sums its strip's squared update in
+//     a fixed order (per thread, a shuffle tree, the warps in turn); every
+//     thread then adds the eight block sums in rank order, so the decision
+//     is the same in every thread of the cluster and an image leaves the
+//     loop on its own round.  No flag in device memory, no atomics, no host
+//     read: a run repeats bit for bit and an image's result does not depend
+//     on its batch.  A last barrier keeps a block's shared memory alive
+//     until its neighbours have read it.
+// The arithmetic and its order are those of tvl1_pd.cu (no FMA contraction,
+// IEEE division and square root), so the state equals the plain version's
+// to the last bit; only the order of the test's sum differs.
+//
+// Bound on the H100: operations.  The function reads 6 planes and writes 2
+// (32 B a pixel) for rounds * (inner * ~70 + 2 * 2 * 113 with the 5x5
+// median) float operations a pixel: at 15 pairs of 224^2 and 300 iterations
+// 15.8 GFLOP, 0.24 ms at 67 TFLOP/s, against 0.007 ms for the bytes.
+
+#include <cooperative_groups.h>
+
+#include "common.cuh"
+#include "median_network.h"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int CL = 8;                 // blocks per cluster: portable maximum
+constexpr int WNT = 512;              // threads per block
+constexpr int WNW = WNT / 32;         // warps per block
+constexpr int SCRATCH = 64;           // floats: WNW warp sums, the block's sum,
+                                      // the padding before p11 and p21
+constexpr int MAX_SMEM = 232448;      // bytes a block may opt in to
+
+// A copy of x the compiler cannot see through.  Taken once an iteration of
+// the thread's index and flag words: what is derived from them (a pixel's
+// addresses, its edge predicates) is then formed anew each iteration from
+// two or three registers, not hoisted out of the loop for every pixel of
+// the thread and spilled.
+__device__ __forceinline__ int opaque(int x) {
+  int y;
+  asm volatile("mov.b32 %0, %1;" : "=r"(y) : "r"(x));
+  return y;
+}
+__device__ __forceinline__ unsigned long long opaque(unsigned long long x) {
+  unsigned long long y;
+  asm volatile("mov.b64 %0, %1;" : "=l"(y) : "l"(x));
+  return y;
+}
+
+// Per-pixel position flags within the strip.
+constexpr unsigned F_LEFT = 1u;       // first column of the image
+constexpr unsigned F_RIGHT = 2u;      // last column of the image
+constexpr unsigned F_TOP = 4u;        // first row of the strip
+constexpr unsigned F_BOT = 8u;        // last row of the strip
+
+struct WarpGeom {
+  int H, W;
+  int RS;          // rows per strip: cdiv(H, CL)
+  int inner;       // iterations per round
+  int outer;       // rounds at most
+  int median_k;    // 0, 3 or 5
+  float l_t, theta, taut;
+  float eps2;      // the test's threshold, epsilon squared
+  float n_px;      // H * W
+};
+
+// What a block knows of its strip.  Pixel i of the strip (row-major, n of
+// them) is su[i], sv[i], sp11[i], sp21[i], sp12[W + i], sp22[W + i].
+struct Strip {
+  float* su;       // n floats, then a halo row: the first row of the strip
+  float* sv;       //   below, stored there by the block that owns it
+  float* sp11;     // n floats (one float of padding before each)
+  float* sp21;
+  float* sp12;     // a halo row (the last row of the strip above, stored by
+  float* sp22;     //   its owner; zeros in the first strip), then n floats
+  const float* cwx;    // I1wx, I1wy, rho_c of the strip: shared memory or prep
+  const float* cwy;
+  const float* crho;
+  float* up_u;     // the halo rows of u, v of the block above
+  float* up_v;
+  float* dn_p12;   // the halo rows of p12, p22 of the block below
+  float* dn_p22;
+  int W;
+  int rows;            // rows of this strip
+  bool first;          // the strip holds the image's first row
+  bool last;           // ... its last row
+  float l_t, theta, taut;
+};
+
+__device__ __forceinline__ unsigned edge_flags(int i, int W, int rows) {
+  const int r = i / W, c = i - r * W;
+  return (c == 0 ? F_LEFT : 0u) | (c == W - 1 ? F_RIGHT : 0u) |
+         (r == 0 ? F_TOP : 0u) | (r == rows - 1 ? F_BOT : 0u);
+}
+
+// Phase A at pixel i of the strip: (u, v) <- (un, vn) in place, and into
+// the halo of the block above for the strip's first row.  Every load is in
+// bounds whatever the flags; the edges are selects.  Returns the squared
+// update if SQ, else 0.
+template <bool SQ>
+__device__ __forceinline__ float step_a(const Strip& s, int i, unsigned f,
+                                        float th, float inv_grad) {
+  const float wx = s.cwx[i], wy = s.cwy[i], rho_c = s.crho[i];
+  const float uu = s.su[i], vv = s.sv[i];
+  const float p11 = s.sp11[i], p21 = s.sp21[i];
+  const float l11 = s.sp11[i - 1], l21 = s.sp21[i - 1];
+  const float p12 = s.sp12[s.W + i], p22 = s.sp22[s.W + i];
+  const float a12 = s.sp12[i], a22 = s.sp22[i];
+  const float rho = rho_c + wx * uu + wy * vv;
+  const float d =
+      rho < -th ? s.l_t : (rho > th ? -s.l_t : -rho * inv_grad);
+  const float v1 = uu + d * wx;
+  const float v2 = vv + d * wy;
+  const float d11 = (f & F_LEFT) ? p11 : p11 - l11;
+  const float d21 = (f & F_LEFT) ? p21 : p21 - l21;
+  // The first strip's halo row is zero: p - 0 = p, the image's first row.
+  const float d12 = p12 - a12;
+  const float d22 = p22 - a22;
+  const float un = v1 + s.theta * (d11 + d12);
+  const float vn = v2 + s.theta * (d21 + d22);
+  s.su[i] = un;
+  s.sv[i] = vn;
+  if ((f & F_TOP) && !s.first) {   // r == 0, so i is the column
+    s.up_u[i] = un;
+    s.up_v[i] = vn;
+  }
+  if (!SQ) return 0.0f;
+  const float du = un - uu, dv = vn - vv;
+  return du * du + dv * dv;
+}
+
+// Phase B at pixel i: the dual from the forward gradient of (un, vn), and
+// into the halo of the block below for the strip's last row.
+__device__ __forceinline__ void step_b(const Strip& s, int i, unsigned f) {
+  const float un = s.su[i], vn = s.sv[i];
+  const float ru = s.su[i + 1], rv = s.sv[i + 1];
+  const float bu = s.su[i + s.W], bv = s.sv[i + s.W];
+  const float p11 = s.sp11[i], p21 = s.sp21[i];
+  const float p12 = s.sp12[s.W + i], p22 = s.sp22[s.W + i];
+  const bool right = f & F_RIGHT;
+  const bool bottom = (f & F_BOT) && s.last;   // the image's last row
+  const float ux = right ? 0.0f : ru - un;
+  const float vx = right ? 0.0f : rv - vn;
+  const float uy = bottom ? 0.0f : bu - un;
+  const float vy = bottom ? 0.0f : bv - vn;
+  const float inv_u = 1.0f / (1.0f + s.taut * sqrtf(ux * ux + uy * uy));
+  const float inv_v = 1.0f / (1.0f + s.taut * sqrtf(vx * vx + vy * vy));
+  const float n12 = (p12 + s.taut * uy) * inv_u;
+  const float n22 = (p22 + s.taut * vy) * inv_v;
+  s.sp11[i] = (p11 + s.taut * ux) * inv_u;
+  s.sp21[i] = (p21 + s.taut * vx) * inv_v;
+  s.sp12[s.W + i] = n12;
+  s.sp22[s.W + i] = n22;
+  if ((f & F_BOT) && !s.last) {
+    const int c = i - (s.rows - 1) * s.W;
+    s.dn_p12[c] = n12;
+    s.dn_p22[c] = n22;
+  }
+}
+
+// The K x K median of one plane at row gy, column c of the image, from the
+// raw values in the cluster's shared memory (`plane` is this block's copy).
+template <int K>
+__device__ __forceinline__ float cluster_median(cg::cluster_group& cluster,
+                                                float* plane, int gy, int c,
+                                                int H, int W, int RS) {
+  constexpr int R = K / 2;
+  float w[K * K];
+#pragma unroll
+  for (int dy = 0; dy < K; ++dy) {
+    const int y = min(max(gy - R + dy, 0), H - 1);
+    const int rk = y / RS;
+    const float* row = cluster.map_shared_rank(plane, rk) + (y - rk * RS) * W;
+#pragma unroll
+    for (int dx = 0; dx < K; ++dx)
+      w[dy * K + dx] = row[min(max(c - R + dx, 0), W - 1)];
+  }
+  if constexpr (K == 3) {
+    return va_median9(w);
+  } else {
+    return va_median25(w);
+  }
+}
+
+// Medians of the strip's u and v, staged in the strip's rows of the output
+// buffer (gu, gv point at the strip's first pixel).
+template <int K>
+__device__ __forceinline__ void median_to_global(cg::cluster_group& cluster,
+                                                 const Strip& s, int y0, int n,
+                                                 int H, int RS, float* gu,
+                                                 float* gv) {
+#pragma unroll 1
+  for (int i = threadIdx.x; i < n; i += WNT) {
+    const int r = i / s.W, c = i - r * s.W;
+    gu[i] = cluster_median<K>(cluster, s.su, y0 + r, c, H, s.W, RS);
+    gv[i] = cluster_median<K>(cluster, s.sv, y0 + r, c, H, s.W, RS);
+  }
+}
+
+// A thread owns up to PPT pixels of the strip (n <= PPT * WNT).  SC: I1wx,
+// I1wy and rho_c of the strip lie in shared memory; otherwise they are read
+// from prep each iteration.
+template <int PPT, bool SC>
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(WNT, 1)
+pd_warp_kernel(const float* __restrict__ prep, const float* __restrict__ uv_in,
+               float* __restrict__ uv_out, int* __restrict__ rounds_out,
+               WarpGeom g) {
+  extern __shared__ float sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int H = g.H, W = g.W, RS = g.RS;
+  const size_t hw = (size_t)H * W;
+  const int y0 = min(rank * RS, H);
+  const int y1 = min(y0 + RS, H);
+  const int n = (y1 - y0) * W;        // pixels of this strip
+  const int cap = RS * W;             // floats per plane, in every block
+
+  Strip s;
+  s.su = sm;                          // cap + W floats
+  s.sv = s.su + cap + W;
+  s.sp12 = s.sv + cap + W;            // W + cap floats
+  s.sp22 = s.sp12 + W + cap;
+  s.sp11 = s.sp22 + W + cap + 1;      // 1 + cap floats each
+  s.sp21 = s.sp11 + cap + 1;
+  float* red = s.sp21 + cap;          // WNW warp sums
+  float* bsum = red + WNW;            // the block's sum
+  float* consts = sm + 6 * cap + 4 * W + SCRATCH;   // 3 * cap floats, if SC
+  s.W = W;
+  s.rows = y1 - y0;
+  s.first = y0 == 0;
+  s.last = y1 == H;
+  s.l_t = g.l_t;
+  s.theta = g.theta;
+  s.taut = g.taut;
+  // A block above a strip that is not empty holds RS rows.
+  const int above = max(rank - 1, 0), below = min(rank + 1, CL - 1);
+  s.up_u = cluster.map_shared_rank(s.su, above) + cap;
+  s.up_v = cluster.map_shared_rank(s.sv, above) + cap;
+  s.dn_p12 = cluster.map_shared_rank(s.sp12, below);
+  s.dn_p22 = cluster.map_shared_rank(s.sp22, below);
+
+  const size_t strip0 = (size_t)y0 * W;
+  const float* gwx = prep + (size_t)b * 4 * hw + strip0;
+  const float* gwy = gwx + hw;
+  const float* ggr = gwy + hw;
+  const float* grho = ggr + hw;
+  const float* gu_in = uv_in + (size_t)b * 2 * hw + strip0;
+  float* gu = uv_out + (size_t)b * 2 * hw + strip0;
+  float* gv = gu + hw;
+
+  if constexpr (SC) {
+    s.cwx = consts;
+    s.cwy = consts + cap;
+    s.crho = consts + 2 * cap;
+    for (int i = tid; i < n; i += WNT) {
+      consts[i] = gwx[i];
+      consts[cap + i] = gwy[i];
+      consts[2 * cap + i] = grho[i];
+    }
+  } else {
+    s.cwx = gwx;
+    s.cwy = gwy;
+    s.crho = grho;
+  }
+  float cth[PPT], cinv[PPT];
+  constexpr int NF = (PPT + 15) / 16;
+  unsigned long long flag_bits[NF] = {};   // 4 bits a pixel
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int i = tid + k * WNT;
+    const bool in = i < n;
+    const float gr = in ? ggr[i] : 0.0f;
+    cth[k] = g.l_t * gr;
+    cinv[k] = 1.0f / fmaxf(gr, 1e-10f);
+    if (in)
+      flag_bits[k / 16] |= (unsigned long long)edge_flags(i, W, s.rows)
+                           << (4 * (k % 16));
+  }
+  for (int i = tid; i < n; i += WNT) {
+    s.su[i] = gu_in[i];
+    s.sv[i] = gu_in[hw + i];
+    s.sp11[i] = 0.0f;
+    s.sp21[i] = 0.0f;
+  }
+  for (int i = tid; i < W + n; i += WNT) {   // the halo row too
+    s.sp12[i] = 0.0f;
+    s.sp22[i] = 0.0f;
+  }
+  for (int i = tid; i < W; i += WNT) {       // read before it is first stored
+    s.su[n + i] = 0.0f;                      // only where a select drops it
+    s.sv[n + i] = 0.0f;
+  }
+  if (tid == 0) {
+    s.sp11[-1] = 0.0f;
+    s.sp21[-1] = 0.0f;
+  }
+  cluster.sync();
+
+  int rounds = 0;
+  for (int o = 0; o < g.outer; ++o) {
+    if (g.median_k > 1) {             // uniform over the cluster
+      if (g.median_k == 3)
+        median_to_global<3>(cluster, s, y0, n, H, RS, gu, gv);
+      else
+        median_to_global<5>(cluster, s, y0, n, H, RS, gu, gv);
+      cluster.sync();                 // every block has read its neighbours
+      for (int i = tid; i < n; i += WNT) {   // each thread: what it wrote
+        s.su[i] = gu[i];
+        s.sv[i] = gv[i];
+      }
+      // No barrier: phase A reads u, v of the thread's own pixels only.
+    }
+    for (int it = 0; it < g.inner; ++it) {
+      const bool last = it == g.inner - 1;
+      float e = 0.0f;
+      const int t0 = opaque(tid);
+      unsigned long long fb[NF];
+#pragma unroll
+      for (int j = 0; j < NF; ++j) fb[j] = opaque(flag_bits[j]);
+      // The 4 flag bits of the thread's k-th pixel.
+      auto flags_of = [&fb](int k) {
+        return (unsigned)(fb[k / 16] >> (4 * (k % 16))) & 15u;
+      };
+      if (last) {                     // uniform
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          const int i = t0 + k * WNT;
+          if (i < n)
+            e += step_a<true>(s, i, flags_of(k), cth[k], cinv[k]);
+        }
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1)
+          e += __shfl_xor_sync(0xffffffffu, e, d);
+        if ((tid & 31) == 0) red[tid >> 5] = e;
+      } else {
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          const int i = t0 + k * WNT;
+          if (i < n)
+            step_a<false>(s, i, flags_of(k), cth[k], cinv[k]);
+        }
+      }
+      cluster.sync();
+      if (last && tid == 0) {
+        float t = 0.0f;
+        for (int w = 0; w < WNW; ++w) t += red[w];
+        *bsum = t;
+      }
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const int i = t0 + k * WNT;
+        if (i < n) step_b(s, i, flags_of(k));
+      }
+      cluster.sync();
+    }
+    ++rounds;
+    float total = 0.0f;               // the same sum in every thread
+    for (int r = 0; r < CL; ++r) total += *cluster.map_shared_rank(bsum, r);
+    if (total / g.n_px < g.eps2) break;
+  }
+
+  for (int i = tid; i < n; i += WNT) {
+    gu[i] = s.su[i];
+    gv[i] = s.sv[i];
+  }
+  if (rounds_out != nullptr && rank == 0 && tid == 0) rounds_out[b] = rounds;
+  cluster.sync();   // no block leaves while a neighbour may still read it
+}
+
+using WarpKernel = void (*)(const float*, const float*, float*, int*, WarpGeom);
+
+struct Variant {
+  int ppt;             // pixels a thread at most
+  bool sc;             // I1wx, I1wy, rho_c in shared memory
+  WarpKernel kernel;
+  int smem_set;        // dynamic shared memory the kernel has opted in to
+};
+
+Variant variants[] = {
+    {4, true, pd_warp_kernel<4, true>, 0},
+    {8, true, pd_warp_kernel<8, true>, 0},
+    {13, true, pd_warp_kernel<13, true>, 0},
+    {16, false, pd_warp_kernel<16, false>, 0},
+    {20, false, pd_warp_kernel<20, false>, 0},
+};
+
+int strip_rows(int H) { return va::cdiv(H, CL); }
+
+// Six planes of the strip, a halo row beside u, v, p12 and p22, and the
+// scratch; then three planes of constants where they fit as well.
+long long state_bytes(int H, int W) {
+  return ((6LL * strip_rows(H) + 4) * W + SCRATCH) * (long long)sizeof(float);
+}
+
+bool consts_fit(int H, int W) {
+  return state_bytes(H, W) + 3LL * strip_rows(H) * W * (long long)sizeof(float)
+         <= MAX_SMEM;
+}
+
+Variant* pick(int H, int W) {
+  const int ppt = va::cdiv(strip_rows(H) * W, WNT);
+  const bool sc = consts_fit(H, W);
+  for (Variant& v : variants)
+    if (v.sc == sc && ppt <= v.ppt) return &v;
+  return nullptr;
+}
+
+// Above 48 KB a kernel must opt in to its dynamic shared memory.
+cudaError_t opt_in(Variant* v, int smem) {
+  if (smem <= v->smem_set) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      v->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) v->smem_set = smem;
+  return err;
+}
+
+}  // namespace
+
+// Bytes of dynamic shared memory a block needs for an (H, W) image, or -1
+// where that is more than a block may have: the level does not fit a cluster.
+VA_EXPORT int va_pd_warp_smem(int H, int W) {
+  if (H < 1 || W < 1 || state_bytes(H, W) > MAX_SMEM || pick(H, W) == nullptr)
+    return -1;
+  const long long consts =
+      consts_fit(H, W) ? 3LL * strip_rows(H) * W * (long long)sizeof(float) : 0;
+  return (int)(state_bytes(H, W) + consts);
+}
+
+// 1 where I1wx, I1wy and rho_c of a strip of an (H, W) image lie in shared
+// memory, 0 where they are read through L2.
+VA_EXPORT int va_pd_warp_consts_in_smem(int H, int W) {
+  return consts_fit(H, W) ? 1 : 0;
+}
+
+// Clusters of this kernel the card can hold at once at (H, W), or the
+// negated CUDA error.
+VA_EXPORT int va_pd_warp_max_clusters(int H, int W, int B) {
+  const int smem = va_pd_warp_smem(H, W);
+  if (smem < 0 || B < 1) return -(int)cudaErrorInvalidValue;
+  Variant* v = pick(H, W);
+  cudaError_t err = opt_in(v, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)err;
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(CL, B);
+  config.blockDim = dim3(WNT);
+  config.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = CL;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (void*)v->kernel, &config);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)err;
+  }
+  return clusters;
+}
+
+// prep: (B, 4, H, W) I1wx, I1wy, grad, rho_c; uv_in, uv_out: (B, 2, H, W),
+// distinct buffers; rounds_out: null, or (B,) int32 that receives the rounds
+// each image ran.  median_k in {0, 3, 5}; the dual starts at zero.
+VA_EXPORT int va_pd_warp(const float* prep, const float* uv_in, float* uv_out,
+                         int* rounds_out, int B, int H, int W, int inner,
+                         int outer, int median_k, float l_t, float theta,
+                         float taut, float eps2, void* stream) {
+  const int smem = va_pd_warp_smem(H, W);
+  if (smem < 0 || B < 1 || inner < 1 || outer < 0 ||
+      (median_k != 0 && median_k != 3 && median_k != 5))
+    return (int)cudaErrorInvalidValue;
+  WarpGeom g;
+  g.H = H;
+  g.W = W;
+  g.RS = strip_rows(H);
+  g.inner = inner;
+  g.outer = outer;
+  g.median_k = median_k;
+  g.l_t = l_t;
+  g.theta = theta;
+  g.taut = taut;
+  g.eps2 = eps2;
+  g.n_px = (float)(H * W);
+  Variant* v = pick(H, W);
+  cudaError_t err = opt_in(v, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the next launch must not see it
+    return (int)err;
+  }
+  v->kernel<<<dim3(CL, B), WNT, smem, (cudaStream_t)stream>>>(
+      prep, uv_in, uv_out, rounds_out, g);
+  return (int)cudaGetLastError();
+}

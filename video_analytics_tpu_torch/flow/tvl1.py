@@ -8,8 +8,11 @@ per scale (coarse→fine): centred gradient of I1, then ``warps`` times
   - warp I1 and ∇I1 by the current flow and form the linearised residual
     (K-A ``ops/cuda/warp.warp_prep``),
   - run the primal-dual solver with its median between outer rounds and
-    the ε stop: per image, one launch per iteration (K-B/K-C
-    ``ops/cuda/tvl1_solve.pd_solve``), or, at a level too large for the
+    the ε stop, per image, by the size rule of ``level_solver``: the whole
+    warp in one launch with an image's state in the shared memory of a
+    thread-block cluster where it fits (K-H
+    ``ops/cuda/tvl1_solve.pd_solve_warp``), one launch per iteration where
+    it does not (K-B/K-C ``pd_solve``), or, at a level too large for the
     reference's whole-plane solver, several iterations per launch with
     row bands that stop on their own (K-G ``pd_solve_chunked``),
 then the scale-end median (K-C) and the upscale of the flow to the next
@@ -41,7 +44,7 @@ import torch
 from video_analytics_tpu_torch.config import TVL1Config
 from video_analytics_tpu_torch.ops.cuda.tvl1_solve import (
     chunk_params, median5, median5_plain, pd_solve, pd_solve_chunked,
-    pd_solve_chunked_plain, pd_solve_plain)
+    pd_solve_chunked_plain, pd_solve_plain, pd_solve_warp, warp_geometry)
 from video_analytics_tpu_torch.ops.cuda.warp import warp_prep, warp_prep_plain
 from video_analytics_tpu_torch.ops.kernels import (
     centered_gradient, gaussian_blur, resize_area_like)
@@ -83,6 +86,21 @@ def whole_plane_level(h: int, w: int, median: int) -> bool:
     return planes * h * w * 4 < 13 * 1024 * 1024
 
 
+def level_solver(h: int, w: int, median: int,
+                 whole_plane: Callable[[int, int, int], bool]
+                 = whole_plane_level) -> str:
+    """Which solver an (h, w) level takes, by its size alone: "chunked"
+    above the reference's whole-plane rule, else "warp" where the level's
+    state fits the shared memory of a thread-block cluster
+    (``warp_geometry``; up to ~74,000 px, 224² and 256² among them), else
+    "chain", the per-iteration kernels (the levels between, e.g. 280²).
+    "warp" and "chain" compute the same function and differ only in the
+    order of the ε test's sum."""
+    if not whole_plane(h, w, median):
+        return "chunked"
+    return "warp" if warp_geometry(h, w) is not None else "chain"
+
+
 def tvl1(prev: torch.Tensor, nxt: torch.Tensor,
          cfg: TVL1Config = TVL1Config(),
          initial_flow: Optional[torch.Tensor] = None, plain: bool = False,
@@ -98,14 +116,15 @@ def tvl1(prev: torch.Tensor, nxt: torch.Tensor,
       plain: run the plain PyTorch versions of the kernels even on CUDA
         tensors (the reference the kernels are checked against).
       whole_plane: the size rule (h, w, median) → bool that keeps a level
-        on the per-iteration solver; the others take the chunked one.
+        on the whole-plane solvers; the others take the chunked one.
         Tests pass their own to reach the chunked solver at a small size.
 
     Returns:
       (B, H, W, 2) float32 flow (dx, dy): prev(p) ≈ next(p + flow(p)).
     """
     warp = warp_prep_plain if plain else warp_prep
-    solve = pd_solve_plain if plain else pd_solve
+    solvers = {"warp": pd_solve_plain if plain else pd_solve_warp,
+               "chain": pd_solve_plain if plain else pd_solve}
     solve_chunked = pd_solve_chunked_plain if plain else pd_solve_chunked
     median = median5_plain if plain else median5
 
@@ -136,8 +155,9 @@ def tvl1(prev: torch.Tensor, nxt: torch.Tensor,
             uv = (up * (1.0 / cfg.scale_step)).reshape(B, 2, lh, lw)
         I1x, I1y = centered_gradient(I1)
         i13 = torch.stack([I1, I1x, I1y], dim=1).contiguous()
-        if whole_plane(lh, lw, cfg.median_filtering):
-            level_solve = solve
+        which = level_solver(lh, lw, cfg.median_filtering, whole_plane)
+        if which != "chunked":
+            level_solve = solvers[which]
         else:
             band, chunk = chunk_params(lh, lw, cfg)
             level_solve = functools.partial(solve_chunked, band=band,

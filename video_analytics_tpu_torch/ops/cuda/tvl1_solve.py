@@ -1,5 +1,5 @@
-"""K-B, K-C and K-G: the TV-L1 primal-dual solver of one warp, its median
-and the chunked solver of large planes.
+"""K-B, K-C, K-G and K-H: the TV-L1 primal-dual solver of one warp, its
+median, the chunked solver of large planes and the cluster-resident one.
 
 Replaces the solvers of ``video_analytics_tpu/ops/pallas/tvl1_solve.py``
 (``tvl1_solve_warp``, ``tvl1_solve_warp_packed``, the solver half of
@@ -7,9 +7,12 @@ Replaces the solvers of ``video_analytics_tpu/ops/pallas/tvl1_solve.py``
 ``_run_chunk``) and their in-kernel k×k median.  The kernels are
 ``csrc/tvl1_pd.cu`` (``pd_step``, one primal-dual iteration over the
 batch, and ``eps_reduce``, the per-image convergence test),
-``csrc/median.cu`` (``median5``) and ``csrc/tvl1_pd_chunk.cu``
-(``pd_chunk``, several iterations per launch on shared-memory tiles);
-their source notes give the design and what bounds each on the H100.
+``csrc/median.cu`` (``median5``), ``csrc/tvl1_pd_chunk.cu`` (``pd_chunk``,
+several iterations per launch on shared-memory tiles, and ``band_flags``,
+the bands' convergence test) and ``csrc/tvl1_pd_warp.cu`` (``pd_solve_warp``,
+a whole warp in one launch with an image's state resident in the shared
+memory of a thread-block cluster); their source notes give the design and
+what bounds each on the H100.
 
 ``pd_solve`` drives one warp: ``outer_iterations`` rounds, each a median
 of the images still active, ``inner_iterations`` primal-dual steps with
@@ -19,11 +22,15 @@ XLA solver instead runs until the slowest image of the batch converges
 (ROADMAP F1).  The CUDA path keeps the per-image flags on the device and
 launches every round without reading them back, so the host never waits.
 
-``pd_solve_chunked`` drives one warp of a plane too large for that chain
-to be the right tool (``flow/tvl1.py`` sends it every level the
-reference sends to its banded solver): each round is ``ceil(K / chunk)``
-launches of ``pd_chunk``, the first of which opens with the median, and
-rows are gated in bands on their own ε test, as in the reference.
+``pd_solve_warp`` computes the same function in one launch, for the
+levels whose state fits a cluster's shared memory (``warp_geometry``);
+``flow/tvl1.py`` takes it wherever it fits.
+
+``pd_solve_chunked`` drives one warp of a plane too large for either
+(``flow/tvl1.py`` sends it every level the reference sends to its banded
+solver): each round is ``ceil(K / chunk)`` launches of ``pd_chunk``, the
+first of which opens with the median, then one of ``band_flags``: rows
+are gated in bands on their own ε test, as in the reference.
 """
 
 from __future__ import annotations
@@ -286,11 +293,94 @@ def pd_solve(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config
     return cur
 
 
+# -- K-H: one warp in one launch, an image per thread-block cluster ----------
+
+_CLUSTER_BLOCKS = 8          # blocks per cluster: the portable maximum
+_BLOCK_SMEM = 232448         # bytes of shared memory a block may opt in to
+_WARP_SCRATCH = 64           # floats beside the planes: the ε test's sums
+
+
+def warp_geometry(h: int, w: int) -> Optional[Tuple[int, bool, int]]:
+    """The size rule of ``pd_solve_warp``.  Block r of an image's cluster
+    of eight owns rows [r·rows, (r+1)·rows) with rows = ceil(h / 8), and
+    keeps the six state planes of that strip in its shared memory, four
+    of them with a halo row that a neighbouring block fills; where three
+    more planes fit, I1wx, I1wy and rho_c of the strip lie there too,
+    else they are read through L2 each iteration.
+
+    Returns (rows per strip, whether those constants lie in shared
+    memory, bytes of shared memory a block), or None where the state
+    alone exceeds the 232,448 B a block may have: the level does not fit
+    a cluster.  224² needs 229,632 B with the constants, 256² 200,960 B
+    without; 240×320 (235,776 B) and 280² do not fit."""
+    rows = -(-h // _CLUSTER_BLOCKS)
+    smem = 4 * ((6 * rows + 4) * w + _WARP_SCRATCH)
+    if smem > _BLOCK_SMEM:
+        return None
+    consts = smem + 4 * 3 * rows * w <= _BLOCK_SMEM
+    return rows, consts, smem + (4 * 3 * rows * w if consts else 0)
+
+
+def pd_solve_warp(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config,
+                  rounds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """All primal-dual iterations of one TV-L1 warp in one launch: the
+    function of ``pd_solve``, with each image's solver state resident in
+    the shared memory of a cluster of eight thread blocks.  Its plain
+    version is ``pd_solve_plain``, which it equals bit for bit except
+    where the order of the ε test's sum flips a round at the threshold.
+
+    Args:
+      prep: (B, 4, H, W) from ``warp_prep`` (I1wx, I1wy, grad, rho_c).
+      uv: (B, 2, H, W) flow at the warp's start; not modified.
+      cfg: the TVL1Config (λ, θ, τ, ε, iteration counts, median size).
+      rounds: optional (B,) int32 tensor that receives the outer rounds
+        each image ran (CUDA only).
+
+    Returns:
+      (B, 2, H, W) float32 flow after the warp.
+
+    Raises ValueError for a CUDA tensor of a level that does not fit a
+    cluster (``warp_geometry``): the caller picks the solver by that rule.
+    """
+    if not uv.is_cuda:
+        return pd_solve_plain(prep, uv, cfg)
+    B, _, H, W = uv.shape
+    dev = uv.device
+    if warp_geometry(H, W) is None:
+        raise ValueError(f"pd_solve_warp: a {H}x{W} level does not fit the "
+                         f"shared memory of a cluster (warp_geometry); "
+                         f"pd_solve is the solver for it")
+    _build.expect(prep, "prep", (B, 4, H, W), dev)
+    _build.expect(uv, "uv", (B, 2, H, W), dev)
+    k = cfg.median_filtering if cfg.median_filtering > 1 else 0
+    if k not in (0, 3, 5):
+        raise ValueError(f"pd_solve_warp takes a median of 3 or 5, got {k}")
+    if rounds is not None:
+        _expect_active(rounds, B, dev)
+    out = torch.empty_like(uv)
+    l_t, theta, taut = _solver_constants(cfg)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check(lib.va_pd_warp(
+        prep.data_ptr(), uv.data_ptr(), out.data_ptr(),
+        None if rounds is None else rounds.data_ptr(), B, H, W,
+        cfg.inner_iterations, cfg.outer_iterations, k, l_t, theta, taut,
+        cfg.epsilon * cfg.epsilon, stream), "pd_solve_warp")
+    pd_solve_warp.launches += 1
+    return out
+
+
+pd_solve_warp.launches = 0
+
+
 # -- K-G: several iterations per launch, for large planes --------------------
 
-_CHUNK_SIDE = 64       # window side S of pd_chunk: 11 planes of S² floats
+_CHUNK_SIDE = 64       # window side S of pd_chunk: 6 planes of S² floats
 _TILE_ROWS_PER_BAND = 4
-_CHUNK_IO_ITERS = 2.0  # one window load + tile store, in iterations' cost
+# One launch's fixed share (window load, tile store, launch), in iterations'
+# cost: fitted to one 1080×1920 warp timed at 2 to 15 iterations per launch
+# on an H100 (chip_smoke.py --sweep-chunk; within 5 % at every point).
+_CHUNK_IO_ITERS = 7.0
 
 
 def _median_radius(cfg: TVL1Config) -> int:
@@ -300,8 +390,8 @@ def _median_radius(cfg: TVL1Config) -> int:
 def chunk_tile(chunk: int, cfg: TVL1Config) -> Tuple[int, int]:
     """(tile, halo) of ``pd_chunk`` for `chunk` iterations per launch: the
     halo covers the iterations plus the median's radius, and the tile is
-    what a 64×64 window (176 KB of the 227 KB of shared memory a block may
-    have) leaves inside it."""
+    what a 64×64 window (six state planes, 96 KB of shared memory, so that
+    two blocks share an SM) leaves inside it."""
     halo = chunk + _median_radius(cfg)
     tile = _CHUNK_SIDE - 2 * halo
     if tile < 1:
@@ -313,7 +403,7 @@ def chunk_tile(chunk: int, cfg: TVL1Config) -> Tuple[int, int]:
 def chunk_params(h: int, w: int, cfg: TVL1Config) -> Tuple[int, int]:
     """(band, chunk) of ``pd_solve_chunked`` for an (h, w) plane.
 
-    chunk = iterations per launch.  A launch iterates its whole S×S
+    chunk = iterations per launch.  A launch works on its whole S×S
     window to deliver a T×T tile, T = S − 2·(chunk + median radius), so
     the redundant work grows as (S/T)² with the chunk, while a small
     chunk pays the window's load and the tile's store more often.  The
@@ -370,9 +460,17 @@ def pd_chunk_plain(prep: torch.Tensor, state: torch.Tensor,
     return new, torch.where(on, err, torch.zeros_like(err))
 
 
+def chunk_partials(H: int, W: int, band: int, tile: int) -> int:
+    """Thread blocks of ``pd_chunk`` per gating band: the row length of
+    its ``partial`` sums."""
+    return -(-band // tile) * -(-W // tile)
+
+
 def pd_chunk(prep: torch.Tensor, state: torch.Tensor, act: torch.Tensor,
              cfg: TVL1Config, iters: int, band: int, tile: int, halo: int,
-             do_median: bool, state_out: torch.Tensor) -> torch.Tensor:
+             do_median: bool, state_out: torch.Tensor,
+             partial: Optional[torch.Tensor] = None,
+             prev_act: Optional[torch.Tensor] = None) -> None:
     """`iters` primal-dual iterations of every active band, on CUDA tensors.
 
     prep (B, 4, H, W) from ``warp_prep``; state (B, 6, H, W) holds u, v,
@@ -381,9 +479,14 @@ def pd_chunk(prep: torch.Tensor, state: torch.Tensor, act: torch.Tensor,
     (B, ceil(H / band)) int32 gates each band of `band` rows.  With
     ``do_median`` the k×k median of u and v (``cfg.median_filtering``)
     runs first.  `tile` and `halo` are the block's tile side and window
-    margin (``chunk_tile``): halo ≥ iters + k // 2.  Returns err
-    (B, n_bands): each band's summed squared update of the last
-    iteration, 0 for a frozen band."""
+    margin (``chunk_tile``): halo ≥ iters + k // 2, tile + 2·halo ≤ 64.
+    With ``partial`` ((B, n_bands, chunk_partials(H, W, band, tile))
+    float32) each block writes its tile's summed squared update of the
+    last iteration there, 0 for a frozen band.  ``prev_act``, if given,
+    holds the flags of the launch before, which read what this launch
+    writes and wrote what it reads (the ping-pong of
+    ``pd_solve_chunked``): a band frozen in both is left alone, its rows
+    being equal in both buffers already."""
     B, _, H, W = state.shape
     dev = state.device
     if not state.is_cuda:
@@ -396,23 +499,26 @@ def pd_chunk(prep: torch.Tensor, state: torch.Tensor, act: torch.Tensor,
         raise ValueError("pd_chunk: state_out must not alias state")
     n_bands = -(-H // band)
     _expect_band_flags(act, B, n_bands, dev)
+    if prev_act is not None:
+        _expect_band_flags(prev_act, B, n_bands, dev)
     k = cfg.median_filtering if do_median and cfg.median_filtering > 1 else 0
     if k not in (0, 3, 5):
         raise ValueError(f"pd_chunk takes a median of 3 or 5, got {k}")
     if halo < iters + k // 2:
         raise ValueError(f"pd_chunk: halo {halo} < iters {iters} + median "
                          f"radius {k // 2}")
-    partial = torch.empty((B, n_bands, -(-band // tile) * -(-W // tile)),
-                          dtype=torch.float32, device=dev)
+    if partial is not None:
+        _build.expect(partial, "partial",
+                      (B, n_bands, chunk_partials(H, W, band, tile)), dev)
     l_t, theta, taut = _solver_constants(cfg)
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(lib.va_pd_chunk(
         prep.data_ptr(), state.data_ptr(), state_out.data_ptr(),
-        act.data_ptr(), partial.data_ptr(), B, H, W, band, tile, halo, iters,
-        k, l_t, theta, taut, stream), "pd_chunk")
+        act.data_ptr(), None if prev_act is None else prev_act.data_ptr(),
+        None if partial is None else partial.data_ptr(), B, H, W, band, tile,
+        halo, iters, k, l_t, theta, taut, stream), "pd_chunk")
     pd_chunk.launches += 1
-    return partial.sum(dim=2)
 
 
 pd_chunk.launches = 0
@@ -434,42 +540,118 @@ def _band_flags(err_band: torch.Tensor, band_px: torch.Tensor, n_px: int,
     return run & ~conv[:, None]
 
 
-def _solve_chunked(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config,
-                   band: int, chunk: int, adaptive: bool, plain: bool
-                   ) -> torch.Tensor:
+def _band_px(H: int, W: int, band: int, device) -> torch.Tensor:
+    """(n_bands,) float32: pixels of each band of `band` rows."""
+    return torch.tensor([min(band, H - band * i) * W
+                         for i in range(-(-H // band))],
+                        dtype=torch.float32, device=device)
+
+
+def band_flags_plain(partial: torch.Tensor, act: torch.Tensor,
+                     err_band: torch.Tensor, act_next: torch.Tensor,
+                     band: int, H: int, W: int, epsilon: float,
+                     adaptive: bool) -> None:
+    """Plain PyTorch version of ``band_flags`` (in place)."""
+    err_band.copy_(torch.where(act.bool(), partial.sum(dim=2), err_band))
+    run = _band_flags(err_band, _band_px(H, W, band, err_band.device), H * W,
+                      epsilon * epsilon, adaptive)
+    act_next.copy_(run.to(act_next.dtype))
+
+
+def band_flags(partial: torch.Tensor, act: torch.Tensor,
+               err_band: torch.Tensor, act_next: torch.Tensor, band: int,
+               H: int, W: int, epsilon: float, adaptive: bool) -> None:
+    """The bands' convergence test after one round of ``pd_chunk``, in
+    place: each band that ran (``act``) takes the sum of its blocks'
+    ``partial`` (in a fixed order) as its ``err_band``, and ``act_next``
+    receives the next round's flags by the rule of ``_band_flags``.
+
+    partial (B, n_bands, n_part) float32; act, act_next (B, n_bands)
+    int32, distinct buffers; err_band (B, n_bands) float32."""
+    if not partial.is_cuda:
+        return band_flags_plain(partial, act, err_band, act_next, band, H, W,
+                                epsilon, adaptive)
+    dev = partial.device
+    B, n_bands, n_part = partial.shape
+    if n_bands != -(-H // band):
+        raise ValueError(f"band_flags: {n_bands} bands, expected "
+                         f"{-(-H // band)} for {H} rows in bands of {band}")
+    _build.expect(partial, "partial", (B, n_bands, n_part), dev)
+    _build.expect(err_band, "err_band", (B, n_bands), dev)
+    _expect_band_flags(act, B, n_bands, dev)
+    _expect_band_flags(act_next, B, n_bands, dev)
+    if act_next.data_ptr() == act.data_ptr():
+        raise ValueError("band_flags: act_next must not alias act")
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check(lib.va_band_flags(
+        partial.data_ptr(), act.data_ptr(), err_band.data_ptr(),
+        act_next.data_ptr(), B, n_bands, n_part, band, H, W,
+        epsilon * epsilon, int(adaptive), stream), "band_flags")
+    band_flags.launches += 1
+
+
+band_flags.launches = 0
+
+
+def _solve_chunked_plain(prep: torch.Tensor, uv: torch.Tensor,
+                         cfg: TVL1Config, band: int, chunk: int,
+                         adaptive: bool) -> torch.Tensor:
     B, _, H, W = uv.shape
-    dev = uv.device
     K = cfg.inner_iterations
     eps2 = cfg.epsilon * cfg.epsilon
     n_bands = -(-H // band)
-    band_px = torch.tensor(
-        [min(band, H - band * i) * W for i in range(n_bands)],
-        dtype=torch.float32, device=dev)
-    chunk_sizes = [min(chunk, K - c0) for c0 in range(0, K, chunk)]
+    band_px = _band_px(H, W, band, uv.device)
     state = torch.cat([uv, torch.zeros((B, 4, H, W), dtype=torch.float32,
-                                       device=dev)], dim=1)
-    if not plain:
-        tile, halo = chunk_tile(chunk, cfg)
-        if band % tile:
-            raise ValueError(f"band {band} is not a multiple of the tile "
-                             f"{tile} that chunk {chunk} gives")
-        spare = torch.empty_like(state)
+                                       device=uv.device)], dim=1)
     err_band = torch.full((B, n_bands), math.inf, dtype=torch.float32,
-                          device=dev)
+                          device=uv.device)
     for _ in range(cfg.outer_iterations):
         run = _band_flags(err_band, band_px, H * W, eps2, adaptive)
-        if plain and not bool(run.any()):
+        if not bool(run.any()):
             break
-        act = run.to(torch.int32).contiguous()
-        for ci, iters in enumerate(chunk_sizes):
-            if plain:
-                state, err = pd_chunk_plain(prep, state, act, cfg, iters,
-                                            band, ci == 0)
-            else:
-                err = pd_chunk(prep, state, act, cfg, iters, band, tile,
-                               halo, ci == 0, spare)
-                state, spare = spare, state
+        act = run.to(torch.int32)
+        for c0 in range(0, K, chunk):
+            state, err = pd_chunk_plain(prep, state, act, cfg,
+                                        min(chunk, K - c0), band, c0 == 0)
         err_band = torch.where(run, err, err_band)
+    return state[:, :2].contiguous()
+
+
+def _solve_chunked_cuda(prep: torch.Tensor, uv: torch.Tensor,
+                        cfg: TVL1Config, band: int, chunk: int,
+                        adaptive: bool) -> torch.Tensor:
+    """Every buffer is allocated here, once; a round is its launches of
+    ``pd_chunk``, the last of which writes the error sums, and one of
+    ``band_flags``.  Nothing is read back."""
+    B, _, H, W = uv.shape
+    dev = uv.device
+    K = cfg.inner_iterations
+    n_bands = -(-H // band)
+    tile, halo = chunk_tile(chunk, cfg)
+    if band % tile:
+        raise ValueError(f"band {band} is not a multiple of the tile "
+                         f"{tile} that chunk {chunk} gives")
+    state = torch.cat([uv, torch.zeros((B, 4, H, W), dtype=torch.float32,
+                                       device=dev)], dim=1)
+    spare = torch.empty_like(state)
+    partial = torch.empty((B, n_bands, chunk_partials(H, W, band, tile)),
+                          dtype=torch.float32, device=dev)
+    err_band = torch.full((B, n_bands), math.inf, dtype=torch.float32,
+                          device=dev)
+    act = torch.ones((B, n_bands), dtype=torch.int32, device=dev)
+    act_next = torch.empty_like(act)
+    prev = None
+    for o in range(cfg.outer_iterations):
+        for c0 in range(0, K, chunk):
+            pd_chunk(prep, state, act, cfg, min(chunk, K - c0), band, tile,
+                     halo, c0 == 0, spare,
+                     partial if c0 + chunk >= K else None, prev)
+            state, spare, prev = spare, state, act
+        if o + 1 < cfg.outer_iterations:
+            band_flags(partial, act, err_band, act_next, band, H, W,
+                       cfg.epsilon, adaptive)
+            act, act_next = act_next, act
     return state[:, :2].contiguous()
 
 
@@ -478,7 +660,7 @@ def pd_solve_chunked_plain(prep: torch.Tensor, uv: torch.Tensor,
                            adaptive: bool = True) -> torch.Tensor:
     """Plain PyTorch version of ``pd_solve_chunked``.  Reads the flags on
     the host each round and stops once all are clear."""
-    return _solve_chunked(prep, uv, cfg, band, chunk, adaptive, plain=True)
+    return _solve_chunked_plain(prep, uv, cfg, band, chunk, adaptive)
 
 
 def pd_solve_chunked(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config,
@@ -509,5 +691,5 @@ def pd_solve_chunked(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config,
     Returns:
       (B, 2, H, W) float32 flow after the warp.
     """
-    return _solve_chunked(prep, uv, cfg, band, chunk, adaptive,
-                          plain=not uv.is_cuda)
+    solve = _solve_chunked_cuda if uv.is_cuda else _solve_chunked_plain
+    return solve(prep, uv, cfg, band, chunk, adaptive)
