@@ -18,43 +18,55 @@ by the commands themselves.  Phases, each reported on a JSON line:
    against its plain PyTorch version on the same inputs, with the
    tolerance stated; time both with CUDA events; tvl1_warp_kernel: K-H
    ``pd_solve_warp`` (one launch per warp, an image per thread-block
-   cluster) against ``pd_solve_plain`` at those sizes and two ragged ones,
-   at ε = 0 (bit for bit) and with ε engaged, at medians 5, 3 and none,
-   timed beside the per-iteration chain and the non-adaptive chunked
-   solver on the same warp; check that an image stops on its own ε test
-   (an easy pair's flow is the same alone and batched with a hard pair);
+   cluster) against ``pd_solve_plain`` at those sizes and three ragged
+   ones, at ε = 0 (bit for bit) and with ε engaged, at medians 5, 3 and
+   none, timed beside the per-iteration chain and the non-adaptive chunked
+   solver on the same warp; ``tvl1_scale`` (``pd_solve_scale``: every warp
+   of a scale with its prep, and the scale-end median, in one launch of
+   the same kernel) at the same eight sizes against the chain K-A → K-H
+   per warp → K-C (bit for bit, with ε engaged too) and against its plain
+   version, the launch and the chain timed in turns; check that an image
+   stops on its own ε test (an easy pair's flow is the same alone and
+   batched with a hard pair);
 3. serve: build ``ClipServer`` at full width (two ResNet-18s of width 64,
    101 classes, 16-frame windows, ``TVL1Config()``) from seed 0, warm it
    up, answer a ping and three classify requests on seeded frames, with
    every kernel's launch counter reset just before the requests and held
-   to the expected numbers after them (25 ``warp_prep``, 25
-   ``pd_solve_warp``, 5 ``median5`` per request and none of the
-   per-iteration kernels); hold the fused probabilities against the same
-   window run through the plain versions;
+   to the expected numbers after them (5 ``tvl1_scale`` per request, one
+   per pyramid scale, and none of K-A, K-H, K-C or the per-iteration
+   kernels); hold the fused probabilities against the same window run
+   through the plain versions;
 4. profile: where one request's time goes.  Stage times on the host
    clock with a sync after each stage, then one request under
-   ``torch.profiler``: device time per kernel name, the sum and the union
-   of all device intervals, and that union's share of the profiled
-   request and of an unprofiled one;
-5. farneback_kernels: K-D ``fb_prologue``, K-E ``fb_warp_neq`` and K-F
+   ``torch.profiler``: device time per kernel name (every kernel of the
+   port, with its duration per launch), the sum and the union of all
+   device intervals, and that union's share of the profiled request and
+   of an unprofiled one;
+5. farneback_kernels: K-D ``fb_prologue``, K-E ``fb_warp_neq``, K-F
    ``sep_corr`` (both axes, with and without the solve epilogue, box and
-   Gaussian taps) against their plain versions at the three pyramid sizes
-   of the serve path (56², 112², 224²; 16 frames, 15 pairs) and of a
-   native 240×320 clip (60×80, 120×160, 240×320), timed with CUDA
-   events; at the native sizes also at the pair form's batches, as
-   ``compute-flow --batch 8`` calls them (8 and 7 pairs, the prologue
-   over 16 and 14 frames); one whole level (3 iterations) at each of
-   these shapes and one whole ``farneback_sequence`` against
-   ``plain=True``;
+   Gaussian taps), ``fb_window_solve`` (both window passes and the solve
+   in one launch, also against the two launches of K-F) and
+   ``fb_iteration`` (the same launch with K-E as its loader, also against
+   K-E then ``fb_window_solve``) against their plain versions at the
+   three pyramid sizes of the serve path (56², 112², 224²; 16 frames, 15
+   pairs) and of a native 240×320 clip (60×80, 120×160, 240×320), timed
+   with CUDA events and, at the finest levels, by their device durations;
+   at the native sizes also at the pair form's batches, as ``compute-flow
+   --batch 8`` calls them (8 and 7 pairs, the prologue over 16 and 14
+   frames); one whole level (3 iterations) at each of these shapes and
+   one whole ``farneback_sequence`` against ``plain=True``; the sequence
+   timed with an iteration as three launches, two and one;
 6. farneback_serve: phase 3 with ``flow_algo="farneback"``: three
-   requests, launch counts of K-D, K-E, K-F per request, the fused
-   probabilities against the plain versions', the mean recovered flow
-   against the scene's (1.3, −0.7), and phase 4's profile of one request;
+   requests, launch counts per request held to the expected numbers (3
+   K-D, 9 ``fb_iteration``, none of K-E, K-F or ``fb_window_solve``), the
+   fused probabilities against the plain versions', the mean recovered
+   flow against the scene's (1.3, −0.7), and phase 4's profile of one
+   request;
 7. compute_flow: ``tpuva-torch compute-flow --algo farneback --format
    flo`` on a 16-frame 240×320 frames directory written to a temporary
-   directory, with the launch counts of K-D, K-E, K-F set to 0 just
-   before the command and held to the expected numbers just after; 15
-   ``.flo`` files, one read back;
+   directory, with the launch counts of the Farneback kernels set to 0
+   just before the command and held to the expected numbers just after;
+   15 ``.flo`` files, one read back;
 8. tvl1_chunk_kernels: K-G ``pd_chunk`` (several primal-dual iterations
    per launch on shared-memory tiles) against its plain version at the
    five TV-L1 level sizes of a 1080×1920 frame (2 pairs), with and without
@@ -65,9 +77,10 @@ by the commands themselves.  Phases, each reported on a JSON line:
    bit at ε = 0, within 10·ε with the gates engaged), both timed;
    ``band_flags`` against its plain version; tvl1_midsize:
    ``compute-flow --algo tvl1`` on 3 frames of 280×300, whose finest level
-   fits no cluster and is under the size rule, so it takes the
-   per-iteration chain (K-B, the ε reduction and K-C counted and held to
-   the expected numbers; the coarser levels take K-H);
+   fits no cluster and is under the size rule, so it takes K-A, the
+   per-iteration chain and K-C (K-A, K-B, the ε reduction and K-C counted
+   and held to the expected numbers; the coarser levels take
+   ``tvl1_scale``);
 9. tvl1_1080p: ``tpuva-torch compute-flow --algo tvl1`` with
    ``TVL1Config()`` on a frames directory of 11 frames of 1080×1920 (10
    pairs, ``--batch 8``), the launch counts of the TV-L1 kernels set to 0
@@ -82,11 +95,19 @@ by the commands themselves.  Phases, each reported on a JSON line:
    taken on tensors with the kernels' plain versions.
 
 Then it prints the kernel table (``{"kernels": [...]}``: for each kernel
-its launches on its main path (the serve requests; for K-G and
-``band_flags`` the ``compute-flow`` command of phase 9; for K-B and the ε
-reduction the command of tvl1_midsize; ``sep_corr``'s two instantiations, the
-one-plane correlation and the five-plane one with the solve epilogue,
-have a row each), its time, its plain version's, the time
+its launches on its main path and which path that is (``launches_from``:
+the serve requests; for K-G and ``band_flags`` the ``compute-flow``
+command of phase 9; for K-A, K-C, K-B and the ε reduction the command of
+tvl1_midsize; K-H, K-E, ``sep_corr`` and ``fb_window_solve``, whose
+arithmetic the serve path now runs inside ``tvl1_scale`` and
+``fb_iteration``, are on no command's path: 0 launches, and under
+``check_launches`` those of the phase that holds them against their plain
+versions; ``sep_corr``'s two instantiations, the one-plane
+correlation and the five-plane one with the solve epilogue, have a row
+each), its time paced by the host's launches (``ms``: CUDA events around
+20 calls of the wrapper), its own duration on the device (``device_ms``:
+the kernel's summed device time over its launches under
+``torch.profiler``), its plain version's time, the time
 of one PyTorch call that computes the same function where there is one,
 and its bound, the least time the card could take: bytes read once and
 written once over 3.35 TB/s, or float32 operations over 67 TFLOP/s,
@@ -251,13 +272,61 @@ def device_profile(torch, fn):
         if b > end:
             busy_ms += (b - max(a, end)) / 1e3
             end = b
-    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]
+    ranked = sorted(per_name.items(), key=lambda kv: -kv[1][0])
+    ours = [{"name": short_kernel_name(name), "ms": ms, "count": n,
+             "ms_each": ms / n}
+            for name, (ms, n) in ranked if port_kernel(name)]
     return {"profiled_wall_ms": wall_ms, "device_events": len(spans),
             "device_sum_ms": sum(ms for ms, _ in per_name.values()),
             "device_busy_ms": busy_ms,
             "busy_share_of_profiled": busy_ms / wall_ms,
             "top_device_ms": [{"name": name[:80], "ms": ms, "count": n}
-                              for name, (ms, n) in top]}
+                              for name, (ms, n) in ranked[:10]],
+            "port_kernels_device_ms": ours}
+
+
+# The __global__ functions of video_analytics_tpu_torch/csrc/*.cu, as they
+# appear in a profile's kernel names.
+PORT_KERNELS = ("warp_prep_kernel", "pd_step_kernel", "eps_reduce_kernel",
+                "median_kernel", "pd_warp_kernel", "pd_chunk_kernel",
+                "band_flags_kernel", "fb_prologue_kernel",
+                "fb_warp_neq_kernel", "sep_corr_kernel",
+                "fb_window_solve_kernel")
+
+
+def port_kernel(name: str) -> bool:
+    return any(k in name for k in PORT_KERNELS)
+
+
+def short_kernel_name(name: str) -> str:
+    """A profile's kernel name without its namespace and argument list:
+    ``pd_warp_kernel<13, true>``."""
+    name = name.split("(anonymous namespace)::", 1)[-1]
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            return name[:i]
+    return name[:80]
+
+
+def device_ms(torch, fn, kernel: str, reps: int = 5) -> float:
+    """The device duration of one launch of the kernel whose name holds
+    `kernel`: `reps` calls of fn() under torch.profiler, the kernel's
+    summed device time over its launches.  Unlike ``cuda_ms`` it leaves
+    out the host's pace between launches."""
+    fn()
+    # The profiler now and then drops records, at times all of a short
+    # session's: any count will do, and an empty profile is taken again.
+    for _ in range(3):
+        prof = device_profile(torch, lambda: [fn() for _ in range(reps)])
+        hits = [k for k in prof["port_kernels_device_ms"]
+                if kernel in k["name"]]
+        if hits:
+            break
+    check(len(hits) == 1 and hits[0]["count"] >= 1,
+          f"profile of {kernel}: {prof['port_kernels_device_ms']}")
+    return hits[0]["ms_each"]
 
 
 def zero_counts(kernels) -> None:
@@ -274,6 +343,7 @@ def zero_fb_counts(fk) -> None:
     """Set the launch counts of the Farneback wrappers to 0."""
     fk.fb_prologue.launches = fk.fb_warp_neq.launches = 0
     fk.sep_corr.launches = fk.sep_corr.launches_solve = 0
+    fk.fb_window_solve.launches = fk.fb_iteration.launches = 0
 
 
 def read_fb_counts(fk):
@@ -283,7 +353,18 @@ def read_fb_counts(fk):
     return {"fb_prologue": fk.fb_prologue.launches,
             "fb_warp_neq": fk.fb_warp_neq.launches,
             "sep_corr": fk.sep_corr.launches - fk.sep_corr.launches_solve,
-            "sep_corr_x_solve": fk.sep_corr.launches_solve}
+            "sep_corr_x_solve": fk.sep_corr.launches_solve,
+            "fb_window_solve": fk.fb_window_solve.launches,
+            "fb_iteration": fk.fb_iteration.launches}
+
+
+def fb_expected(levels: int, iterations: int, calls: int = 1):
+    """Launches of the Farneback kernels over `calls` flow calls: the
+    prologue once per level and ``fb_iteration`` once per level and
+    iteration; K-E, ``fb_window_solve`` and ``sep_corr`` not at all."""
+    return {"fb_prologue": calls * levels,
+            "fb_iteration": calls * levels * iterations, "fb_warp_neq": 0,
+            "fb_window_solve": 0, "sep_corr": 0, "sep_corr_x_solve": 0}
 
 
 def serve_requests(server, frames, zero, read, per_request=None):
@@ -331,8 +412,9 @@ def check_probs(torch, np, server, frames, probs):
 
 
 def farneback_kernels_phase(torch, np, dev):
-    """Phase 5.  Returns (errs, times, bounds) keyed by kernel name; times
-    and bounds are those at the finest serve level (224², 15 pairs).
+    """Phase 5.  Returns (errs, times, bounds, device durations) keyed by
+    kernel name; times and bounds are those at the finest serve level
+    (224², 15 pairs).
 
     At every level the kernels get the sequence form's shapes (16 frames,
     15 pairs), which the serve path gives them.  At the native levels
@@ -343,18 +425,29 @@ def farneback_kernels_phase(torch, np, dev):
 
     from video_analytics_tpu_torch.config import FarnebackConfig
     from video_analytics_tpu_torch.flow.farneback import (
-        _level_sizes, farneback_sequence)
+        _level_sizes, _resize_flow, farneback_sequence)
     from video_analytics_tpu_torch.ops.cuda import farneback as fk
     from video_analytics_tpu_torch.ops.kernels import farneback_window_taps
+
+    def three_launches(R0, R1, flow, taps):
+        """One iteration as K-E and the two launches of K-F."""
+        return fk.sep_corr(fk.sep_corr(fk.fb_warp_neq(R0, R1, flow), taps, 0),
+                           taps, 1, solve=True)
+
+    def two_launches(R0, R1, flow, taps):
+        """One iteration as K-E and fb_window_solve: M reaches device
+        memory once."""
+        return fk.fb_window_solve(fk.fb_warp_neq(R0, R1, flow), taps)
 
     cfg = FarnebackConfig()
     n_poly = 2 * cfg.poly_n + 1
     tap_sets = {"box": farneback_window_taps(cfg.winsize, False),
                 "gaussian": farneback_window_taps(cfg.winsize, True)}
     errs = {"fb_prologue": 0.0, "fb_warp_neq": 0.0, "sep_corr": 0.0,
-            "sep_corr_x_solve": 0.0}
+            "sep_corr_x_solve": 0.0, "fb_window_solve": 0.0,
+            "fb_iteration": 0.0}
     shapes = {}
-    report, main_times, main_bounds = {}, {}, {}
+    report, main_times, main_bounds, main_dev = {}, {}, {}, {}
     level_err = seq_epe = 0.0
 
     def diff(got, want, what):
@@ -397,17 +490,33 @@ def farneback_kernels_phase(torch, np, dev):
                              f"at {what}")
                     name = "sep_corr_x_solve" if solve else "sep_corr"
                     errs[name] = max(errs[name], e)
+            # Both passes and the solve in one launch: what the two launches
+            # of K-F give, and the plain version; then with K-E as its loader.
+            at = f"{tname} at {what}"
+            two = fk.sep_corr(fk.sep_corr(M_ref, taps, 0), taps, 1, solve=True)
+            got = fk.fb_window_solve(M_ref, taps)
+            errs["fb_window_solve"] = max(
+                errs["fb_window_solve"],
+                diff(got, two, f"fb_window_solve vs two launches, {at}"),
+                diff(got, fk.fb_window_solve_plain(M_ref, taps),
+                     f"fb_window_solve {at}"))
+            one = fk.fb_iteration(R0, R1, flow, taps)
+            errs["fb_iteration"] = max(
+                errs["fb_iteration"],
+                diff(one, got, f"fb_iteration vs K-E + fb_window_solve, {at}"),
+                diff(one, fk.fb_iteration_plain(R0, R1, flow, taps),
+                     f"fb_iteration {at}"))
 
-        # One whole level: 3 iterations, kernels against plain versions.
+        # One whole level: 3 iterations, in single launches (the path) and
+        # in two, against the plain versions.
         taps = tap_sets["box"]
-        f_k = f_p = torch.zeros_like(flow)
+        f_k = f_i = f_p = torch.zeros_like(flow)
         for _ in range(cfg.iterations):
-            f_k = fk.sep_corr(fk.sep_corr(fk.fb_warp_neq(R0, R1, f_k),
-                                          taps, 0), taps, 1, solve=True)
-            f_p = fk.sep_corr_plain(fk.sep_corr_plain(
-                fk.fb_warp_neq_plain(R0, R1, f_p), taps, 0), taps, 1,
-                solve=True)
-        level_err = max(level_err, diff(f_k, f_p, f"level at {what}"))
+            f_k = two_launches(R0, R1, f_k, taps)
+            f_i = fk.fb_iteration(R0, R1, f_i, taps)
+            f_p = fk.fb_iteration_plain(R0, R1, f_p, taps)
+        level_err = max(level_err, diff(f_k, f_p, f"level at {what}"),
+                        diff(f_i, f_p, f"level in single launches at {what}"))
         return args, R0, R1, flow, M_ref
 
     for H, W in ((224, 224), NATIVE):
@@ -416,7 +525,8 @@ def farneback_kernels_phase(torch, np, dev):
              for t in range(FB_FRAMES)])).to(dev)
         B = FB_FRAMES - 1
         taps = tap_sets["box"]
-        for lh, lw, scale in _level_sizes(H, W, cfg):
+        sizes = _level_sizes(H, W, cfg)
+        for lh, lw, scale in sizes:
             key = f"{lh}x{lw}"
             if (H, W) == NATIVE:
                 # The pair form, as compute-flow calls it: both sides of
@@ -461,7 +571,39 @@ def farneback_kernels_phase(torch, np, dev):
                 "sep_corr_x_solve": (
                     cuda_ms(torch, lambda: fk.sep_corr(M_ref, taps, 1, True)),
                     cuda_ms(torch, lambda: fk.sep_corr_plain(M_ref, taps, 1,
-                                                             True)), None)}
+                                                             True)), None),
+                "fb_window_solve": (
+                    cuda_ms(torch, lambda: fk.fb_window_solve(M_ref, taps)),
+                    cuda_ms(torch, lambda: fk.fb_window_solve_plain(M_ref,
+                                                                    taps)),
+                    None),
+                "fb_iteration": (
+                    cuda_ms(torch, lambda: fk.fb_iteration(R0, R1, flow,
+                                                           taps)),
+                    cuda_ms(torch, lambda: fk.fb_iteration_plain(
+                        R0, R1, flow, taps)), None)}
+            # The kernels' own durations, at the finest level of each pyramid.
+            dev_ms = {}
+            if (lh, lw) == (H, W):
+                dev_ms = {
+                    "fb_prologue": device_ms(
+                        torch, lambda: fk.fb_prologue(*args),
+                        "fb_prologue_kernel"),
+                    "fb_warp_neq": device_ms(
+                        torch, lambda: fk.fb_warp_neq(R0, R1, flow),
+                        "fb_warp_neq_kernel"),
+                    "sep_corr": device_ms(
+                        torch, lambda: fk.sep_corr(M_ref, taps, 0),
+                        "sep_corr_kernel"),
+                    "sep_corr_x_solve": device_ms(
+                        torch, lambda: fk.sep_corr(M_ref, taps, 1, True),
+                        "sep_corr_kernel"),
+                    "fb_window_solve": device_ms(
+                        torch, lambda: fk.fb_window_solve(M_ref, taps),
+                        "fb_window_solve_kernel"),
+                    "fb_iteration": device_ms(
+                        torch, lambda: fk.fb_iteration(R0, R1, flow, taps),
+                        "fb_window_solve_kernel")}
             # Bytes: inputs read once, outputs written once.  Operations:
             # the separable algorithm's multiplies and adds (blur 2 passes,
             # 2 taps of each resized axis, 3 vertical + 6 horizontal
@@ -479,14 +621,24 @@ def farneback_kernels_phase(torch, np, dev):
                                   2 * len(taps) * 5 * B * lh * lw),
                 "sep_corr_x_solve": bound(
                     7 * 4 * B * lh * lw,
-                    (2 * len(taps) * 5 + 12) * B * lh * lw)}
+                    (2 * len(taps) * 5 + 12) * B * lh * lw),
+                # M read and the flow written; both passes and the solve.
+                "fb_window_solve": bound(
+                    7 * 4 * B * lh * lw,
+                    (2 * 2 * len(taps) * 5 + 12) * B * lh * lw),
+                # R0, R1 and the flow read, the flow written; K-E's
+                # operations as well.
+                "fb_iteration": bound(
+                    14 * 4 * B * lh * lw,
+                    (100 + 2 * 2 * len(taps) * 5 + 12) * B * lh * lw)}
             report[key] = {
                 name: {"ms": t[0], "plain_ms": t[1], "library_ms": t[2],
                        "bound_ms": bounds[name][0],
-                       "bound_by": bounds[name][1]}
+                       "bound_by": bounds[name][1],
+                       **({"device_ms": dev_ms[name]} if dev_ms else {})}
                 for name, t in times.items()}
             if (lh, lw) == (224, 224):
-                main_times, main_bounds = times, bounds
+                main_times, main_bounds, main_dev = times, bounds, dev_ms
 
         seq = farneback_sequence(frames, cfg)
         seq_plain = farneback_sequence(frames, cfg, plain=True)
@@ -497,21 +649,50 @@ def farneback_kernels_phase(torch, np, dev):
         check(abs(mean[0] - VEL[0]) < TOL_MEAN_FLOW
               and abs(mean[1] - VEL[1]) < TOL_MEAN_FLOW,
               f"farneback mean flow {mean} at {H}x{W}, expected {VEL}")
+        # The same sequence with an iteration as three launches (K-E and K-F
+        # twice), two (K-E and fb_window_solve) and one (fb_iteration: the
+        # path): equal flows, timed in turns, forwards then back.
+        variants = {"three_launches": three_launches,
+                    "two_launches": two_launches,
+                    "one_launch": fk.fb_iteration}
+
+        def seq_with(iterate):
+            """The pyramid loop of farneback_sequence with `iterate` as
+            one iteration."""
+            flow = torch.zeros((B, 2, *sizes[0][:2]), device=dev)
+            for i, (lh, lw, scale) in enumerate(sizes):
+                if i:
+                    flow = _resize_flow(flow, (lh, lw), 1.0 / cfg.pyr_scale)
+                R = fk.fb_prologue(frames, scale, (lh, lw), cfg.poly_n,
+                                   cfg.poly_sigma)
+                for _ in range(cfg.iterations):
+                    flow = iterate(R[:-1], R[1:], flow, taps)
+            return flow
+
+        for name, iterate in variants.items():
+            check(torch.equal(seq_with(iterate).permute(0, 2, 3, 1), seq),
+                  f"farneback_sequence at {H}x{W} with {name} differs")
+        seq_ms = {name: [] for name in variants}
+        for name in list(variants) + list(reversed(variants)):
+            seq_ms[name].append(cuda_ms(
+                torch, lambda: seq_with(variants[name]), 5))
         report[f"sequence_{H}x{W}"] = {
             "mean_flow": mean,
             "ms": cuda_ms(torch, lambda: farneback_sequence(frames, cfg), 3),
+            "ms_by_launches_per_iteration": seq_ms,
             "plain_ms": cuda_ms(
                 torch, lambda: farneback_sequence(frames, cfg, plain=True), 3)}
     emit({"phase": "farneback_kernels", "frames": FB_FRAMES,
           "frames_and_pairs_checked": shapes, "max_abs_err": errs, "level_max_abs_err": level_err,
           "sequence_max_epe": seq_epe, "tolerance": TOL_FB,
           "by_level": report})
-    return errs, main_times, main_bounds
+    return errs, main_times, main_bounds, main_dev
 
 
 def farneback_serve_phase(torch, np, dev, model):
     """Phase 6.  Returns the launches of K-D, K-E, K-F over the requests."""
     from video_analytics_tpu_torch.config import PipelineConfig
+    from video_analytics_tpu_torch.flow.farneback import _level_sizes
     from video_analytics_tpu_torch.ops import preprocess as pp
     from video_analytics_tpu_torch.ops.cuda import farneback as fk
     from video_analytics_tpu_torch.runtime import pipeline
@@ -523,9 +704,11 @@ def farneback_serve_phase(torch, np, dev, model):
     pcfg = PipelineConfig(flow_algo="farneback")
     server = ClipServer(model, pcfg, dev)
     warm_s = server.warmup()
+    fcfg = pcfg.farneback
     request_ms, outs, launches = serve_requests(
         server, frames, lambda: zero_fb_counts(fk),
-        lambda: read_fb_counts(fk))
+        lambda: read_fb_counts(fk),
+        fb_expected(len(_level_sizes(224, 224, fcfg)), fcfg.iterations))
     e = check_probs(torch, np, server, frames, outs[0])
 
     with torch.no_grad():
@@ -589,14 +772,10 @@ def compute_flow_phase(np):
           and abs(mean[1] - VEL[1]) < TOL_MEAN_FLOW,
           f"compute-flow mean flow {mean}, expected {VEL}")
     # Each flow call of --batch pairs launches the prologue once per level,
-    # and per level and iteration K-E, K-F along y and K-F along x with the
-    # solve.
+    # and fb_iteration once per level and iteration.
     cfg = FarnebackConfig()
     calls = -(-(FB_FRAMES - 1) // CF_BATCH)
-    levels = len(_level_sizes(H, W, cfg))
-    per_kernel = calls * levels * cfg.iterations
-    expected = {"fb_prologue": calls * levels, "fb_warp_neq": per_kernel,
-                "sep_corr": per_kernel, "sep_corr_x_solve": per_kernel}
+    expected = fb_expected(len(_level_sizes(H, W, cfg)), cfg.iterations, calls)
     check(launches == expected,
           f"compute-flow launched {launches}, expected {expected}")
     emit({"phase": "compute_flow", "files": len(files), "seconds": seconds,
@@ -641,19 +820,43 @@ def warp_bound(rounds, h, w, inner, median_k):
     return bound(8 * 4 * px * len(rounds), per_round * px * sum(rounds))
 
 
+def scale_bound(rounds, h, w, inner, median_k):
+    """Bound of one ``tvl1_scale`` launch: I1, its gradients, I0, u and v
+    read and u, v written once, against the warp's ~45 operations a pixel
+    and warp, the solver's operations for the rounds each image ran in
+    each warp (`rounds`: a list per image) and the scale-end median."""
+    px = h * w
+    med = 2 * 2 * 113 if median_k > 1 else 0
+    ops = sum(45 * len(r) + (70 * inner + med) * sum(r) + med
+              for r in rounds)
+    return bound(8 * 4 * px * len(rounds), ops * px)
+
+
 def tvl1_warp_kernel_phase(torch, np, dev):
-    """K-H ``pd_solve_warp`` against ``pd_solve_plain``, and one warp of
-    the serve path through the three designs.  Returns (max_abs_err, (ms,
-    plain_ms, None), bound) of one warp of 15 pairs at 224² with
-    ``TVL1Config()``."""
+    """K-H ``pd_solve_warp`` against ``pd_solve_plain``, ``tvl1_scale``
+    (``pd_solve_scale``: all the warps of a scale in one launch) against the
+    kernels it fuses and its plain version, and one warp of the serve path
+    through the three designs.  Returns {name: (max_abs_err, (ms, plain_ms,
+    None), bound, device_ms)} of one warp (K-H) and one scale
+    (``tvl1_scale``) of 15 pairs at 224² with ``TVL1Config()``."""
     from video_analytics_tpu_torch.config import TVL1Config
     from video_analytics_tpu_torch.ops.cuda import _build
     from video_analytics_tpu_torch.ops.cuda import tvl1_solve as ts
-    from video_analytics_tpu_torch.ops.cuda.warp import warp_prep_plain
+    from video_analytics_tpu_torch.ops.cuda.warp import (
+        warp_prep, warp_prep_plain)
 
     cfg = TVL1Config()
     lib = _build.library()
-    report, max_err, table = {}, 0.0, None
+    report, max_err, scale_err, table = {}, 0.0, 0.0, {}
+
+    def chain_scale(i13, i0, uv, c):
+        """One scale as the kernels ``tvl1_scale`` fuses: K-A and K-H per
+        warp, then K-C."""
+        for _ in range(c.warps):
+            uv = ts.pd_solve_warp(warp_prep(i13, i0, uv), uv, c)
+        if c.median_filtering > 1:
+            uv = ts.median5(uv, c.median_filtering)
+        return uv
     for h, w in [(s, s) for s in SIZES] + list(RAGGED):
         i0, i13, uv = tvl1_level_inputs(torch, np, dev, h, w, PAIRS)
         prep = warp_prep_plain(i13, i0, uv)
@@ -739,7 +942,81 @@ def tvl1_warp_kernel_phase(torch, np, dev):
                           * (cfg.inner_iterations + 2),
                           "chunked": cfg.outer_iterations
                           * -(-cfg.inner_iterations // chunk) + 9})
-            table = ((entry["ms"], entry["plain_ms"], None), (b_ms, b_by))
+            table["tvl1_pd_warp"] = (
+                None, (entry["ms"], entry["plain_ms"], None), (b_ms, b_by),
+                device_ms(torch, lambda: ts.pd_solve_warp(prep, uv, cfg),
+                          "pd_warp_kernel"))
+
+        # tvl1_scale: every warp of the scale and the scale-end median in
+        # one launch, against the chain K-A -> K-H per warp -> K-C and the
+        # plain version.  epsilon = 0: every bit agrees with both.
+        sc = {}
+        srounds = torch.zeros((PAIRS, 2), dtype=torch.int32, device=dev)
+        for k in (5, 3, 0):
+            c = dataclasses.replace(cfg, epsilon=0.0, outer_iterations=2,
+                                    warps=2, median_filtering=k)
+            n = ts.pd_solve_scale.launches
+            got = ts.pd_solve_scale(i13, i0, uv, c, srounds)
+            check(ts.pd_solve_scale.launches == n + 1, "launch not counted")
+            check(torch.equal(got, chain_scale(i13, i0, uv, c)),
+                  f"tvl1_scale at {h}x{w}, epsilon 0, median {k}: not the "
+                  f"chain's flow")
+            want = ts.pd_solve_scale_plain(i13, i0, uv, c)
+            e = (got - want).abs().max().item()
+            check(torch.equal(got, want),
+                  f"tvl1_scale at {h}x{w}, epsilon 0, median {k}: max abs "
+                  f"{e} from the plain version")
+            check(bool((srounds == 2).all()), f"rounds {srounds.tolist()}")
+        # One warp: K-A, K-H and K-C in one launch.
+        one = dataclasses.replace(cfg, warps=1)
+        check(torch.equal(ts.pd_solve_scale(i13, i0, uv, one),
+                          chain_scale(i13, i0, uv, one)),
+              f"tvl1_scale of one warp at {h}x{w} is not K-A, K-H, K-C")
+        # With the test engaged: the chain's flow to the bit (same strips,
+        # same order of the sums); against the plain version a round may
+        # flip at the threshold in any of the warps.
+        srounds = torch.zeros((PAIRS, cfg.warps), dtype=torch.int32,
+                              device=dev)
+        got = ts.pd_solve_scale(i13, i0, uv, cfg, srounds)
+        chain = chain_scale(i13, i0, uv, cfg)
+        check(torch.equal(got, chain),
+              f"tvl1_scale at {h}x{w}, TVL1Config(): max abs "
+              f"{(got - chain).abs().max().item()} from the chain")
+        want = ts.pd_solve_scale_plain(i13, i0, uv, cfg)
+        e = (got - want).abs().max().item()
+        sc["equal_to_plain_with_epsilon"] = torch.equal(got, want)
+        check(sc["equal_to_plain_with_epsilon"]
+              if (h, w) == (SIZES[0], SIZES[0])
+              else e <= 10 * cfg.epsilon * cfg.warps,
+              f"tvl1_scale at {h}x{w}, TVL1Config(): max abs {e} from the "
+              f"plain version")
+        scale_err = max(scale_err, e)
+        sc["rounds"] = srounds.tolist()
+        sb_ms, sb_by = scale_bound(sc["rounds"], h, w, cfg.inner_iterations,
+                                   cfg.median_filtering)
+        # In turns: the launch, the chain, the chain, the launch.
+        t = [cuda_ms(torch, f, 3) for f in (
+            lambda: ts.pd_solve_scale(i13, i0, uv, cfg),
+            lambda: chain_scale(i13, i0, uv, cfg),
+            lambda: chain_scale(i13, i0, uv, cfg),
+            lambda: ts.pd_solve_scale(i13, i0, uv, cfg))]
+        sc.update(ms=min(t[0], t[3]), ms_both=[t[0], t[3]],
+                  chain_ms=min(t[1], t[2]), chain_ms_both=[t[1], t[2]],
+                  chain_launches=2 * cfg.warps + 1, bound_ms=sb_ms,
+                  bound_by=sb_by,
+                  ms_one_warp=cuda_ms(
+                      torch, lambda: ts.pd_solve_scale(i13, i0, uv, one), 5),
+                  ms_one_warp_three_launches=cuda_ms(
+                      torch, lambda: chain_scale(i13, i0, uv, one), 5))
+        if (h, w) == (SIZES[0], SIZES[0]):
+            sc["plain_ms"] = cuda_ms(
+                torch, lambda: ts.pd_solve_scale_plain(i13, i0, uv, cfg), 1)
+            sc["device_ms"] = device_ms(
+                torch, lambda: ts.pd_solve_scale(i13, i0, uv, cfg),
+                "pd_warp_kernel", 3)
+            table["tvl1_scale"] = (None, (sc["ms"], sc["plain_ms"], None),
+                                   (sb_ms, sb_by), sc["device_ms"])
+        entry["tvl1_scale"] = sc
         report[f"{h}x{w}"] = entry
 
     # One image and three windows' worth (more clusters than the card holds
@@ -747,17 +1024,28 @@ def tvl1_warp_kernel_phase(torch, np, dev):
     for B in (1, 45):
         i0, i13, uv = tvl1_level_inputs(torch, np, dev, SIZES[0], SIZES[0], B)
         prep = warp_prep_plain(i13, i0, uv)
-        short = dataclasses.replace(cfg, epsilon=0.0, outer_iterations=1)
+        short = dataclasses.replace(cfg, epsilon=0.0, outer_iterations=1,
+                                    warps=2)
         check(torch.equal(ts.pd_solve_warp(prep, uv, short),
                           ts.pd_solve_plain(prep, uv, short)),
               f"pd_solve_warp at batch {B}")
+        # The whole-scale launch at the batch classify-clip --windows 3
+        # gives it.
+        got = ts.pd_solve_scale(i13, i0, uv, short)
+        check(torch.equal(got, chain_scale(i13, i0, uv, short)),
+              f"tvl1_scale at batch {B}: not the chain's flow")
+        check(torch.equal(got, ts.pd_solve_scale_plain(i13, i0, uv, short)),
+              f"tvl1_scale at batch {B}: not the plain version's flow")
     check(ts.warp_geometry(280, 280) is None
           and lib.va_pd_warp_smem(280, 280) < 0, "280x280 fits a cluster?")
     emit({"phase": "tvl1_warp_kernel", "pairs": PAIRS,
           "max_abs_err": max_err, "tolerance": 0.0,
           "tolerance_where_a_round_may_flip": 10 * cfg.epsilon,
+          "tvl1_scale_max_abs_err": scale_err,
+          "tvl1_scale_equal_to_chain": True,
           "by_level": report})
-    return max_err, table[0], table[1]
+    return {"tvl1_pd_warp": (max_err, *table["tvl1_pd_warp"][1:]),
+            "tvl1_scale": (scale_err, *table["tvl1_scale"][1:])}
 
 
 MID = (280, 300)       # finest level: under the size rule, fits no cluster
@@ -766,8 +1054,9 @@ MID_FRAMES = 3
 
 def tvl1_midsize_phase(torch, np, dev):
     """``compute-flow --algo tvl1`` on frames of 280x300: the finest level
-    takes the per-iteration chain (K-B, its ε reduction, K-C), the coarser
-    ones K-H.  Returns the launches per kernel."""
+    takes K-A per warp, the per-iteration chain (K-B, its ε reduction, K-C)
+    and the scale-end K-C, the coarser ones ``tvl1_scale``.  Returns the
+    launches per kernel."""
     import tempfile
 
     from video_analytics_tpu_torch.cli.main import _load_frames
@@ -787,6 +1076,7 @@ def tvl1_midsize_phase(torch, np, dev):
           f"levels of {MID} take {takes}")
     kernels = {"tvl1_pd_step": ts.pd_step, "tvl1_eps_reduce": ts.eps_reduce,
                "median5": ts.median5, "warp_prep": warp_prep,
+               "tvl1_scale": ts.pd_solve_scale,
                "tvl1_pd_warp": ts.pd_solve_warp, "tvl1_pd_chunk": ts.pd_chunk}
     planes = [scene(np, t, *MID, seed=7) for t in range(MID_FRAMES)]
     frames = np.stack([np.stack([g * img for g in (1.0, 0.85, 0.7)], axis=-1)
@@ -810,9 +1100,9 @@ def tvl1_midsize_phase(torch, np, dev):
     rounds = cfg.warps * cfg.outer_iterations
     expected = {"tvl1_pd_step": n_chain * rounds * cfg.inner_iterations,
                 "tvl1_eps_reduce": n_chain * rounds,
-                "median5": n_chain * rounds + len(takes),
-                "warp_prep": len(takes) * cfg.warps,
-                "tvl1_pd_warp": n_warp * cfg.warps, "tvl1_pd_chunk": 0}
+                "median5": n_chain * rounds + n_chain,
+                "warp_prep": n_chain * cfg.warps, "tvl1_scale": n_warp,
+                "tvl1_pd_warp": 0, "tvl1_pd_chunk": 0}
     check(launches == expected,
           f"compute-flow at {MID} launched {launches}, expected {expected}")
     check(flow.shape == (*MID, 2) and bool(np.isfinite(flow).all()),
@@ -822,7 +1112,7 @@ def tvl1_midsize_phase(torch, np, dev):
           and abs(mean[1] - VEL[1]) < TOL_MEAN_FLOW,
           f"mean flow {mean} at {MID}, expected {VEL}")
     # With no test to flip, at a smaller depth, the pyramid through the chain
-    # and K-H is the plain path's to the bit.
+    # and tvl1_scale is the plain path's to the bit.
     with torch.no_grad():
         exact = dataclasses.replace(cfg, epsilon=0.0, warps=2,
                                     outer_iterations=2)
@@ -854,8 +1144,8 @@ def tvl1_chunk_kernels_phase(torch, np, dev, sweep: bool):
     """K-G ``pd_chunk`` against its plain version at the five level sizes
     of a 1080x1920 frame, ``band_flags`` against its plain version, and
     ``pd_solve_chunked`` against the per-iteration ``pd_solve``.  Returns
-    {name: (max_abs_err, (ms, plain_ms, None), bound)} for K-G (a full
-    chunk) and ``band_flags`` at 1080x1920."""
+    {name: (max_abs_err, (ms, plain_ms, None), bound, device_ms)} for K-G
+    (a full chunk) and ``band_flags`` at 1080x1920."""
     from video_analytics_tpu_torch.config import TVL1Config
     from video_analytics_tpu_torch.flow.tvl1 import (
         _level_sizes, whole_plane_level)
@@ -976,13 +1266,19 @@ def tvl1_chunk_kernels_phase(torch, np, dev, sweep: bool):
                 sums, on, errs[1], nxt[1], band, h, w, cfg.epsilon, True))
         if (h, w) == FULL_HD:
             table["tvl1_pd_chunk"] = (
-                max_err, (times["ms"], times["plain_ms"], None), (b_ms, b_by))
+                max_err, (times["ms"], times["plain_ms"], None), (b_ms, b_by),
+                device_ms(torch, lambda: ts.pd_chunk(
+                    prep, state, on, cfg, chunk, band, tile, halo, False,
+                    out), "pd_chunk_kernel"))
             # Read: the partials, the flags, the errors; written: errors and
             # flags.  One add per partial.
             table["tvl1_band_flags"] = (
                 flag_err, (times["band_flags_ms"],
                            times["band_flags_plain_ms"], None),
-                bound(4 * sums.numel() + 16 * act.numel(), sums.numel()))
+                bound(4 * sums.numel() + 16 * act.numel(), sums.numel()),
+                device_ms(torch, lambda: ts.band_flags(
+                    sums, on, errs[0], nxt[0], band, h, w, cfg.epsilon, True),
+                    "band_flags_kernel"))
             # One whole warp, both solvers.  At epsilon = 0 no flag clears
             # and the tiling cannot show: bit for bit.
             exact = dataclasses.replace(cfg, epsilon=0.0, outer_iterations=2)
@@ -1088,7 +1384,8 @@ def tvl1_1080p_phase(torch, np, dev, work: str):
     kernels = {"tvl1_pd_chunk": ts.pd_chunk, "tvl1_band_flags": ts.band_flags,
                "warp_prep": warp_prep, "median5": ts.median5,
                "tvl1_pd_step": ts.pd_step, "tvl1_eps_reduce": ts.eps_reduce,
-               "tvl1_pd_warp": ts.pd_solve_warp}
+               "tvl1_pd_warp": ts.pd_solve_warp,
+               "tvl1_scale": ts.pd_solve_scale}
     zero_counts(kernels)
     t0 = time.perf_counter()
     rc, res = run_cli(["compute-flow", src, out, "--algo", "tvl1", "--format",
@@ -1116,7 +1413,7 @@ def tvl1_1080p_phase(torch, np, dev, work: str):
                 * (cfg.outer_iterations - 1),
                 "warp_prep": calls * len(levels) * cfg.warps,
                 "median5": calls * len(levels), "tvl1_pd_step": 0,
-                "tvl1_eps_reduce": 0, "tvl1_pd_warp": 0}
+                "tvl1_eps_reduce": 0, "tvl1_pd_warp": 0, "tvl1_scale": 0}
     check(launches == expected,
           f"compute-flow --algo tvl1 launched {launches}, expected {expected}")
     files = sorted(f for f in os.listdir(out) if f.endswith(".flo"))
@@ -1243,8 +1540,9 @@ def stage_chain_phase(torch, np, dev, work: str, frames_dir: str,
                      "flow features of the stored flow")
 
     # 2. The frames: both streams, TV-L1 on the 224² crop (every level
-    # there fits a cluster: K-H, and neither the chain nor K-G).
-    kernels = {"warp_prep": warp_prep, "tvl1_pd_warp": ts.pd_solve_warp,
+    # there fits a cluster: tvl1_scale, and nothing else).
+    kernels = {"tvl1_scale": ts.pd_solve_scale, "warp_prep": warp_prep,
+               "tvl1_pd_warp": ts.pd_solve_warp,
                "median5": ts.median5, "tvl1_pd_step": ts.pd_step,
                "tvl1_eps_reduce": ts.eps_reduce,
                "tvl1_pd_chunk": ts.pd_chunk}
@@ -1256,11 +1554,11 @@ def stage_chain_phase(torch, np, dev, work: str, frames_dir: str,
     xf_launches = read_counts(kernels)
     check(rc == 0 and res["rgb"] == [HD_FRAMES, dim]
           and res["flow"] == [1, dim], f"extract-features (frames): {res}")
-    for name, n in xf_launches.items():
-        if name in ("warp_prep", "tvl1_pd_warp", "median5"):
-            check(n > 0, f"extract-features did not launch {name}")
-        else:
-            check(n == 0, f"the 224² crop launched {name} {n} times")
+    # Its 10 pairs ride in one flow batch: one launch per scale.
+    n_scales = len(SIZES)
+    check(xf_launches == {**dict.fromkeys(kernels, 0),
+                          "tvl1_scale": n_scales},
+          f"extract-features on the 224² crop launched {xf_launches}")
     with torch.no_grad():
         frames, fcfg = apply_transport_crop(_load_frames(frames_dir, None),
                                             cfg)
@@ -1287,6 +1585,10 @@ def stage_chain_phase(torch, np, dev, work: str, frames_dir: str,
     cc_launches = read_counts(kernels)
     check(rc == 0 and len(res["topk"]) == cfg.num_classes,
           f"classify-clip: {rc}")
+    # Its windows' 45 pairs ride in one flow batch: one launch per scale.
+    check(cc_launches == {**dict.fromkeys(kernels, 0),
+                          "tvl1_scale": n_scales},
+          f"classify-clip launched {cc_launches}")
     probs = np.zeros(cfg.num_classes, np.float32)
     for entry in res["topk"]:
         probs[entry["class_id"]] = entry["prob"]
@@ -1336,7 +1638,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default=None,
-                    choices=["tvl1_warp_kernel", "tvl1_midsize",
+                    choices=["tvl1_warp_kernel", "farneback_kernels",
+                             "tvl1_midsize",
                              "tvl1_chunk_kernels", "tvl1_1080p",
                              "stage_chain"],
                     help="run the build and this phase alone (stage_chain "
@@ -1386,6 +1689,8 @@ def main(argv=None) -> int:
 
     if args.only == "tvl1_warp_kernel":
         tvl1_warp_kernel_phase(torch, np, dev)
+    elif args.only == "farneback_kernels":
+        farneback_kernels_phase(torch, np, dev)
     elif args.only == "tvl1_midsize":
         tvl1_midsize_phase(torch, np, dev)
     elif args.only == "tvl1_chunk_kernels":
@@ -1472,11 +1777,30 @@ def main(argv=None) -> int:
             times[size]["pd_solve_one_warp"] = (
                 cuda_ms(torch, lambda: ts.pd_solve(prep, uv, cfg), 3),
                 cuda_ms(torch, lambda: ts.pd_solve_plain(prep, uv, cfg), 3))
+            dev_times = {
+                "warp_prep": device_ms(
+                    torch, lambda: warp_prep(i13, i0, uv),
+                    "warp_prep_kernel"),
+                "median5": device_ms(
+                    torch, lambda: ts.median5(uv, 5, on, out=uv_out),
+                    "median_kernel"),
+                "tvl1_pd_step": device_ms(
+                    torch, lambda: ts.pd_step(prep, uv, p, on, cfg, uv_out,
+                                              p_out), "pd_step_kernel"),
+                "tvl1_eps_reduce": device_ms(
+                    torch, lambda: ts.eps_reduce(big, on, errv[0], n_px,
+                                                 cfg.epsilon),
+                    "eps_reduce_kernel")}
     emit({"phase": "kernels", "sizes": list(SIZES), "pairs": PAIRS,
           "max_abs_err": errs, "median5_bit_exact": True,
-          "ms_kernel_vs_plain": times})
+          "ms_kernel_vs_plain": times,
+          f"device_ms_at_{SIZES[0]}": dev_times})
 
-    kh_err, kh_times, kh_bound = tvl1_warp_kernel_phase(torch, np, dev)
+    # K-H is on no command's path since tvl1_scale: its launches are those
+    # of this phase, which holds it against its plain version.
+    ts.pd_solve_warp.launches = 0
+    kh = tvl1_warp_kernel_phase(torch, np, dev)
+    own_check = {"tvl1_pd_warp": ts.pd_solve_warp.launches}
 
     # Per-image ε stop: an easy pair's flow must not depend on its batch.
     size = SIZES[0]
@@ -1515,19 +1839,16 @@ def main(argv=None) -> int:
     pong = server.handle_request({"cmd": "ping", "id": 1})
     check(pong.get("ok") is True and pong.get("id") == 1, f"ping: {pong}")
 
-    # Every level of a 224² crop fits a cluster: per request and level 5
-    # warps of one warp_prep and one pd_solve_warp each, and the scale-end
-    # median; the per-iteration kernels not at all.
-    kernels = {"warp_prep": warp_prep, "tvl1_pd_warp": ts.pd_solve_warp,
-               "median5": ts.median5, "tvl1_pd_step": ts.pd_step,
-               "tvl1_eps_reduce": ts.eps_reduce}
-    n_levels = len(SIZES)
+    # Every level of a 224² crop fits a cluster: per request and level one
+    # launch of tvl1_scale (its 5 warps and the scale-end median inside);
+    # K-A, K-H, K-C and the per-iteration kernels not at all.
+    kernels = {"tvl1_scale": ts.pd_solve_scale, "warp_prep": warp_prep,
+               "tvl1_pd_warp": ts.pd_solve_warp, "median5": ts.median5,
+               "tvl1_pd_step": ts.pd_step, "tvl1_eps_reduce": ts.eps_reduce}
     request_ms, outs, launches = serve_requests(
         server, frames, lambda: zero_counts(kernels),
         lambda: read_counts(kernels),
-        {"warp_prep": n_levels * cfg.warps,
-         "tvl1_pd_warp": n_levels * cfg.warps, "median5": n_levels,
-         "tvl1_pd_step": 0, "tvl1_eps_reduce": 0})
+        {**dict.fromkeys(kernels, 0), "tvl1_scale": len(SIZES)})
     probs = outs[0]
     e = check_probs(torch, np, server, frames, probs)
     emit({"phase": "serve", "warmup_s": warm_s, "request_ms": request_ms,
@@ -1543,7 +1864,11 @@ def main(argv=None) -> int:
           **profile_request(torch, np, server, frames, request_ms)})
 
     # -- 5-7. the Farneback path ----------------------------------------------
-    fb_errs, fb_times, fb_bounds = farneback_kernels_phase(torch, np, dev)
+    from video_analytics_tpu_torch.ops.cuda import farneback as fk
+    zero_fb_counts(fk)
+    fb_errs, fb_times, fb_bounds, fb_dev = farneback_kernels_phase(
+        torch, np, dev)
+    own_check.update(read_fb_counts(fk))
     fb_launches = farneback_serve_phase(torch, np, dev, model)
     cf_launches = compute_flow_phase(np)
 
@@ -1558,10 +1883,15 @@ def main(argv=None) -> int:
     # flow and the dual (10) and writes 6; median5 reads and writes u, v;
     # eps_reduce reads the per-block sums.  Operations per pixel: 3
     # bilinear samples and the prep (~45); one primal-dual step (~70); 113
-    # compare-exchanges of a min and a max per plane.  pd_solve_warp's is
-    # that of the rounds its images took (warp_bound).  The per-iteration
-    # kernels are no longer on the serve path: their launches are those of
-    # the mid-size compute-flow command, whose finest level takes them.
+    # compare-exchanges of a min and a max per plane.  pd_solve_warp's and
+    # tvl1_scale's are those of the rounds their images took (warp_bound,
+    # scale_bound).  Launches are those of the serve requests where the
+    # serve path runs the kernel; K-A, K-C, K-B and the ε reduction are on
+    # the mid-size compute-flow command's path (its finest level), K-G and
+    # band_flags on the 1080p command's; K-H, K-E, sep_corr and
+    # fb_window_solve are on no command's path (tvl1_scale and fb_iteration
+    # hold their arithmetic): their launches are 0, and check_launches
+    # counts those of the phase that holds them against their plain versions.
     px = PAIRS * SIZES[0] * SIZES[0]
     blocks = ts.pd_blocks(SIZES[0], SIZES[0])
     bounds = {"warp_prep": bound(10 * 4 * px, 45 * px),
@@ -1569,21 +1899,21 @@ def main(argv=None) -> int:
               "median5": bound(4 * 4 * px, 2 * 2 * 113 * px),
               "tvl1_eps_reduce": bound(4 * PAIRS * blocks + 8 * PAIRS,
                                        PAIRS * blocks),
-              **fb_bounds, "tvl1_pd_warp": kh_bound,
+              **fb_bounds, **{name: v[2] for name, v in kh.items()},
               **{name: v[2] for name, v in kg.items()}}
     errs.update(fb_errs)
-    errs["tvl1_pd_warp"] = kh_err
-    errs.update({name: v[0] for name, v in kg.items()})
+    errs.update({name: v[0] for name, v in {**kh, **kg}.items()})
     launches.update(fb_launches)
-    for name in ("tvl1_pd_step", "tvl1_eps_reduce"):
-        launches[name] = mid_launches[name]
-    for name in kg:
-        launches[name] = hd_launches[name]
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was launched on no path")
+    launches_from = {name: "serve" for name, n in launches.items() if n > 0}
+    for source, counts in (("tvl1_midsize", mid_launches),
+                           ("tvl1_1080p", hd_launches)):
+        for name, n in counts.items():
+            if launches.get(name, 0) == 0 and n > 0:
+                launches[name], launches_from[name] = n, source
     table_ms = {**{name: (*t, None) for name, t in times[SIZES[0]].items()},
-                **fb_times, "tvl1_pd_warp": kh_times,
-                **{name: v[1] for name, v in kg.items()}}
+                **fb_times, **{name: v[1] for name, v in {**kh, **kg}.items()}}
+    dev_times.update(fb_dev)
+    dev_times.update({name: v[3] for name, v in {**kh, **kg}.items()})
     src = "video_analytics_tpu_torch/csrc/"
     pallas = "video_analytics_tpu/ops/pallas/"
     fbk = pallas + "farneback_kernels.py:"
@@ -1595,8 +1925,10 @@ def main(argv=None) -> int:
              [pallas + "tvl1_solve.py:191", pallas + "tvl1_solve.py:584"]),
             ("tvl1_eps_reduce", "tvl1_pd.cu", pallas + "tvl1_solve.py:165",
              [pallas + "tvl1_solve.py:191"]),
-            ("tvl1_pd_warp", "tvl1_pd_warp.cu", pallas + "tvl1_solve.py:584",
-             [pallas + "tvl1_solve.py:191", pallas + "tvl1_solve.py:415"]),
+            ("tvl1_pd_warp", "tvl1_pd_warp.cu", pallas + "tvl1_solve.py:191",
+             [pallas + "tvl1_solve.py:415", pallas + "tvl1_solve.py:584"]),
+            ("tvl1_scale", "tvl1_pd_warp.cu", pallas + "tvl1_solve.py:584",
+             [pallas + "tvl1_solve.py:500"]),
             ("tvl1_pd_chunk", "tvl1_pd_chunk.cu", pallas + "tvl1_solve.py:890",
              [pallas + "tvl1_solve.py:720", pallas + "tvl1_solve.py:1001"]),
             ("tvl1_band_flags", "tvl1_pd_chunk.cu",
@@ -1607,13 +1939,32 @@ def main(argv=None) -> int:
               pallas + "warp.py:157", pallas + "warp.py:130"]),
             ("sep_corr", "sep_corr.cu", fbk + "139",
              [fbk + "263", fbk + "471", fbk + "946"]),
-            ("sep_corr_x_solve", "sep_corr.cu", fbk + "574",
-             [fbk + "139", fbk + "697", fbk + "946"])]
+            ("sep_corr_x_solve", "sep_corr.cu", fbk + "697",
+             [fbk + "139", fbk + "574", fbk + "946"]),
+            ("fb_window_solve", "fb_window_solve.cu", fbk + "574",
+             [fbk + "263", fbk + "471", fbk + "697", fbk + "946"]),
+            ("fb_iteration", "fb_window_solve.cu", fbk + "946",
+             [fbk + "826"])]
+    off_path = ("tvl1_pd_warp", "fb_warp_neq", "sep_corr", "sep_corr_x_solve",
+                "fb_window_solve")
+    for name, *_ in rows:
+        if name in off_path:
+            check(launches.get(name, 0) == 0 and own_check[name] > 0,
+                  f"kernel {name}: {launches.get(name)} launches on a path, "
+                  f"{own_check[name]} against its plain version")
+            launches[name] = 0
+        else:
+            check(launches.get(name, 0) > 0,
+                  f"kernel {name} was launched on no path")
     emit({"kernels": [{"name": name, "route": "cuda", "source": src + source,
                        "replaces": replaces, "replaces_also": also,
                        "launches": launches[name],
+                       "launches_from": launches_from.get(name),
+                       **({"check_launches": own_check[name]}
+                          if name in off_path else {}),
                        "max_abs_err": errs[name],
                        "ms": table_ms[name][0],
+                       "device_ms": dev_times[name],
                        "plain_ms": table_ms[name][1],
                        "bound_ms": bounds[name][0],
                        "bound_by": bounds[name][1],

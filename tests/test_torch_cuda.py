@@ -205,15 +205,16 @@ def test_pd_solve_chunked_matches_plain(dev, adaptive):
 
 def test_tvl1_chunked_levels_match_plain(dev):
     """``tvl1`` above the size rule (320x300 > 87,381 px): the finest
-    level takes K-G, the coarser one (256x240) the cluster solver."""
+    level takes K-G, the coarser one (256x240) the whole-scale launch of
+    the cluster solver."""
     i0, i1 = _images(dev, 2, 320, 300, seed=3)
     cfg = TVL1Config(nscales=2, warps=2, outer_iterations=2,
                      inner_iterations=8, epsilon=0.0)
-    n, n_warp = ts.pd_chunk.launches, ts.pd_solve_warp.launches
+    n, n_scale = ts.pd_chunk.launches, ts.pd_solve_scale.launches
     got = tvl1(i0, i1, cfg)
     band, chunk = ts.chunk_params(320, 300, cfg)
     assert ts.pd_chunk.launches - n == 2 * 2 * -(-8 // chunk)
-    assert ts.pd_solve_warp.launches - n_warp == 2
+    assert ts.pd_solve_scale.launches - n_scale == 1
     assert torch.equal(got, tvl1(i0, i1, cfg, plain=True))
 
 
@@ -321,8 +322,91 @@ def test_pd_solve_warp_refuses_what_it_cannot_launch(dev):
     assert ts.pd_solve_warp.launches == n
 
 
+# -- tvl1_scale: every warp of one pyramid scale in one launch ----------------
+
+def _chain_scale(i13, i0, uv, cfg):
+    """One scale as three kernels: K-A and K-H per warp, then K-C."""
+    for _ in range(cfg.warps):
+        uv = ts.pd_solve_warp(warp_prep(i13, i0, uv), uv, cfg)
+    if cfg.median_filtering > 1:
+        uv = ts.median5(uv, cfg.median_filtering)
+    return uv
+
+
+@pytest.mark.parametrize("k", [0, 3, 5])
+@pytest.mark.parametrize("b,h,w", [
+    (1, 37, 53),         # strips of 5 rows, the last of 2
+    (3, 17, 40),         # strips of 3, 3, 3, 3, 3, 2 and two empty ones
+    (45, 19, 23),        # more clusters than the card holds; a 1-row strip
+    (2, 150, 201),       # 10 pixels a thread in registers
+    (1, 248, 296),       # constants in scratch, read back through L2
+])
+def test_pd_solve_scale_matches_plain(dev, b, h, w, k):
+    """The whole-scale launch against its plain version and against the
+    three kernels it fuses.  ε = 0: bit for bit.  With the test engaged it
+    still equals the three kernels to the bit (same strips, same order of
+    the ε sum); against the plain version a round may flip at the
+    threshold, which moves the flow by less than 10·ε a warp."""
+    cfg = dataclasses.replace(FAST, epsilon=0.0, median_filtering=k,
+                              outer_iterations=2, warps=3)
+    i0, i13, uv = _level(dev, b, h, w)
+    rounds = torch.zeros((b, 3), dtype=torch.int32, device=dev)
+    before = (ts.pd_solve_scale.launches, warp_prep.launches,
+              ts.pd_solve_warp.launches, ts.median5.launches)
+    got = ts.pd_solve_scale(i13, i0, uv, cfg, rounds)
+    assert (ts.pd_solve_scale.launches, warp_prep.launches,
+            ts.pd_solve_warp.launches, ts.median5.launches) \
+        == (before[0] + 1,) + before[1:]
+    assert torch.equal(got, ts.pd_solve_scale_plain(i13, i0, uv, cfg))
+    assert torch.equal(got, _chain_scale(i13, i0, uv, cfg))
+    assert (rounds == 2).all()
+    one = dataclasses.replace(cfg, warps=1)
+    assert torch.equal(ts.pd_solve_scale(i13, i0, uv, one),
+                       _chain_scale(i13, i0, uv, one))
+    # No warp: the scale is its closing median, through K-C.
+    none = dataclasses.replace(cfg, warps=0)
+    n = ts.pd_solve_scale.launches
+    assert torch.equal(ts.pd_solve_scale(i13, i0, uv, none),
+                       ts.pd_solve_scale_plain(i13, i0, uv, none))
+    assert ts.pd_solve_scale.launches == n
+    gated = dataclasses.replace(cfg, epsilon=0.05, outer_iterations=6)
+    got = ts.pd_solve_scale(i13, i0, uv, gated, rounds)
+    assert torch.equal(got, _chain_scale(i13, i0, uv, gated))
+    want = ts.pd_solve_scale_plain(i13, i0, uv, gated)
+    assert (got - want).abs().max().item() <= 10 * gated.epsilon * 3
+    assert ((rounds >= 1) & (rounds <= 6)).all()
+
+
+def test_pd_solve_scale_refuses_what_it_cannot_launch(dev):
+    cfg = TVL1Config()
+    z = lambda *shape: torch.zeros(shape, device=dev)
+    n = ts.pd_solve_scale.launches
+    with pytest.raises(ValueError, match="does not fit"):
+        ts.pd_solve_scale(z(1, 3, 280, 280), z(1, 280, 280),
+                          z(1, 2, 280, 280), cfg)
+    with pytest.raises(ValueError, match="dtype"):
+        ts.pd_solve_scale(z(1, 3, 32, 32).double(), z(1, 32, 32),
+                          z(1, 2, 32, 32), cfg)
+    with pytest.raises(ValueError, match="shape"):
+        ts.pd_solve_scale(z(1, 4, 32, 32), z(1, 32, 32), z(1, 2, 32, 32), cfg)
+    with pytest.raises(ValueError, match="on cpu"):
+        ts.pd_solve_scale(z(1, 3, 32, 32), z(1, 32, 32).cpu(),
+                          z(1, 2, 32, 32), cfg)
+    with pytest.raises(ValueError, match="median"):
+        ts.pd_solve_scale(z(1, 3, 32, 32), z(1, 32, 32), z(1, 2, 32, 32),
+                          TVL1Config(median_filtering=7))
+    with pytest.raises(ValueError, match="rounds"):
+        ts.pd_solve_scale(z(1, 3, 32, 32), z(1, 32, 32), z(1, 2, 32, 32), cfg,
+                          torch.zeros(1, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="H, W >= 2"):
+        ts.pd_solve_scale(z(1, 3, 1, 32), z(1, 1, 32), z(1, 2, 1, 32), cfg)
+    assert ts.pd_solve_scale.launches == n
+
+
 # -- the Farneback kernels (K-D, K-E, K-F) ----------------------------------
-# Each holds a row of the TPU kernel table: K-D poly_prologue_pallas /
+# Each holds a row of the TPU kernel table (fb_window_solve and
+# fb_iteration below hold corr_solve_from_T_pallas and one iteration of
+# farneback_level_pallas): K-D poly_prologue_pallas /
 # poly_expansion_pallas; K-E the warp + normal-equation halves of
 # _neq_corr_axis, warp_neq_corr_pallas, corr_solve_warp_from_T_pallas,
 # warp_emit_T_pallas, farneback_level_pallas; K-F _sep_corr_axis and the
@@ -388,6 +472,67 @@ def test_sep_corr_matches_plain(dev, axis, gaussian, winsize):
     assert fk.sep_corr.launches_solve == n_solve + 1
     assert got.shape == (2, 2, 37, 53)
     assert torch.equal(got, fk.sep_corr_plain(M, taps, axis, solve=True))
+
+
+@pytest.mark.parametrize("gaussian,winsize", [(False, 15), (True, 15),
+                                              (False, 9), (True, 31)])
+@pytest.mark.parametrize("h,w", [(37, 53), (8, 9), (64, 32), (5, 6),
+                                 (70, 130)])
+def test_fb_window_solve_matches_two_launches(dev, h, w, gaussian, winsize):
+    """Both window passes and the solve in one launch: to the bit what the
+    two launches of ``sep_corr`` give, also where the plane is smaller
+    than the window's halo ((5, 6)) and where it spans several tiles."""
+    from video_analytics_tpu_torch.ops.kernels import farneback_window_taps
+    taps = farneback_window_taps(winsize, gaussian)
+    g = torch.Generator(dev).manual_seed(h * w)
+    M = torch.randn((3, 5, h, w), device=dev, generator=g)
+    M[:, :3] = M[:, :3].abs()
+    n = fk.fb_window_solve.launches
+    got = fk.fb_window_solve(M, taps)
+    assert fk.fb_window_solve.launches == n + 1
+    assert got.shape == (3, 2, h, w)
+    two = fk.sep_corr(fk.sep_corr(M, taps, 0), taps, 1, solve=True)
+    assert torch.equal(got, two)
+    assert torch.equal(got, fk.fb_window_solve_plain(M, taps))
+
+
+@pytest.mark.parametrize("h,w", [(37, 53), (8, 9), (64, 32), (70, 130)])
+def test_fb_iteration_matches_two_launches(dev, h, w):
+    from video_analytics_tpu_torch.ops.kernels import farneback_window_taps
+    taps = farneback_window_taps(15, False)
+    R0, R1 = _expansions(dev, 3, h, w)
+    g = torch.Generator(dev).manual_seed(4)
+    flow = 3.0 * torch.randn((3, 2, h, w), device=dev, generator=g)
+    flow[0, :, : h // 2] = torch.round(flow[0, :, : h // 2])
+    flow[1, 0, :, :4] = -50.0
+    flow[1, 1, -3:] = 50.0
+    flow[2] = 0.0
+    n = fk.fb_iteration.launches
+    got = fk.fb_iteration(R0, R1, flow, taps)
+    assert fk.fb_iteration.launches == n + 1
+    assert torch.equal(
+        got, fk.fb_window_solve(fk.fb_warp_neq(R0, R1, flow), taps))
+    assert torch.equal(got, fk.fb_iteration_plain(R0, R1, flow, taps))
+
+
+def test_fb_window_solve_refuses_what_it_cannot_launch(dev):
+    M = torch.zeros((2, 5, 16, 24), device=dev)
+    flow = torch.zeros((2, 2, 16, 24), device=dev)
+    n = fk.fb_window_solve.launches, fk.fb_iteration.launches
+    with pytest.raises(ValueError, match="odd number of taps"):
+        fk.fb_window_solve(M, [0.5, 0.5])
+    with pytest.raises(ValueError, match="odd number of taps"):
+        fk.fb_window_solve(M, [1.0 / 33] * 33)
+    with pytest.raises(ValueError, match="shape"):
+        fk.fb_window_solve(flow, [1.0])
+    with pytest.raises(ValueError, match="dtype"):
+        fk.fb_window_solve(M.double(), [1.0])
+    with pytest.raises(ValueError, match="on cpu"):
+        fk.fb_iteration(M, M.cpu(), flow, [1.0])
+    with pytest.raises(ValueError, match="h, w >= 2"):
+        fk.fb_iteration(M[:, :, :1].contiguous(), M[:, :, :1].contiguous(),
+                        flow[:, :, :1].contiguous(), [1.0])
+    assert (fk.fb_window_solve.launches, fk.fb_iteration.launches) == n
 
 
 @pytest.mark.parametrize("kw", [{}, {"poly_n": 7, "poly_sigma": 1.5},

@@ -307,6 +307,53 @@ def test_sep_corr_plain_matches_pallas_sep_corr2d():
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5)
 
 
+@pytest.mark.parametrize("kw", [{}, {"gaussian_window": True},
+                                {"winsize": 9}])
+def test_fb_window_solve_plain_is_sep_corr_twice(kw):
+    """Both window passes and the solve as one function: to the bit what
+    ``sep_corr`` along y and ``sep_corr`` along x with the solve give, and
+    what one iteration of the pyramid loop computes from M."""
+    cfg = FarnebackConfig(**kw)
+    taps = tfb._window_taps(cfg)
+    M = torch.from_numpy(_cf(_matrices(67, 93)))
+    n = fk.fb_window_solve.launches
+    got = fk.fb_window_solve(M, taps)
+    assert fk.fb_window_solve.launches == n      # a CPU tensor: no launch
+    assert got.shape == (2, 2, 67, 93)
+    want = fk.sep_corr_plain(fk.sep_corr_plain(M, taps, 0), taps, 1,
+                             solve=True)
+    assert torch.equal(got, want)
+    assert torch.equal(got, fk.fb_window_solve_plain(M, taps))
+    assert torch.equal(got, _window_solve(_matrices(67, 93), cfg))
+
+
+@pytest.mark.parametrize("gaussian", [False, True])
+def test_fb_iteration_matches_pallas_fused_iteration(gaussian):
+    """One whole iteration against the JAX package's ``_fused_iteration``
+    (banded Pallas warp, then normal equations, window average and solve
+    in ``update_flow_fused_pallas``) in interpret mode.  Each pair's flow
+    is uniform: the banded warp resamples rows, then columns, which is the
+    exact 2-D sample only where the flow does not vary inside the band."""
+    cfg = FarnebackConfig(gaussian_window=gaussian)
+    h, w = 48, 64
+    R0, R1, _ = _pair_expansions(h, w)
+    flow = np.empty((2, 2, h, w), np.float32)
+    flow[0, 0], flow[0, 1] = 1.3, -0.7
+    flow[1, 0], flow[1, 1] = -2.0, 0.5
+    R0, R1 = _cf(R0), _cf(R1)
+    ref = jfb._fused_iteration(jnp.asarray(R0), jnp.asarray(R1),
+                               jnp.asarray(flow), _jax_fb(cfg), None)
+    args = (torch.from_numpy(R0), torch.from_numpy(R1),
+            torch.from_numpy(flow), tfb._window_taps(cfg))
+    n = fk.fb_iteration.launches
+    ours = fk.fb_iteration(*args)
+    assert fk.fb_iteration.launches == n
+    assert torch.equal(ours, fk.fb_iteration_plain(*args))
+    assert torch.equal(
+        ours, fk.fb_window_solve(fk.fb_warp_neq(*args[:3]), args[3]))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5)
+
+
 def test_wrappers_take_plain_versions_on_cpu():
     frames = torch.from_numpy(_frames(5, 3, 40, 48))
     counts = (fk.fb_prologue.launches, fk.fb_warp_neq.launches,

@@ -1,5 +1,6 @@
-"""The cluster-resident TV-L1 solver (K-H ``pd_solve_warp``) and the
-bands' device-side test (``band_flags``) of the port, on the CPU.
+"""The cluster-resident TV-L1 solver (K-H ``pd_solve_warp``), the
+whole-scale launch built on it (``pd_solve_scale``) and the bands'
+device-side test (``band_flags``) of the port, on the CPU.
 
 The CUDA kernels run only on a card (tests/test_torch_cuda.py,
 chip_smoke.py).  Here: the size rule that picks the solver of a pyramid
@@ -7,19 +8,27 @@ level; the kernel's decomposition of an image into eight strips, each
 phase reading only the neighbour rows the kernel reads, restated in plain
 PyTorch and held to ``pd_solve_plain`` to the bit; ``band_flags_plain``
 against a numpy restatement of the reference's rule
-(video_analytics_tpu/ops/pallas/tvl1_solve.py:1054-1070); and what the
-wrappers do with CPU tensors.
+(video_analytics_tpu/ops/pallas/tvl1_solve.py:1054-1070);
+``pd_solve_scale_plain`` against the loop of three calls it replaces, and
+``tvl1`` through it against the JAX package; and what the wrappers do
+with CPU tensors.
 """
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from tests.fixtures import smooth_pair
+from video_analytics_tpu.config import TVL1Config as JaxTVL1Config
+from video_analytics_tpu.flow.tvl1 import tvl1_jit
 from video_analytics_tpu_torch.config import TVL1Config
 from video_analytics_tpu_torch.flow import tvl1 as flow_tvl1
 from video_analytics_tpu_torch.ops.cuda import tvl1_solve as ts
+from video_analytics_tpu_torch.ops.cuda.warp import warp_prep
+from video_analytics_tpu_torch.ops.kernels import centered_gradient
 from video_analytics_tpu_torch.ops.median import median_filter2d
 
 torch.set_num_threads(1)
@@ -314,19 +323,20 @@ def test_pd_solve_warp_takes_the_plain_version_on_cpu():
 
 def test_tvl1_takes_each_level_s_solver(monkeypatch):
     """``tvl1`` asks ``level_solver`` for every level and calls the solver
-    it names: here the finest level the chain, the coarser one K-H."""
+    it names: here the finest level the chain, once per warp, the coarser
+    one the whole-scale launch, once."""
     cfg = TVL1Config(nscales=2, warps=2, outer_iterations=2,
                      inner_iterations=3)
     calls = []
 
     def counted(name, fn):
-        def wrapper(prep, uv, c):
-            calls.append((name, tuple(uv.shape[2:])))
-            return fn(prep, uv, c)
+        def wrapper(*args):
+            calls.append((name, tuple(args[-2].shape[2:])))
+            return fn(*args)
         return wrapper
 
-    monkeypatch.setattr(flow_tvl1, "pd_solve_warp",
-                        counted("warp", ts.pd_solve_warp))
+    monkeypatch.setattr(flow_tvl1, "pd_solve_scale",
+                        counted("warp", ts.pd_solve_scale))
     monkeypatch.setattr(flow_tvl1, "pd_solve", counted("chain", ts.pd_solve))
     monkeypatch.setattr(flow_tvl1, "warp_geometry",
                         lambda h, w: None if h * w > 1000 else (1, True, 0))
@@ -334,7 +344,7 @@ def test_tvl1_takes_each_level_s_solver(monkeypatch):
     prev = torch.from_numpy(rng.uniform(0, 255, (1, 32, 40)).astype(np.float32))
     nxt = torch.roll(prev, 1, dims=2)
     out = flow_tvl1.tvl1(prev, nxt, cfg)
-    assert calls == [("warp", (26, 32))] * 2 + [("chain", (32, 40))] * 2
+    assert calls == [("warp", (26, 32))] + [("chain", (32, 40))] * 2
     assert torch.equal(out, flow_tvl1.tvl1(prev, nxt, cfg, plain=True))
 
 
@@ -355,9 +365,20 @@ def test_cuda_wrappers_refuse_what_they_cannot_launch():
     arguments the kernels do not take, raise before any launch."""
     cfg = TVL1Config()
     n = ts.pd_solve_warp.launches, ts.band_flags.launches
+    n_scale = ts.pd_solve_scale.launches
     with pytest.raises(ValueError, match="does not fit"):
         ts.pd_solve_warp(_OnCard(1, 4, 280, 280), _OnCard(1, 2, 280, 280),
                          cfg)
+    with pytest.raises(ValueError, match="does not fit"):
+        ts.pd_solve_scale(_OnCard(1, 3, 240, 320), _OnCard(1, 240, 320),
+                          _OnCard(1, 2, 240, 320), cfg)
+    with pytest.raises(ValueError, match="H, W >= 2"):
+        ts.pd_solve_scale(_OnCard(1, 3, 1, 32), _OnCard(1, 1, 32),
+                          _OnCard(1, 2, 1, 32), cfg)
+    with pytest.raises(TypeError, match="expected a tensor"):
+        ts.pd_solve_scale(_OnCard(1, 3, 224, 224), _OnCard(1, 224, 224),
+                          _OnCard(1, 2, 224, 224), cfg)
+    assert ts.pd_solve_scale.launches == n_scale
     with pytest.raises(TypeError, match="expected a tensor"):
         ts.pd_solve_warp(_OnCard(1, 4, 224, 224), _OnCard(1, 2, 224, 224),
                          cfg)
@@ -368,3 +389,95 @@ def test_cuda_wrappers_refuse_what_they_cannot_launch():
         ts.band_flags(_OnCard(2, 4, 8), None, None, None, 16, 61, 96, 0.01,
                       True)
     assert (ts.pd_solve_warp.launches, ts.band_flags.launches) == n
+
+
+# -- the whole-scale launch ---------------------------------------------------
+
+def _scale_inputs(seed, b, h, w):
+    """(i13, i0, uv) of one level: b smooth pairs a few pixels apart, the
+    second frame with its centred gradient, and a start flow off by up to
+    two pixels (some samples land outside the frame and are clamped)."""
+    rng = np.random.default_rng(seed)
+    pairs = [smooth_pair(np.random.default_rng(seed + i), h, w,
+                         dx=1.5 - i, dy=0.8 * i - 1.0) for i in range(b)]
+    i0 = torch.from_numpy(np.stack([p[0] for p in pairs]))
+    i1 = torch.from_numpy(np.stack([p[1] for p in pairs]))
+    i1x, i1y = centered_gradient(i1)
+    i13 = torch.stack([i1, i1x, i1y], dim=1).contiguous()
+    uv = torch.from_numpy(rng.normal(0, 1.0, (b, 2, h, w)).astype(np.float32))
+    return i13, i0, uv
+
+
+@pytest.mark.parametrize("h,w,median,warps", [
+    (20, 24, 5, 3), (17, 40, 3, 2), (33, 29, 0, 2), (24, 20, 5, 1),
+    (20, 24, 3, 0)])
+def test_pd_solve_scale_plain_is_the_three_call_loop(h, w, median, warps):
+    """One scale through ``pd_solve_scale`` (its plain version, on the
+    CPU) is the loop it replaces in ``flow/tvl1.py`` to the bit: per warp
+    ``warp_prep`` and one warp's solve, then the scale-end median."""
+    cfg = TVL1Config(warps=warps, inner_iterations=4, outer_iterations=3,
+                     epsilon=0.02, median_filtering=median)
+    i13, i0, uv = _scale_inputs(h, 2, h, w)
+    want = uv
+    for _ in range(warps):
+        want = ts.pd_solve_warp(warp_prep(i13, i0, want), want, cfg)
+    if median > 1:
+        want = ts.median5(want, median)
+    n = ts.pd_solve_scale.launches
+    got = ts.pd_solve_scale(i13, i0, uv, cfg)
+    assert ts.pd_solve_scale.launches == n       # a CPU tensor: no launch
+    assert torch.equal(got, want)
+    assert torch.equal(got, ts.pd_solve_scale_plain(i13, i0, uv, cfg))
+    assert not torch.equal(got, uv)
+    # An image's result does not depend on its batch.
+    alone = ts.pd_solve_scale(i13[1:], i0[1:], uv[1:], cfg)
+    assert torch.equal(alone[0], got[1])
+
+
+def test_pd_solve_scale_takes_the_plain_version_at_any_size_on_cpu():
+    """Even at a size no cluster holds: the rule is the CUDA launch's."""
+    cfg = TVL1Config(warps=1, inner_iterations=1, outer_iterations=1)
+    i13, i0, uv = _scale_inputs(3, 1, 240, 320)
+    assert ts.warp_geometry(240, 320) is None
+    assert torch.equal(ts.pd_solve_scale(i13, i0, uv, cfg),
+                       ts.pd_solve_scale_plain(i13, i0, uv, cfg))
+
+
+FAST = TVL1Config(nscales=3, warps=2, outer_iterations=4,
+                  inner_iterations=10, median_filtering=5)
+
+
+@pytest.mark.parametrize("batch,epsilon", [(1, 0.01), (2, 0.0)])
+def test_tvl1_through_the_scale_launch_matches_reference(batch, epsilon,
+                                                         monkeypatch):
+    """Every level of a 48x64 pair fits a cluster, so ``tvl1`` is
+    ``pd_solve_scale`` per level and nothing else; against the JAX package
+    at batch 1, and at ε = 0 in one batch (its solver couples the images
+    of a batch through the ε test), at the bounds tests/test_torch_tvl1.py
+    holds the flow to."""
+    cfg = dataclasses.replace(FAST, epsilon=epsilon)
+    levels = []
+    real = ts.pd_solve_scale
+
+    def counted(i13, i0, uv, c):
+        levels.append(tuple(uv.shape[2:]))
+        return real(i13, i0, uv, c)
+
+    def never(*args, **kwargs):
+        raise AssertionError("a level left the whole-scale launch")
+
+    monkeypatch.setattr(flow_tvl1, "pd_solve_scale", counted)
+    for name in ("pd_solve", "pd_solve_chunked", "warp_prep", "median5"):
+        monkeypatch.setattr(flow_tvl1, name, never)
+    pairs = [smooth_pair(np.random.default_rng(s), 48, 64, dx=dx, dy=dy)
+             for s, (dx, dy) in zip(range(batch), [(1.2, -0.8), (-2.0, 1.5)])]
+    prev = np.stack([p[0] for p in pairs])
+    nxt = np.stack([p[1] for p in pairs])
+    ours = flow_tvl1.tvl1(torch.from_numpy(prev), torch.from_numpy(nxt),
+                          cfg).numpy()
+    assert levels == [(31, 41), (38, 51), (48, 64)]
+    ref = np.asarray(tvl1_jit(jnp.asarray(prev), jnp.asarray(nxt),
+                              JaxTVL1Config(**dataclasses.asdict(cfg))))
+    epe = np.linalg.norm(ours - ref, axis=-1)
+    assert epe.mean() < 1e-3, epe.mean()
+    assert epe.max() < 0.05, epe.max()

@@ -19,7 +19,8 @@
 // (flow/farneback.py _solve_flow), written as (B, 2, h, w).
 //
 // One Farneback iteration is K-E, then this along y, then this along x
-// with the epilogue.  The taps are kept as the host makes them: the box
+// with the epilogue; fb_window_solve.cu computes the same in one launch and
+// is what the pyramid loop calls.  The taps are kept as the host makes them: the box
 // window is fifteen taps of float32(1/15), not a running sum, so the
 // result equals the plain version's to the bit.
 //
@@ -39,7 +40,7 @@
 // reads (8 + 2r)/8 rows per output row from L2; taller tiles are the next
 // step.
 
-#include "common.cuh"
+#include "fb_neq.cuh"
 
 namespace {
 
@@ -95,13 +96,9 @@ sep_corr_kernel(const float* __restrict__ x, float* __restrict__ out, int h,
   }
 
   const size_t o = (size_t)py * w + px;
-  if (SOLVE) {
-    const float g11 = acc[0], g12 = acc[1], g22 = acc[2], h1 = acc[3],
-                h2 = acc[4];
-    const float idet = 1.0f / (g11 * g22 - g12 * g12 + 1e-3f);
+  if constexpr (SOLVE) {
     float* f = out + (size_t)blockIdx.z * 2 * hw + o;
-    f[0] = (g22 * h1 - g12 * h2) * idet;
-    f[hw] = (g11 * h2 - g12 * h1) * idet;
+    va::solve_flow(acc, f, f + hw);
   } else {
 #pragma unroll
     for (int p = 0; p < P; ++p)

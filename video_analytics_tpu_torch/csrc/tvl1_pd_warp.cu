@@ -1,11 +1,27 @@
-// K-H tvl1_pd_warp: the whole TV-L1 primal-dual solve of one warp in one
-// launch, one image per thread-block cluster, the solver state resident
-// in (distributed) shared memory from the first iteration to the last.
+// K-H tvl1_pd_warp and tvl1_scale: the whole TV-L1 primal-dual solve of one
+// warp, or of all the warps of one pyramid scale, in one launch, one image
+// per thread-block cluster, the solver state resident in (distributed)
+// shared memory from the first iteration to the last.
 //
 // Replaces the solvers of video_analytics_tpu/ops/pallas/tvl1_solve.py
-// that keep an image's state on chip for a whole warp: tvl1_solve_warp,
-// tvl1_solve_warp_packed and the solver half of tvl1_scale_pallas.  It
-// computes what the per-iteration chain of tvl1_pd.cu + median.cu computes
+// that keep an image's state on chip: tvl1_solve_warp,
+// tvl1_solve_warp_packed and tvl1_scale_pallas (kernel
+// _scale_kernel_packed), which runs the warp of (I1, I1x, I1y), the prep,
+// the solver of every warp of a scale and the scale-end median in one
+// launch.  Two entry points share the kernel:
+//   - va_pd_warp: one warp from the constants warp_prep.cu wrote (prep);
+//   - va_pd_scale: `warps` warps, each opening with warp_prep.cu's
+//     arithmetic as the kernel's prologue (the thread gathers I1, I1x, I1y
+//     at its own pixels moved by the u, v its strip holds, through L1/L2:
+//     they are read-only for the whole scale, so no strip needs to hold
+//     them), the dual and the round count reset as a fresh launch resets
+//     them, and after the last warp the k x k median once more (the
+//     scale-end median of flow/tvl1.py).  The constants never reach device
+//     memory where they fit shared memory; where they do not, a block
+//     writes its strip's three planes to a caller-given scratch and reads
+//     them back through L2 (each thread only what it wrote itself).
+// One warp computes what the per-iteration chain of tvl1_pd.cu + median.cu
+// computes
 // (ops/cuda/tvl1_solve.pd_solve): up to `outer` rounds, each the k x k
 // median of (u, v) (k in {0, 3, 5}, replicate border), `inner` iterations of
 //   rho = rho_c + I1wx*u + I1wy*v
@@ -22,7 +38,9 @@
 //     strip of RS = ceil(H / 8) rows from r * RS (a late block's strip may
 //     be short or empty; it still takes part in every barrier).  u, v, p11,
 //     p12, p21, p22 of the strip live in its shared memory for the whole
-//     warp: device memory is read once (prep, u, v) and written once (u, v);
+//     warp: device memory is read once (prep, u, v) and written once (u, v),
+//     and for a whole scale u, v are read once and written once however
+//     many warps it has;
 //   - an iteration is two in-place phases.  Phase A forms (un, vn) from the
 //     pixel's own u, v and the dual of the pixel, its left and its upper
 //     neighbour; phase B forms the new dual from un of the pixel, its right
@@ -67,14 +85,22 @@
 //     read: a run repeats bit for bit and an image's result does not depend
 //     on its batch.  A last barrier keeps a block's shared memory alive
 //     until its neighbours have read it.
-// The arithmetic and its order are those of tvl1_pd.cu (no FMA contraction,
-// IEEE division and square root), so the state equals the plain version's
-// to the last bit; only the order of the test's sum differs.
+//   - the scale's prologue runs once a warp, a pixel at a time in a scope
+//     of its own that ends before the iteration loop (the gather's
+//     addresses must not stay live through it), from an opaque copy of the
+//     thread index like the phases.  A cluster barrier stands between a
+//     warp's last phase and the next prologue's reset of the halo rows.
+// The arithmetic and its order are those of warp_prep.cu, tvl1_pd.cu and
+// median.cu (no FMA contraction, IEEE division and square root), so the
+// state equals the plain versions' to the last bit; only the order of the
+// test's sum differs.
 //
 // Bound on the H100: operations.  The function reads 6 planes and writes 2
 // (32 B a pixel) for rounds * (inner * ~70 + 2 * 2 * 113 with the 5x5
 // median) float operations a pixel: at 15 pairs of 224^2 and 300 iterations
-// 15.8 GFLOP, 0.24 ms at 67 TFLOP/s, against 0.007 ms for the bytes.
+// 15.8 GFLOP, 0.24 ms at 67 TFLOP/s, against 0.007 ms for the bytes.  A
+// scale reads 6 planes (I1, I1x, I1y, I0, u, v) and writes 2 for the sum of
+// its warps' operations and ~45 a pixel and warp for the prologue.
 
 #include <cooperative_groups.h>
 
@@ -120,6 +146,7 @@ struct WarpGeom {
   int inner;       // iterations per round
   int outer;       // rounds at most
   int median_k;    // 0, 3 or 5
+  int warps;       // warps in this launch (1 with prep)
   float l_t, theta, taut;
   float eps2;      // the test's threshold, epsilon squared
   float n_px;      // H * W
@@ -260,12 +287,15 @@ __device__ __forceinline__ void median_to_global(cg::cluster_group& cluster,
 
 // A thread owns up to PPT pixels of the strip (n <= PPT * WNT).  SC: I1wx,
 // I1wy and rho_c of the strip lie in shared memory; otherwise they are read
-// from prep each iteration.
+// each iteration from prep or, where the kernel makes them itself, from
+// scratch.  With prep (one warp) the constants are loaded; without it they
+// come from i13, i0 and the strip's u, v at the start of every warp.
 template <int PPT, bool SC>
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(WNT, 1)
-pd_warp_kernel(const float* __restrict__ prep, const float* __restrict__ uv_in,
-               float* __restrict__ uv_out, int* __restrict__ rounds_out,
-               WarpGeom g) {
+pd_warp_kernel(const float* prep, const float* __restrict__ i13,
+               const float* __restrict__ i0, const float* __restrict__ uv_in,
+               float* __restrict__ uv_out, float* scratch,
+               int* __restrict__ rounds_out, WarpGeom g) {
   extern __shared__ float sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -303,134 +333,207 @@ pd_warp_kernel(const float* __restrict__ prep, const float* __restrict__ uv_in,
   s.dn_p22 = cluster.map_shared_rank(s.sp22, below);
 
   const size_t strip0 = (size_t)y0 * W;
-  const float* gwx = prep + (size_t)b * 4 * hw + strip0;
-  const float* gwy = gwx + hw;
-  const float* ggr = gwy + hw;
-  const float* grho = ggr + hw;
   const float* gu_in = uv_in + (size_t)b * 2 * hw + strip0;
   float* gu = uv_out + (size_t)b * 2 * hw + strip0;
   float* gv = gu + hw;
 
+  // Where the strip's I1wx, I1wy and rho_c lie, cs floats apart: shared
+  // memory, the strip's rows of prep, or of scratch.
+  float* cw = nullptr;                // written by the prologue
+  size_t cs = hw;
   if constexpr (SC) {
+    cw = consts;
+    cs = cap;
     s.cwx = consts;
-    s.cwy = consts + cap;
-    s.crho = consts + 2 * cap;
-    for (int i = tid; i < n; i += WNT) {
-      consts[i] = gwx[i];
-      consts[cap + i] = gwy[i];
-      consts[2 * cap + i] = grho[i];
-    }
+  } else if (prep != nullptr) {
+    s.cwx = prep + (size_t)b * 4 * hw + strip0;
   } else {
-    s.cwx = gwx;
-    s.cwy = gwy;
-    s.crho = grho;
+    cw = scratch + (size_t)b * 3 * hw + strip0;
+    s.cwx = cw;
   }
+  s.cwy = s.cwx + cs;
+  s.crho = prep != nullptr && !SC ? s.cwy + 2 * cs : s.cwy + cs;
+
   float cth[PPT], cinv[PPT];
   constexpr int NF = (PPT + 15) / 16;
   unsigned long long flag_bits[NF] = {};   // 4 bits a pixel
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const int i = tid + k * WNT;
-    const bool in = i < n;
-    const float gr = in ? ggr[i] : 0.0f;
-    cth[k] = g.l_t * gr;
-    cinv[k] = 1.0f / fmaxf(gr, 1e-10f);
-    if (in)
+    if (i < n)
       flag_bits[k / 16] |= (unsigned long long)edge_flags(i, W, s.rows)
                            << (4 * (k % 16));
   }
   for (int i = tid; i < n; i += WNT) {
     s.su[i] = gu_in[i];
     s.sv[i] = gu_in[hw + i];
-    s.sp11[i] = 0.0f;
-    s.sp21[i] = 0.0f;
   }
-  for (int i = tid; i < W + n; i += WNT) {   // the halo row too
-    s.sp12[i] = 0.0f;
-    s.sp22[i] = 0.0f;
-  }
-  for (int i = tid; i < W; i += WNT) {       // read before it is first stored
-    s.su[n + i] = 0.0f;                      // only where a select drops it
-    s.sv[n + i] = 0.0f;
-  }
-  if (tid == 0) {
-    s.sp11[-1] = 0.0f;
-    s.sp21[-1] = 0.0f;
-  }
-  cluster.sync();
 
-  int rounds = 0;
-  for (int o = 0; o < g.outer; ++o) {
-    if (g.median_k > 1) {             // uniform over the cluster
-      if (g.median_k == 3)
-        median_to_global<3>(cluster, s, y0, n, H, RS, gu, gv);
-      else
-        median_to_global<5>(cluster, s, y0, n, H, RS, gu, gv);
-      cluster.sync();                 // every block has read its neighbours
-      for (int i = tid; i < n; i += WNT) {   // each thread: what it wrote
-        s.su[i] = gu[i];
-        s.sv[i] = gv[i];
-      }
-      // No barrier: phase A reads u, v of the thread's own pixels only.
+  for (int wp = 0; wp < g.warps; ++wp) {
+    // What a fresh launch finds: the dual at zero, its halo row too.  The
+    // barrier that ended the warp before has made the neighbours' last
+    // stores into this block's halo rows visible; nobody stores there again
+    // before the barrier below.
+    for (int i = tid; i < n; i += WNT) {
+      s.sp11[i] = 0.0f;
+      s.sp21[i] = 0.0f;
     }
-    for (int it = 0; it < g.inner; ++it) {
-      const bool last = it == g.inner - 1;
-      float e = 0.0f;
-      const int t0 = opaque(tid);
-      unsigned long long fb[NF];
-#pragma unroll
-      for (int j = 0; j < NF; ++j) fb[j] = opaque(flag_bits[j]);
-      // The 4 flag bits of the thread's k-th pixel.
-      auto flags_of = [&fb](int k) {
-        return (unsigned)(fb[k / 16] >> (4 * (k % 16))) & 15u;
-      };
-      if (last) {                     // uniform
-#pragma unroll
-        for (int k = 0; k < PPT; ++k) {
-          const int i = t0 + k * WNT;
-          if (i < n)
-            e += step_a<true>(s, i, flags_of(k), cth[k], cinv[k]);
+    for (int i = tid; i < W + n; i += WNT) {   // the halo row too
+      s.sp12[i] = 0.0f;
+      s.sp22[i] = 0.0f;
+    }
+    for (int i = tid; i < W; i += WNT) {       // read before it is first stored
+      s.su[n + i] = 0.0f;                      // only where a select drops it
+      s.sv[n + i] = 0.0f;
+    }
+    if (tid == 0) {
+      s.sp11[-1] = 0.0f;
+      s.sp21[-1] = 0.0f;
+    }
+
+    if (prep != nullptr) {
+      // The constants warp_prep.cu wrote: I1wx, I1wy, grad, rho_c.
+      const float* gwx = prep + (size_t)b * 4 * hw + strip0;
+      const float* ggr = gwx + 2 * hw;
+      if constexpr (SC) {
+        for (int i = tid; i < n; i += WNT) {
+          consts[i] = gwx[i];
+          consts[cap + i] = gwx[hw + i];
+          consts[2 * cap + i] = gwx[3 * hw + i];
         }
-#pragma unroll
-        for (int d = 16; d > 0; d >>= 1)
-          e += __shfl_xor_sync(0xffffffffu, e, d);
-        if ((tid & 31) == 0) red[tid >> 5] = e;
-      } else {
-#pragma unroll
-        for (int k = 0; k < PPT; ++k) {
-          const int i = t0 + k * WNT;
-          if (i < n)
-            step_a<false>(s, i, flags_of(k), cth[k], cinv[k]);
-        }
-      }
-      cluster.sync();
-      if (last && tid == 0) {
-        float t = 0.0f;
-        for (int w = 0; w < WNW; ++w) t += red[w];
-        *bsum = t;
       }
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        const int i = t0 + k * WNT;
-        if (i < n) step_b(s, i, flags_of(k));
+        const int i = tid + k * WNT;
+        const float gr = i < n ? ggr[i] : 0.0f;
+        cth[k] = g.l_t * gr;
+        cinv[k] = 1.0f / fmaxf(gr, 1e-10f);
       }
-      cluster.sync();
+    } else {
+      // warp_prep.cu at the thread's own pixels, from the u, v the strip
+      // holds: the sample of (I1, I1x, I1y) at p + (u, v) with coordinates
+      // clamped as ops/kernels.bilinear_sample clamps them, grad and rho_c
+      // in that kernel's order.  One pixel at a time: nothing of the
+      // gather outlives its pixel.
+      const float* I1 = i13 + (size_t)b * 3 * hw;
+      const float* I1x = I1 + hw;
+      const float* I1y = I1x + hw;
+      const float* gi0 = i0 + (size_t)b * hw + strip0;
+      const int t0 = opaque(tid);
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const int i = t0 + k * WNT;
+        float gr = 0.0f;
+        if (i < n) {
+          const int r = i / W, x = i - r * W;
+          const int y = y0 + r;
+          const float u0 = s.su[i], v0 = s.sv[i];
+          const float ys = fminf(fmaxf((float)y + v0, 0.0f), (float)(H - 1));
+          const float xs = fminf(fmaxf((float)x + u0, 0.0f), (float)(W - 1));
+          const int yi = min(max((int)floorf(ys), 0), H - 2);
+          const int xi = min(max((int)floorf(xs), 0), W - 2);
+          const float fy = ys - (float)yi;
+          const float fx = xs - (float)xi;
+          const float I1w = va::lerp2(I1, W, yi, xi, fy, fx);
+          const float I1wx = va::lerp2(I1x, W, yi, xi, fy, fx);
+          const float I1wy = va::lerp2(I1y, W, yi, xi, fy, fx);
+          gr = I1wx * I1wx + I1wy * I1wy;
+          cw[i] = I1wx;
+          cw[cs + i] = I1wy;
+          cw[2 * cs + i] = I1w - I1wx * u0 - I1wy * v0 - gi0[i];
+        }
+        cth[k] = g.l_t * gr;
+        cinv[k] = 1.0f / fmaxf(gr, 1e-10f);
+        asm volatile("" ::: "memory");
+      }
     }
-    ++rounds;
-    float total = 0.0f;               // the same sum in every thread
-    for (int r = 0; r < CL; ++r) total += *cluster.map_shared_rank(bsum, r);
-    if (total / g.n_px < g.eps2) break;
+    cluster.sync();
+
+    int rounds = 0;
+    for (int o = 0; o < g.outer; ++o) {
+      if (g.median_k > 1) {             // uniform over the cluster
+        if (g.median_k == 3)
+          median_to_global<3>(cluster, s, y0, n, H, RS, gu, gv);
+        else
+          median_to_global<5>(cluster, s, y0, n, H, RS, gu, gv);
+        cluster.sync();                 // every block has read its neighbours
+        for (int i = tid; i < n; i += WNT) {   // each thread: what it wrote
+          s.su[i] = gu[i];
+          s.sv[i] = gv[i];
+        }
+        // No barrier: phase A reads u, v of the thread's own pixels only.
+      }
+      for (int it = 0; it < g.inner; ++it) {
+        const bool last = it == g.inner - 1;
+        float e = 0.0f;
+        const int t0 = opaque(tid);
+        unsigned long long fb[NF];
+#pragma unroll
+        for (int j = 0; j < NF; ++j) fb[j] = opaque(flag_bits[j]);
+        // The 4 flag bits of the thread's k-th pixel.
+        auto flags_of = [&fb](int k) {
+          return (unsigned)(fb[k / 16] >> (4 * (k % 16))) & 15u;
+        };
+        if (last) {                     // uniform
+#pragma unroll
+          for (int k = 0; k < PPT; ++k) {
+            const int i = t0 + k * WNT;
+            if (i < n)
+              e += step_a<true>(s, i, flags_of(k), cth[k], cinv[k]);
+          }
+#pragma unroll
+          for (int d = 16; d > 0; d >>= 1)
+            e += __shfl_xor_sync(0xffffffffu, e, d);
+          if ((tid & 31) == 0) red[tid >> 5] = e;
+        } else {
+#pragma unroll
+          for (int k = 0; k < PPT; ++k) {
+            const int i = t0 + k * WNT;
+            if (i < n)
+              step_a<false>(s, i, flags_of(k), cth[k], cinv[k]);
+          }
+        }
+        cluster.sync();
+        if (last && tid == 0) {
+          float t = 0.0f;
+          for (int w = 0; w < WNW; ++w) t += red[w];
+          *bsum = t;
+        }
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          const int i = t0 + k * WNT;
+          if (i < n) step_b(s, i, flags_of(k));
+        }
+        cluster.sync();
+      }
+      ++rounds;
+      float total = 0.0f;               // the same sum in every thread
+      for (int r = 0; r < CL; ++r) total += *cluster.map_shared_rank(bsum, r);
+      if (total / g.n_px < g.eps2) break;
+    }
+    if (rounds_out != nullptr && rank == 0 && tid == 0)
+      rounds_out[b * g.warps + wp] = rounds;
   }
 
-  for (int i = tid; i < n; i += WNT) {
-    gu[i] = s.su[i];
-    gv[i] = s.sv[i];
+  // The barrier that ended the last phase has made every strip's u, v
+  // final: a whole scale ends with the median once more, which reads the
+  // neighbours' rows as the round-opening one does, and writes the output.
+  const bool scale_end = prep == nullptr;
+  if (scale_end && g.median_k == 3) {
+    median_to_global<3>(cluster, s, y0, n, H, RS, gu, gv);
+  } else if (scale_end && g.median_k == 5) {
+    median_to_global<5>(cluster, s, y0, n, H, RS, gu, gv);
+  } else {
+    for (int i = tid; i < n; i += WNT) {
+      gu[i] = s.su[i];
+      gv[i] = s.sv[i];
+    }
   }
-  if (rounds_out != nullptr && rank == 0 && tid == 0) rounds_out[b] = rounds;
   cluster.sync();   // no block leaves while a neighbour may still read it
 }
 
-using WarpKernel = void (*)(const float*, const float*, float*, int*, WarpGeom);
+using WarpKernel = void (*)(const float*, const float*, const float*,
+                            const float*, float*, float*, int*, WarpGeom);
 
 struct Variant {
   int ppt;             // pixels a thread at most
@@ -526,15 +629,16 @@ VA_EXPORT int va_pd_warp_max_clusters(int H, int W, int B) {
   return clusters;
 }
 
-// prep: (B, 4, H, W) I1wx, I1wy, grad, rho_c; uv_in, uv_out: (B, 2, H, W),
-// distinct buffers; rounds_out: null, or (B,) int32 that receives the rounds
-// each image ran.  median_k in {0, 3, 5}; the dual starts at zero.
-VA_EXPORT int va_pd_warp(const float* prep, const float* uv_in, float* uv_out,
-                         int* rounds_out, int B, int H, int W, int inner,
-                         int outer, int median_k, float l_t, float theta,
-                         float taut, float eps2, void* stream) {
+namespace {
+
+// One launch of the kernel: with prep one warp from its constants, without
+// it `warps` warps that make their own from i13 and i0.
+int launch(const float* prep, const float* i13, const float* i0,
+           const float* uv_in, float* uv_out, float* scratch, int* rounds_out,
+           int B, int H, int W, int warps, int inner, int outer, int median_k,
+           float l_t, float theta, float taut, float eps2, void* stream) {
   const int smem = va_pd_warp_smem(H, W);
-  if (smem < 0 || B < 1 || inner < 1 || outer < 0 ||
+  if (smem < 0 || B < 1 || warps < 1 || inner < 1 || outer < 0 ||
       (median_k != 0 && median_k != 3 && median_k != 5))
     return (int)cudaErrorInvalidValue;
   WarpGeom g;
@@ -544,6 +648,7 @@ VA_EXPORT int va_pd_warp(const float* prep, const float* uv_in, float* uv_out,
   g.inner = inner;
   g.outer = outer;
   g.median_k = median_k;
+  g.warps = warps;
   g.l_t = l_t;
   g.theta = theta;
   g.taut = taut;
@@ -556,6 +661,39 @@ VA_EXPORT int va_pd_warp(const float* prep, const float* uv_in, float* uv_out,
     return (int)err;
   }
   v->kernel<<<dim3(CL, B), WNT, smem, (cudaStream_t)stream>>>(
-      prep, uv_in, uv_out, rounds_out, g);
+      prep, i13, i0, uv_in, uv_out, scratch, rounds_out, g);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// prep: (B, 4, H, W) I1wx, I1wy, grad, rho_c; uv_in, uv_out: (B, 2, H, W),
+// distinct buffers; rounds_out: null, or (B,) int32 that receives the rounds
+// each image ran.  median_k in {0, 3, 5}; the dual starts at zero.
+VA_EXPORT int va_pd_warp(const float* prep, const float* uv_in, float* uv_out,
+                         int* rounds_out, int B, int H, int W, int inner,
+                         int outer, int median_k, float l_t, float theta,
+                         float taut, float eps2, void* stream) {
+  if (prep == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(prep, nullptr, nullptr, uv_in, uv_out, nullptr, rounds_out, B,
+                H, W, 1, inner, outer, median_k, l_t, theta, taut, eps2,
+                stream);
+}
+
+// One pyramid scale.  i13: (B, 3, H, W) planes I1, I1x, I1y; i0: (B, H, W);
+// uv_in, uv_out: (B, 2, H, W), distinct buffers; scratch: (B, 3, H, W), used
+// only where va_pd_warp_consts_in_smem(H, W) is 0 (else it may be null);
+// rounds_out: null, or (B, warps) int32 that receives the rounds each image
+// ran in each warp.  After the last warp the median_k median is applied once
+// more.  H, W >= 2.
+VA_EXPORT int va_pd_scale(const float* i13, const float* i0,
+                          const float* uv_in, float* uv_out, float* scratch,
+                          int* rounds_out, int B, int H, int W, int warps,
+                          int inner, int outer, int median_k, float l_t,
+                          float theta, float taut, float eps2, void* stream) {
+  if (i13 == nullptr || i0 == nullptr || H < 2 || W < 2 ||
+      (scratch == nullptr && !consts_fit(H, W)))
+    return (int)cudaErrorInvalidValue;
+  return launch(nullptr, i13, i0, uv_in, uv_out, scratch, rounds_out, B, H, W,
+                warps, inner, outer, median_k, l_t, theta, taut, eps2, stream);
 }

@@ -14,9 +14,11 @@ re-warping, coarse to fine over an image pyramid.
 Per pyramid level (coarsest first):
   - K-D ``fb_prologue``: the level's pre-blur, resize and polynomial
     expansion of every frame, once per frame;
-  - ``iterations`` times: K-E ``fb_warp_neq`` (warp the second frame's
-    expansion by the flow, form the normal equations), then K-F
-    ``sep_corr`` along y and along x with the 2×2 solve as its epilogue.
+  - ``iterations`` times ``fb_iteration``, one launch: warp the second
+    frame's expansion by the flow and form the normal equations (K-E's
+    arithmetic, as the loader of the launch's tiles), average them over
+    the window along y and along x, and solve the 2×2 system of every
+    pixel (``fb_window_solve``).
 
 On CUDA tensors these are the hand-written kernels of
 ``ops/cuda/farneback.py``; on CPU tensors, or with ``plain=True``, their
@@ -282,8 +284,7 @@ def _pyramid_flow(frames: torch.Tensor, pair, n_pairs: int,
     (n_pairs, 5, lh, lw).  Returns (n_pairs, 2, H, W)."""
     from video_analytics_tpu_torch.ops.cuda import farneback as kern
     prologue = kern.fb_prologue_plain if plain else kern.fb_prologue
-    warp_neq = kern.fb_warp_neq_plain if plain else kern.fb_warp_neq
-    corr = kern.sep_corr_plain if plain else kern.sep_corr
+    iterate = kern.fb_iteration_plain if plain else kern.fb_iteration
 
     frames = frames.float().contiguous()
     _, H, W = frames.shape
@@ -303,8 +304,7 @@ def _pyramid_flow(frames: torch.Tensor, pair, n_pairs: int,
         R0, R1 = pair(prologue(frames, scale, (lh, lw), cfg.poly_n,
                                cfg.poly_sigma))
         for _ in range(cfg.iterations):
-            M = warp_neq(R0, R1, flow)
-            flow = corr(corr(M, taps, 0), taps, 1, solve=True)
+            flow = iterate(R0, R1, flow, taps)
     return flow
 
 

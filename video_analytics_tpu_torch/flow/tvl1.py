@@ -8,15 +8,17 @@ per scale (coarse→fine): centred gradient of I1, then ``warps`` times
   - warp I1 and ∇I1 by the current flow and form the linearised residual
     (K-A ``ops/cuda/warp.warp_prep``),
   - run the primal-dual solver with its median between outer rounds and
-    the ε stop, per image, by the size rule of ``level_solver``: the whole
-    warp in one launch with an image's state in the shared memory of a
-    thread-block cluster where it fits (K-H
-    ``ops/cuda/tvl1_solve.pd_solve_warp``), one launch per iteration where
-    it does not (K-B/K-C ``pd_solve``), or, at a level too large for the
-    reference's whole-plane solver, several iterations per launch with
-    row bands that stop on their own (K-G ``pd_solve_chunked``),
+    the ε stop, per image,
 then the scale-end median (K-C) and the upscale of the flow to the next
-finer level by 1/scale_step.
+finer level by 1/scale_step.  The size rule of ``level_solver`` picks the
+kernels of a level: where an image's state fits the shared memory of a
+thread-block cluster, the whole scale (every warp with its prep and
+solve, and the scale-end median) is one launch
+(``ops/cuda/tvl1_solve.pd_solve_scale``); where it does not, K-A per
+warp, one launch per iteration (K-B/K-C ``pd_solve``) and K-C at the end;
+at a level too large for the reference's whole-plane solver, K-A, several
+iterations per launch with row bands that stop on their own (K-G
+``pd_solve_chunked``) and K-C.
 
 On CUDA tensors the warp, solver and medians are the hand-written
 kernels; on CPU tensors, or with ``plain=True``, their plain PyTorch
@@ -44,7 +46,8 @@ import torch
 from video_analytics_tpu_torch.config import TVL1Config
 from video_analytics_tpu_torch.ops.cuda.tvl1_solve import (
     chunk_params, median5, median5_plain, pd_solve, pd_solve_chunked,
-    pd_solve_chunked_plain, pd_solve_plain, pd_solve_warp, warp_geometry)
+    pd_solve_chunked_plain, pd_solve_plain, pd_solve_scale,
+    pd_solve_scale_plain, warp_geometry)
 from video_analytics_tpu_torch.ops.cuda.warp import warp_prep, warp_prep_plain
 from video_analytics_tpu_torch.ops.kernels import (
     centered_gradient, gaussian_blur, resize_area_like)
@@ -94,6 +97,7 @@ def level_solver(h: int, w: int, median: int,
     state fits the shared memory of a thread-block cluster
     (``warp_geometry``; up to ~74,000 px, 224² and 256² among them), else
     "chain", the per-iteration kernels (the levels between, e.g. 280²).
+    "warp" levels run a whole scale in one launch (``pd_solve_scale``);
     "warp" and "chain" compute the same function and differ only in the
     order of the ε test's sum."""
     if not whole_plane(h, w, median):
@@ -123,8 +127,8 @@ def tvl1(prev: torch.Tensor, nxt: torch.Tensor,
       (B, H, W, 2) float32 flow (dx, dy): prev(p) ≈ next(p + flow(p)).
     """
     warp = warp_prep_plain if plain else warp_prep
-    solvers = {"warp": pd_solve_plain if plain else pd_solve_warp,
-               "chain": pd_solve_plain if plain else pd_solve}
+    solve_scale = pd_solve_scale_plain if plain else pd_solve_scale
+    solve_chain = pd_solve_plain if plain else pd_solve
     solve_chunked = pd_solve_chunked_plain if plain else pd_solve_chunked
     median = median5_plain if plain else median5
 
@@ -156,8 +160,11 @@ def tvl1(prev: torch.Tensor, nxt: torch.Tensor,
         I1x, I1y = centered_gradient(I1)
         i13 = torch.stack([I1, I1x, I1y], dim=1).contiguous()
         which = level_solver(lh, lw, cfg.median_filtering, whole_plane)
-        if which != "chunked":
-            level_solve = solvers[which]
+        if which == "warp":
+            uv = solve_scale(i13, I0, uv, cfg)
+            continue
+        if which == "chain":
+            level_solve = solve_chain
         else:
             band, chunk = chunk_params(lh, lw, cfg)
             level_solve = functools.partial(solve_chunked, band=band,

@@ -31,9 +31,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 SOURCES = ("warp_prep.cu", "tvl1_pd.cu", "median.cu", "fb_prologue.cu",
-           "fb_warp_neq.cu", "sep_corr.cu", "tvl1_pd_chunk.cu",
-           "tvl1_pd_warp.cu")
-HEADERS = ("common.cuh",)
+           "fb_warp_neq.cu", "sep_corr.cu", "fb_window_solve.cu",
+           "tvl1_pd_chunk.cu", "tvl1_pd_warp.cu")
+HEADERS = ("common.cuh", "fb_neq.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v")
@@ -55,6 +55,10 @@ _SIGNATURES = {
                     _F, _F, _P),
     "va_band_flags": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "va_pd_warp": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
+    "va_pd_scale": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                    _F, _F, _P),
+    "va_fb_window_solve": (_P, _P, _I, _I, _I, _P, _I, _P),
+    "va_fb_iteration": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P),
     "va_pd_warp_smem": (_I, _I),
     "va_pd_warp_consts_in_smem": (_I, _I),
     "va_pd_warp_max_clusters": (_I, _I, _I),

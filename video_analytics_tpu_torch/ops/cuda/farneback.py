@@ -1,4 +1,5 @@
-"""K-D, K-E and K-F: the three kernels of the Farneback path.
+"""K-D, K-E, K-F and ``fb_window_solve``: the kernels of the Farneback
+path.
 
 They replace the eight Farneback kernels of
 ``video_analytics_tpu/ops/pallas/farneback_kernels.py``, which are
@@ -15,7 +16,12 @@ TPU-layout and VMEM-size variants of three computations:
 - K-F ``sep_corr`` (``csrc/sep_corr.cu``): ``_sep_corr_axis`` and the
   window-average and 2×2-solve halves of ``_neq_corr_axis``,
   ``warp_neq_corr_pallas``, ``corr_solve_from_T_pallas``,
-  ``corr_solve_warp_from_T_pallas`` and ``farneback_level_pallas``.
+  ``corr_solve_warp_from_T_pallas`` and ``farneback_level_pallas``;
+- ``fb_window_solve`` (``csrc/fb_window_solve.cu``): K-F along y, K-F
+  along x and the solve in one launch, as ``corr_solve_from_T_pallas``
+  keeps both passes in one kernel; and ``fb_iteration``, the same launch
+  with K-E's arithmetic as its tile loader, one whole iteration of
+  ``farneback_level_pallas``.
 
 Each wrapper stands beside its plain PyTorch version, which is built
 from the functions of ``flow/farneback.py`` and is what a CPU tensor
@@ -228,3 +234,94 @@ def sep_corr(x: torch.Tensor, taps: Sequence[float], axis: int,
 # the kernel, the five-plane one with the solve epilogue.
 sep_corr.launches = 0
 sep_corr.launches_solve = 0
+
+
+# -- fb_window_solve: both window passes and the solve in one launch --------
+
+def _expect_taps(taps: Sequence[float], what: str) -> None:
+    if len(taps) % 2 != 1 or len(taps) > MAX_TAPS:
+        raise ValueError(f"{what} takes an odd number of taps <= "
+                         f"{MAX_TAPS}, got {len(taps)}")
+
+
+def fb_window_solve_plain(M: torch.Tensor, taps: Sequence[float]
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of ``fb_window_solve``: ``sep_corr_plain``
+    along y, then along x with the solve."""
+    return sep_corr_plain(sep_corr_plain(M, taps, 0), taps, 1, solve=True)
+
+
+def fb_window_solve(M: torch.Tensor, taps: Sequence[float]) -> torch.Tensor:
+    """The window average of the five normal-equation planes along y and
+    along x (replicate border, each sum tap by tap in the taps' order) and
+    the regularised 2×2 solve of every pixel, in one launch: what
+    ``sep_corr`` computes in two, to the bit.
+
+    Args:
+      M: (B, 5, h, w) float32 planes (g11, g12, g22, h1, h2).
+      taps: odd number of taps, at most 31, applied along both axes.
+
+    Returns:
+      (B, 2, h, w) float32 flow.
+    """
+    if not M.is_cuda:
+        return fb_window_solve_plain(M, taps)
+    B, _, h, w = M.shape
+    _expect_taps(taps, "fb_window_solve")
+    _build.expect(M, "M", (B, 5, h, w), M.device)
+    out = torch.empty((B, 2, h, w), dtype=torch.float32, device=M.device)
+    lib = _build.library()
+    _build.check(lib.va_fb_window_solve(
+        M.data_ptr(), out.data_ptr(), B, h, w, _c_floats(taps), len(taps),
+        _stream(M)), "fb_window_solve")
+    fb_window_solve.launches += 1
+    return out
+
+
+fb_window_solve.launches = 0
+
+
+def fb_iteration_plain(R0: torch.Tensor, R1: torch.Tensor,
+                       flow: torch.Tensor, taps: Sequence[float]
+                       ) -> torch.Tensor:
+    """Plain PyTorch version of ``fb_iteration``: ``fb_warp_neq_plain``,
+    then ``fb_window_solve_plain``."""
+    return fb_window_solve_plain(fb_warp_neq_plain(R0, R1, flow), taps)
+
+
+def fb_iteration(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
+                 taps: Sequence[float]) -> torch.Tensor:
+    """One whole Farneback iteration in one launch: ``fb_warp_neq`` as
+    the tile loader of ``fb_window_solve`` (the normal equations are
+    formed anew for a tile's halo and never reach device memory).
+
+    Args:
+      R0, R1: (B, 5, h, w) float32 expansions of the pair's frames.
+      flow: (B, 2, h, w) float32 current flow; not modified.
+      taps: odd number of window taps, at most 31.
+
+    Returns:
+      (B, 2, h, w) float32 new flow.
+    """
+    if not flow.is_cuda:
+        return fb_iteration_plain(R0, R1, flow, taps)
+    B, _, h, w = flow.shape
+    if h < 2 or w < 2:
+        raise ValueError(f"fb_iteration needs h, w >= 2, got {(h, w)}")
+    _expect_taps(taps, "fb_iteration")
+    dev = flow.device
+    _build.expect(flow, "flow", (B, 2, h, w), dev)
+    _build.expect(R0, "R0", (B, 5, h, w), dev)
+    _build.expect(R1, "R1", (B, 5, h, w), dev)
+    out = torch.empty_like(flow)
+    lib = _build.library()
+    _build.check(lib.va_fb_iteration(
+        R0.data_ptr(), R1.data_ptr(), flow.data_ptr(), out.data_ptr(), B, h,
+        w, _c_floats(_BORDER_WEIGHTS), _c_floats(taps), len(taps),
+        _stream(flow)), "fb_iteration")
+    fb_iteration.launches += 1
+    return out
+
+
+fb_iteration.launches = 0
+

@@ -1,10 +1,11 @@
-"""K-B, K-C, K-G and K-H: the TV-L1 primal-dual solver of one warp, its
-median, the chunked solver of large planes and the cluster-resident one.
+"""K-B, K-C, K-G, K-H and ``tvl1_scale``: the TV-L1 primal-dual solver of
+one warp, its median, the chunked solver of large planes, the
+cluster-resident one and the whole pyramid scale in one launch.
 
 Replaces the solvers of ``video_analytics_tpu/ops/pallas/tvl1_solve.py``
-(``tvl1_solve_warp``, ``tvl1_solve_warp_packed``, the solver half of
-``tvl1_scale_pallas``, and ``tvl1_solve_warp_banded`` with its kernel
-``_run_chunk``) and their in-kernel k×k median.  The kernels are
+(``tvl1_solve_warp``, ``tvl1_solve_warp_packed``, ``tvl1_scale_pallas``,
+and ``tvl1_solve_warp_banded`` with its kernel ``_run_chunk``) and their
+in-kernel k×k median.  The kernels are
 ``csrc/tvl1_pd.cu`` (``pd_step``, one primal-dual iteration over the
 batch, and ``eps_reduce``, the per-image convergence test),
 ``csrc/median.cu`` (``median5``), ``csrc/tvl1_pd_chunk.cu`` (``pd_chunk``,
@@ -23,8 +24,11 @@ XLA solver instead runs until the slowest image of the batch converges
 launches every round without reading them back, so the host never waits.
 
 ``pd_solve_warp`` computes the same function in one launch, for the
-levels whose state fits a cluster's shared memory (``warp_geometry``);
-``flow/tvl1.py`` takes it wherever it fits.
+levels whose state fits a cluster's shared memory (``warp_geometry``).
+``pd_solve_scale`` runs all the warps of such a level in one launch of
+the same kernel: each warp opens with K-A's warp and prep as the
+kernel's prologue, and the scale-end median closes the launch;
+``flow/tvl1.py`` takes it wherever the level fits.
 
 ``pd_solve_chunked`` drives one warp of a plane too large for either
 (``flow/tvl1.py`` sends it every level the reference sends to its banded
@@ -42,6 +46,7 @@ import torch
 
 from video_analytics_tpu_torch.config import TVL1Config
 from video_analytics_tpu_torch.ops.cuda import _build
+from video_analytics_tpu_torch.ops.cuda.warp import warp_prep_plain
 from video_analytics_tpu_torch.ops.kernels import divergence, forward_gradient
 from video_analytics_tpu_torch.ops.median import median_filter2d
 
@@ -371,6 +376,91 @@ def pd_solve_warp(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config,
 
 
 pd_solve_warp.launches = 0
+
+
+# -- tvl1_scale: every warp of one pyramid scale in one launch ---------------
+
+def pd_solve_scale_plain(i13: torch.Tensor, i0: torch.Tensor,
+                         uv: torch.Tensor, cfg: TVL1Config) -> torch.Tensor:
+    """Plain PyTorch version of ``pd_solve_scale``: ``cfg.warps`` times
+    the warp with its prep and one warp's solve, then the scale-end
+    median."""
+    for _ in range(cfg.warps):
+        uv = pd_solve_plain(warp_prep_plain(i13, i0, uv), uv, cfg)
+    if cfg.median_filtering > 1:
+        uv = median5_plain(uv, cfg.median_filtering)
+    return uv
+
+
+def pd_solve_scale(i13: torch.Tensor, i0: torch.Tensor, uv: torch.Tensor,
+                   cfg: TVL1Config,
+                   rounds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One whole pyramid scale of TV-L1 in one launch: ``cfg.warps`` times
+    the warp of (I1, ∂I1/∂x, ∂I1/∂y) by the current flow with the
+    solver's prep (what ``warp_prep`` computes) and one warp's solve (what
+    ``pd_solve_warp`` computes), then the k×k median once more.  An
+    image's state stays in the shared memory of its cluster from the first
+    warp to the last.  Equal to ``pd_solve_scale_plain`` bit for bit
+    except where the order of the ε test's sum flips a round at the
+    threshold.
+
+    Args:
+      i13: (B, 3, H, W) float32 planes I1, ∂I1/∂x, ∂I1/∂y.
+      i0: (B, H, W) float32 first frame.
+      uv: (B, 2, H, W) flow at the scale's start; not modified.
+      cfg: the TVL1Config (warps, λ, θ, τ, ε, iteration counts, median).
+      rounds: optional (B, warps) int32 tensor that receives the outer
+        rounds each image ran in each warp (CUDA only).
+
+    Returns:
+      (B, 2, H, W) float32 flow at the scale's end.
+
+    Raises ValueError for a CUDA tensor of a level that does not fit a
+    cluster (``warp_geometry``): the caller picks the solver by that rule.
+    """
+    if not uv.is_cuda:
+        return pd_solve_scale_plain(i13, i0, uv, cfg)
+    B, _, H, W = uv.shape
+    dev = uv.device
+    geom = warp_geometry(H, W)
+    if geom is None:
+        raise ValueError(f"pd_solve_scale: a {H}x{W} level does not fit the "
+                         f"shared memory of a cluster (warp_geometry); "
+                         f"warp_prep and pd_solve are the kernels for it")
+    if H < 2 or W < 2:
+        raise ValueError(f"pd_solve_scale needs H, W >= 2, got {(H, W)}")
+    _build.expect(i13, "i13", (B, 3, H, W), dev)
+    _build.expect(i0, "i0", (B, H, W), dev)
+    _build.expect(uv, "uv", (B, 2, H, W), dev)
+    k = cfg.median_filtering if cfg.median_filtering > 1 else 0
+    if k not in (0, 3, 5):
+        raise ValueError(f"pd_solve_scale takes a median of 3 or 5, got {k}")
+    if rounds is not None and (
+            rounds.dtype != torch.int32 or rounds.device != dev
+            or tuple(rounds.shape) != (B, cfg.warps)
+            or not rounds.is_contiguous()):
+        raise ValueError(f"rounds: expected a contiguous ({B}, {cfg.warps}) "
+                         f"int32 tensor on {dev}")
+    if cfg.warps < 1:        # no warp: the scale is its closing median alone
+        return median5(uv, k) if k else uv.clone()
+    out = torch.empty_like(uv)
+    # Where the strip's constants do not fit shared memory beside the state
+    # the kernel keeps them here, each block its own strip's.
+    scratch = None if geom[1] else torch.empty_like(i13)
+    l_t, theta, taut = _solver_constants(cfg)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check(lib.va_pd_scale(
+        i13.data_ptr(), i0.data_ptr(), uv.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        None if rounds is None else rounds.data_ptr(), B, H, W, cfg.warps,
+        cfg.inner_iterations, cfg.outer_iterations, k, l_t, theta, taut,
+        cfg.epsilon * cfg.epsilon, stream), "pd_solve_scale")
+    pd_solve_scale.launches += 1
+    return out
+
+
+pd_solve_scale.launches = 0
 
 
 # -- K-G: several iterations per launch, for large planes --------------------
