@@ -18,8 +18,10 @@ by the commands themselves.  Phases, each reported on a JSON line:
    against its plain PyTorch version on the same inputs, with the
    tolerance stated; time both with CUDA events; tvl1_warp_kernel: K-H
    ``pd_solve_warp`` (one launch per warp, an image per thread-block
-   cluster) against ``pd_solve_plain`` at those sizes and three ragged
-   ones, at ε = 0 (bit for bit) and with ε engaged, at medians 5, 3 and
+   cluster of 8 blocks, or of 16 where the strips need it: 240×320 and
+   280×300) against ``pd_solve_plain`` at those sizes and five others,
+   with ``cudaOccupancyMaxActiveClusters`` at both cluster sizes, at ε = 0
+   (bit for bit) and with ε engaged, at medians 5, 3 and
    none, timed beside the per-iteration chain and the non-adaptive chunked
    solver on the same warp; ``tvl1_scale`` (``pd_solve_scale``: every warp
    of a scale with its prep, and the scale-end median, in one launch of
@@ -66,7 +68,14 @@ by the commands themselves.  Phases, each reported on a JSON line:
    flo`` on a 16-frame 240×320 frames directory written to a temporary
    directory, with the launch counts of the Farneback kernels set to 0
    just before the command and held to the expected numbers just after;
-   15 ``.flo`` files, one read back;
+   15 ``.flo`` files, one read back; farneback_1080p: the same command on
+   3 frames of 1080×1920 with ``--fb-levels 4`` (its 1/16 level pre-blurs
+   with 39 taps: K-D in two launches, the blur pass ``fb_prologue_blur``
+   first) and with ``--fb-winsize 33``, counts held to the expected
+   numbers and every ``.flo`` equal to the plain path's flow; K-D at 39 and
+   79 taps and the three window routes (33, 75, 201 taps: ``fb_iteration``;
+   K-E + ``fb_window_solve``; K-E + ``sep_corr`` twice) against their plain
+   versions;
 8. tvl1_chunk_kernels: K-G ``pd_chunk`` (several primal-dual iterations
    per launch on shared-memory tiles) against its plain version at the
    five TV-L1 level sizes of a 1080×1920 frame (2 pairs), with and without
@@ -76,11 +85,13 @@ by the commands themselves.  Phases, each reported on a JSON line:
    ``pd_solve_chunked`` against the per-iteration ``pd_solve`` (bit for
    bit at ε = 0, within 10·ε with the gates engaged), both timed;
    ``band_flags`` against its plain version; tvl1_midsize:
-   ``compute-flow --algo tvl1`` on 3 frames of 280×300, whose finest level
-   fits no cluster and is under the size rule, so it takes K-A, the
-   per-iteration chain and K-C (K-A, K-B, the ε reduction and K-C counted
-   and held to the expected numbers; the coarser levels take
-   ``tvl1_scale``);
+   ``compute-flow --algo tvl1`` on 3 frames of 280×300 and of 240×320,
+   whose finest levels are under the size rule and fit only a 16-block
+   cluster: 5 launches of ``tvl1_scale`` each and none of K-A, K-B, the ε
+   reduction or K-C (counted), the flow at ε = 0 equal to the plain
+   path's, a flow call timed; then a 20×4000 pair, whose finest level
+   fits no cluster, through K-A, K-B, the ε reduction and K-C (counted),
+   equal to the plain path at ε = 0;
 9. tvl1_1080p: ``tpuva-torch compute-flow --algo tvl1`` with
    ``TVL1Config()`` on a frames directory of 11 frames of 1080×1920 (10
    pairs, ``--batch 8``), the launch counts of the TV-L1 kernels set to 0
@@ -96,11 +107,12 @@ by the commands themselves.  Phases, each reported on a JSON line:
 
 Then it prints the kernel table (``{"kernels": [...]}``: for each kernel
 its launches on its main path and which path that is (``launches_from``:
-the serve requests; for K-G and ``band_flags`` the ``compute-flow``
-command of phase 9; for K-A, K-C, K-B and the ε reduction the command of
-tvl1_midsize; K-H, K-E, ``sep_corr`` and ``fb_window_solve``, whose
-arithmetic the serve path now runs inside ``tvl1_scale`` and
-``fb_iteration``, are on no command's path: 0 launches, and under
+the serve requests; for K-A, K-C, K-G and ``band_flags`` the
+``compute-flow`` command of phase 9; for K-D's blur pass the
+``--fb-levels 4`` command of farneback_1080p; K-H, K-B, the ε reduction,
+K-E, ``sep_corr`` and ``fb_window_solve``, whose arithmetic the commands
+run inside ``tvl1_scale`` and ``fb_iteration`` or only at shapes no
+command here gives, are on no command's path: 0 launches, and under
 ``check_launches`` those of the phase that holds them against their plain
 versions; ``sep_corr``'s two instantiations, the one-plane
 correlation and the five-plane one with the solve epilogue, have a row
@@ -290,6 +302,7 @@ def device_profile(torch, fn):
 PORT_KERNELS = ("warp_prep_kernel", "pd_step_kernel", "eps_reduce_kernel",
                 "median_kernel", "pd_warp_kernel", "pd_chunk_kernel",
                 "band_flags_kernel", "fb_prologue_kernel",
+                "fb_blur_sample_kernel",
                 "fb_warp_neq_kernel", "sep_corr_kernel",
                 "fb_window_solve_kernel")
 
@@ -341,7 +354,8 @@ def read_counts(kernels):
 
 def zero_fb_counts(fk) -> None:
     """Set the launch counts of the Farneback wrappers to 0."""
-    fk.fb_prologue.launches = fk.fb_warp_neq.launches = 0
+    fk.fb_prologue.launches = fk.fb_prologue.launches_blur = 0
+    fk.fb_warp_neq.launches = 0
     fk.sep_corr.launches = fk.sep_corr.launches_solve = 0
     fk.fb_window_solve.launches = fk.fb_iteration.launches = 0
 
@@ -351,6 +365,7 @@ def read_fb_counts(fk):
     instantiations, counted apart: the one-plane correlation, and the
     five-plane one with the solve epilogue."""
     return {"fb_prologue": fk.fb_prologue.launches,
+            "fb_prologue_blur": fk.fb_prologue.launches_blur,
             "fb_warp_neq": fk.fb_warp_neq.launches,
             "sep_corr": fk.sep_corr.launches - fk.sep_corr.launches_solve,
             "sep_corr_x_solve": fk.sep_corr.launches_solve,
@@ -358,13 +373,20 @@ def read_fb_counts(fk):
             "fb_iteration": fk.fb_iteration.launches}
 
 
-def fb_expected(levels: int, iterations: int, calls: int = 1):
+def fb_expected(levels: int, iterations: int, calls: int = 1,
+                split: int = 0, route: str = "iteration"):
     """Launches of the Farneback kernels over `calls` flow calls: the
-    prologue once per level and ``fb_iteration`` once per level and
-    iteration; K-E, ``fb_window_solve`` and ``sep_corr`` not at all."""
-    return {"fb_prologue": calls * levels,
-            "fb_iteration": calls * levels * iterations, "fb_warp_neq": 0,
-            "fb_window_solve": 0, "sep_corr": 0, "sep_corr_x_solve": 0}
+    prologue once per level, its blur pass once per level of the
+    two-launch form (`split` of them), and per level and iteration the
+    kernels of the window's route (``window_route``): ``fb_iteration``;
+    K-E and ``fb_window_solve``; or K-E and ``sep_corr`` twice."""
+    its = calls * levels * iterations
+    return {"fb_prologue": calls * levels, "fb_prologue_blur": calls * split,
+            "fb_iteration": its if route == "iteration" else 0,
+            "fb_warp_neq": 0 if route == "iteration" else its,
+            "fb_window_solve": its if route == "window_solve" else 0,
+            "sep_corr": its if route == "sep_corr" else 0,
+            "sep_corr_x_solve": its if route == "sep_corr" else 0}
 
 
 def serve_requests(server, frames, zero, read, per_request=None):
@@ -784,6 +806,171 @@ def compute_flow_phase(np):
     return launches
 
 
+FB_HD_FRAMES = 3       # 2 pairs: one flow call of the command
+
+
+def farneback_1080p_phase(torch, np, dev):
+    """The Farneback command at 1080x1920 with parameters the reference
+    takes and the first kernels did not: ``--fb-levels 4`` (the coarsest
+    level, 68x120 at 1/16, pre-blurs with 39 taps, and K-D takes its
+    two-launch form there) and ``--fb-winsize 33``, each with the launch
+    counts set to 0 just before and held to the expected numbers just
+    after, and every ``.flo`` file equal to the plain path's flow.  Then
+    K-D against its plain version at 1/16 and 1/32 (39 and 79 taps), timed,
+    and one iteration of each window route (33, 75 and 201 taps) against
+    the plain version at the 1/8 level.  Returns (launches per kernel of
+    the two commands, {"fb_prologue_blur": (max_abs_err, (ms, plain_ms,
+    None), bound, device_ms)} at 1/16)."""
+    import tempfile
+
+    from video_analytics_tpu_torch.cli.main import _load_frames
+    from video_analytics_tpu_torch.config import FarnebackConfig
+    from video_analytics_tpu_torch.flow.farneback import _level_sizes, farneback
+    from video_analytics_tpu_torch.io.flowio import read_flo
+    from video_analytics_tpu_torch.io.video import write_frames
+    from video_analytics_tpu_torch.ops.cuda import farneback as fk
+    from video_analytics_tpu_torch.ops.preprocess import rgb_to_gray
+
+    from video_analytics_tpu_torch.ops.cuda import _build
+
+    H, W = FULL_HD
+    lib = _build.library()
+    # The size rules' shared-memory counts are the library's own.
+    for n in (15, 33, 73, 75, 193, 195, 201):
+        for planes, neq in ((5, 1), (1, 0)):
+            want = fk.window_smem(n, planes)
+            check(lib.va_fb_window_smem(n, neq)
+                  == (want if want <= 232448 else -1),
+                  f"window_smem({n}, {planes}) is not the library's")
+    planes = [scene(np, t, H, W, seed=9, fmax=FB_FMAX)
+              for t in range(FB_HD_FRAMES)]
+    frames = np.stack([np.stack([g * img for g in (1.0, 0.85, 0.7)], axis=-1)
+                       for img in planes]).round().astype(np.uint8)
+    report, total = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "frames")
+        write_frames(frames, src)
+        gray = rgb_to_gray(torch.from_numpy(_load_frames(src, None)).to(dev))
+        for flag, value in (("--fb-levels", 4), ("--fb-winsize", 33)):
+            cfg = FarnebackConfig(**{flag[5:]: value})
+            levels = _level_sizes(H, W, cfg)
+            forms = [fk.prologue_form(H, W, lh, lw, sc, cfg.poly_n)
+                     for lh, lw, sc in levels]
+            for (lh, lw, sc), (form, span) in zip(levels, forms):
+                args = (len(fk._smooth_taps(sc)), 2 * cfg.poly_n + 1,
+                        sc < 1 and lh != H, sc < 1 and lw != W)
+                if form == "fused":
+                    check(lib.va_fb_prologue_smem(*map(int, args), span)
+                          == fk.prologue_smem(*args, span),
+                          f"prologue_smem at {lh}x{lw} is not the library's")
+            forms = [form for form, _ in forms]
+            taps = [len(fk._smooth_taps(sc)) for _, _, sc in levels]
+            out = os.path.join(tmp, f"flow{flag}")
+            zero_fb_counts(fk)
+            t0 = time.perf_counter()
+            rc, res = run_cli(["compute-flow", src, out, "--algo",
+                               "farneback", "--format", "flo", "--batch",
+                               str(CF_BATCH), flag, str(value), "--device",
+                               "cuda"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read_fb_counts(fk)
+            check(rc == 0 and res["flows"] == FB_HD_FRAMES - 1,
+                  f"compute-flow --algo farneback {flag} {value}: {rc} {res}")
+            route = fk.window_route(cfg.winsize)
+            expected = fb_expected(len(levels), cfg.iterations,
+                                   split=forms.count("split"), route=route)
+            check(launches == expected,
+                  f"compute-flow {flag} {value} launched {launches}, "
+                  f"expected {expected}")
+            total = launches if total is None else {
+                k: total[k] + n for k, n in launches.items()}
+            with torch.no_grad():
+                plain = farneback(gray[:-1], gray[1:], cfg,
+                                  plain=True).cpu().numpy()
+            files = sorted(f for f in os.listdir(out) if f.endswith(".flo"))
+            flows = [read_flo(os.path.join(out, f)) for f in files]
+            check(len(flows) == FB_HD_FRAMES - 1
+                  and all(np.array_equal(f, p) for f, p in zip(flows, plain)),
+                  f"compute-flow {flag} {value}: the flow is not the plain "
+                  f"path's")
+            mean = flows[0][64:-64, 64:-64].reshape(-1, 2).mean(0).tolist()
+            check(abs(mean[0] - VEL[0]) < TOL_MEAN_FLOW
+                  and abs(mean[1] - VEL[1]) < TOL_MEAN_FLOW,
+                  f"compute-flow {flag} {value}: mean flow {mean}")
+            report[f"{flag} {value}"] = {
+                "levels": [[lh, lw] for lh, lw, _ in levels],
+                "blur_taps": taps, "prologue_forms": forms,
+                "window_route": route, "seconds": seconds,
+                "launches": launches, "mean_flow": mean,
+                "equal_to_plain_path": True}
+    check(max(report["--fb-levels 4"]["blur_taps"]) > 31,
+          "no level of --fb-levels 4 pre-blurs with more than 31 taps")
+
+    # K-D where a tile's reach passes a block: 39 and 79 taps.
+    cfg = FarnebackConfig()
+    table, kd = None, {}
+    for scale in (1 / 16, 1 / 32):
+        lh, lw = int(round(H * scale)), int(round(W * scale))
+        args = (gray, scale, (lh, lw), cfg.poly_n, cfg.poly_sigma)
+        n0 = fk.fb_prologue.launches_blur
+        got = fk.fb_prologue(*args)
+        check(fk.fb_prologue.launches_blur == n0 + 1,
+              f"fb_prologue at 1/{round(1 / scale)}: one launch")
+        want = fk.fb_prologue_plain(*args)
+        e = (got - want).abs().max().item()
+        check(torch.equal(got, want),
+              f"fb_prologue at 1/{round(1 / scale)}: max abs {e}")
+        nb = len(fk._smooth_taps(scale))
+        N = gray.shape[0]
+        # Bytes: the frames read, the intermediate (the blurred frame at
+        # 2 rows and 2 columns per level pixel) written.  Operations: the
+        # vertical blur at the sample rows over every column, then the
+        # horizontal one at the sample points, a multiply and an add a tap.
+        px, samples = N * 2 * lh * W, N * 4 * lh * lw
+        b = bound(4 * N * H * W + 4 * samples, 2 * nb * (px + samples))
+        times = (cuda_ms(torch, lambda: fk.fb_prologue(*args), 5),
+                 cuda_ms(torch, lambda: fk.fb_prologue_plain(*args), 2))
+        dev_ms = device_ms(torch, lambda: fk.fb_prologue(*args),
+                           "fb_blur_sample_kernel", 3)
+        kd[f"{lh}x{lw}"] = {"blur_taps": nb, "ms_both_launches": times[0],
+                            "plain_ms": times[1],
+                            "blur_pass_device_ms": dev_ms,
+                            "blur_pass_bound_ms": b[0], "bound_by": b[1]}
+        if table is None:
+            table = (e, (times[0], times[1], None), b, dev_ms)
+
+    # The three window routes at the 1/8 level, 2 pairs.
+    lh, lw = int(round(H / 8)), int(round(W / 8))
+    R = fk.fb_prologue_plain(gray, 1 / 8, (lh, lw), cfg.poly_n,
+                             cfg.poly_sigma)
+    R0, R1 = R[:-1].contiguous(), R[1:].contiguous()
+    g = torch.Generator(dev).manual_seed(11)
+    flow = 2.0 * torch.randn((R0.shape[0], 2, lh, lw), device=dev,
+                             generator=g)
+    routes = {}
+    for n in (33, 75, 201):
+        taps = [1.0 / n] * n
+        zero_fb_counts(fk)
+        got = fk.fb_iterate(R0, R1, flow, taps)
+        counts = {k: v for k, v in read_fb_counts(fk).items() if v}
+        route = fk.window_route(n)
+        check(counts == {k: v for k, v in fb_expected(1, 1, route=route,
+                                                      ).items()
+                         if v and k != "fb_prologue"},
+              f"window of {n} taps ({route}) launched {counts}")
+        check(torch.equal(got, fk.fb_iteration_plain(R0, R1, flow, taps)),
+              f"one iteration with {n} taps ({route}) is not the plain one")
+        routes[n] = {"route": route, "launches": counts,
+                     "ms": cuda_ms(torch, lambda: fk.fb_iterate(
+                         R0, R1, flow, taps), 5)}
+    emit({"phase": "farneback_1080p", "frames": FB_HD_FRAMES,
+          "commands": report, "fb_prologue_two_launch_form": kd,
+          "window_routes_at": [lh, lw], "window_routes": routes,
+          "tolerance": TOL_FB})
+    return total, {"fb_prologue_blur": table}
+
+
 def tvl1_level_inputs(torch, np, dev, h, w, pairs):
     """(i0, i13, uv) of one TV-L1 level: `pairs` frame pairs of the moving
     scene, the second frame with its centred gradient, and a smooth start
@@ -806,8 +993,9 @@ def tvl1_level_inputs(torch, np, dev, h, w, pairs):
 # Levels K-H is checked at beside the serve sizes: 150 rows make strips of
 # 19 with a last one of 17; 17 rows make strips of 3, 3, 3, 3, 3, 2 and two
 # empty ones; at 256² (the size before the crop) the constants do not fit
-# in shared memory beside the state.
-RAGGED = ((150, 201), (17, 40), (256, 256))
+# in shared memory beside the state; 240×320 (UCF101's native size) and
+# 280×300 fit no cluster of 8 and take 16 blocks (strips of 15 and 18).
+RAGGED = ((150, 201), (17, 40), (256, 256), (240, 320), (280, 300))
 
 
 def warp_bound(rounds, h, w, inner, median_k):
@@ -862,17 +1050,25 @@ def tvl1_warp_kernel_phase(torch, np, dev):
         prep = warp_prep_plain(i13, i0, uv)
         geom = ts.warp_geometry(h, w)
         check(geom is not None, f"{h}x{w} does not fit a cluster")
-        rows, consts, smem = geom
+        rows, consts, smem, blocks = geom
         check(lib.va_pd_warp_smem(h, w) == smem
-              and lib.va_pd_warp_consts_in_smem(h, w) == int(consts),
+              and lib.va_pd_warp_consts_in_smem(h, w) == int(consts)
+              and lib.va_pd_warp_cluster(h, w) == blocks,
               f"warp_geometry({h}, {w}) = {geom}, the library says "
               f"{lib.va_pd_warp_smem(h, w)} B, constants in shared memory "
-              f"{lib.va_pd_warp_consts_in_smem(h, w)}")
-        clusters = lib.va_pd_warp_max_clusters(h, w, PAIRS)
-        check(clusters >= 1, f"no cluster of {h}x{w} can be resident: "
-                             f"{clusters}")
+              f"{lib.va_pd_warp_consts_in_smem(h, w)}, "
+              f"{lib.va_pd_warp_cluster(h, w)} blocks")
+        # cudaOccupancyMaxActiveClusters at both sizes where the strips fit
+        # (a negative CUDA error where they do not).
+        by_size = {cl: lib.va_pd_warp_max_clusters(h, w, PAIRS, cl)
+                   for cl in (8, 16)}
+        clusters = by_size[blocks]
+        check(clusters >= 1, f"no cluster of {blocks} blocks of {h}x{w} can "
+                             f"be resident: {clusters}")
         entry = {"strip_rows": rows, "constants_in_shared_memory": consts,
-                 "smem_bytes": smem, "max_active_clusters": clusters}
+                 "smem_bytes": smem, "cluster_blocks": blocks,
+                 "max_active_clusters": clusters,
+                 "max_active_clusters_by_size": by_size}
         rounds = torch.zeros(PAIRS, dtype=torch.int32, device=dev)
 
         def held(c, what, exact):
@@ -1036,8 +1232,9 @@ def tvl1_warp_kernel_phase(torch, np, dev):
               f"tvl1_scale at batch {B}: not the chain's flow")
         check(torch.equal(got, ts.pd_solve_scale_plain(i13, i0, uv, short)),
               f"tvl1_scale at batch {B}: not the plain version's flow")
-    check(ts.warp_geometry(280, 280) is None
-          and lib.va_pd_warp_smem(280, 280) < 0, "280x280 fits a cluster?")
+    check(ts.warp_geometry(*CHAIN) is None
+          and lib.va_pd_warp_smem(*CHAIN) < 0
+          and lib.va_pd_warp_cluster(*CHAIN) < 0, f"{CHAIN} fits a cluster?")
     emit({"phase": "tvl1_warp_kernel", "pairs": PAIRS,
           "max_abs_err": max_err, "tolerance": 0.0,
           "tolerance_where_a_round_may_flip": 10 * cfg.epsilon,
@@ -1048,15 +1245,22 @@ def tvl1_warp_kernel_phase(torch, np, dev):
             "tvl1_scale": (scale_err, *table["tvl1_scale"][1:])}
 
 
-MID = (280, 300)       # finest level: under the size rule, fits no cluster
+# Finest levels under the size rule that fit no cluster of 8 blocks (PR 5's
+# per-iteration chain) and fit one of 16: every level takes tvl1_scale.
+MIDS = ((280, 300), (240, 320))
 MID_FRAMES = 3
+CHAIN = (20, 4000)     # a level too wide for 16 strips: K-A, K-B, ε, K-C
 
 
 def tvl1_midsize_phase(torch, np, dev):
-    """``compute-flow --algo tvl1`` on frames of 280x300: the finest level
-    takes K-A per warp, the per-iteration chain (K-B, its ε reduction, K-C)
-    and the scale-end K-C, the coarser ones ``tvl1_scale``.  Returns the
-    launches per kernel."""
+    """``compute-flow --algo tvl1`` on frames of 280x300 and of 240x320:
+    every level, the finest in 16-block clusters, is one launch of
+    ``tvl1_scale`` (counted, and K-A, K-B, the ε reduction, K-C and K-H
+    held to 0); the flow at ε = 0 against the plain path's; one flow call
+    of 2 pairs timed.  Then a pair of 20x4000, whose finest level fits no
+    cluster, through ``tvl1``: K-A, K-B, the ε reduction and K-C on it
+    (counted) and the flow at ε = 0 against the plain path's.  Returns
+    (launches per kernel of the commands, launches of the 20x4000 pair)."""
     import tempfile
 
     from video_analytics_tpu_torch.cli.main import _load_frames
@@ -1070,59 +1274,118 @@ def tvl1_midsize_phase(torch, np, dev):
     from video_analytics_tpu_torch.ops.preprocess import rgb_to_gray
 
     cfg = TVL1Config()
-    takes = [level_solver(h, w, cfg.median_filtering)
-             for h, w in _level_sizes(*MID, cfg)]
-    check(takes[0] == "chain" and set(takes[1:]) == {"warp"},
-          f"levels of {MID} take {takes}")
     kernels = {"tvl1_pd_step": ts.pd_step, "tvl1_eps_reduce": ts.eps_reduce,
                "median5": ts.median5, "warp_prep": warp_prep,
                "tvl1_scale": ts.pd_solve_scale,
                "tvl1_pd_warp": ts.pd_solve_warp, "tvl1_pd_chunk": ts.pd_chunk}
-    planes = [scene(np, t, *MID, seed=7) for t in range(MID_FRAMES)]
-    frames = np.stack([np.stack([g * img for g in (1.0, 0.85, 0.7)], axis=-1)
-                       for img in planes]).round().astype(np.uint8)
-    with tempfile.TemporaryDirectory() as tmp:
-        src, out = os.path.join(tmp, "frames"), os.path.join(tmp, "flow")
-        write_frames(frames, src)
-        zero_counts(kernels)
-        t0 = time.perf_counter()
-        rc, res = run_cli(["compute-flow", src, out, "--algo", "tvl1",
-                           "--format", "flo", "--batch", str(CF_BATCH),
-                           "--device", "cuda"])
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = read_counts(kernels)
-        check(rc == 0 and res["flows"] == MID_FRAMES - 1,
-              f"compute-flow --algo tvl1 at {MID} exited {rc}: {res}")
-        flow = read_flo(os.path.join(out, sorted(os.listdir(out))[0]))
-        gray = rgb_to_gray(torch.from_numpy(_load_frames(src, 3)).to(dev))
-    n_chain, n_warp = takes.count("chain"), takes.count("warp")
-    rounds = cfg.warps * cfg.outer_iterations
-    expected = {"tvl1_pd_step": n_chain * rounds * cfg.inner_iterations,
-                "tvl1_eps_reduce": n_chain * rounds,
-                "median5": n_chain * rounds + n_chain,
-                "warp_prep": n_chain * cfg.warps, "tvl1_scale": n_warp,
-                "tvl1_pd_warp": 0, "tvl1_pd_chunk": 0}
-    check(launches == expected,
-          f"compute-flow at {MID} launched {launches}, expected {expected}")
-    check(flow.shape == (*MID, 2) and bool(np.isfinite(flow).all()),
-          f"flow read back: {flow.shape}")
-    mean = flow[32:-32, 32:-32].reshape(-1, 2).mean(0).tolist()
-    check(abs(mean[0] - VEL[0]) < TOL_MEAN_FLOW
-          and abs(mean[1] - VEL[1]) < TOL_MEAN_FLOW,
-          f"mean flow {mean} at {MID}, expected {VEL}")
-    # With no test to flip, at a smaller depth, the pyramid through the chain
-    # and tvl1_scale is the plain path's to the bit.
+    exact = dataclasses.replace(cfg, epsilon=0.0, warps=2, outer_iterations=2)
+    report, total = {}, dict.fromkeys(kernels, 0)
+    for size in MIDS:
+        sizes = _level_sizes(*size, cfg)
+        takes = [level_solver(h, w, cfg.median_filtering) for h, w in sizes]
+        check(takes == ["warp"] * len(sizes)
+              and ts.warp_geometry(*size)[3] == 16,
+              f"levels of {size} take {takes}")
+        planes = [scene(np, t, *size, seed=7) for t in range(MID_FRAMES)]
+        frames = np.stack([np.stack([g * img for g in (1.0, 0.85, 0.7)],
+                                    axis=-1)
+                           for img in planes]).round().astype(np.uint8)
+        with tempfile.TemporaryDirectory() as tmp:
+            src, out = os.path.join(tmp, "frames"), os.path.join(tmp, "flow")
+            write_frames(frames, src)
+            zero_counts(kernels)
+            t0 = time.perf_counter()
+            rc, res = run_cli(["compute-flow", src, out, "--algo", "tvl1",
+                               "--format", "flo", "--batch", str(CF_BATCH),
+                               "--device", "cuda"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read_counts(kernels)
+            check(rc == 0 and res["flows"] == MID_FRAMES - 1,
+                  f"compute-flow --algo tvl1 at {size} exited {rc}: {res}")
+            # The same command again: what a second clip of the size pays.
+            t0 = time.perf_counter()
+            rc, _ = run_cli(["compute-flow", src, out + "_again", "--algo",
+                             "tvl1", "--format", "flo", "--batch",
+                             str(CF_BATCH), "--device", "cuda"])
+            torch.cuda.synchronize()
+            again = time.perf_counter() - t0
+            check(rc == 0, f"compute-flow at {size}, again: {rc}")
+            flow = read_flo(os.path.join(out, sorted(os.listdir(out))[0]))
+            gray = rgb_to_gray(torch.from_numpy(_load_frames(src, 3)).to(dev))
+        expected = {**dict.fromkeys(kernels, 0), "tvl1_scale": len(sizes)}
+        check(launches == expected,
+              f"compute-flow at {size} launched {launches}, expected "
+              f"{expected}")
+        for name, n in launches.items():
+            total[name] += n
+        check(flow.shape == (*size, 2) and bool(np.isfinite(flow).all()),
+              f"flow read back: {flow.shape}")
+        mean = flow[32:-32, 32:-32].reshape(-1, 2).mean(0).tolist()
+        check(abs(mean[0] - VEL[0]) < TOL_MEAN_FLOW
+              and abs(mean[1] - VEL[1]) < TOL_MEAN_FLOW,
+              f"mean flow {mean} at {size}, expected {VEL}")
+        # With no test to flip, at a smaller depth, the pyramid through
+        # tvl1_scale is the plain path's to the bit.
+        with torch.no_grad():
+            e = float((tvl1(gray[:2], gray[1:3], exact)
+                       - tvl1(gray[:2], gray[1:3], exact, plain=True)
+                       ).abs().max())
+            check(e == 0.0, f"flow at {size}, epsilon 0, vs the plain path: "
+                            f"{e}")
+            call_ms = cuda_ms(torch, lambda: tvl1(gray[:2], gray[1:3], cfg),
+                              3)
+        # The finest level alone, 2 pairs: the launch against the route it
+        # replaces (per warp K-A and the per-iteration chain, then K-C), in
+        # turns.
+        i0, i13, uv = tvl1_level_inputs(torch, np, dev, *size, 2)
+
+        def old_route():
+            u = uv
+            for _ in range(cfg.warps):
+                u = ts.pd_solve(warp_prep(i13, i0, u), u, cfg)
+            return ts.median5(u, cfg.median_filtering)
+
+        t = [cuda_ms(torch, f, 3) for f in (
+            lambda: ts.pd_solve_scale(i13, i0, uv, cfg), old_route,
+            old_route, lambda: ts.pd_solve_scale(i13, i0, uv, cfg))]
+        report[f"{size[0]}x{size[1]}"] = {
+            "levels_take": takes, "command_seconds": seconds,
+            "command_seconds_again": again,
+            "launches": launches, "mean_flow": mean,
+            "max_abs_vs_plain_path_at_epsilon_0": e,
+            "flow_call_pairs": 2, "flow_call_ms": call_ms,
+            "finest_level_ms": [t[0], t[3]],
+            "finest_level_ms_per_iteration_route": [t[1], t[2]]}
+
+    # A level no cluster holds keeps the per-iteration chain.
+    h, w = CHAIN
+    chain_cfg = dataclasses.replace(exact, warps=1)
+    sizes = _level_sizes(h, w, chain_cfg)
+    takes = [level_solver(a, b, cfg.median_filtering) for a, b in sizes]
+    check(takes == ["chain", "warp"], f"levels of {CHAIN} take {takes}")
     with torch.no_grad():
-        exact = dataclasses.replace(cfg, epsilon=0.0, warps=2,
-                                    outer_iterations=2)
-        e = float((tvl1(gray[:2], gray[1:3], exact)
-                   - tvl1(gray[:2], gray[1:3], exact, plain=True)).abs().max())
-    check(e == 0.0, f"flow at {MID}, epsilon 0, vs the plain path: {e}")
-    emit({"phase": "tvl1_midsize", "size": list(MID), "levels_take": takes,
-          "seconds": seconds, "launches": launches, "mean_flow": mean,
-          "max_abs_vs_plain_path_at_epsilon_0": e})
-    return launches
+        prev = torch.from_numpy(scene(np, 0, h, w, seed=8)[None]).to(dev)
+        nxt = torch.from_numpy(scene(np, 1, h, w, seed=8)[None]).to(dev)
+        zero_counts(kernels)
+        got = tvl1(prev, nxt, chain_cfg)
+        chain = read_counts(kernels)
+        e_chain = float((got - tvl1(prev, nxt, chain_cfg, plain=True)
+                         ).abs().max())
+    rounds = chain_cfg.warps * chain_cfg.outer_iterations
+    expected = {**dict.fromkeys(kernels, 0), "warp_prep": chain_cfg.warps,
+                "tvl1_pd_step": rounds * chain_cfg.inner_iterations,
+                "tvl1_eps_reduce": rounds, "median5": rounds + 1,
+                "tvl1_scale": 1}
+    check(chain == expected,
+          f"tvl1 at {CHAIN} launched {chain}, expected {expected}")
+    check(e_chain == 0.0, f"flow at {CHAIN}, epsilon 0, vs the plain path: "
+                          f"{e_chain}")
+    emit({"phase": "tvl1_midsize", "by_size": report,
+          "chain_level": {"size": list(CHAIN), "levels_take": takes,
+                          "launches": chain,
+                          "max_abs_vs_plain_path_at_epsilon_0": e_chain}})
+    return total, chain
 
 
 FULL_HD = (1080, 1920)     # a native-resolution frame: every TV-L1 level
@@ -1639,7 +1902,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default=None,
                     choices=["tvl1_warp_kernel", "farneback_kernels",
-                             "tvl1_midsize",
+                             "farneback_1080p", "tvl1_midsize",
                              "tvl1_chunk_kernels", "tvl1_1080p",
                              "stage_chain"],
                     help="run the build and this phase alone (stage_chain "
@@ -1691,6 +1954,8 @@ def main(argv=None) -> int:
         tvl1_warp_kernel_phase(torch, np, dev)
     elif args.only == "farneback_kernels":
         farneback_kernels_phase(torch, np, dev)
+    elif args.only == "farneback_1080p":
+        farneback_1080p_phase(torch, np, dev)
     elif args.only == "tvl1_midsize":
         tvl1_midsize_phase(torch, np, dev)
     elif args.only == "tvl1_chunk_kernels":
@@ -1871,10 +2136,16 @@ def main(argv=None) -> int:
     own_check.update(read_fb_counts(fk))
     fb_launches = farneback_serve_phase(torch, np, dev, model)
     cf_launches = compute_flow_phase(np)
+    fhd_launches, fhd = farneback_1080p_phase(torch, np, dev)
 
     # -- 8-10. native-resolution TV-L1 and the stage chain -------------------
     kg = tvl1_chunk_kernels_phase(torch, np, dev, args.sweep_chunk)
-    mid_launches = tvl1_midsize_phase(torch, np, dev)
+    mid_launches, chain_launches = tvl1_midsize_phase(torch, np, dev)
+    # K-B and the ε reduction are on no command's path since the levels
+    # between take 16-block clusters: their launches are those of the level
+    # that fits no cluster.
+    own_check.update({name: chain_launches[name]
+                      for name in ("tvl1_pd_step", "tvl1_eps_reduce")})
     hd_launches = native_phases(torch, np, dev)
 
     # -- the kernel table -----------------------------------------------------
@@ -1886,12 +2157,15 @@ def main(argv=None) -> int:
     # compare-exchanges of a min and a max per plane.  pd_solve_warp's and
     # tvl1_scale's are those of the rounds their images took (warp_bound,
     # scale_bound).  Launches are those of the serve requests where the
-    # serve path runs the kernel; K-A, K-C, K-B and the ε reduction are on
-    # the mid-size compute-flow command's path (its finest level), K-G and
-    # band_flags on the 1080p command's; K-H, K-E, sep_corr and
-    # fb_window_solve are on no command's path (tvl1_scale and fb_iteration
-    # hold their arithmetic): their launches are 0, and check_launches
-    # counts those of the phase that holds them against their plain versions.
+    # serve path runs the kernel; tvl1_scale's also on the mid-size
+    # commands' path (launches_tvl1_midsize); K-A, K-C, K-G and band_flags
+    # on the 1080p TV-L1 command's; K-D's blur pass on the 1080p Farneback
+    # command's (--fb-levels 4); K-H, K-B, the ε reduction, K-E, sep_corr
+    # and fb_window_solve are on no command's path (tvl1_scale and
+    # fb_iteration hold their arithmetic; K-B and ε take only a level too
+    # wide for a cluster; K-E, sep_corr and fb_window_solve only windows
+    # beyond 73 taps): their launches are 0, and check_launches counts
+    # those of the phase that holds them against their plain versions.
     px = PAIRS * SIZES[0] * SIZES[0]
     blocks = ts.pd_blocks(SIZES[0], SIZES[0])
     bounds = {"warp_prep": bound(10 * 4 * px, 45 * px),
@@ -1899,21 +2173,23 @@ def main(argv=None) -> int:
               "median5": bound(4 * 4 * px, 2 * 2 * 113 * px),
               "tvl1_eps_reduce": bound(4 * PAIRS * blocks + 8 * PAIRS,
                                        PAIRS * blocks),
-              **fb_bounds, **{name: v[2] for name, v in kh.items()},
-              **{name: v[2] for name, v in kg.items()}}
+              **fb_bounds,
+              **{name: v[2] for name, v in {**kh, **kg, **fhd}.items()}}
     errs.update(fb_errs)
-    errs.update({name: v[0] for name, v in {**kh, **kg}.items()})
+    errs.update({name: v[0] for name, v in {**kh, **kg, **fhd}.items()})
     launches.update(fb_launches)
     launches_from = {name: "serve" for name, n in launches.items() if n > 0}
     for source, counts in (("tvl1_midsize", mid_launches),
-                           ("tvl1_1080p", hd_launches)):
+                           ("tvl1_1080p", hd_launches),
+                           ("farneback_1080p", fhd_launches)):
         for name, n in counts.items():
             if launches.get(name, 0) == 0 and n > 0:
                 launches[name], launches_from[name] = n, source
     table_ms = {**{name: (*t, None) for name, t in times[SIZES[0]].items()},
-                **fb_times, **{name: v[1] for name, v in {**kh, **kg}.items()}}
+                **fb_times,
+                **{name: v[1] for name, v in {**kh, **kg, **fhd}.items()}}
     dev_times.update(fb_dev)
-    dev_times.update({name: v[3] for name, v in {**kh, **kg}.items()})
+    dev_times.update({name: v[3] for name, v in {**kh, **kg, **fhd}.items()})
     src = "video_analytics_tpu_torch/csrc/"
     pallas = "video_analytics_tpu/ops/pallas/"
     fbk = pallas + "farneback_kernels.py:"
@@ -1934,6 +2210,8 @@ def main(argv=None) -> int:
             ("tvl1_band_flags", "tvl1_pd_chunk.cu",
              pallas + "tvl1_solve.py:1001", []),
             ("fb_prologue", "fb_prologue.cu", fbk + "1191", [fbk + "990"]),
+            ("fb_prologue_blur", "fb_prologue.cu", fbk + "1191",
+             [fbk + "990"]),
             ("fb_warp_neq", "fb_warp_neq.cu", fbk + "471",
              [fbk + "263", fbk + "697", fbk + "772", fbk + "946",
               pallas + "warp.py:157", pallas + "warp.py:130"]),
@@ -1945,7 +2223,8 @@ def main(argv=None) -> int:
              [fbk + "263", fbk + "471", fbk + "697", fbk + "946"]),
             ("fb_iteration", "fb_window_solve.cu", fbk + "946",
              [fbk + "826"])]
-    off_path = ("tvl1_pd_warp", "fb_warp_neq", "sep_corr", "sep_corr_x_solve",
+    off_path = ("tvl1_pd_warp", "tvl1_pd_step", "tvl1_eps_reduce",
+                "fb_warp_neq", "sep_corr", "sep_corr_x_solve",
                 "fb_window_solve")
     for name, *_ in rows:
         if name in off_path:
@@ -1974,7 +2253,9 @@ def main(argv=None) -> int:
                        **({"launches_tvl1_1080p": hd_launches[name]}
                           if name in hd_launches else {}),
                        **({"launches_tvl1_midsize": mid_launches[name]}
-                          if name in mid_launches else {})}
+                          if name in mid_launches else {}),
+                       **({"launches_farneback_1080p": fhd_launches[name]}
+                          if name in fhd_launches else {})}
                       for name, source, replaces, also in rows]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -310,7 +310,7 @@ def test_pd_solve_warp_refuses_what_it_cannot_launch(dev):
     z = lambda *shape: torch.zeros(shape, device=dev)
     n = ts.pd_solve_warp.launches
     with pytest.raises(ValueError, match="does not fit"):
-        ts.pd_solve_warp(z(1, 4, 280, 280), z(1, 2, 280, 280), cfg)
+        ts.pd_solve_warp(z(1, 4, 20, 4000), z(1, 2, 20, 4000), cfg)
     with pytest.raises(ValueError, match="dtype"):
         ts.pd_solve_warp(z(1, 4, 32, 32).double(), z(1, 2, 32, 32), cfg)
     with pytest.raises(ValueError, match="median"):
@@ -340,6 +340,8 @@ def _chain_scale(i13, i0, uv, cfg):
     (45, 19, 23),        # more clusters than the card holds; a 1-row strip
     (2, 150, 201),       # 10 pixels a thread in registers
     (1, 248, 296),       # constants in scratch, read back through L2
+    (1, 240, 320),       # 16-block clusters: strips of 15 rows
+    (2, 280, 300),       # 16-block clusters: strips of 18 rows
 ])
 def test_pd_solve_scale_matches_plain(dev, b, h, w, k):
     """The whole-scale launch against its plain version and against the
@@ -382,8 +384,8 @@ def test_pd_solve_scale_refuses_what_it_cannot_launch(dev):
     z = lambda *shape: torch.zeros(shape, device=dev)
     n = ts.pd_solve_scale.launches
     with pytest.raises(ValueError, match="does not fit"):
-        ts.pd_solve_scale(z(1, 3, 280, 280), z(1, 280, 280),
-                          z(1, 2, 280, 280), cfg)
+        ts.pd_solve_scale(z(1, 3, 20, 4000), z(1, 20, 4000),
+                          z(1, 2, 20, 4000), cfg)
     with pytest.raises(ValueError, match="dtype"):
         ts.pd_solve_scale(z(1, 3, 32, 32).double(), z(1, 32, 32),
                           z(1, 2, 32, 32), cfg)
@@ -401,6 +403,43 @@ def test_pd_solve_scale_refuses_what_it_cannot_launch(dev):
     with pytest.raises(ValueError, match="H, W >= 2"):
         ts.pd_solve_scale(z(1, 3, 1, 32), z(1, 1, 32), z(1, 2, 1, 32), cfg)
     assert ts.pd_solve_scale.launches == n
+
+
+@pytest.mark.parametrize("h,w", [(240, 320), (280, 300)])
+def test_sixteen_block_levels_match_the_chain(dev, h, w):
+    """A level that fits no cluster of 8 takes one of 16: the whole-scale
+    launch equals the per-iteration chain it replaces (K-A, K-B, ε, K-C)
+    and the plain version at ε = 0, and ``tvl1`` there launches only
+    ``tvl1_scale``, one per level."""
+    assert ts.warp_geometry(h, w)[3] == 16
+    cfg = dataclasses.replace(FAST, epsilon=0.0, outer_iterations=2)
+    i0, i13, uv = _level(dev, 2, h, w)
+    got = ts.pd_solve_scale(i13, i0, uv, cfg)
+    chain = uv
+    for _ in range(cfg.warps):
+        chain = ts.pd_solve(warp_prep(i13, i0, chain), chain, cfg)
+    chain = ts.median5(chain, cfg.median_filtering)
+    assert torch.equal(got, chain)
+    assert torch.equal(got, ts.pd_solve_scale_plain(i13, i0, uv, cfg))
+    p0, p1 = _images(dev, 2, h, w, seed=7)
+    before = (ts.pd_solve_scale.launches, ts.pd_step.launches,
+              warp_prep.launches)
+    flow = tvl1(p0, p1, cfg)
+    assert (ts.pd_solve_scale.launches - before[0], ts.pd_step.launches,
+            warp_prep.launches) == (cfg.nscales, before[1], before[2])
+    assert torch.equal(flow, tvl1(p0, p1, cfg, plain=True))
+
+
+def test_level_of_no_cluster_takes_the_chain(dev):
+    """20x4000 fits neither cluster size: K-A, K-B, ε and K-C there."""
+    cfg = dataclasses.replace(FAST, epsilon=0.0, nscales=2, warps=1,
+                              outer_iterations=2)
+    p0, p1 = _images(dev, 1, 20, 4000, seed=8)
+    n = ts.pd_step.launches, ts.pd_solve_scale.launches
+    flow = tvl1(p0, p1, cfg)
+    assert ts.pd_step.launches - n[0] == 2 * cfg.inner_iterations
+    assert ts.pd_solve_scale.launches - n[1] == 1
+    assert torch.equal(flow, tvl1(p0, p1, cfg, plain=True))
 
 
 # -- the Farneback kernels (K-D, K-E, K-F) ----------------------------------
@@ -428,6 +467,73 @@ def test_fb_prologue_matches_plain(dev, hw, scale, out_hw, poly):
     want = fk.fb_prologue_plain(frames, scale, out_hw, *poly)
     assert got.shape == want.shape == (3, 5, *out_hw)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("hw,scale,out_hw", [
+    ((128, 160), 1 / 16, (8, 10)),        # 39 blur taps
+    ((200, 240), 1 / 32, (6, 8)),         # 79 blur taps
+    ((1080, 1920), 1 / 16, (68, 120)),    # 39 taps, the two-launch form
+    ((1080, 1920), 1 / 32, (34, 60)),     # 79 taps, the two-launch form
+])
+def test_fb_prologue_long_blurs_match_plain(dev, hw, scale, out_hw):
+    frames, _ = _images(dev, 2, *hw, seed=4)
+    assert len(fk._smooth_taps(scale)) in (39, 79)
+    got = fk.fb_prologue(frames, scale, out_hw, 5, 1.2)
+    assert torch.equal(got, fk.fb_prologue_plain(frames, scale, out_hw, 5,
+                                                 1.2))
+
+
+@pytest.mark.parametrize("hw,scale,out_hw", [
+    ((37, 53), 1.0, (37, 53)), ((96, 128), 0.25, (24, 32)),
+    ((67, 93), 0.6, (40, 56)), ((40, 64), 0.5, (40, 32)),
+    ((128, 160), 1 / 16, (8, 10))])
+def test_fb_prologue_two_launch_form_matches_plain(dev, hw, scale, out_hw,
+                                                   monkeypatch):
+    """The two-launch form at ragged shapes where the rule would fuse."""
+    monkeypatch.setattr(fk, "prologue_form", lambda *a: ("split", 0))
+    frames, _ = _images(dev, 3, *hw, seed=5)
+    n = fk.fb_prologue.launches_blur
+    got = fk.fb_prologue(frames, scale, out_hw, 7, 1.5)
+    assert fk.fb_prologue.launches_blur == n + 1
+    assert torch.equal(got, fk.fb_prologue_plain(frames, scale, out_hw, 7,
+                                                 1.5))
+
+
+@pytest.mark.parametrize("winsize", [33, 75, 201])
+def test_long_windows_match_plain(dev, winsize):
+    """Every window length runs on kernels (``window_route``), each of the
+    three compositions equal to the plain iteration."""
+    from video_analytics_tpu_torch.ops.kernels import farneback_window_taps
+    taps = farneback_window_taps(winsize, False)
+    R0, R1 = _expansions(dev, 2, 70, 130)
+    g = torch.Generator(dev).manual_seed(winsize)
+    flow = 3.0 * torch.randn((2, 2, 70, 130), device=dev, generator=g)
+    want = fk.fb_iteration_plain(R0, R1, flow, taps)
+    route = fk.window_route(winsize)
+    n = (fk.fb_iteration.launches, fk.fb_window_solve.launches,
+         fk.sep_corr.launches)
+    assert torch.equal(fk.fb_iterate(R0, R1, flow, taps), want)
+    assert (fk.fb_iteration.launches - n[0], fk.fb_window_solve.launches
+            - n[1], fk.sep_corr.launches - n[2]) == {
+        "iteration": (1, 0, 0), "window_solve": (0, 1, 0),
+        "sep_corr": (0, 0, 2)}[route]
+    M = fk.fb_warp_neq(R0, R1, flow)
+    assert torch.equal(
+        fk.sep_corr(fk.sep_corr(M, taps, 0), taps, 1, solve=True), want)
+    if route != "sep_corr":
+        assert torch.equal(fk.fb_window_solve(M, taps), want)
+    if route == "iteration":
+        assert torch.equal(fk.fb_iteration(R0, R1, flow, taps), want)
+
+
+def test_farneback_beyond_31_taps_matches_plain(dev):
+    """F2: a pyramid whose coarse level pre-blurs with 39 taps, and a
+    33-tap window, on the kernels."""
+    i0, i1 = _images(dev, 2, 512, 544, seed=9)
+    for cfg in (FarnebackConfig(levels=4, iterations=2),
+                FarnebackConfig(winsize=33, levels=2)):
+        assert torch.equal(farneback(i0, i1, cfg),
+                           farneback(i0, i1, cfg, plain=True))
 
 
 def _expansions(dev, b, h, w, seed=3):
@@ -521,8 +627,10 @@ def test_fb_window_solve_refuses_what_it_cannot_launch(dev):
     n = fk.fb_window_solve.launches, fk.fb_iteration.launches
     with pytest.raises(ValueError, match="odd number of taps"):
         fk.fb_window_solve(M, [0.5, 0.5])
-    with pytest.raises(ValueError, match="odd number of taps"):
-        fk.fb_window_solve(M, [1.0 / 33] * 33)
+    with pytest.raises(ValueError, match="shared memory"):
+        fk.fb_window_solve(M, [1.0 / 195] * 195)
+    with pytest.raises(ValueError, match="shared memory"):
+        fk.fb_iteration(M, M, flow, [1.0 / 75] * 75)
     with pytest.raises(ValueError, match="shape"):
         fk.fb_window_solve(flow, [1.0])
     with pytest.raises(ValueError, match="dtype"):

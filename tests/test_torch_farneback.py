@@ -432,6 +432,76 @@ def test_use_initial_flow_matches_reference(pair):
     np.testing.assert_allclose(inner, [2.3, -1.1], atol=0.3)
 
 
+@pytest.mark.parametrize("name,kw,shape", [
+    # The 1/16 level (32x32) pre-blurs with 39 taps.
+    ("levels4", {"levels": 4, "iterations": 1}, (512, 512)),
+    # A window of 33 taps.
+    ("winsize33", {"winsize": 33, "levels": 1}, (96, 128)),
+])
+def test_farneback_beyond_31_taps_matches_reference(name, kw, shape):
+    """Parameters the first kernels refused on the card (a blur or window
+    longer than 31 taps) against the JAX package: the plain versions here,
+    the kernels against them on the card (tests/test_torch_cuda.py)."""
+    cfg = FarnebackConfig(**kw)
+    if name == "levels4":
+        assert max(len(tfb._smooth_taps(s))
+                   for _, _, s in tfb._level_sizes(*shape, cfg)) == 39
+    f1, f2 = smooth_pair(np.random.default_rng(3), *shape, dx=2.3, dy=-1.1)
+    u1, u2 = (a[None].astype(np.float32) for a in (f1, f2))
+    ref = _jax_farneback(u1, u2, cfg)
+    ours = tfb.farneback(torch.from_numpy(u1), torch.from_numpy(u2), cfg)
+    assert _epe(ours.numpy(), ref) < FLOW_TOL
+
+
+def test_window_route_rule():
+    """One launch while fb_iteration's five tiles and the taps fit a
+    block (73 taps), K-E and fb_window_solve while its one tile does
+    (193), else K-E and two launches of sep_corr; never a plain version."""
+    assert [fk.window_route(n) for n in (1, 15, 33, 73, 75, 193, 195, 201,
+                                         1001)] == \
+        ["iteration"] * 4 + ["window_solve"] * 2 + ["sep_corr"] * 3
+    for n in (73, 193):
+        assert fk.window_smem(n, 5 if n == 73 else 1) <= 232448
+        assert fk.window_smem(n + 2, 5 if n == 73 else 1) > 232448
+    # The default window: 15 taps, a 32x32 tile with a halo of 7.
+    assert fk.window_smem(15, 5) == 4 * (32 * 48 + 5 * 46 * 46 + 15)
+    # sep_corr holds up to 1,753 taps along y, 1,387 along x with the solve.
+    assert fk.sep_corr_smem(1753, 0, 1) <= 232448 < fk.sep_corr_smem(
+        1755, 0, 1)
+    assert fk.sep_corr_smem(1387, 1, 5) <= 232448 < fk.sep_corr_smem(
+        1389, 1, 5)
+
+
+@pytest.mark.parametrize("hw,scale,form", [
+    ((224, 224), 1.0, ("fused", 44)), ((224, 224), 0.5, ("fused", 86)),
+    ((224, 224), 0.25, ("fused", 151)), ((240, 320), 0.25, ("fused", 174)),
+    ((1080, 1920), 0.125, ("fused", 348)),
+    ((1080, 1920), 0.0625, ("split", 0)), ((1080, 1920), 0.03125,
+                                           ("split", 0)),
+    ((2160, 3840), 0.015625, ("split", 0))])
+def test_prologue_form_rule(hw, scale, form):
+    """K-D fuses where the widest tile's reach fits a block: every level of
+    the serve and native pyramids and 1080p down to 1/8; below (and at
+    4K's 1/64, 159 taps), two launches."""
+    H, W = hw
+    lh, lw = int(round(H * scale)), int(round(W * scale))
+    assert fk.prologue_form(H, W, lh, lw, scale, 5) == form
+    if form[0] == "fused":
+        assert fk.prologue_smem(len(tfb._smooth_taps(scale)), 11,
+                                scale < 1, scale < 1, form[1]) <= 232448
+
+
+def test_prologue_span_counts_the_taps_reach():
+    """A 32-wide tile of a halved level reads 2 x (32 + 10) columns, and
+    the blur's 1 on each side: 86; at scale 1 (no resize) 42 + 2 = 44."""
+    assert fk.prologue_span(224, 112, 3, 11, True) == 86
+    assert fk.prologue_span(224, 224, 3, 11, False) == 44
+    # A zero-weight tap reads its first tap's column (frames >= 0).
+    idx, wt = fk._resize_index(90, 30)
+    assert (wt[1] == 0).any()
+    assert ((wt[1] != 0) | (idx[1] == idx[0])).all()
+
+
 # -- (f) sequences and batches ----------------------------------------------
 
 @pytest.mark.parametrize("h,w", SIZES)

@@ -4,7 +4,7 @@ device-side test (``band_flags``) of the port, on the CPU.
 
 The CUDA kernels run only on a card (tests/test_torch_cuda.py,
 chip_smoke.py).  Here: the size rule that picks the solver of a pyramid
-level; the kernel's decomposition of an image into eight strips, each
+level; the kernel's decomposition of an image into 8 or 16 strips, each
 phase reading only the neighbour rows the kernel reads, restated in plain
 PyTorch and held to ``pd_solve_plain`` to the bit; ``band_flags_plain``
 against a numpy restatement of the reference's rule
@@ -33,23 +33,31 @@ from video_analytics_tpu_torch.ops.median import median_filter2d
 
 torch.set_num_threads(1)
 
-BLOCKS = 8                  # blocks of a cluster
 BLOCK_SMEM = 232448         # bytes of shared memory a block may have
 
 
 # -- the size rule ------------------------------------------------------------
 
 # (h, w, solver): the five serve sizes, 256², UCF101's native 240×320 and
-# its pyramid, the in-between sizes, the first size above the reference's
-# whole-plane rule, and two levels of 16 and 17 rows.
+# its pyramid, the sizes that need 16 blocks (up to the largest square
+# level under the reference's whole-plane rule), the first size above that
+# rule, two levels of 16 and 17 rows, and two wide ones: 20×4000 fits
+# neither cluster size, 16×3200 fits 8 blocks without the constants.
 LEVELS = [
     (224, 224, "warp"), (179, 179, "warp"), (143, 143, "warp"),
     (115, 115, "warp"), (92, 92, "warp"), (256, 256, "warp"),
-    (240, 320, "chain"), (192, 256, "warp"), (154, 205, "warp"),
-    (123, 164, "warp"), (98, 131, "warp"), (280, 280, "chain"),
-    (280, 300, "chain"), (295, 296, "chain"), (296, 296, "chunked"),
+    (240, 320, "warp"), (192, 256, "warp"), (154, 205, "warp"),
+    (123, 164, "warp"), (98, 131, "warp"), (280, 280, "warp"),
+    (280, 300, "warp"), (295, 296, "warp"), (296, 296, "chunked"),
     (1080, 1920, "chunked"), (16, 21, "warp"), (17, 40, "warp"),
+    (20, 4000, "chain"), (16, 3200, "warp"),
 ]
+
+
+def _state_bytes(h, w, blocks):
+    """Shared memory of the six state planes of a strip, four halo rows
+    and the scratch, in a cluster of `blocks`."""
+    return 4 * ((6 * -(-h // blocks) + 4) * w + 64)
 
 
 @pytest.mark.parametrize("h,w,solver", LEVELS)
@@ -57,13 +65,17 @@ def test_size_rule_names_the_solver(h, w, solver):
     assert flow_tvl1.level_solver(h, w, 5) == solver
     geom = ts.warp_geometry(h, w)
     if solver == "warp":
-        rows, consts, smem = geom
+        rows, consts, smem, blocks = geom
+        assert rows == -(-h // blocks)
         planes = 9 if consts else 6
         assert smem <= BLOCK_SMEM and smem >= (planes * rows + 4) * w * 4
         assert consts or (9 * rows + 4) * w * 4 > BLOCK_SMEM - 256
+        # Eight blocks wherever eight hold the strips, else sixteen.
+        assert blocks == 8 or (blocks == 16
+                               and _state_bytes(h, w, 8) > BLOCK_SMEM)
         # The strips cover the rows exactly once; late ones may be empty.
         covered = []
-        for r in range(BLOCKS):
+        for r in range(blocks):
             y0 = min(r * rows, h)
             covered.extend(range(y0, min(y0 + rows, h)))
         assert covered == list(range(h))
@@ -71,22 +83,29 @@ def test_size_rule_names_the_solver(h, w, solver):
     elif solver == "chain":
         assert geom is None
         assert flow_tvl1.whole_plane_level(h, w, 5)
+        assert _state_bytes(h, w, 16) > BLOCK_SMEM
 
 
 def test_pyramid_of_native_ucf101():
-    """240x320 itself misses a cluster by 3 KB (30 rows x 320 x 6 planes
-    and four halo rows of 320: 235,520 B of 232,448) and takes the chain;
-    the rest of its pyramid takes the cluster solver."""
+    """240x320 itself misses a cluster of eight by 3 KB (30 rows x 320 x 6
+    planes and four halo rows of 320: 235,776 B of 232,448) and takes one
+    of sixteen (15-row strips, the constants too: 178,176 B); the rest of
+    its pyramid takes eight.  Every level runs the whole-scale launch."""
     cfg = TVL1Config()
     sizes = flow_tvl1._level_sizes(240, 320, cfg)
     assert sizes == [(240, 320), (192, 256), (154, 205), (123, 164),
                      (98, 131)]
     assert [flow_tvl1.level_solver(h, w, cfg.median_filtering)
-            for h, w in sizes] == ["chain"] + ["warp"] * 4
-    assert ts.warp_geometry(240, 320) is None
-    assert ts.warp_geometry(232, 320) == (29, False, 4 * (178 * 320 + 64))
-    assert ts.warp_geometry(224, 224) == (28, True, 229632)
-    assert ts.warp_geometry(256, 256) == (32, False, 200960)
+            for h, w in sizes] == ["warp"] * 5
+    assert _state_bytes(240, 320, 8) == 235776
+    assert ts.warp_geometry(240, 320) == (15, True, 178176, 16)
+    assert [ts.warp_geometry(h, w)[3] for h, w in sizes[1:]] == [8] * 4
+    assert ts.warp_geometry(232, 320) == (29, False, 4 * (178 * 320 + 64), 8)
+    assert ts.warp_geometry(224, 224) == (28, True, 229632, 8)
+    assert ts.warp_geometry(256, 256) == (32, False, 200960, 8)
+    assert ts.warp_geometry(280, 300) == (18, True, 199456, 16)
+    assert ts.warp_geometry(295, 296) == (19, True, 207456, 16)
+    assert ts.warp_geometry(20, 4000) is None
 
 
 def test_level_solver_honours_a_caller_s_size_rule():
@@ -98,18 +117,20 @@ def test_level_solver_honours_a_caller_s_size_rule():
 
 # -- the strip decomposition --------------------------------------------------
 
-def _strip_solve(prep, uv, cfg):
+def _strip_solve(prep, uv, cfg, blocks=None):
     """``pd_solve_warp``'s algorithm in plain PyTorch, one image at a
-    time: eight strips of ceil(H / 8) rows, each holding only its own rows
+    time: `blocks` strips (``warp_geometry``'s, unless given) of
+    ceil(H / blocks) rows, each holding only its own rows
     of the six state planes; phase A reads the last row of p12, p22 of the
     strip above, phase B the first row of un, vn of the strip below, the
     median two rows of each neighbour (clamped to the image); the ε sum is
     the strips' sums added in strip order.  Returns (flow, rounds run)."""
     l_t, theta, taut = ts._solver_constants(cfg)
     B, _, H, W = uv.shape
-    rows = ts.warp_geometry(H, W)[0]
+    blocks = blocks or ts.warp_geometry(H, W)[3]
+    rows = -(-H // blocks)
     bounds = [(min(r * rows, H), min(min(r * rows, H) + rows, H))
-              for r in range(BLOCKS)]
+              for r in range(blocks)]
     k = cfg.median_filtering if cfg.median_filtering > 1 else 0
     out, rounds_run = torch.empty_like(uv), []
     for b in range(B):
@@ -212,35 +233,39 @@ def _warp_inputs(seed, b, h, w, still=()):
     return torch.from_numpy(prep), torch.from_numpy(uv)
 
 
-@pytest.mark.parametrize("h,w,median", [
-    (16, 21, 5),        # eight strips of two rows
-    (17, 24, 5),        # strips of 3, 3, 3, 3, 3, 2 and two empty ones
-    (19, 16, 3),        # a last strip of one row
-    (37, 29, 5),        # a last strip shorter than the others (2 of 5)
-    (40, 33, 0),        # no median
+@pytest.mark.parametrize("h,w,median,blocks", [
+    (16, 21, 5, None),  # eight strips of two rows
+    (17, 24, 5, None),  # strips of 3, 3, 3, 3, 3, 2 and two empty ones
+    (19, 16, 3, None),  # a last strip of one row
+    (37, 29, 5, None),  # a last strip shorter than the others (2 of 5)
+    (40, 33, 0, None),  # no median
+    (37, 29, 5, 16),    # sixteen strips: 3 rows, the 13th of 1, 3 empty
+    (64, 20, 3, 16),    # sixteen strips of four rows
 ])
-def test_strip_decomposition_equals_plain_without_the_test(h, w, median):
+def test_strip_decomposition_equals_plain_without_the_test(h, w, median,
+                                                           blocks):
     """ε = 0: every round runs, every bit agrees."""
     cfg = TVL1Config(inner_iterations=4, outer_iterations=3, epsilon=0.0,
                      median_filtering=median)
     prep, uv = _warp_inputs(h, 2, h, w)
-    got, rounds = _strip_solve(prep, uv, cfg)
+    got, rounds = _strip_solve(prep, uv, cfg, blocks)
     assert rounds == [3, 3]
     assert torch.equal(got, ts.pd_solve_plain(prep, uv, cfg))
 
 
-@pytest.mark.parametrize("h,w", [(17, 24), (37, 29), (48, 40)])
-def test_strip_decomposition_equals_plain_with_per_image_stops(h, w):
+@pytest.mark.parametrize("h,w,blocks", [(17, 24, None), (37, 29, None),
+                                        (48, 40, None), (48, 40, 16)])
+def test_strip_decomposition_equals_plain_with_per_image_stops(h, w, blocks):
     """With ε engaged each image leaves on its own round, and the state
     it leaves with is the plain version's to the bit."""
     cfg = TVL1Config(inner_iterations=5, outer_iterations=6, epsilon=0.05,
                      median_filtering=5)
     prep, uv = _warp_inputs(h + 1, 3, h, w, still=(1,))
-    got, rounds = _strip_solve(prep, uv, cfg)
+    got, rounds = _strip_solve(prep, uv, cfg, blocks)
     assert rounds[1] < rounds[0] and rounds[1] < cfg.outer_iterations
     assert torch.equal(got, ts.pd_solve_plain(prep, uv, cfg))
     # An image's result does not depend on its batch.
-    alone, r1 = _strip_solve(prep[1:2], uv[1:2], cfg)
+    alone, r1 = _strip_solve(prep[1:2], uv[1:2], cfg, blocks)
     assert r1 == rounds[1:2] and torch.equal(alone[0], got[1])
 
 
@@ -315,7 +340,7 @@ def test_pd_solve_warp_takes_the_plain_version_on_cpu():
                        ts.pd_solve_plain(prep, uv, cfg))
     assert ts.pd_solve_warp.launches == n
     # Even at a size no cluster holds: the rule is the CUDA launch's.
-    prep, uv = _warp_inputs(1, 1, 280, 280)
+    prep, uv = _warp_inputs(1, 1, 20, 4000)
     one = dataclasses.replace(cfg, inner_iterations=1, outer_iterations=1)
     assert torch.equal(ts.pd_solve_warp(prep, uv, one),
                        ts.pd_solve_plain(prep, uv, one))
@@ -339,7 +364,8 @@ def test_tvl1_takes_each_level_s_solver(monkeypatch):
                         counted("warp", ts.pd_solve_scale))
     monkeypatch.setattr(flow_tvl1, "pd_solve", counted("chain", ts.pd_solve))
     monkeypatch.setattr(flow_tvl1, "warp_geometry",
-                        lambda h, w: None if h * w > 1000 else (1, True, 0))
+                        lambda h, w: None if h * w > 1000
+                        else (1, True, 0, 8))
     rng = np.random.default_rng(2)
     prev = torch.from_numpy(rng.uniform(0, 255, (1, 32, 40)).astype(np.float32))
     nxt = torch.roll(prev, 1, dims=2)
@@ -367,11 +393,11 @@ def test_cuda_wrappers_refuse_what_they_cannot_launch():
     n = ts.pd_solve_warp.launches, ts.band_flags.launches
     n_scale = ts.pd_solve_scale.launches
     with pytest.raises(ValueError, match="does not fit"):
-        ts.pd_solve_warp(_OnCard(1, 4, 280, 280), _OnCard(1, 2, 280, 280),
+        ts.pd_solve_warp(_OnCard(1, 4, 20, 4000), _OnCard(1, 2, 20, 4000),
                          cfg)
     with pytest.raises(ValueError, match="does not fit"):
-        ts.pd_solve_scale(_OnCard(1, 3, 240, 320), _OnCard(1, 240, 320),
-                          _OnCard(1, 2, 240, 320), cfg)
+        ts.pd_solve_scale(_OnCard(1, 3, 20, 4000), _OnCard(1, 20, 4000),
+                          _OnCard(1, 2, 20, 4000), cfg)
     with pytest.raises(ValueError, match="H, W >= 2"):
         ts.pd_solve_scale(_OnCard(1, 3, 1, 32), _OnCard(1, 1, 32),
                           _OnCard(1, 2, 1, 32), cfg)
@@ -437,8 +463,8 @@ def test_pd_solve_scale_plain_is_the_three_call_loop(h, w, median, warps):
 def test_pd_solve_scale_takes_the_plain_version_at_any_size_on_cpu():
     """Even at a size no cluster holds: the rule is the CUDA launch's."""
     cfg = TVL1Config(warps=1, inner_iterations=1, outer_iterations=1)
-    i13, i0, uv = _scale_inputs(3, 1, 240, 320)
-    assert ts.warp_geometry(240, 320) is None
+    i13, i0, uv = _scale_inputs(3, 1, 20, 4000)
+    assert ts.warp_geometry(20, 4000) is None
     assert torch.equal(ts.pd_solve_scale(i13, i0, uv, cfg),
                        ts.pd_solve_scale_plain(i13, i0, uv, cfg))
 

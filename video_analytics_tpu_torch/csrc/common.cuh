@@ -27,7 +27,11 @@ constexpr int NT = TX * TY;
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // Correlation taps, passed to a kernel by value: the host's float array
-// copied into the launch parameters, so no tap lives in device memory.
+// copied into the launch parameters, so no tap lives in device memory.  Only
+// fb_window_solve.cu's instantiation for the default fifteen-tap window
+// reads them so, as compile-time operands; every other count (the blur,
+// the expansion, a longer window) is read from device memory into shared
+// memory, and no kernel bounds the count by this.
 constexpr int MAX_TAPS = 31;
 struct Taps {
   float k[MAX_TAPS];

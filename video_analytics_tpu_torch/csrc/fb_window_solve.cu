@@ -47,9 +47,13 @@
 // 64-wide tile left the SMs idle while its few large blocks waited on their
 // loads (twice the time at 224^2).  The default window's fifteen taps are
 // known at compile time (both passes unrolled, the taps operands from the
-// launch parameters, no tap read from shared memory); any other odd n up to
-// 31 takes the same kernel with loops over n.  At the largest window
-// fb_iteration's buffers take 85 KB: dynamic shared memory, opted in to.
+// launch parameters, no tap read from shared memory); any other odd n takes
+// the same kernel with loops over n, its taps copied from device memory to
+// shared memory.  The buffers grow as (32 + 2r)^2: fb_iteration's five
+// tiles fit a block's 227 KB up to r = 36 (winsize 73), fb_window_solve's
+// one up to r = 96 (winsize 193); ops/cuda/farneback.window_route sends a
+// longer window to sep_corr.cu's two passes.  Dynamic shared memory, opted
+// in to.
 //
 // Bound on the H100: memory.  5 planes read and 2 written, 28 bytes a pixel
 // for 2 x 2 x 5 x n + 12 operations (312 at the default window): at 15
@@ -75,9 +79,12 @@ __host__ __device__ inline int mid_stride(int r) {
   return (WT + 2 * r + 3) & ~3;
 }
 
-int smem_bytes(int r, bool neq) {
-  const int tile = (HT + 2 * r) * (WT + 2 * r);
-  return (HT * mid_stride(r) + (neq ? 5 : 1) * tile) * (int)sizeof(float);
+// The two buffers and the taps.
+long long smem_bytes(int n, bool neq) {
+  const long long r = n / 2;
+  const long long tile = (HT + 2 * r) * (WT + 2 * r);
+  return (HT * mid_stride((int)r) + (neq ? 5 : 1) * tile + n) *
+         (long long)sizeof(float);
 }
 
 // RUN correlation sums out[j] = k[0]*v[j] + k[1]*v[j + 1] + ..., each taken
@@ -119,9 +126,8 @@ fb_window_solve_kernel(const float* __restrict__ a,
                        const float* __restrict__ R1,
                        const float* __restrict__ flow,
                        float* __restrict__ out, int h, int w, va::Taps taps,
-                       va::BorderWeights bw) {
+                       const float* __restrict__ dtaps, va::BorderWeights bw) {
   extern __shared__ float4 sm4[];
-  __shared__ float tk[va::MAX_TAPS];
 
   const int n = N > 0 ? N : taps.n;
   const int r = n / 2;
@@ -136,8 +142,10 @@ fb_window_solve_kernel(const float* __restrict__ a,
   const int in_plane = th * tw;       // floats per plane of the loaded tile
   float* mid = reinterpret_cast<float*>(sm4);   // HT rows of tws
   float* tile = mid + HT * tws;       // one plane of th x tw, or five
+  float* tk = tile + (NEQ ? 5 : 1) * in_plane;   // n taps, where N = 0
 
-  if (N == 0 && tid < va::MAX_TAPS) tk[tid] = taps.k[tid];
+  if (N == 0)
+    for (int i = tid; i < n; i += WS_NT) tk[i] = dtaps[i];
   if constexpr (NEQ) {
 #pragma unroll 2
     for (int i = tid; i < in_plane; i += WS_NT) {
@@ -224,11 +232,11 @@ fb_window_solve_kernel(const float* __restrict__ a,
 
 template <bool NEQ, int N>
 int launch_n(const float* a, const float* R1, const float* flow, float* out,
-             int B, int h, int w, const va::Taps& taps,
-             const va::BorderWeights& bw, cudaStream_t stream) {
+             int B, int h, int w, const va::Taps& taps, const float* dtaps,
+             int n, const va::BorderWeights& bw, cudaStream_t stream) {
   static int smem_set = 0;            // what this instantiation has opted in to
-  const int smem = smem_bytes(taps.n / 2, NEQ);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (smem_bytes(n, NEQ) > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const int smem = (int)smem_bytes(n, NEQ);
   if (smem > smem_set) {              // above 48 KB a kernel must opt in
     cudaError_t err = cudaFuncSetAttribute(
         fb_window_solve_kernel<NEQ, N>,
@@ -241,31 +249,39 @@ int launch_n(const float* a, const float* R1, const float* flow, float* out,
   }
   const dim3 grid(va::cdiv(w, WT), va::cdiv(h, HT), B);
   fb_window_solve_kernel<NEQ, N><<<grid, WS_NT, smem, stream>>>(
-      a, R1, flow, out, h, w, taps, bw);
+      a, R1, flow, out, h, w, taps, dtaps, bw);
   return (int)cudaGetLastError();
 }
 
 template <bool NEQ>
 int launch(const float* a, const float* R1, const float* flow, float* out,
-           int B, int h, int w, const float* taps, int n,
+           int B, int h, int w, const float* taps, const float* dtaps, int n,
            const va::BorderWeights& bw, void* stream) {
-  if (n < 1 || n > va::MAX_TAPS || n % 2 != 1 || B < 1 || h < 1 || w < 1)
+  if (n < 1 || n % 2 != 1 || B < 1 || h < 1 || w < 1 || dtaps == nullptr)
     return (int)cudaErrorInvalidValue;
   const va::Taps t = va::make_taps(taps, n);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (n == 15) return launch_n<NEQ, 15>(a, R1, flow, out, B, h, w, t, bw, s);
-  return launch_n<NEQ, 0>(a, R1, flow, out, B, h, w, t, bw, s);
+  if (n == 15)
+    return launch_n<NEQ, 15>(a, R1, flow, out, B, h, w, t, dtaps, n, bw, s);
+  return launch_n<NEQ, 0>(a, R1, flow, out, B, h, w, t, dtaps, n, bw, s);
 }
 
 }  // namespace
 
+// Bytes of shared memory a block takes for n taps, or -1 above the 232,448
+// a block may have (the launch refuses it).  neq: fb_iteration's five tiles.
+VA_EXPORT int va_fb_window_smem(int n, int neq) {
+  const long long bytes = smem_bytes(n, neq != 0);
+  return bytes > MAX_SMEM ? -1 : (int)bytes;
+}
+
 // M: (B, 5, h, w) planes g11, g12, g22, h1, h2; out: (B, 2, h, w) flow.
-// taps: n taps (host), n odd and <= va::MAX_TAPS, applied along y and then
-// along x.
+// taps: n taps, n odd, on the host and (dtaps) in device memory, applied
+// along y and then along x.
 VA_EXPORT int va_fb_window_solve(const float* M, float* out, int B, int h,
-                                 int w, const float* taps, int n,
-                                 void* stream) {
-  return launch<false>(M, nullptr, nullptr, out, B, h, w, taps, n,
+                                 int w, const float* taps, const float* dtaps,
+                                 int n, void* stream) {
+  return launch<false>(M, nullptr, nullptr, out, B, h, w, taps, dtaps, n,
                        va::BorderWeights{}, stream);
 }
 
@@ -276,8 +292,8 @@ VA_EXPORT int va_fb_window_solve(const float* M, float* out, int B, int h,
 VA_EXPORT int va_fb_iteration(const float* R0, const float* R1,
                               const float* flow, float* out, int B, int h,
                               int w, const float* border, const float* taps,
-                              int n, void* stream) {
+                              const float* dtaps, int n, void* stream) {
   if (h < 2 || w < 2) return (int)cudaErrorInvalidValue;
-  return launch<true>(R0, R1, flow, out, B, h, w, taps, n,
+  return launch<true>(R0, R1, flow, out, B, h, w, taps, dtaps, n,
                       va::make_border(border), stream);
 }

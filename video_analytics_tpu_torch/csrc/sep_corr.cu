@@ -31,7 +31,12 @@
 // Design.  A block makes a 32x8 tile of outputs of P planes (P = 1, or 5
 // with the epilogue, where one thread needs the five sums of its pixel).
 // The tile and its halo of r pixels along the axis go to shared memory
-// once; each thread then sums its taps from there.
+// once, with the taps (any odd number, copied from device memory); each
+// thread then sums its taps from there.  The buffer is dynamic: (8 + 2r) x
+// 32 floats a plane along y, 8 x (32 + 2r) along x, so a block's 227 KB
+// take r up to 876 along y and, with the five planes of the solve, 693
+// along x.  Farneback's window takes this kernel where its window is too
+// long for fb_window_solve.cu's tile (r > 96).
 //
 // Bound on the H100: memory.  Each input pixel is read once and each
 // output written once: 8 bytes per pixel and plane for 2*taps flops (30
@@ -44,21 +49,22 @@
 
 namespace {
 
-constexpr int MAX_R = va::MAX_TAPS / 2;
-// Room for a tile with its halo along either axis.
-constexpr int TILE = (va::TY + 2 * MAX_R) * va::TX > va::TY * (va::TX + 2 * MAX_R)
-                         ? (va::TY + 2 * MAX_R) * va::TX
-                         : va::TY * (va::TX + 2 * MAX_R);
+constexpr int MAX_SMEM = 232448;      // bytes a block may opt in to
+
+// Floats of one plane's tile with its halo along the axis.
+__host__ __device__ inline long long tile_floats(int r, int axis) {
+  return axis == 0 ? (long long)(va::TY + 2 * r) * va::TX
+                   : (long long)va::TY * (va::TX + 2 * r);
+}
 
 template <int P, bool SOLVE>
 __global__ void __launch_bounds__(va::NT)
 sep_corr_kernel(const float* __restrict__ x, float* __restrict__ out, int h,
-                int w, va::Taps taps, int axis) {
-  __shared__ float tile[P][TILE];
-  __shared__ float tk[va::MAX_TAPS];
-
-  const int n = taps.n;
+                int w, const float* __restrict__ taps, int n, int axis) {
+  extern __shared__ float sm[];
   const int r = n / 2;
+  const int plane = (int)tile_floats(r, axis);
+  float* tk = sm + P * plane;
   const int tid = threadIdx.y * va::TX + threadIdx.x;
   const int x0 = blockIdx.x * va::TX;
   const int y0 = blockIdx.y * va::TY;
@@ -70,12 +76,13 @@ sep_corr_kernel(const float* __restrict__ x, float* __restrict__ out, int h,
   const int ox = axis == 1 ? r : 0;
   const int oy = axis == 0 ? r : 0;
 
-  if (tid < va::MAX_TAPS) tk[tid] = taps.k[tid];
+  for (int i = tid; i < n; i += va::NT) tk[i] = taps[i];
   for (int i = tid; i < th * tw; i += va::NT) {
     const int gy = min(max(y0 + i / tw - oy, 0), h - 1);
     const int gx = min(max(x0 + i % tw - ox, 0), w - 1);
 #pragma unroll
-    for (int p = 0; p < P; ++p) tile[p][i] = in[p * hw + (size_t)gy * w + gx];
+    for (int p = 0; p < P; ++p)
+      sm[p * plane + i] = in[p * hw + (size_t)gy * w + gx];
   }
   __syncthreads();
 
@@ -89,7 +96,7 @@ sep_corr_kernel(const float* __restrict__ x, float* __restrict__ out, int h,
   for (int p = 0; p < P; ++p) {
     float a = 0.0f;
     for (int k = 0; k < n; ++k) {
-      const float term = tk[k] * tile[p][base + k * step];
+      const float term = tk[k] * sm[p * plane + base + k * step];
       a = k == 0 ? term : a + term;
     }
     acc[p] = a;
@@ -106,26 +113,45 @@ sep_corr_kernel(const float* __restrict__ x, float* __restrict__ out, int h,
   }
 }
 
+template <int P, bool SOLVE>
+int launch(const float* x, float* out, int h, int w, const float* taps, int n,
+           int axis, dim3 grid, cudaStream_t s) {
+  static int smem_set = 0;            // what this instantiation has opted in to
+  const long long bytes = (P * tile_floats(n / 2, axis) + n) * sizeof(float);
+  if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const int smem = (int)bytes;
+  if (smem > smem_set) {              // above 48 KB a kernel must opt in
+    cudaError_t err = cudaFuncSetAttribute(
+        sep_corr_kernel<P, SOLVE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return (int)err;
+    }
+    smem_set = smem;
+  }
+  sep_corr_kernel<P, SOLVE><<<grid, dim3(va::TX, va::TY), smem, s>>>(
+      x, out, h, w, taps, n, axis);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x: (B, C, h, w); out: (B, C, h, w), or (B, 2, h, w) with solve (C = 5).
-// taps: n taps (host), n odd and <= va::MAX_TAPS.  axis 0 correlates along
-// y, axis 1 along x.
+// taps: n taps in device memory, n odd.  axis 0 correlates along y, axis 1
+// along x.
 VA_EXPORT int va_sep_corr(const float* x, float* out, int B, int C, int h,
                           int w, const float* taps, int n, int axis,
                           int solve, void* stream) {
-  if (n > va::MAX_TAPS || n % 2 != 1 || (axis != 0 && axis != 1) ||
-      (solve && C != 5))
+  if (n < 1 || n % 2 != 1 || (axis != 0 && axis != 1) || (solve && C != 5) ||
+      taps == nullptr)
     return (int)cudaErrorInvalidValue;
-  const va::Taps t = va::make_taps(taps, n);
-  const dim3 block(va::TX, va::TY);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (solve) {
-    const dim3 grid(va::cdiv(w, va::TX), va::cdiv(h, va::TY), B);
-    sep_corr_kernel<5, true><<<grid, block, 0, s>>>(x, out, h, w, t, axis);
-  } else {
-    const dim3 grid(va::cdiv(w, va::TX), va::cdiv(h, va::TY), B * C);
-    sep_corr_kernel<1, false><<<grid, block, 0, s>>>(x, out, h, w, t, axis);
-  }
-  return (int)cudaGetLastError();
+  if (solve)
+    return launch<5, true>(x, out, h, w, taps, n, axis,
+                           dim3(va::cdiv(w, va::TX), va::cdiv(h, va::TY), B),
+                           s);
+  return launch<1, false>(
+      x, out, h, w, taps, n, axis,
+      dim3(va::cdiv(w, va::TX), va::cdiv(h, va::TY), B * C), s);
 }

@@ -34,8 +34,14 @@
 //
 // Design.  One block has 227 KB of shared memory, a 224^2 image's six state
 // planes are 1.2 MB; a cluster of eight blocks has 8 x 227 KB.  So:
-//   - grid (8, B), cluster (8, 1, 1): block r of an image's cluster owns the
-//     strip of RS = ceil(H / 8) rows from r * RS (a late block's strip may
+//   - grid (CL, B), cluster (CL, 1, 1) with CL = 8 (the portable maximum)
+//     where the strips fit, else 16 (Hopper's non-portable maximum, opted in
+//     per kernel, 16 SMs of one GPC at one block an SM: 240x320, 280x300 and
+//     every square level up to 295^2, the largest under the reference's size
+//     rule, fit 16 and not 8).  The size is chosen per launch and given with
+//     cudaLaunchKernelEx; a level that fits 8 keeps 8 and its bits.  Block r
+//     of an image's cluster owns the
+//     strip of RS = ceil(H / CL) rows from r * RS (a late block's strip may
 //     be short or empty; it still takes part in every barrier).  u, v, p11,
 //     p12, p21, p22 of the strip live in its shared memory for the whole
 //     warp: device memory is read once (prep, u, v) and written once (u, v),
@@ -79,7 +85,7 @@
 //     rounds;
 //   - the test stays inside.  Each block sums its strip's squared update in
 //     a fixed order (per thread, a shuffle tree, the warps in turn); every
-//     thread then adds the eight block sums in rank order, so the decision
+//     thread then adds the CL block sums in rank order, so the decision
 //     is the same in every thread of the cluster and an image leaves the
 //     loop on its own round.  No flag in device memory, no atomics, no host
 //     read: a run repeats bit for bit and an image's result does not depend
@@ -111,7 +117,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int CL = 8;                 // blocks per cluster: portable maximum
+constexpr int CL_SIZES[] = {8, 16};   // blocks per cluster, tried in order
 constexpr int WNT = 512;              // threads per block
 constexpr int WNW = WNT / 32;         // warps per block
 constexpr int SCRATCH = 64;           // floats: WNW warp sums, the block's sum,
@@ -142,6 +148,7 @@ constexpr unsigned F_BOT = 8u;        // last row of the strip
 
 struct WarpGeom {
   int H, W;
+  int CL;          // blocks per cluster: 8 or 16
   int RS;          // rows per strip: cdiv(H, CL)
   int inner;       // iterations per round
   int outer;       // rounds at most
@@ -291,7 +298,7 @@ __device__ __forceinline__ void median_to_global(cg::cluster_group& cluster,
 // scratch.  With prep (one warp) the constants are loaded; without it they
 // come from i13, i0 and the strip's u, v at the start of every warp.
 template <int PPT, bool SC>
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(WNT, 1)
+__global__ void __launch_bounds__(WNT, 1)
 pd_warp_kernel(const float* prep, const float* __restrict__ i13,
                const float* __restrict__ i0, const float* __restrict__ uv_in,
                float* __restrict__ uv_out, float* scratch,
@@ -326,7 +333,7 @@ pd_warp_kernel(const float* prep, const float* __restrict__ i13,
   s.theta = g.theta;
   s.taut = g.taut;
   // A block above a strip that is not empty holds RS rows.
-  const int above = max(rank - 1, 0), below = min(rank + 1, CL - 1);
+  const int above = max(rank - 1, 0), below = min(rank + 1, g.CL - 1);
   s.up_u = cluster.map_shared_rank(s.su, above) + cap;
   s.up_v = cluster.map_shared_rank(s.sv, above) + cap;
   s.dn_p12 = cluster.map_shared_rank(s.sp12, below);
@@ -508,7 +515,8 @@ pd_warp_kernel(const float* prep, const float* __restrict__ i13,
       }
       ++rounds;
       float total = 0.0f;               // the same sum in every thread
-      for (int r = 0; r < CL; ++r) total += *cluster.map_shared_rank(bsum, r);
+      for (int r = 0; r < g.CL; ++r)
+        total += *cluster.map_shared_rank(bsum, r);
       if (total / g.n_px < g.eps2) break;
     }
     if (rounds_out != nullptr && rank == 0 && tid == 0)
@@ -540,86 +548,132 @@ struct Variant {
   bool sc;             // I1wx, I1wy, rho_c in shared memory
   WarpKernel kernel;
   int smem_set;        // dynamic shared memory the kernel has opted in to
+  bool wide_set;       // opted in to non-portable cluster sizes
 };
 
 Variant variants[] = {
-    {4, true, pd_warp_kernel<4, true>, 0},
-    {8, true, pd_warp_kernel<8, true>, 0},
-    {13, true, pd_warp_kernel<13, true>, 0},
-    {16, false, pd_warp_kernel<16, false>, 0},
-    {20, false, pd_warp_kernel<20, false>, 0},
+    {4, true, pd_warp_kernel<4, true>, 0, false},
+    {8, true, pd_warp_kernel<8, true>, 0, false},
+    {13, true, pd_warp_kernel<13, true>, 0, false},
+    {16, false, pd_warp_kernel<16, false>, 0, false},
+    {20, false, pd_warp_kernel<20, false>, 0, false},
 };
 
-int strip_rows(int H) { return va::cdiv(H, CL); }
+int strip_rows(int H, int cl) { return va::cdiv(H, cl); }
 
 // Six planes of the strip, a halo row beside u, v, p12 and p22, and the
 // scratch; then three planes of constants where they fit as well.
-long long state_bytes(int H, int W) {
-  return ((6LL * strip_rows(H) + 4) * W + SCRATCH) * (long long)sizeof(float);
+long long state_bytes(int H, int W, int cl) {
+  return ((6LL * strip_rows(H, cl) + 4) * W + SCRATCH) *
+         (long long)sizeof(float);
 }
 
-bool consts_fit(int H, int W) {
-  return state_bytes(H, W) + 3LL * strip_rows(H) * W * (long long)sizeof(float)
-         <= MAX_SMEM;
+long long consts_bytes(int H, int W, int cl) {
+  return 3LL * strip_rows(H, cl) * W * (long long)sizeof(float);
 }
 
-Variant* pick(int H, int W) {
-  const int ppt = va::cdiv(strip_rows(H) * W, WNT);
-  const bool sc = consts_fit(H, W);
+bool consts_fit(int H, int W, int cl) {
+  return state_bytes(H, W, cl) + consts_bytes(H, W, cl) <= MAX_SMEM;
+}
+
+Variant* pick(int H, int W, int cl) {
+  const int ppt = va::cdiv(strip_rows(H, cl) * W, WNT);
+  const bool sc = consts_fit(H, W, cl);
   for (Variant& v : variants)
     if (v.sc == sc && ppt <= v.ppt) return &v;
   return nullptr;
 }
 
-// Above 48 KB a kernel must opt in to its dynamic shared memory.
-cudaError_t opt_in(Variant* v, int smem) {
-  if (smem <= v->smem_set) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      v->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) v->smem_set = smem;
-  return err;
+// The cluster size of an (H, W) level: the smallest of CL_SIZES whose strips
+// fit a block's shared memory, or 0 where none does.
+int cluster_of(int H, int W) {
+  if (H < 1 || W < 1) return 0;
+  for (int cl : CL_SIZES)
+    if (state_bytes(H, W, cl) <= MAX_SMEM && pick(H, W, cl) != nullptr)
+      return cl;
+  return 0;
+}
+
+int smem_of(int H, int W, int cl) {
+  return (int)(state_bytes(H, W, cl) +
+               (consts_fit(H, W, cl) ? consts_bytes(H, W, cl) : 0));
+}
+
+// Above 48 KB a kernel must opt in to its dynamic shared memory, and above
+// eight blocks to a cluster size that is not portable.
+cudaError_t opt_in(Variant* v, int smem, int cl) {
+  if (smem > v->smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        v->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    v->smem_set = smem;
+  }
+  if (cl > 8 && !v->wide_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        v->kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    v->wide_set = true;
+  }
+  return cudaSuccess;
+}
+
+// A launch configuration of `cl`-block clusters, one per image; `attr`
+// must outlive its use.
+cudaLaunchConfig_t cluster_config(int cl, int B, int smem, cudaStream_t s,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(cl, B);
+  config.blockDim = dim3(WNT);
+  config.dynamicSmemBytes = smem;
+  config.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cl;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return config;
 }
 
 }  // namespace
 
+// Blocks per cluster for an (H, W) image: 8, 16, or -1 where the level fits
+// no cluster.
+VA_EXPORT int va_pd_warp_cluster(int H, int W) {
+  const int cl = cluster_of(H, W);
+  return cl > 0 ? cl : -1;
+}
+
 // Bytes of dynamic shared memory a block needs for an (H, W) image, or -1
 // where that is more than a block may have: the level does not fit a cluster.
 VA_EXPORT int va_pd_warp_smem(int H, int W) {
-  if (H < 1 || W < 1 || state_bytes(H, W) > MAX_SMEM || pick(H, W) == nullptr)
-    return -1;
-  const long long consts =
-      consts_fit(H, W) ? 3LL * strip_rows(H) * W * (long long)sizeof(float) : 0;
-  return (int)(state_bytes(H, W) + consts);
+  const int cl = cluster_of(H, W);
+  return cl > 0 ? smem_of(H, W, cl) : -1;
 }
 
 // 1 where I1wx, I1wy and rho_c of a strip of an (H, W) image lie in shared
 // memory, 0 where they are read through L2.
 VA_EXPORT int va_pd_warp_consts_in_smem(int H, int W) {
-  return consts_fit(H, W) ? 1 : 0;
+  const int cl = cluster_of(H, W);
+  return cl > 0 && consts_fit(H, W, cl) ? 1 : 0;
 }
 
-// Clusters of this kernel the card can hold at once at (H, W), or the
-// negated CUDA error.
-VA_EXPORT int va_pd_warp_max_clusters(int H, int W, int B) {
-  const int smem = va_pd_warp_smem(H, W);
-  if (smem < 0 || B < 1) return -(int)cudaErrorInvalidValue;
-  Variant* v = pick(H, W);
-  cudaError_t err = opt_in(v, smem);
+// Clusters of `cl` blocks (8 or 16) of this kernel that the card can hold at
+// once at (H, W), or the negated CUDA error; the strips of (H, W) must fit
+// at that size.
+VA_EXPORT int va_pd_warp_max_clusters(int H, int W, int B, int cl) {
+  if (H < 1 || W < 1 || B < 1 || (cl != 8 && cl != 16) ||
+      state_bytes(H, W, cl) > MAX_SMEM || pick(H, W, cl) == nullptr)
+    return -(int)cudaErrorInvalidValue;
+  const int smem = smem_of(H, W, cl);
+  Variant* v = pick(H, W, cl);
+  cudaError_t err = opt_in(v, smem, cl);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return -(int)err;
   }
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(CL, B);
-  config.blockDim = dim3(WNT);
-  config.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = CL;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  config.attrs = &attr;
-  config.numAttrs = 1;
+  cudaLaunchConfig_t config = cluster_config(cl, B, smem, 0, &attr);
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, (void*)v->kernel, &config);
   if (err != cudaSuccess) {
@@ -637,14 +691,16 @@ int launch(const float* prep, const float* i13, const float* i0,
            const float* uv_in, float* uv_out, float* scratch, int* rounds_out,
            int B, int H, int W, int warps, int inner, int outer, int median_k,
            float l_t, float theta, float taut, float eps2, void* stream) {
-  const int smem = va_pd_warp_smem(H, W);
-  if (smem < 0 || B < 1 || warps < 1 || inner < 1 || outer < 0 ||
+  const int cl = cluster_of(H, W);
+  if (cl == 0 || B < 1 || warps < 1 || inner < 1 || outer < 0 ||
       (median_k != 0 && median_k != 3 && median_k != 5))
     return (int)cudaErrorInvalidValue;
+  const int smem = smem_of(H, W, cl);
   WarpGeom g;
   g.H = H;
   g.W = W;
-  g.RS = strip_rows(H);
+  g.CL = cl;
+  g.RS = strip_rows(H, cl);
   g.inner = inner;
   g.outer = outer;
   g.median_k = median_k;
@@ -654,14 +710,21 @@ int launch(const float* prep, const float* i13, const float* i0,
   g.taut = taut;
   g.eps2 = eps2;
   g.n_px = (float)(H * W);
-  Variant* v = pick(H, W);
-  cudaError_t err = opt_in(v, smem);
+  Variant* v = pick(H, W, cl);
+  cudaError_t err = opt_in(v, smem, cl);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it: the next launch must not see it
     return (int)err;
   }
-  v->kernel<<<dim3(CL, B), WNT, smem, (cudaStream_t)stream>>>(
-      prep, i13, i0, uv_in, uv_out, scratch, rounds_out, g);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config =
+      cluster_config(cl, B, smem, (cudaStream_t)stream, &attr);
+  err = cudaLaunchKernelEx(&config, v->kernel, prep, i13, i0, uv_in, uv_out,
+                           scratch, rounds_out, g);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -692,7 +755,7 @@ VA_EXPORT int va_pd_scale(const float* i13, const float* i0,
                           int inner, int outer, int median_k, float l_t,
                           float theta, float taut, float eps2, void* stream) {
   if (i13 == nullptr || i0 == nullptr || H < 2 || W < 2 ||
-      (scratch == nullptr && !consts_fit(H, W)))
+      (scratch == nullptr && !va_pd_warp_consts_in_smem(H, W)))
     return (int)cudaErrorInvalidValue;
   return launch(nullptr, i13, i0, uv_in, uv_out, scratch, rounds_out, B, H, W,
                 warps, inner, outer, median_k, l_t, theta, taut, eps2, stream);

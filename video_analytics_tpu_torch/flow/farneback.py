@@ -13,12 +13,16 @@ re-warping, coarse to fine over an image pyramid.
 
 Per pyramid level (coarsest first):
   - K-D ``fb_prologue``: the level's pre-blur, resize and polynomial
-    expansion of every frame, once per frame;
-  - ``iterations`` times ``fb_iteration``, one launch: warp the second
-    frame's expansion by the flow and form the normal equations (K-E's
-    arithmetic, as the loader of the launch's tiles), average them over
-    the window along y and along x, and solve the 2×2 system of every
-    pixel (``fb_window_solve``).
+    expansion of every frame, once per frame (one launch; two where the
+    level samples a large frame sparsely, ``prologue_form``);
+  - ``iterations`` times ``fb_iterate``: warp the second frame's
+    expansion by the flow and form the normal equations (K-E), average
+    them over the window along y and along x, and solve the 2×2 system
+    of every pixel.  For windows up to 73 taps that is one launch of
+    ``fb_iteration`` (K-E's arithmetic as the loader of the window
+    average's tiles); longer windows take K-E and ``fb_window_solve`` or,
+    beyond 193 taps, K-E and two of ``sep_corr`` (``window_route``).
+    Any blur or window length runs on the kernels.
 
 On CUDA tensors these are the hand-written kernels of
 ``ops/cuda/farneback.py``; on CPU tensors, or with ``plain=True``, their
@@ -284,7 +288,7 @@ def _pyramid_flow(frames: torch.Tensor, pair, n_pairs: int,
     (n_pairs, 5, lh, lw).  Returns (n_pairs, 2, H, W)."""
     from video_analytics_tpu_torch.ops.cuda import farneback as kern
     prologue = kern.fb_prologue_plain if plain else kern.fb_prologue
-    iterate = kern.fb_iteration_plain if plain else kern.fb_iteration
+    iterate = kern.fb_iteration_plain if plain else kern.fb_iterate
 
     frames = frames.float().contiguous()
     _, H, W = frames.shape

@@ -12,7 +12,8 @@ per scale (coarse→fine): centred gradient of I1, then ``warps`` times
 then the scale-end median (K-C) and the upscale of the flow to the next
 finer level by 1/scale_step.  The size rule of ``level_solver`` picks the
 kernels of a level: where an image's state fits the shared memory of a
-thread-block cluster, the whole scale (every warp with its prep and
+cluster of 8 or 16 thread blocks (every level under the reference's size
+rule but very wide ones), the whole scale (every warp with its prep and
 solve, and the scale-end median) is one launch
 (``ops/cuda/tvl1_solve.pd_solve_scale``); where it does not, K-A per
 warp, one launch per iteration (K-B/K-C ``pd_solve``) and K-C at the end;
@@ -94,9 +95,10 @@ def level_solver(h: int, w: int, median: int,
                  = whole_plane_level) -> str:
     """Which solver an (h, w) level takes, by its size alone: "chunked"
     above the reference's whole-plane rule, else "warp" where the level's
-    state fits the shared memory of a thread-block cluster
-    (``warp_geometry``; up to ~74,000 px, 224² and 256² among them), else
-    "chain", the per-iteration kernels (the levels between, e.g. 280²).
+    state fits the shared memory of a cluster of 8 or 16 thread blocks
+    (``warp_geometry``: every square-ish level under the rule, 224², 256²,
+    240×320 and 280×300 among them), else "chain", the per-iteration
+    kernels (a level too wide for 16 strips, e.g. 20×4000).
     "warp" levels run a whole scale in one launch (``pd_solve_scale``);
     "warp" and "chain" compute the same function and differ only in the
     order of the ε test's sum."""

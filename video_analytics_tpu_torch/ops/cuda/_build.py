@@ -47,8 +47,9 @@ _SIGNATURES = {
     "va_pd_step": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
     "va_eps_reduce": (_P, _P, _P, _I, _I, _F, _F, _P),
     "va_median": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
-    "va_fb_prologue": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P,
-                       _P, _P, _P, _I, _F, _F, _F, _F, _P),
+    "va_fb_prologue": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P,
+                       _P, _P, _F, _F, _F, _F, _I, _P),
+    "va_fb_prologue_smem": (_I, _I, _I, _I, _I),
     "va_fb_warp_neq": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     "va_sep_corr": (_P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P),
     "va_pd_chunk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
@@ -57,11 +58,13 @@ _SIGNATURES = {
     "va_pd_warp": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
     "va_pd_scale": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                     _F, _F, _P),
-    "va_fb_window_solve": (_P, _P, _I, _I, _I, _P, _I, _P),
-    "va_fb_iteration": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P),
+    "va_fb_window_solve": (_P, _P, _I, _I, _I, _P, _P, _I, _P),
+    "va_fb_iteration": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P),
+    "va_fb_window_smem": (_I, _I),
     "va_pd_warp_smem": (_I, _I),
     "va_pd_warp_consts_in_smem": (_I, _I),
-    "va_pd_warp_max_clusters": (_I, _I, _I),
+    "va_pd_warp_max_clusters": (_I, _I, _I, _I),
+    "va_pd_warp_cluster": (_I, _I),
     "va_error_string": (_I,),
 }
 

@@ -300,37 +300,47 @@ def pd_solve(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config
 
 # -- K-H: one warp in one launch, an image per thread-block cluster ----------
 
-_CLUSTER_BLOCKS = 8          # blocks per cluster: the portable maximum
+_CLUSTER_SIZES = (8, 16)     # blocks per cluster: the portable maximum, then
+                             # Hopper's non-portable one
 _BLOCK_SMEM = 232448         # bytes of shared memory a block may opt in to
 _WARP_SCRATCH = 64           # floats beside the planes: the ε test's sums
 
 
-def warp_geometry(h: int, w: int) -> Optional[Tuple[int, bool, int]]:
-    """The size rule of ``pd_solve_warp``.  Block r of an image's cluster
-    of eight owns rows [r·rows, (r+1)·rows) with rows = ceil(h / 8), and
-    keeps the six state planes of that strip in its shared memory, four
-    of them with a halo row that a neighbouring block fills; where three
-    more planes fit, I1wx, I1wy and rho_c of the strip lie there too,
-    else they are read through L2 each iteration.
+def warp_geometry(h: int, w: int
+                  ) -> Optional[Tuple[int, bool, int, int]]:
+    """The size rule of ``pd_solve_warp`` and ``pd_solve_scale``.  Block r
+    of an image's cluster of `blocks` owns rows [r·rows, (r+1)·rows) with
+    rows = ceil(h / blocks), and keeps the six state planes of that strip
+    in its shared memory, four of them with a halo row that a neighbouring
+    block fills; where three more planes fit, I1wx, I1wy and rho_c of the
+    strip lie there too, else they are read through L2 each iteration.
+    `blocks` is 8 where the strips fit, else 16 (a non-portable cluster
+    size: one block on each of 16 SMs of one GPC).
 
     Returns (rows per strip, whether those constants lie in shared
-    memory, bytes of shared memory a block), or None where the state
-    alone exceeds the 232,448 B a block may have: the level does not fit
-    a cluster.  224² needs 229,632 B with the constants, 256² 200,960 B
-    without; 240×320 (235,776 B) and 280² do not fit."""
-    rows = -(-h // _CLUSTER_BLOCKS)
-    smem = 4 * ((6 * rows + 4) * w + _WARP_SCRATCH)
-    if smem > _BLOCK_SMEM:
-        return None
-    consts = smem + 4 * 3 * rows * w <= _BLOCK_SMEM
-    return rows, consts, smem + (4 * 3 * rows * w if consts else 0)
+    memory, bytes of shared memory a block, blocks per cluster), or None
+    where the state alone exceeds the 232,448 B a block may have at both
+    sizes: the level does not fit a cluster.  224² needs 229,632 B with
+    the constants in 8 blocks, 256² 200,960 B without; 240×320 (235,776 B
+    in 8 blocks) takes 16 and 178,176 B, 280×300 199,456 B and 295×296,
+    the largest square level under the reference's size rule, 207,456 B.
+    A 20×4000 level fits neither (256,256 B in 16 strips of 2 rows)."""
+    for blocks in _CLUSTER_SIZES:
+        rows = -(-h // blocks)
+        smem = 4 * ((6 * rows + 4) * w + _WARP_SCRATCH)
+        if smem > _BLOCK_SMEM:
+            continue
+        consts = smem + 4 * 3 * rows * w <= _BLOCK_SMEM
+        return rows, consts, smem + (4 * 3 * rows * w if consts else 0), blocks
+    return None
 
 
 def pd_solve_warp(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config,
                   rounds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """All primal-dual iterations of one TV-L1 warp in one launch: the
     function of ``pd_solve``, with each image's solver state resident in
-    the shared memory of a cluster of eight thread blocks.  Its plain
+    the shared memory of a cluster of 8 or 16 thread blocks
+    (``warp_geometry``).  Its plain
     version is ``pd_solve_plain``, which it equals bit for bit except
     where the order of the ε test's sum flips a round at the threshold.
 
