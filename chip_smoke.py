@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments:
 
 It imports no JAX, and fails (non-zero exit, no result line) where
 ``torch.cuda.is_available()`` is false or the package is not beside it.
-OpenCV is needed by the phases that drive the command line (7, 9, 10), as
+OpenCV is needed by the phases that drive the command line (7, 9-11), as
 by the commands themselves.  Phases, each reported on a JSON line:
 
 1. build: compile every CUDA kernel of the port from
@@ -103,13 +103,31 @@ by the commands themselves.  Phases, each reported on a JSON line:
    ``extract-features`` on the flow directory of phase 9 and on its
    frames, and ``classify-clip --checkpoint ... --windows 3`` on a 1080p
    clip, at full width; features and probabilities against the same steps
-   taken on tensors with the kernels' plain versions.
+   taken on tensors with the kernels' plain versions;
+11. eval_ucf101: a synthetic UCF101 (``io/synthetic.py``: 4 classes x 4
+   clips of 48 frames at 240x320, 8 of them test clips, and a truncated
+   ``.avi`` added to the test list) and a full-width checkpoint from seed
+   0, then ``tpuva-torch eval-ucf101`` four ways, the launch counts set to
+   0 just before each and held to the expected numbers just after:
+   ``--batched --batch-clips 8`` (one batch, 120 frame pairs in one
+   ``tvl1`` call: 5 ``tvl1_scale``, nothing else; twice, the second
+   without the first calls at its shapes), with ``--windows 3``
+   (360 pairs, 5 launches), clip by clip with ``--predictions`` and
+   ``--manifest`` (5 a clip; the predictions and counts equal the first
+   run's) and again on that manifest (nothing evaluated, no launch), and
+   ``--batched --algo farneback`` (3 K-D, 9 ``fb_iteration``); the corrupt
+   clip counted as failed and named each time; a batch of the first run
+   and of the Farneback run through the batch function with the kernels
+   and with their plain versions (1e-6); clips/s of each run (host clock,
+   decode included) and the device time of the ``tvl1_scale`` launches of
+   the 120- and 360-pair calls (torch.profiler).
 
 Then it prints the kernel table (``{"kernels": [...]}``: for each kernel
 its launches on its main path and which path that is (``launches_from``:
 the serve requests; for K-A, K-C, K-G and ``band_flags`` the
 ``compute-flow`` command of phase 9; for K-D's blur pass the
-``--fb-levels 4`` command of farneback_1080p; K-H, K-B, the ε reduction,
+``--fb-levels 4`` command of farneback_1080p; under
+``launches_eval_ucf101`` those of phase 11's commands; K-H, K-B, the ε reduction,
 K-E, ``sep_corr`` and ``fb_window_solve``, whose arithmetic the commands
 run inside ``tvl1_scale`` and ``fb_iteration`` or only at shapes no
 command here gives, are on no command's path: 0 launches, and under
@@ -1874,6 +1892,237 @@ def stage_chain_phase(torch, np, dev, work: str, frames_dir: str,
 
 
 
+EVAL_CLASSES = 4           # the synthetic UCF101: 4 classes x 4 clips, half
+EVAL_CLIPS_PER_CLASS = 4   # of them test clips: 8, at UCF101's 240x320
+EVAL_FRAMES = 48
+EVAL_BATCH = 8             # --batch-clips: the 8 test clips in one batch
+
+
+def eval_ucf101_phase(torch, np, dev):
+    """``tpuva-torch eval-ucf101`` on a synthetic UCF101 at 240x320 (8 test
+    clips and a truncated one) from a full-width checkpoint written from
+    seed 0: ``--batched`` (120 frame pairs in one ``tvl1`` call), with
+    ``--windows 3`` (360), clip by clip with a manifest and a predictions
+    file, again on that manifest, and ``--batched --algo farneback``; the
+    launch counts set to 0 just before each command and held to the
+    expected numbers just after.  One batch of the first run and one of
+    the Farneback run through the batch function with the kernels and with
+    their plain versions, and the ``tvl1_scale`` launches of the 120- and
+    360-pair calls profiled.  Returns the launches per kernel summed over
+    the commands."""
+    import tempfile
+
+    from video_analytics_tpu_torch.config import PipelineConfig
+    from video_analytics_tpu_torch.flow.farneback import _level_sizes
+    from video_analytics_tpu_torch.io.synthetic import build_synthetic_ucf101
+    from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+    from video_analytics_tpu_torch.ops.cuda import farneback as fk
+    from video_analytics_tpu_torch.ops.cuda import tvl1_solve as ts
+    from video_analytics_tpu_torch.ops.cuda.warp import warp_prep
+    from video_analytics_tpu_torch.runtime import evaluate as ev
+    from video_analytics_tpu_torch.runtime.checkpoint import save_variables
+
+    cfg = PipelineConfig()
+    pairs = cfg.window - 1
+    n_scales = len(SIZES)
+    tv_kernels = {"tvl1_scale": ts.pd_solve_scale, "warp_prep": warp_prep,
+                  "tvl1_pd_warp": ts.pd_solve_warp, "median5": ts.median5,
+                  "tvl1_pd_step": ts.pd_step,
+                  "tvl1_eps_reduce": ts.eps_reduce,
+                  "tvl1_pd_chunk": ts.pd_chunk,
+                  "tvl1_band_flags": ts.band_flags}
+
+    def read():
+        return {**read_counts(tv_kernels), **read_fb_counts(fk)}
+
+    nothing = dict.fromkeys(read(), 0)
+    # What the batch function was called with in a command (one call a
+    # batch), and the order in which the decode workers handed the clips
+    # over: the rows of a batch.
+    calls, streamed, started = [], [], []
+    real_metrics, real_prefetch = ev.batch_clip_metrics, ev.prefetch_clips
+
+    def metrics_spy(windows, labels, valid, model, bcfg):
+        out = real_metrics(windows, labels, valid, model, bcfg)
+        calls.append((windows, bcfg, out[1]))
+        return out
+
+    def prefetch_spy(*a, **kw):
+        started.append(time.perf_counter())
+        for item in real_prefetch(*a, **kw):
+            streamed.append(item[0])
+            yield item
+
+    def command(base, extra, expected):
+        """One command with every launch count set to 0 just before it and
+        held to `expected` (the rest 0) just after."""
+        del calls[:], streamed[:], started[:]
+        zero_counts(tv_kernels)
+        zero_fb_counts(fk)
+        t0 = time.perf_counter()
+        rc, res = run_cli(base + extra)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        launches = read()
+        check(rc == 0, f"eval-ucf101 {extra} exited {rc}: {res}")
+        want = {**nothing, **expected}
+        check(launches == want,
+              f"eval-ucf101 {extra} launched {launches}, expected {want}")
+        run = {"seconds": end - t0, "launches": launches}
+        if started:         # --batched: from the start of its decode
+            run["eval_seconds"] = end - started[0]
+        return res, run
+
+    runs = {}
+    ev.batch_clip_metrics, ev.prefetch_clips = metrics_spy, prefetch_spy
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            ds = build_synthetic_ucf101(
+                os.path.join(work, "ucf101"), num_classes=EVAL_CLASSES,
+                clips_per_class=EVAL_CLIPS_PER_CLASS, num_frames=EVAL_FRAMES,
+                h=NATIVE[0], w=NATIVE[1], seed=0)
+            n_clips = len(ds.test_records())
+            # A corrupt clip in the test list: a truncated container.
+            corrupt = os.path.join(ds.videos_root, "Right",
+                                   "v_Right_g99_c01.avi")
+            with open(ds.test_records()[0].path, "rb") as f, \
+                    open(corrupt, "wb") as g:
+                g.write(f.read(256))
+            with open(os.path.join(ds.annotations_root, "testlist01.txt"),
+                      "a") as f:
+                f.write("Right/v_Right_g99_c01.avi\n")
+            ckpt = os.path.join(work, "two_stream.msgpack")
+            model = TwoStreamModel.create(
+                num_classes=cfg.num_classes,
+                flow_stack=cfg.preprocess.flow_stack,
+                width=64).init(torch.Generator().manual_seed(0))
+            save_variables(ckpt, model.flax_variables())
+            model = model.to(dev).eval()
+            base = ["eval-ucf101", "--videos", ds.videos_root,
+                    "--annotations", ds.annotations_root, "--checkpoint",
+                    ckpt, "--device", "cuda"]
+
+            def counts_ok(res, what):
+                check(res["total"] == n_clips and res["failed"] == 1
+                      and res["failures"][0]["path"] == corrupt
+                      and 0 <= res["correct"] <= n_clips,
+                      f"eval-ucf101 {what}: {res}")
+
+            # 1. --batched: one batch of 8 clips, 120 pairs in one call.
+            batched = ["--batched", "--batch-clips", str(EVAL_BATCH)]
+            res, runs["batched"] = command(base, batched,
+                                           {"tvl1_scale": n_scales})
+            counts_ok(res, "--batched")
+            check(len(calls) == 1 and tuple(calls[0][0].shape[:3])
+                  == (n_clips, 1, cfg.window),
+                  f"--batched: batches {[c[0].shape for c in calls]}")
+            one = calls[0]
+            batch_preds = dict(zip(streamed, one[2].tolist()))
+            runs["batched"].update(result=res, pairs_per_tvl1_call=n_clips
+                                   * pairs)
+            # Again: the first run's seconds hold the first calls at its
+            # shapes (cuDNN's choice of algorithms, allocations).
+            res_again, runs["batched_again"] = command(
+                base, batched, {"tvl1_scale": n_scales})
+            check(res_again == res, f"--batched again: {res_again} != {res}")
+
+            # 2. --windows 3: 360 pairs in one call.
+            res3, runs["batched_windows3"] = command(
+                base, batched + ["--windows", "3"], {"tvl1_scale": n_scales})
+            counts_ok(res3, "--batched --windows 3")
+            check(len(calls) == 1
+                  and tuple(calls[0][0].shape[:2]) == (n_clips, 3),
+                  f"--windows 3: batches {[c[0].shape for c in calls]}")
+            three = calls[0]
+            runs["batched_windows3"].update(result=res3,
+                                            pairs_per_tvl1_call=3 * n_clips
+                                            * pairs)
+
+            # 3. Clip by clip, then again on the same manifest.
+            preds_file = os.path.join(work, "predictions.jsonl")
+            seq = ["--predictions", preds_file, "--manifest",
+                   os.path.join(work, "manifest.txt")]
+            res_s, runs["sequential"] = command(
+                base, seq, {"tvl1_scale": n_scales * n_clips})
+            counts_ok(res_s, "sequential")
+            with open(preds_file) as f:
+                seq_preds = {e["path"]: e["pred"]
+                             for e in map(json.loads, f.read().splitlines())}
+            check(seq_preds == batch_preds
+                  and res_s["correct"] == res["correct"],
+                  f"sequential predictions {seq_preds}, correct "
+                  f"{res_s['correct']}; --batched {batch_preds}, "
+                  f"{res['correct']}")
+            runs["sequential"]["result"] = res_s
+            res_r, runs["sequential_rerun"] = command(base, seq, {})
+            check(res_r["total"] == 0 and res_r["failed"] == 1,
+                  f"rerun on the manifest: {res_r}")
+            runs["sequential_rerun"]["result"] = res_r
+
+            # 4. Farneback, batched.
+            fcfg = cfg.farneback
+            res_f, runs["farneback_batched"] = command(
+                base, batched + ["--algo", "farneback"],
+                fb_expected(len(_level_sizes(cfg.preprocess.crop,
+                                             cfg.preprocess.crop, fcfg)),
+                            fcfg.iterations))
+            counts_ok(res_f, "--batched --algo farneback")
+            fb_one = calls[0]
+            runs["farneback_batched"]["result"] = res_f
+    finally:
+        ev.batch_clip_metrics, ev.prefetch_clips = real_metrics, real_prefetch
+    # Clips a second over the whole command (checkpoint load and model
+    # set-up included) and, for --batched, from the start of its
+    # decode to the end of its device work.
+    for name in ("batched", "batched_again", "batched_windows3",
+                 "sequential", "farneback_batched"):
+        runs[name]["clips_per_s"] = n_clips / runs[name]["seconds"]
+        if "eval_seconds" in runs[name]:
+            runs[name]["eval_clips_per_s"] = (n_clips
+                                              / runs[name]["eval_seconds"])
+
+    # Answer agreement: a batch of run 1 and one of run 4 through the batch
+    # function with the kernels and with their plain versions.
+    agree = {}
+    for name, (windows, bcfg, preds) in (("tvl1", one),
+                                         ("farneback", fb_one)):
+        got = ev.batch_clip_probs(windows, model, bcfg)
+        want = ev.batch_clip_probs(windows, model, bcfg, plain=True)
+        e = float((got - want).abs().max())
+        check(e <= TOL_PROBS and torch.equal(got.argmax(-1), preds),
+              f"eval batch ({name}) vs plain versions: {e} > {TOL_PROBS}")
+        agree[name] = e
+    # The device time of the tvl1_scale launches of the 120- and 360-pair
+    # calls.  The profiler now and then drops records: a short count is
+    # taken again.
+    scale_ms = {}
+    for name, (windows, bcfg, _) in (("pairs_120", one),
+                                     ("pairs_360", three)):
+        for _ in range(3):
+            prof = device_profile(torch, lambda: ev.batch_clip_probs(
+                windows, model, bcfg))
+            hits = [k for k in prof["port_kernels_device_ms"]
+                    if "pd_warp_kernel" in k["name"]]
+            if sum(k["count"] for k in hits) == n_scales:
+                break
+        check(sum(k["count"] for k in hits) == n_scales,
+              f"profile of the {name} call: {prof['port_kernels_device_ms']}")
+        scale_ms[name] = {"tvl1_scale_device_ms": sum(k["ms"] for k in hits),
+                          "by_launch": hits,
+                          "batch_call_wall_ms": prof["profiled_wall_ms"],
+                          "device_busy_ms": prof["device_busy_ms"]}
+    emit({"phase": "eval_ucf101", "clips": n_clips, "corrupt": 1,
+          "frames": EVAL_FRAMES, "size": list(NATIVE),
+          "batch_clips": EVAL_BATCH, "runs": runs,
+          "probs_max_abs_vs_plain": agree, "tolerance": TOL_PROBS,
+          "tvl1_scale_per_batch_call": scale_ms})
+    total = dict(nothing)
+    for run in runs.values():
+        for k, n in run["launches"].items():
+            total[k] += n
+    return total
+
+
 def native_phases(torch, np, dev, chain: bool = True):
     """The native-resolution flow command and, with `chain`, the stage
     commands that read what it wrote, in one temporary directory.  Returns
@@ -1904,7 +2153,7 @@ def main(argv=None) -> int:
                     choices=["tvl1_warp_kernel", "farneback_kernels",
                              "farneback_1080p", "tvl1_midsize",
                              "tvl1_chunk_kernels", "tvl1_1080p",
-                             "stage_chain"],
+                             "stage_chain", "eval_ucf101"],
                     help="run the build and this phase alone (stage_chain "
                          "with tvl1_1080p, whose directories it reads), for "
                          "work on it; prints no result line")
@@ -1960,6 +2209,8 @@ def main(argv=None) -> int:
         tvl1_midsize_phase(torch, np, dev)
     elif args.only == "tvl1_chunk_kernels":
         tvl1_chunk_kernels_phase(torch, np, dev, args.sweep_chunk)
+    elif args.only == "eval_ucf101":
+        eval_ucf101_phase(torch, np, dev)
     elif args.only:
         native_phases(torch, np, dev, args.only == "stage_chain")
     if args.only:
@@ -2148,6 +2399,9 @@ def main(argv=None) -> int:
                       for name in ("tvl1_pd_step", "tvl1_eps_reduce")})
     hd_launches = native_phases(torch, np, dev)
 
+    # -- 11. eval-ucf101 ----------------------------------------------------
+    eval_launches = eval_ucf101_phase(torch, np, dev)
+
     # -- the kernel table -----------------------------------------------------
     # TV-L1 bounds at 224², 15 pairs.  Planes moved: warp_prep reads I1 and
     # its gradients, I0 and the flow and writes 4; pd_step reads prep, the
@@ -2255,7 +2509,8 @@ def main(argv=None) -> int:
                        **({"launches_tvl1_midsize": mid_launches[name]}
                           if name in mid_launches else {}),
                        **({"launches_farneback_1080p": fhd_launches[name]}
-                          if name in fhd_launches else {})}
+                          if name in fhd_launches else {}),
+                       "launches_eval_ucf101": eval_launches.get(name, 0)}
                       for name, source, replaces, also in rows]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

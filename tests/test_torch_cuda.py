@@ -405,6 +405,55 @@ def test_pd_solve_scale_refuses_what_it_cannot_launch(dev):
     assert ts.pd_solve_scale.launches == n
 
 
+@pytest.mark.parametrize("batch", [120, 360])
+def test_pd_solve_scale_at_eval_batches(dev, batch):
+    """The batches ``eval-ucf101 --batched --batch-clips 8`` gives one
+    ``tvl1`` call: 8 clips x 15 frame pairs, and x 3 windows with
+    ``--windows 3``.  Every image at 224² (the finest level, 8-block
+    clusters, a grid of 8 x batch blocks) with ``TVL1Config()`` at ε = 0:
+    bit for bit against the plain version."""
+    cfg = dataclasses.replace(TVL1Config(), epsilon=0.0)
+    i0, i13, uv = _level(dev, batch, 224, 224)
+    n = ts.pd_solve_scale.launches
+    got = ts.pd_solve_scale(i13, i0, uv, cfg)
+    assert ts.pd_solve_scale.launches == n + 1
+    assert torch.equal(got, ts.pd_solve_scale_plain(i13, i0, uv, cfg))
+
+
+def test_wrappers_refuse_batches_past_the_grid(dev):
+    """A batch that would put more than 65,535 blocks on a grid's y or z
+    dimension is refused before anything launches."""
+    from video_analytics_tpu_torch.ops.cuda import _build
+    n = _build.GRID_YZ_MAX + 1
+    z = lambda *shape: torch.zeros(shape, device=dev)
+    taps = [1.0 / 3] * 3
+    counts = lambda: (ts.pd_solve_scale.launches, ts.pd_solve_warp.launches,
+                      warp_prep.launches, ts.median5.launches,
+                      fk.fb_prologue.launches, fk.fb_warp_neq.launches,
+                      fk.fb_window_solve.launches, fk.fb_iteration.launches,
+                      fk.sep_corr.launches)
+    before = counts()
+    calls = [
+        lambda: ts.pd_solve_scale(z(n, 3, 8, 8), z(n, 8, 8), z(n, 2, 8, 8),
+                                  FAST),
+        lambda: ts.pd_solve_warp(z(n, 4, 8, 8), z(n, 2, 8, 8), FAST),
+        lambda: warp_prep(z(n, 3, 8, 8), z(n, 8, 8), z(n, 2, 8, 8)),
+        lambda: ts.median5(z(n // 2 + 1, 2, 8, 8), 5),
+        lambda: fk.fb_prologue(z(n, 16, 16), 1.0, (16, 16), 5, 1.1),
+        lambda: fk.fb_warp_neq(z(n, 5, 8, 8), z(n, 5, 8, 8), z(n, 2, 8, 8)),
+        lambda: fk.fb_window_solve(z(n, 5, 8, 8), taps),
+        lambda: fk.fb_iteration(z(n, 5, 8, 8), z(n, 5, 8, 8), z(n, 2, 8, 8),
+                                taps),
+        lambda: fk.sep_corr(z(n // 5 + 1, 5, 8, 8), taps, 0)]
+    for call in calls:
+        with pytest.raises(ValueError, match="holds 65535"):
+            call()
+    assert counts() == before
+    # At the limit the launch goes ahead.
+    ts.median5(z(_build.GRID_YZ_MAX, 1, 8, 8), 3)
+    assert ts.median5.launches == before[3] + 1
+
+
 @pytest.mark.parametrize("h,w", [(240, 320), (280, 300)])
 def test_sixteen_block_levels_match_the_chain(dev, h, w):
     """A level that fits no cluster of 8 takes one of 16: the whole-scale

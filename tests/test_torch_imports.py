@@ -1,6 +1,7 @@
 """The port stands alone: a fresh interpreter in which ``jax``, ``flax``,
 ``msgpack`` and the JAX package cannot be imported imports every module
-of ``video_analytics_tpu_torch`` and ``chip_smoke``, answers a serve
+of ``video_analytics_tpu_torch`` and ``chip_smoke`` (OpenCV not among
+them: it is imported where a frame is decoded or resized), answers a serve
 request on the CPU from a clip written by the port's own
 ``synthesize_video``, and writes, reads back and classifies from a
 checkpoint."""
@@ -25,12 +26,14 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
-assert len(names) >= 32, names
-for sub in ("io.video", "io.dataset", "io.flowio", "flow.farneback",
-            "ops.cuda.farneback", "ops.cuda.tvl1_solve",
-            "runtime.checkpoint", "runtime.evaluate"):
+assert len(names) >= 35, names
+for sub in ("io.video", "io.dataset", "io.flowio", "io.synthetic",
+            "flow.farneback", "ops.cuda.farneback", "ops.cuda.tvl1_solve",
+            "ingest.prefetch", "runtime.checkpoint", "runtime.evaluate",
+            "utils.logging"):
     assert pkg.__name__ + "." + sub in names, sub
 import chip_smoke                      # import only; main() needs a GPU
+assert "cv2" not in sys.modules        # imported where a frame is touched
 
 from video_analytics_tpu_torch.config import (
     FarnebackConfig, PipelineConfig, PreprocessConfig)

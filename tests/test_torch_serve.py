@@ -9,6 +9,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -79,6 +80,43 @@ def test_batch_request_matches_single(server, tiny_clip):
     assert "error" in server.handle_line("{not json")
     assert "error" in server.handle_line(json.dumps({"paths": []}))
     assert "error" in server.handle_line(json.dumps({"cmd": "nope"}))
+
+
+def test_batch_request_decodes_on_threads(server, tiny_clip, tmp_path,
+                                          monkeypatch):
+    """A batch request decodes its clips on the threads of
+    ``ingest.prefetch_clips``: results in request order, a path listed
+    twice decoded once, a corrupt clip answered as an error."""
+    from tests.fixtures import moving_square_frames
+    from video_analytics_tpu_torch.io.video import synthesize_video
+    other = synthesize_video(str(tmp_path / "other.mp4"),
+                             moving_square_frames(8, 90, 120, step=(1, 2)),
+                             fps=10)
+    bad = str(tmp_path / "bad.mp4")
+    with open(tiny_clip, "rb") as f, open(bad, "wb") as g:
+        g.write(f.read(256))
+    loads, threads = [], set()
+    real = server._load_windows
+
+    def spy(path):
+        loads.append(path)
+        threads.add(threading.current_thread().name)
+        return real(path)
+
+    monkeypatch.setattr(server, "_load_windows", spy)
+    paths = [other, bad, tiny_clip, other]
+    rs = server.classify_paths(paths)["results"]
+    assert [r["path"] for r in rs] == paths
+    assert sorted(loads) == sorted([other, bad, tiny_clip])
+    assert threading.main_thread().name not in threads
+    assert "could not open" in rs[1]["error"]
+    assert rs[0] == {**rs[3], "ms": rs[0]["ms"]}
+    for r, p in ((rs[0], other), (rs[2], tiny_clip)):
+        single = server.classify_path(p)
+        assert r["top1"] == single["top1"]
+        np.testing.assert_allclose([e["prob"] for e in r["topk"]],
+                                   [e["prob"] for e in single["topk"]],
+                                   atol=1e-6)
 
 
 def test_cli_serve_on_cpu(monkeypatch, capsys, tiny_clip):

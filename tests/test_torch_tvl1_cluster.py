@@ -507,3 +507,19 @@ def test_tvl1_through_the_scale_launch_matches_reference(batch, epsilon,
     epe = np.linalg.norm(ours - ref, axis=-1)
     assert epe.mean() < 1e-3, epe.mean()
     assert epe.max() < 0.05, epe.max()
+
+
+def test_grid_batch_guard_arithmetic():
+    """The wrappers refuse a batch that would put more than 65,535 blocks
+    on a grid's y or z dimension (``_build.expect_grid_batch``); the
+    largest batch ``eval-ucf101 --batched`` gives one ``tvl1`` call, 8
+    clips x 3 windows x 15 frame pairs, is far inside it."""
+    from video_analytics_tpu_torch.ops.cuda import _build
+    assert _build.GRID_YZ_MAX == 2 ** 16 - 1
+    _build.expect_grid_batch(_build.GRID_YZ_MAX, "pd_solve_scale")
+    _build.expect_grid_batch(8 * 3 * 15, "pd_solve_scale")
+    with pytest.raises(ValueError, match="batch of 65536 .* holds 65535"):
+        _build.expect_grid_batch(_build.GRID_YZ_MAX + 1, "pd_solve_scale")
+    # On the CPU the wrappers take their plain versions, whatever the batch.
+    x = torch.zeros((2, 1, 4, 4))
+    assert torch.equal(ts.median5(x, 3), x)

@@ -11,7 +11,9 @@ Ported so far: the two-stream serve path (TV-L1 or Farneback flow, two
 ResNets, late fusion, the ``ClipServer`` line protocol: ``tpuva-torch
 serve``) and the stage chain ``extract-frames`` → ``compute-flow`` (at the
 native resolution) → ``extract-features`` / ``classify-clip``, with
-checkpoints in the reference's msgpack format.
+checkpoints in the reference's msgpack format; the UCF101 evaluation
+``eval-ucf101`` (sequential and batched, threaded decode) on the synthetic
+UCF101 or the real one, and ``convert-weights``.
 
 Importing this package imports no JAX and nothing of the JAX package: it
 keeps its own copies of the configuration dataclasses (``config.py``) and

@@ -1,12 +1,13 @@
 """Command line of the PyTorch/CUDA port: ``tpuva-torch``.
 
 Port of the ``extract-frames``, ``compute-flow``, ``extract-features``,
-``classify-clip`` and ``serve`` subcommands of
-``video_analytics_tpu/cli/main.py``, with the same flags and the same
-JSON lines (less SpyNet and its ``--spynet-checkpoint``; and less
-``compute-flow``'s ``--exact`` and ``--no-bucket``, which choose between
-paths the port does not have: its warp is always the exact gather, its
-flow always at the native resolution) and, for ``serve``, the same
+``classify-clip``, ``serve``, ``eval-ucf101`` and ``convert-weights``
+subcommands of ``video_analytics_tpu/cli/main.py``, with the same flags
+and the same JSON lines (less SpyNet and its ``--spynet-checkpoint``;
+less ``compute-flow``'s ``--exact`` and ``--no-bucket``, which choose
+between paths the port does not have: its warp is always the exact
+gather, its flow always at the native resolution; and less
+``eval-ucf101``'s multi-host flags) and, for ``serve``, the same
 stdin/stdout line protocol.  The model is initialised from a seed
 (``serve --seed``, 0 elsewhere) unless ``--checkpoint`` names a msgpack
 file, which either package may have written.  Every command that computes
@@ -19,6 +20,10 @@ Usage::
     tpuva-torch compute-flow clip.mp4 flow/ --algo tvl1
     tpuva-torch extract-features flow/ feats.npz --stream flow
     tpuva-torch classify-clip clip.mp4 --checkpoint two_stream.msgpack
+    tpuva-torch convert-weights resnet18.pth two_stream.msgpack
+    tpuva-torch eval-ucf101 --videos UCF101/videos \\
+        --annotations UCF101/annotations --checkpoint two_stream.msgpack \\
+        --batched
     tpuva-torch serve --device cpu ...            # plain PyTorch, no kernels
 """
 
@@ -351,6 +356,126 @@ def _load_class_names(class_index: Optional[str]) -> Optional[List[str]]:
     return classes
 
 
+def cmd_eval_ucf101(args) -> int:
+    """Top-1 clip accuracy on a UCF101 split's test list: clip by clip
+    (resumable with --manifest, --predictions written as JSON lines) or,
+    with --batched, threaded decode and batches of --batch-clips clips with
+    the correct count kept on the device."""
+    from video_analytics_tpu_torch.io.dataset import UCF101
+    from video_analytics_tpu_torch.runtime.evaluate import (
+        evaluate, evaluate_batched)
+    from video_analytics_tpu_torch.utils.device import require_cuda
+
+    if _spynet_refused(args):
+        return 2
+    device = require_cuda(args.device)
+    cfg = _pipeline_config(args)
+    model = _load_two_stream(args, device)
+    ds = UCF101(videos_root=args.videos, annotations_root=args.annotations,
+                split=args.split)
+    if args.batched:
+        records = ds.test_records()
+        if args.limit is not None:
+            records = records[:args.limit]
+        result = evaluate_batched(records, model, cfg, device,
+                                  batch_clips=args.batch_clips,
+                                  num_windows=args.windows, host_resize=True)
+    else:
+        result = evaluate(ds.test_records(), model, cfg, device,
+                          manifest_path=args.manifest,
+                          predictions_path=args.predictions,
+                          limit=args.limit, num_windows=args.windows)
+    print(json.dumps(result.as_dict()))
+    return 0
+
+
+_ARCH_STAGES = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3),
+                "resnet50": (3, 4, 6, 3)}
+
+
+def _merge_into_template(template, src, path=""):
+    """Deep-merge converted arrays into freshly initialised variables:
+    every leaf present in `src` replaces the template's (shape-checked);
+    leaves absent from `src` (e.g. an fc of another class count) keep
+    their init values.  Returns (merged, replaced leaf count)."""
+    import numpy as np
+    if isinstance(template, dict):
+        out, n = {}, 0
+        for k, tv in template.items():
+            if isinstance(src, dict) and k in src:
+                out[k], dn = _merge_into_template(tv, src[k], f"{path}/{k}")
+                n += dn
+            else:
+                out[k] = tv
+        return out, n
+    s = np.asarray(src)
+    t = np.asarray(template)
+    if s.shape != t.shape:
+        raise ValueError(
+            f"converted weight {path} has shape {s.shape}, model "
+            f"expects {t.shape}: wrong --arch/--width?")
+    return s.astype(t.dtype), 1
+
+
+def cmd_convert_weights(args) -> int:
+    """torch(vision) ResNet state_dict file → two-stream msgpack
+    checkpoint (host work only): the RGB stream takes the weights
+    directly, the flow stream the same with its stem inflated across the
+    flow channels (``models/convert.inflate_stem_for_flow``).  The path
+    from downloaded ImageNet weights to an eval run:
+
+        tpuva-torch convert-weights resnet18-imagenet.pth ckpt.msgpack
+        tpuva-torch eval-ucf101 --checkpoint ckpt.msgpack ...
+
+    The classifier is converted only when its class count matches
+    --num-classes; otherwise both streams keep a fresh classifier drawn
+    from --seed (with the port's generator, so not the JAX command's
+    values)."""
+    import pickle
+
+    import torch
+    from video_analytics_tpu_torch.models.convert import (
+        inflate_stem_for_flow, torch_resnet_to_flax)
+    from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+    from video_analytics_tpu_torch.runtime.checkpoint import save_variables
+
+    try:
+        sd = torch.load(args.state_dict, map_location="cpu",
+                        weights_only=True)
+    except pickle.UnpicklingError:      # a whole pickled model, not tensors
+        sd = torch.load(args.state_dict, map_location="cpu",
+                        weights_only=False)
+    if hasattr(sd, "state_dict"):        # a whole saved model
+        sd = sd.state_dict()
+    for key in ("state_dict", "model"):  # common checkpoint wrappers
+        if isinstance(sd, dict) and key in sd and isinstance(sd[key], dict):
+            sd = sd[key]
+
+    fc_classes = (int(sd["fc.weight"].shape[0]) if "fc.weight" in sd
+                  else None)
+    include_fc = fc_classes == args.num_classes
+    converted = torch_resnet_to_flax(
+        sd, stage_sizes=_ARCH_STAGES[args.arch], include_fc=include_fc)
+
+    model = TwoStreamModel.create(num_classes=args.num_classes,
+                                  flow_stack=args.flow_stack,
+                                  width=args.width, arch=args.arch)
+    variables = model.init(
+        torch.Generator().manual_seed(args.seed)).flax_variables()
+    spatial, n_s = _merge_into_template(variables["spatial"], converted)
+    inflated = inflate_stem_for_flow(converted, args.flow_stack)
+    temporal, n_t = _merge_into_template(variables["temporal"], inflated)
+    save_variables(args.out, {"spatial": spatial, "temporal": temporal})
+    print(json.dumps({
+        "out": args.out, "arch": args.arch,
+        "spatial_leaves_converted": n_s,
+        "temporal_leaves_converted": n_t,
+        "fc_converted": include_fc,
+        "fc_classes_in_state_dict": fc_classes,
+        "flow_stem_channels": 2 * args.flow_stack}))
+    return 0
+
+
 def cmd_serve(args) -> int:
     """Long-running classify server over a stdin/stdout line protocol
     (runtime/serve.py).  --warmup builds the kernels and runs the path
@@ -469,6 +594,46 @@ def build_parser() -> argparse.ArgumentParser:
                     help="seed of the random model weights")
     _add_flow_args(sv)
     sv.set_defaults(fn=cmd_serve)
+
+    ev = sub.add_parser("eval-ucf101", help="UCF101 split eval")
+    ev.add_argument("--videos", required=True)
+    ev.add_argument("--annotations", required=True)
+    ev.add_argument("--split", type=int, default=1)
+    ev.add_argument("--algo", choices=["tvl1", "farneback", "spynet"],
+                    default="tvl1",
+                    help="flow algorithm (spynet is not ported yet)")
+    _add_model_args(ev)
+    ev.add_argument("--manifest", default=None,
+                    help="resume file: clips listed there are skipped, "
+                         "each clip done is added (without --batched)")
+    ev.add_argument("--predictions", default=None,
+                    help="append {path, label, pred} JSON lines here "
+                         "(without --batched)")
+    ev.add_argument("--limit", type=int, default=None)
+    ev.add_argument("--windows", type=int, default=1,
+                    help="snippets per clip, probs averaged")
+    ev.add_argument("--batched", action="store_true",
+                    help="throughput path: threaded decode, batches of "
+                         "clips, the correct count kept on the device")
+    ev.add_argument("--batch-clips", type=int, default=8)
+    _add_flow_args(ev)
+    ev.set_defaults(fn=cmd_eval_ucf101)
+
+    cw = sub.add_parser(
+        "convert-weights",
+        help="torch ResNet state_dict → two-stream msgpack checkpoint "
+             "(RGB weights + inflated flow stem)")
+    cw.add_argument("state_dict", help="torch .pth/.pt file")
+    cw.add_argument("out", help="output msgpack checkpoint path")
+    cw.add_argument("--arch", choices=sorted(_ARCH_STAGES),
+                    default="resnet18")
+    cw.add_argument("--num-classes", type=int, default=101)
+    cw.add_argument("--flow-stack", type=int, default=10)
+    cw.add_argument("--width", type=int, default=64)
+    cw.add_argument("--seed", type=int, default=0,
+                    help="init seed for layers not in the state_dict "
+                         "(e.g. the fc head on a class-count mismatch)")
+    cw.set_defaults(fn=cmd_convert_weights)
     return p
 
 

@@ -1,9 +1,8 @@
 """Host-side clip shaping before frames go to the device.
 
-Port of the serving helpers of ``video_analytics_tpu/ingest/windows.py``
-(numpy only; cv2 is imported lazily, where a resize is needed).  The JAX
-package's ``ingest`` package imports ``ingest/prefetch.py``, which imports
-JAX, so these helpers live here rather than being imported from there.
+Port of the serving and eval helpers of
+``video_analytics_tpu/ingest/windows.py`` (numpy only; cv2 is imported
+lazily, where a resize is needed).
 """
 
 from __future__ import annotations
@@ -77,3 +76,25 @@ def apply_transport_crop(frames: np.ndarray, cfg):
     frames, hw = slice_crop_source(frames, pp.resize_short, pp.crop)
     return frames, dataclasses.replace(
         cfg, preprocess=dataclasses.replace(pp, src_hw=hw))
+
+
+def host_resize_short(frames: np.ndarray, short: int) -> np.ndarray:
+    """(T, H, W, 3) uint8 → short side == `short`, by cv2 INTER_LINEAR on
+    the host; frames whose short side is already at most `short` pass
+    through.  The pipeline only consumes pixels at resize_short
+    resolution, so resizing before the host→device copy cuts the bytes
+    copied by ~(H/short)² for high-resolution clips, at the cost of host
+    CPU the decode thread already owns.  ``eval-ucf101 --batched`` does
+    this in its decode workers, then ``slice_crop_source`` on the result
+    (with the resized (H, W) as src_hw)."""
+    h, w = frames.shape[1:3]
+    if min(h, w) <= short:
+        return frames
+    import cv2
+    if h <= w:
+        nh, nw = short, max(1, int(round(w * short / h)))
+    else:
+        nh, nw = max(1, int(round(h * short / w))), short
+    return np.stack([
+        cv2.resize(f, (nw, nh), interpolation=cv2.INTER_LINEAR)
+        for f in frames])

@@ -22,7 +22,7 @@ Layout mapping (flax → torch):
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -124,6 +124,43 @@ def torch_to_flax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             slot("params", path)["bias"] = _n(value)
     if not out["batch_stats"]:
         del out["batch_stats"]
+    return out
+
+
+def torch_resnet_to_flax(sd: Mapping[str, Any],
+                         stage_sizes: Sequence[int] = (2, 2, 2, 2),
+                         include_fc: bool = True) -> Dict[str, Any]:
+    """A torch(vision) ResNet ``state_dict`` (tensors or numpy arrays) →
+    ``{"params", "batch_stats"}`` with numpy leaves, as the reference's
+    ``torch_resnet_to_flax`` returns it: the stem, the blocks of
+    `stage_sizes` (BasicBlock or Bottleneck, by the keys present) and,
+    with `include_fc`, the classifier; other keys are ignored.  Raises
+    KeyError where a block of `stage_sizes` is missing (the wrong
+    architecture)."""
+    blocks = [f"layer{stage + 1}.{block}."
+              for stage, n in enumerate(stage_sizes) for block in range(n)]
+    missing = [k for k in ["conv1.weight", "bn1.weight"]
+               + [b + "conv1.weight" for b in blocks] if k not in sd]
+    if missing:
+        raise KeyError(f"state_dict has no {missing[0]} (stage_sizes "
+                       f"{tuple(stage_sizes)})")
+    prefixes = ("conv1.", "bn1.", *blocks,
+                *(("fc.",) if include_fc and "fc.weight" in sd else ()))
+    kept = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
+            else v for k, v in sd.items() if k.startswith(prefixes)}
+    return torch_to_flax(kept)
+
+
+def inflate_stem_for_flow(variables: Mapping[str, Any],
+                          stack: int) -> Dict[str, Any]:
+    """Cross-modality init of the flow stream (Wang et al. 2016): the RGB
+    stem kernel averaged over its input channels and repeated across the
+    2·stack flow channels, which keeps the response's scale."""
+    out = {"params": dict(variables["params"]),
+           "batch_stats": dict(variables["batch_stats"])}
+    k = np.asarray(out["params"]["conv1"]["kernel"])   # (7, 7, 3, 64)
+    mean_k = k.mean(axis=2, keepdims=True)             # (7, 7, 1, 64)
+    out["params"]["conv1"] = {"kernel": np.repeat(mean_k, 2 * stack, axis=2)}
     return out
 
 

@@ -183,6 +183,20 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed: {msg} ({err})")
 
 
+GRID_YZ_MAX = 65535    # blocks a CUDA grid holds along y and along z
+
+
+def expect_grid_batch(n: int, what: str) -> None:
+    """Raise ValueError where `n`, the count a launch puts on its grid's
+    y or z dimension (images, frames or planes of a batch), passes the
+    65,535 that dimension holds: the launch would fail with a CUDA error
+    instead of computing the batch."""
+    if n > GRID_YZ_MAX:
+        raise ValueError(f"{what}: a batch of {n} puts {n} blocks on a grid "
+                         f"dimension that holds {GRID_YZ_MAX}; split the "
+                         f"batch")
+
+
 def expect(t, name: str, shape, device) -> None:
     """Raise unless `t` is a contiguous float32 tensor of `shape` on
     `device`: what every kernel wrapper takes, checked before a pointer

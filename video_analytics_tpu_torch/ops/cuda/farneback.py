@@ -201,6 +201,7 @@ def fb_prologue(frames: torch.Tensor, scale: float, out_hw: Tuple[int, int],
     lh, lw = out_hw
     dev = frames.device
     _build.expect(frames, "frames", (N, H, W), dev)
+    _build.expect_grid_batch(N, "fb_prologue")
     btaps = _smooth_taps(scale)
     g, xg, xxg, ig11, ig03, ig33, ig55 = _poly_exp_setup(poly_n, poly_sigma)
     if len(btaps) // 2 >= min(H, W):
@@ -275,6 +276,7 @@ def fb_warp_neq(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor
     _build.expect(flow, "flow", (B, 2, h, w), dev)
     _build.expect(R0, "R0", (B, 5, h, w), dev)
     _build.expect(R1, "R1", (B, 5, h, w), dev)
+    _build.expect_grid_batch(B, "fb_warp_neq")
     M = torch.empty((B, 5, h, w), dtype=torch.float32, device=dev)
     lib = _build.library()
     _build.check(lib.va_fb_warp_neq(
@@ -352,6 +354,7 @@ def sep_corr(x: torch.Tensor, taps: Sequence[float], axis: int,
     if solve and C != 5:
         raise ValueError(f"sep_corr: the solve epilogue needs C = 5, got {C}")
     _build.expect(x, "x", (B, C, h, w), x.device)
+    _build.expect_grid_batch(B if solve else B * C, "sep_corr")
     out = torch.empty((B, 2 if solve else C, h, w), dtype=torch.float32,
                       device=x.device)
     lib = _build.library()
@@ -399,6 +402,7 @@ def fb_window_solve(M: torch.Tensor, taps: Sequence[float]) -> torch.Tensor:
     B, _, h, w = M.shape
     _expect_taps(taps, "fb_window_solve", window_smem(len(taps), 1))
     _build.expect(M, "M", (B, 5, h, w), M.device)
+    _build.expect_grid_batch(B, "fb_window_solve")
     out = torch.empty((B, 2, h, w), dtype=torch.float32, device=M.device)
     lib = _build.library()
     _build.check(lib.va_fb_window_solve(
@@ -444,6 +448,7 @@ def fb_iteration(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
     _build.expect(flow, "flow", (B, 2, h, w), dev)
     _build.expect(R0, "R0", (B, 5, h, w), dev)
     _build.expect(R1, "R1", (B, 5, h, w), dev)
+    _build.expect_grid_batch(B, "fb_iteration")
     out = torch.empty_like(flow)
     lib = _build.library()
     _build.check(lib.va_fb_iteration(

@@ -90,6 +90,7 @@ def median5(x: torch.Tensor, k: int, active: Optional[torch.Tensor] = None,
         raise ValueError(f"median5 takes k = 3 or 5, got {k}")
     B, C, H, W = x.shape
     _build.expect(x, "x", (B, C, H, W), x.device)
+    _build.expect_grid_batch(B * C, "median5")
     if out is None:
         out = torch.empty_like(x)
     _build.expect(out, "out", (B, C, H, W), x.device)
@@ -181,6 +182,7 @@ def pd_step(prep: torch.Tensor, uv: torch.Tensor, p: torch.Tensor,
         _build.expect(t, name, (B, c, H, W), dev)
     if uv_out.data_ptr() == uv.data_ptr() or p_out.data_ptr() == p.data_ptr():
         raise ValueError("pd_step: outputs must not alias inputs")
+    _build.expect_grid_batch(B, "pd_step")
     _expect_active(active, B, dev)
     if partial is not None:
         _build.expect(partial, "partial", (B, pd_blocks(H, W)), dev)
@@ -370,6 +372,7 @@ def pd_solve_warp(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config,
     k = cfg.median_filtering if cfg.median_filtering > 1 else 0
     if k not in (0, 3, 5):
         raise ValueError(f"pd_solve_warp takes a median of 3 or 5, got {k}")
+    _build.expect_grid_batch(B, "pd_solve_warp")
     if rounds is not None:
         _expect_active(rounds, B, dev)
     out = torch.empty_like(uv)
@@ -445,6 +448,7 @@ def pd_solve_scale(i13: torch.Tensor, i0: torch.Tensor, uv: torch.Tensor,
     k = cfg.median_filtering if cfg.median_filtering > 1 else 0
     if k not in (0, 3, 5):
         raise ValueError(f"pd_solve_scale takes a median of 3 or 5, got {k}")
+    _build.expect_grid_batch(B, "pd_solve_scale")
     if rounds is not None and (
             rounds.dtype != torch.int32 or rounds.device != dev
             or tuple(rounds.shape) != (B, cfg.warps)
@@ -597,6 +601,7 @@ def pd_chunk(prep: torch.Tensor, state: torch.Tensor, act: torch.Tensor,
     _build.expect(state_out, "state_out", (B, 6, H, W), dev)
     if state_out.data_ptr() == state.data_ptr():
         raise ValueError("pd_chunk: state_out must not alias state")
+    _build.expect_grid_batch(B, "pd_chunk")
     n_bands = -(-H // band)
     _expect_band_flags(act, B, n_bands, dev)
     if prev_act is not None:

@@ -53,6 +53,7 @@ def warp_prep(i13: torch.Tensor, i0: torch.Tensor, uv: torch.Tensor
     _build.expect(uv, "uv", (B, 2, H, W), uv.device)
     _build.expect(i13, "i13", (B, 3, H, W), uv.device)
     _build.expect(i0, "i0", (B, H, W), uv.device)
+    _build.expect_grid_batch(B, "warp_prep")
     prep = torch.empty((B, 4, H, W), dtype=torch.float32, device=uv.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(uv.device).cuda_stream

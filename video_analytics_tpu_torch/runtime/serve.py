@@ -12,8 +12,8 @@ on stdout (responses carry the request's "id" when given):
     {"path": "/clip.mp4"}                 → classification
     {"path": "/clip.mp4", "id": 7, "topk": 5}
     {"paths": ["/a.mp4", "/b.mp4"]}       → {"results": [...]} — clips
-                                            decoded in order, then ONE
-                                            batched classify call
+                                            decoded on two threads, then
+                                            ONE batched classify call
     {"cmd": "ping"}                       → {"ok": true}
     {"cmd": "shutdown"}                   → {"ok": true}, then exit
 
@@ -25,7 +25,6 @@ serving.
 from __future__ import annotations
 
 import json
-import logging
 import sys
 import time
 from typing import Any, Dict, List, Optional
@@ -34,13 +33,15 @@ import numpy as np
 import torch
 
 from video_analytics_tpu_torch.config import PipelineConfig
+from video_analytics_tpu_torch.ingest.prefetch import prefetch_clips
 from video_analytics_tpu_torch.ingest.windows import (
     apply_transport_crop, host_normalize_square)
 from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
 from video_analytics_tpu_torch.runtime.pipeline import (
     classify_batch, classify_window, sample_window)
+from video_analytics_tpu_torch.utils.logging import get_logger
 
-log = logging.getLogger("tpuva_torch.serve")
+log = get_logger("tpuva.serve")
 
 
 class ClipServer:
@@ -163,8 +164,9 @@ class ClipServer:
 
     def classify_paths(self, paths: List[str],
                        topk: Optional[int] = None) -> Dict[str, Any]:
-        """Batch request: decode the clips in order on the host (a path
-        listed twice is decoded once), then one batched classify call.
+        """Batch request: decode the clips on two host threads
+        (``ingest.prefetch_clips``; a path listed twice is decoded once),
+        then one batched classify call over them in request order.
         Per-clip decode failures are contained as per-entry errors;
         results come back in request order.  normalize=False classifies
         clip by clip (heterogeneous resolutions cannot share a batch)."""
@@ -180,17 +182,19 @@ class ClipServer:
             return {"results": results,
                     "ms": round(1e3 * (time.perf_counter() - t0), 2)}
 
+        failures: List = []
         loaded: Dict[str, np.ndarray] = {}
-        errors: Dict[str, str] = {}
-        for p in dict.fromkeys(paths):
-            try:
-                loaded[p] = self._load_windows(p)
-            except Exception as e:          # contain: one bad clip
-                log.warning("decode failed: %s (%r)", p, e)
-                errors[p] = repr(e)
+        # A path listed twice is decoded and classified once; results fan
+        # back out by path below.
+        uniq = list(dict.fromkeys(paths))
+        for p, wins, _dt in prefetch_clips(uniq, self._load_windows,
+                                           num_workers=2,
+                                           error_log=failures):
+            loaded[p] = wins
+        errors = dict(failures)
         probs_by_path: Dict[str, np.ndarray] = {}
-        if loaded:
-            oks = list(loaded)
+        oks = [p for p in uniq if p in loaded]
+        if oks:
             probs = self._classify_many(np.stack([loaded[p] for p in oks]))
             probs_by_path = dict(zip(oks, probs))
         results = []
