@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments:
 
 It imports no JAX, and fails (non-zero exit, no result line) where
 ``torch.cuda.is_available()`` is false or the package is not beside it.
-OpenCV is needed by the phases that drive the command line (7, 9-11), as
+OpenCV is needed by the phases that drive the command line (7, 9-12), as
 by the commands themselves.  Phases, each reported on a JSON line:
 
 1. build: compile every CUDA kernel of the port from
@@ -120,14 +120,33 @@ by the commands themselves.  Phases, each reported on a JSON line:
    and of the Farneback run through the batch function with the kernels
    and with their plain versions (1e-6); clips/s of each run (host clock,
    decode included) and the device time of the ``tvl1_scale`` launches of
-   the 120- and 360-pair calls (torch.profiler).
+   the 120- and 360-pair calls (torch.profiler);
+12. train: ``train`` at full width (two ResNet-18s of width 64, crop 224,
+   ``flow_stack`` 10, batch 32, ``TVL1Config()``): ``build_examples`` on
+   32 in-memory 11-frame windows of 240x320 through the kernels and their
+   plain versions with the same crops (equal; 5 ``tvl1_scale`` launches,
+   or 3 K-D and 9 ``fb_iteration`` with Farneback, and nothing else); one
+   two-stream step on the card and on the CPU from the same weights and
+   examples (loss and accuracy within the printed tolerance; the last
+   BatchNorms' running variance against the biased-variance rule); the
+   command's loop (sampler, ``DevicePrefetcher``, ``train_iter``) with a
+   ``StageTimer`` (host wait, ``build_examples`` and its flow call, each
+   stream's step; ms per step from CUDA events; every prefetched batch
+   equal to its host batch; a step's device-busy share; peak memory); then
+   ``tpuva-torch train --stream both --steps 6``, decoding every window,
+   then with ``--cache-dir`` twice (filling it, then from it: no decode)
+   and ``--stream flow --algo farneback --steps 3``, the launch counts set
+   to 0 just before each and held to the expected numbers just after,
+   steps/s over steps 2-6 from CUDA events; the checkpoint read by
+   ``eval-ucf101 --batched`` and ``classify-clip``.
 
 Then it prints the kernel table (``{"kernels": [...]}``: for each kernel
 its launches on its main path and which path that is (``launches_from``:
 the serve requests; for K-A, K-C, K-G and ``band_flags`` the
 ``compute-flow`` command of phase 9; for K-D's blur pass the
 ``--fb-levels 4`` command of farneback_1080p; under
-``launches_eval_ucf101`` those of phase 11's commands; K-H, K-B, the ε reduction,
+``launches_eval_ucf101`` those of phase 11's commands, under
+``launches_train`` those of phase 12's; K-H, K-B, the ε reduction,
 K-E, ``sep_corr`` and ``fb_window_solve``, whose arithmetic the commands
 run inside ``tvl1_scale`` and ``fb_iteration`` or only at shapes no
 command here gives, are on no command's path: 0 launches, and under
@@ -405,6 +424,29 @@ def fb_expected(levels: int, iterations: int, calls: int = 1,
             "fb_window_solve": its if route == "window_solve" else 0,
             "sep_corr": its if route == "sep_corr" else 0,
             "sep_corr_x_solve": its if route == "sep_corr" else 0}
+
+
+def flow_counters():
+    """(zero, read) over the launch counts of every TV-L1 and Farneback
+    kernel wrapper: ``zero()`` sets them to 0, ``read()`` returns them by
+    kernel name."""
+    from video_analytics_tpu_torch.ops.cuda import farneback as fk
+    from video_analytics_tpu_torch.ops.cuda import tvl1_solve as ts
+    from video_analytics_tpu_torch.ops.cuda.warp import warp_prep
+
+    tv = {"tvl1_scale": ts.pd_solve_scale, "warp_prep": warp_prep,
+          "tvl1_pd_warp": ts.pd_solve_warp, "median5": ts.median5,
+          "tvl1_pd_step": ts.pd_step, "tvl1_eps_reduce": ts.eps_reduce,
+          "tvl1_pd_chunk": ts.pd_chunk, "tvl1_band_flags": ts.band_flags}
+
+    def zero():
+        zero_counts(tv)
+        zero_fb_counts(fk)
+
+    def read():
+        return {**read_counts(tv), **read_fb_counts(fk)}
+
+    return zero, read
 
 
 def serve_requests(server, frames, zero, read, per_request=None):
@@ -1542,21 +1584,28 @@ def tvl1_chunk_kernels_phase(torch, np, dev, sweep: bool):
             flag_err = max(flag_err, (errs[0] - errs[1]).abs().max().item())
         times["band_flags_ms"] = cuda_ms(torch, lambda: ts.band_flags(
             sums, on, errs[0], nxt[0], band, h, w, cfg.epsilon, True))
+        # With every band active (`on`, as timed): read the partials and
+        # the flags, write each band's error and next flag; one add per
+        # partial (va_band_flags in csrc/tvl1_pd_chunk.cu).
+        flags_bound = bound(4 * sums.numel() + 12 * on.numel(),
+                            sums.numel())
+        times["band_flags_bound_ms"], times["band_flags_bound_by"] = (
+            flags_bound)
         times["band_flags_plain_ms"] = cuda_ms(
             torch, lambda: ts.band_flags_plain(
                 sums, on, errs[1], nxt[1], band, h, w, cfg.epsilon, True))
+        report[f"{h}x{w}"].update(
+            {k: v for k, v in times.items() if k.startswith("band_flags")})
         if (h, w) == FULL_HD:
             table["tvl1_pd_chunk"] = (
                 max_err, (times["ms"], times["plain_ms"], None), (b_ms, b_by),
                 device_ms(torch, lambda: ts.pd_chunk(
                     prep, state, on, cfg, chunk, band, tile, halo, False,
                     out), "pd_chunk_kernel"))
-            # Read: the partials, the flags, the errors; written: errors and
-            # flags.  One add per partial.
             table["tvl1_band_flags"] = (
                 flag_err, (times["band_flags_ms"],
                            times["band_flags_plain_ms"], None),
-                bound(4 * sums.numel() + 16 * act.numel(), sums.numel()),
+                flags_bound,
                 device_ms(torch, lambda: ts.band_flags(
                     sums, on, errs[0], nxt[0], band, h, w, cfg.epsilon, True),
                     "band_flags_kernel"))
@@ -1916,25 +1965,13 @@ def eval_ucf101_phase(torch, np, dev):
     from video_analytics_tpu_torch.flow.farneback import _level_sizes
     from video_analytics_tpu_torch.io.synthetic import build_synthetic_ucf101
     from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
-    from video_analytics_tpu_torch.ops.cuda import farneback as fk
-    from video_analytics_tpu_torch.ops.cuda import tvl1_solve as ts
-    from video_analytics_tpu_torch.ops.cuda.warp import warp_prep
     from video_analytics_tpu_torch.runtime import evaluate as ev
     from video_analytics_tpu_torch.runtime.checkpoint import save_variables
 
     cfg = PipelineConfig()
     pairs = cfg.window - 1
     n_scales = len(SIZES)
-    tv_kernels = {"tvl1_scale": ts.pd_solve_scale, "warp_prep": warp_prep,
-                  "tvl1_pd_warp": ts.pd_solve_warp, "median5": ts.median5,
-                  "tvl1_pd_step": ts.pd_step,
-                  "tvl1_eps_reduce": ts.eps_reduce,
-                  "tvl1_pd_chunk": ts.pd_chunk,
-                  "tvl1_band_flags": ts.band_flags}
-
-    def read():
-        return {**read_counts(tv_kernels), **read_fb_counts(fk)}
-
+    zero, read = flow_counters()
     nothing = dict.fromkeys(read(), 0)
     # What the batch function was called with in a command (one call a
     # batch), and the order in which the decode workers handed the clips
@@ -1957,8 +1994,7 @@ def eval_ucf101_phase(torch, np, dev):
         """One command with every launch count set to 0 just before it and
         held to `expected` (the rest 0) just after."""
         del calls[:], streamed[:], started[:]
-        zero_counts(tv_kernels)
-        zero_fb_counts(fk)
+        zero()
         t0 = time.perf_counter()
         rc, res = run_cli(base + extra)
         torch.cuda.synchronize()
@@ -2123,6 +2159,347 @@ def eval_ucf101_phase(torch, np, dev):
     return total
 
 
+TRAIN_BATCH = 32           # train's --batch default
+TRAIN_STEPS = 6            # steps of each TV-L1 train command
+TRAIN_FB_STEPS = 3         # steps of the Farneback train command
+# One train step on the card against the same step on the CPU (cuDNN
+# against the CPU's convolutions, both float32 with TF32 off): the loss
+# to 1e-4 relative; the accuracy to one window of the batch (a near-tie
+# among 101 random-weight logits may fall either way).
+TOL_TRAIN_LOSS = 1e-4
+# The BatchNorm running variance against 0.9·old + 0.1·(the biased
+# variance of the layer's input, in float64): float32 sums over the batch.
+TOL_BN_VAR = 1e-5
+
+
+def train_windows(np, n: int, t: int, seed: int):
+    """n RGB windows of t frames at UCF101's 240x320, uint8: window b one
+    texture moving by VEL, its channels at different gains."""
+    out = []
+    for b in range(n):
+        planes = [scene(np, k, *NATIVE, seed=seed + b) for k in range(t)]
+        out.append(np.stack([np.stack([g * img for g in (1.0, 0.85, 0.7)],
+                                      axis=-1) for img in planes]))
+    return np.stack(out).round().astype(np.uint8)
+
+
+def train_phase(torch, np, dev):
+    """``train`` at full width: two ResNet-18s of width 64, 101 classes,
+    crop 224, ``flow_stack`` 10, batch 32, ``TVL1Config()``.
+
+    1. ``build_examples`` on 32 in-memory 11-frame windows of 240x320
+       through the kernels and through their plain versions, the same
+       crops: equal, with 5 ``tvl1_scale`` launches (TV-L1) and 3 K-D + 9
+       ``fb_iteration`` (Farneback) and nothing else;
+    2. one two-stream step from the same weights and examples on the card
+       and on the CPU: loss and accuracy within TOL_TRAIN_LOSS; the last
+       BatchNorm of each stream against the biased-variance rule;
+    3. the loop of the command (sampler, DevicePrefetcher, train_iter) on
+       a synthetic UCF101 with a StageTimer: ms per stage and per step,
+       every prefetched batch equal to its host batch; the device-busy
+       share of a step under torch.profiler; the peak memory;
+    4. ``tpuva-torch train`` decoding every window, twice with
+       ``--cache-dir`` (filling it, then from it: no decode) and once with
+       ``--algo farneback``, the
+       launch counts set to 0 just before each and held to the expected
+       numbers just after; steps/s over steps 2-6 from CUDA events; then
+       ``eval-ucf101 --batched`` and ``classify-clip`` on the checkpoint.
+
+    Returns the launches per kernel summed over the train commands."""
+    import copy
+    import tempfile
+
+    from video_analytics_tpu_torch.config import PipelineConfig
+    from video_analytics_tpu_torch.flow.farneback import _level_sizes
+    from video_analytics_tpu_torch.ingest.prefetch import DevicePrefetcher
+    from video_analytics_tpu_torch.ingest.train_loader import (
+        TrainWindowSampler)
+    from video_analytics_tpu_torch.io.synthetic import build_synthetic_ucf101
+    from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+    from video_analytics_tpu_torch.runtime import train_two_stream as tts
+    from video_analytics_tpu_torch.runtime.profiling import StageTimer
+
+    base = PipelineConfig()
+    cfg = dataclasses.replace(base, preprocess=dataclasses.replace(
+        base.preprocess, random_crop=True, random_flip=True))
+    fcfg = dataclasses.replace(cfg, flow_algo="farneback")
+    L = cfg.preprocess.flow_stack
+    n_scales = len(SIZES)
+    fb_levels = len(_level_sizes(cfg.preprocess.crop, cfg.preprocess.crop,
+                                 cfg.farneback))
+    zero, read = flow_counters()
+    nothing = dict.fromkeys(read(), 0)
+    fb_want = {**nothing, **fb_expected(fb_levels, cfg.farneback.iterations)}
+    tv_want = {**nothing, "tvl1_scale": n_scales}
+    report = {}
+
+    # 1. build_examples: kernels against plain versions.
+    host = train_windows(np, TRAIN_BATCH, L + 1, seed=40)
+    windows = torch.from_numpy(host).to(dev)
+    crops = tts.draw_crops(torch.Generator().manual_seed(0), windows, cfg)
+    check(bool(crops[2].any()) and not bool(crops[2].all()),
+          f"crop draws flip all or none: {crops[2].tolist()}")
+    examples = {}
+    for name, c, want in (("tvl1", cfg, tv_want), ("farneback", fcfg,
+                                                   fb_want)):
+        zero()
+        got = tts.build_examples(windows, c, "both", crops)
+        torch.cuda.synchronize()
+        launches = read()
+        check(launches == want,
+              f"build_examples ({name}) launched {launches}, expected {want}")
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        plain = tts.build_examples(windows, c, "both", crops, plain=True)
+        t1.record()
+        torch.cuda.synchronize()
+        check(read() == launches, "the plain build_examples launched kernels")
+        errs = {k: float((got[k] - plain[k]).abs().max()) for k in got}
+        check(all(torch.equal(got[k], plain[k]) for k in got),
+              f"build_examples ({name}) vs plain versions: {errs}")
+        crop = cfg.preprocess.crop
+        check(got["flow"].shape == (TRAIN_BATCH, crop, crop, 2 * L)
+              and got["rgb"].shape == (TRAIN_BATCH, crop, crop, 3)
+              and bool(torch.isfinite(got["flow"]).all()),
+              f"build_examples ({name}) shapes {got['flow'].shape}")
+        prof = device_profile(torch, lambda: tts.build_examples(
+            windows, c, "both", crops))
+        report[f"build_examples_{name}"] = {
+            "launches": launches, "max_abs_vs_plain": errs,
+            "ms": cuda_ms(torch, lambda: tts.build_examples(
+                windows, c, "both", crops), 3),
+            "plain_ms": t0.elapsed_time(t1),
+            "flow_kernels_device_ms": prof["port_kernels_device_ms"],
+            "device_busy_ms": prof["device_busy_ms"],
+            "pairs_per_flow_call": TRAIN_BATCH * L}
+        examples[name] = got
+
+    # 2. One step on the card and on the CPU from the same weights.
+    model = TwoStreamModel.create(num_classes=cfg.num_classes, flow_stack=L,
+                                  width=64).init(
+        torch.Generator().manual_seed(0))
+    cpu_model = copy.deepcopy(model)
+    model.to(dev)
+    y = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.num_classes, TRAIN_BATCH))
+    bns = {"rgb": model.spatial.layer4[-1].bn2,
+           "flow": model.temporal.layer4[-1].bn2}
+    seen = {}
+    hooks = [bn.register_forward_pre_hook(
+        lambda m, inp, k=k: seen.__setitem__(k, inp[0].detach().double()))
+        for k, bn in bns.items()]
+    old_var = {k: bn.running_var.detach().double().clone()
+               for k, bn in bns.items()}
+    card = tts.make_two_stream_train_steps(
+        tts.create_two_stream_states(model, 1e-3, "both"))
+    host_steps = tts.make_two_stream_train_steps(
+        tts.create_two_stream_states(cpu_model, 1e-3, "both"))
+    ex = examples["tvl1"]
+    step_cmp = {}
+    for k in ("rgb", "flow"):
+        got = {m: float(v) for m, v in card[k](ex[k], y.to(dev)).items()}
+        want = {m: float(v) for m, v in host_steps[k](ex[k].cpu(),
+                                                      y).items()}
+        rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        check(rel <= TOL_TRAIN_LOSS and abs(got["accuracy"]
+                                            - want["accuracy"])
+              <= 1.0 / TRAIN_BATCH + 1e-9,
+              f"train step ({k}) on the card {got}, on the CPU {want}")
+        var = seen[k].var(dim=(0, 2, 3), unbiased=False)
+        n = seen[k].numel() // seen[k].shape[1]
+        expect = 0.9 * old_var[k] + 0.1 * var
+        bn_err = float(((bns[k].running_var.double() - expect).abs()
+                        / expect).max())
+        unbiased_err = float(((0.9 * old_var[k] + 0.1 * var * n / (n - 1)
+                               - expect).abs() / expect).max())
+        check(bn_err <= TOL_BN_VAR,
+              f"BatchNorm running var ({k}): {bn_err} from the biased rule")
+        stream = model.spatial if k == "rgb" else model.temporal
+        other = cpu_model.spatial if k == "rgb" else cpu_model.temporal
+        step_cmp[k] = {"card": got, "cpu": want, "loss_rel_diff": rel,
+                       "bn_running_var_rel_err": bn_err,
+                       "unbiased_rule_would_differ_by": unbiased_err,
+                       "values_per_channel": n,
+                       "params_max_abs_diff_after_step": max(
+                           float((a.detach().cpu() - b.detach()).abs().max())
+                           for a, b in zip(stream.parameters(),
+                                           other.parameters()))}
+    for h in hooks:
+        h.remove()
+    report["step_card_vs_cpu"] = {**step_cmp, "tolerance_loss_rel":
+                                  TOL_TRAIN_LOSS, "tolerance_accuracy":
+                                  1.0 / TRAIN_BATCH,
+                                  "tolerance_bn_var_rel": TOL_BN_VAR}
+    del cpu_model, host_steps
+
+    runs, total = {}, dict(nothing)
+    with tempfile.TemporaryDirectory() as work:
+        ds = build_synthetic_ucf101(
+            os.path.join(work, "ucf101"), num_classes=EVAL_CLASSES,
+            clips_per_class=EVAL_CLIPS_PER_CLASS, num_frames=EVAL_FRAMES,
+            h=NATIVE[0], w=NATIVE[1], seed=0)
+
+        # 3. The command's loop, instrumented.
+        sent = []
+        sampler = TrainWindowSampler(
+            ds.train_records(), window=tts.train_window_len(cfg),
+            batch=TRAIN_BATCH, seed=0, max_frames=120, num_workers=2)
+
+        def host_batches():
+            for i, batch in enumerate(sampler.batches()):
+                if i >= TRAIN_STEPS:
+                    return
+                sent.append(batch)
+                yield batch
+
+        timer = StageTimer()
+        feed = DevicePrefetcher(host_batches(), depth=2, device=dev)
+        received, marks = [], []
+
+        def spy_feed():
+            for batch in feed:
+                received.append(batch)
+                yield batch
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            for _ in tts.train_iter(spy_feed(), card, cfg, "both",
+                                    torch.Generator().manual_seed(0),
+                                    timer=timer):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append(ev)
+        finally:
+            sampler.stop()
+            feed.close()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(len(received) == len(sent) == TRAIN_STEPS,
+              f"{len(received)} batches received, {len(sent)} sent")
+        for i, ((w, yy), (w_host, y_host)) in enumerate(zip(received, sent)):
+            check(w.device.type == dev.type
+                  and torch.equal(w.cpu(), torch.from_numpy(w_host))
+                  and torch.equal(yy.cpu(), torch.from_numpy(y_host)),
+                  f"prefetched batch {i} differs from its host batch")
+        step_ms = [start.elapsed_time(marks[0])] + [
+            a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        w0, y0 = received[-1]
+
+        def one_step():
+            e = tts.build_examples(w0, cfg, "both", tts.draw_crops(
+                torch.Generator().manual_seed(1), w0, cfg))
+            for k, step in card.items():
+                step(e[k], y0)
+
+        prof = device_profile(torch, one_step)
+        report["loop"] = {
+            "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+            "stages": timer.report(), "step_ms_cuda_events": step_ms,
+            "prefetched_batches_equal_host": True,
+            "prefetcher_stats": dict(feed.stats),
+            "sampler_stats": dict(sampler.stats),
+            "max_memory_allocated_bytes": peak,
+            "step_profile": {k: prof[k] for k in (
+                "profiled_wall_ms", "device_events", "device_sum_ms",
+                "device_busy_ms", "busy_share_of_profiled",
+                "port_kernels_device_ms")}}
+        del received, sent, w0, y0
+
+        # 4. The command.
+        ckpt = os.path.join(work, "trained.msgpack")
+        argv = ["train", "--videos", ds.videos_root, "--annotations",
+                ds.annotations_root, "--device", "cuda",
+                "--batch", str(TRAIN_BATCH), "--log-every", "1"]
+        real_iter = tts.train_iter
+        events = []
+
+        def iter_spy(*a, **kw):
+            for m in real_iter(*a, **kw):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append(ev)
+                yield m
+
+        def command(name, extra, steps, expected):
+            del events[:]
+            zero()
+            t0 = time.perf_counter()
+            rc, res = run_cli(argv + extra)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read()
+            want = {**nothing, **{k: v * steps for k, v in expected.items()}}
+            check(rc == 0 and res["steps"] == steps,
+                  f"train {extra} exited {rc}: {res}")
+            check(launches == want,
+                  f"train {extra} launched {launches}, expected {want}")
+            check(len(events) == steps, f"{len(events)} steps seen")
+            rate = (steps - 1) / (1e-3 * events[0].elapsed_time(events[-1]))
+            runs[name] = {"result": res, "launches": launches,
+                          "seconds": seconds,
+                          "step_ms": [a.elapsed_time(b) for a, b in
+                                      zip(events, events[1:])],
+                          f"steps_per_s_steps_2_to_{steps}": rate,
+                          f"windows_per_s_steps_2_to_{steps}":
+                          rate * TRAIN_BATCH}
+            for k, n in launches.items():
+                total[k] += n
+            return res
+
+        tts.train_iter = iter_spy
+        cache = ["--cache-dir", os.path.join(work, "cache")]
+        both = ["--stream", "both", "--steps", str(TRAIN_STEPS), "--out",
+                ckpt]
+        try:
+            # Every window decoded from its container; then the cache
+            # filled (each clip decoded once) and read.
+            res = command("decoding", both, TRAIN_STEPS,
+                          {"tvl1_scale": n_scales})
+            check(res["ingest"]["decodes"] >= TRAIN_STEPS * TRAIN_BATCH
+                  and res["ingest"]["cache_hits"] == 0 and all(
+                      f"final_loss_{k}" in res for k in ("rgb", "flow")),
+                  f"train, decoding: {res}")
+            res = command("cache_fill", both + cache, TRAIN_STEPS,
+                          {"tvl1_scale": n_scales})
+            check(res["ingest"]["decodes"] > 0,
+                  f"train, filling the cache: {res['ingest']}")
+            res = command("cached", both + cache, TRAIN_STEPS,
+                          {"tvl1_scale": n_scales})
+            check(res["ingest"]["decodes"] == 0
+                  and res["ingest"]["cache_hits"] > 0,
+                  f"train from the cache decoded: {res['ingest']}")
+            res = command("farneback", [
+                "--stream", "flow", "--algo", "farneback", "--steps",
+                str(TRAIN_FB_STEPS), "--out",
+                os.path.join(work, "flow.msgpack")], TRAIN_FB_STEPS,
+                fb_expected(fb_levels, cfg.farneback.iterations))
+            check(set(res) >= {"final_loss_flow"}
+                  and "final_loss_rgb" not in res, f"train flow: {res}")
+        finally:
+            tts.train_iter = real_iter
+        # The checkpoint in the other commands.
+        rc, ev_res = run_cli(["eval-ucf101", "--videos", ds.videos_root,
+                              "--annotations", ds.annotations_root,
+                              "--checkpoint", ckpt, "--batched",
+                              "--batch-clips", str(EVAL_BATCH), "--device",
+                              "cuda"])
+        check(rc == 0 and ev_res["total"] == len(ds.test_records())
+              and ev_res["failed"] == 0,
+              f"eval-ucf101 on the trained checkpoint: {rc} {ev_res}")
+        rc, cc_res = run_cli(["classify-clip", ds.test_records()[0].path,
+                              "--checkpoint", ckpt, "--device", "cuda"])
+        check(rc == 0 and 0 <= cc_res["top1"] < cfg.num_classes,
+              f"classify-clip on the trained checkpoint: {rc} {cc_res}")
+    report["commands"] = runs
+    report["eval_ucf101_on_checkpoint"] = ev_res
+    report["classify_clip_top1"] = cc_res["top1"]
+    emit({"phase": "train", **report})
+    return total
+
+
 def native_phases(torch, np, dev, chain: bool = True):
     """The native-resolution flow command and, with `chain`, the stage
     commands that read what it wrote, in one temporary directory.  Returns
@@ -2153,7 +2530,7 @@ def main(argv=None) -> int:
                     choices=["tvl1_warp_kernel", "farneback_kernels",
                              "farneback_1080p", "tvl1_midsize",
                              "tvl1_chunk_kernels", "tvl1_1080p",
-                             "stage_chain", "eval_ucf101"],
+                             "stage_chain", "eval_ucf101", "train"],
                     help="run the build and this phase alone (stage_chain "
                          "with tvl1_1080p, whose directories it reads), for "
                          "work on it; prints no result line")
@@ -2211,6 +2588,8 @@ def main(argv=None) -> int:
         tvl1_chunk_kernels_phase(torch, np, dev, args.sweep_chunk)
     elif args.only == "eval_ucf101":
         eval_ucf101_phase(torch, np, dev)
+    elif args.only == "train":
+        train_phase(torch, np, dev)
     elif args.only:
         native_phases(torch, np, dev, args.only == "stage_chain")
     if args.only:
@@ -2402,6 +2781,9 @@ def main(argv=None) -> int:
     # -- 11. eval-ucf101 ----------------------------------------------------
     eval_launches = eval_ucf101_phase(torch, np, dev)
 
+    # -- 12. train ----------------------------------------------------------
+    train_launches = train_phase(torch, np, dev)
+
     # -- the kernel table -----------------------------------------------------
     # TV-L1 bounds at 224², 15 pairs.  Planes moved: warp_prep reads I1 and
     # its gradients, I0 and the flow and writes 4; pd_step reads prep, the
@@ -2510,7 +2892,8 @@ def main(argv=None) -> int:
                           if name in mid_launches else {}),
                        **({"launches_farneback_1080p": fhd_launches[name]}
                           if name in fhd_launches else {}),
-                       "launches_eval_ucf101": eval_launches.get(name, 0)}
+                       "launches_eval_ucf101": eval_launches.get(name, 0),
+                       "launches_train": train_launches.get(name, 0)}
                       for name, source, replaces, also in rows]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -719,3 +719,71 @@ def test_farneback_wrappers_reject_bad_tensors(dev):
     with pytest.raises(ValueError, match="contiguous"):
         fk.fb_prologue(torch.zeros((2, 24, 16), device=dev).transpose(1, 2),
                        1.0, (16, 24), 5, 1.2)
+
+
+# -- the training path --------------------------------------------------------
+
+@pytest.mark.parametrize("algo", ["tvl1", "farneback"])
+def test_build_examples_kernels_match_plain(dev, algo):
+    """Both streams' examples of a batch of windows through the kernels
+    equal those through their plain versions, with the launches of the
+    sequence form: one ``tvl1_scale`` per pyramid scale, or per level one
+    K-D and an ``fb_iteration`` per iteration."""
+    from video_analytics_tpu_torch.config import (
+        PipelineConfig, PreprocessConfig)
+    from video_analytics_tpu_torch.runtime import train_two_stream as tts
+    cfg = PipelineConfig(
+        preprocess=PreprocessConfig(resize_short=36, crop=32, flow_stack=5,
+                                    random_crop=True, random_flip=True),
+        flow_algo=algo, tvl1=FAST,
+        farneback=FarnebackConfig(levels=2, iterations=2, winsize=9))
+    i0, _ = _images(dev, 6, 40, 56)
+    frames = torch.stack([i0.roll(t, dims=2) for t in range(6)], dim=1)
+    windows = frames[..., None].expand(-1, -1, -1, -1, 3).round().to(
+        torch.uint8)
+    crops = tts.draw_crops(torch.Generator().manual_seed(0), windows, cfg)
+    counters = ([ts.pd_solve_scale] if algo == "tvl1"
+                else [fk.fb_prologue, fk.fb_iteration])
+    before = [c.launches for c in counters]
+    got = tts.build_examples(windows, cfg, "both", crops)
+    runs = [c.launches - b for c, b in zip(counters, before)]
+    want = tts.build_examples(windows, cfg, "both", crops, plain=True)
+    from video_analytics_tpu_torch.flow import farneback as fb_flow
+    from video_analytics_tpu_torch.flow import tvl1 as tv_flow
+    if algo == "tvl1":
+        assert runs == [len(tv_flow._level_sizes(32, 32, FAST))]
+    else:
+        levels = len(fb_flow._level_sizes(32, 32, cfg.farneback))
+        assert runs == [levels, levels * cfg.farneback.iterations]
+    for k in ("rgb", "flow"):
+        assert got[k].is_cuda and torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_device_prefetcher_exact_bytes_with_slow_consumer(dev, depth):
+    """Batches of 48 MB through a prefetcher of depth 1 and 2: its pinned
+    buffers are refilled many times while the consumer is slow and keeps
+    the card busy; every batch arrives byte for byte."""
+    import time
+
+    from video_analytics_tpu_torch.ingest.prefetch import DevicePrefetcher
+    rng = np.random.default_rng(0)
+    host = [rng.integers(0, 256, (16, 1024, 1024, 3), dtype=np.uint8)
+            for _ in range(3)]
+    n = 10
+
+    def batches():
+        for i in range(n):
+            yield host[i % 3], np.int64(i), f"b{i}"
+
+    pf = DevicePrefetcher(batches(), depth=depth, device=dev)
+    got = 0
+    a = torch.randn((2048, 2048), device=dev)
+    for i, (x, j, name) in enumerate(pf):
+        for _ in range(20):
+            a = a @ a / 2048.0                    # keep the card busy
+        time.sleep(0.02)
+        assert x.is_cuda and int(j) == i and name == f"b{i}"
+        assert torch.equal(x.cpu(), torch.from_numpy(host[i % 3]))
+        got += 1
+    assert got == n and pf.stats["batches"] == n

@@ -3,8 +3,8 @@
 of ``video_analytics_tpu_torch`` and ``chip_smoke`` (OpenCV not among
 them: it is imported where a frame is decoded or resized), answers a serve
 request on the CPU from a clip written by the port's own
-``synthesize_video``, and writes, reads back and classifies from a
-checkpoint."""
+``synthesize_video``, writes, reads back and classifies from a
+checkpoint, and takes one two-stream train step."""
 
 import os
 import subprocess
@@ -30,7 +30,8 @@ assert len(names) >= 35, names
 for sub in ("io.video", "io.dataset", "io.flowio", "io.synthetic",
             "flow.farneback", "ops.cuda.farneback", "ops.cuda.tvl1_solve",
             "ingest.prefetch", "runtime.checkpoint", "runtime.evaluate",
-            "utils.logging"):
+            "utils.logging", "ingest.train_loader", "runtime.train",
+            "runtime.train_two_stream", "runtime.profiling"):
     assert pkg.__name__ + "." + sub in names, sub
 import chip_smoke                      # import only; main() needs a GPU
 assert "cv2" not in sys.modules        # imported where a frame is touched
@@ -68,6 +69,19 @@ with tempfile.TemporaryDirectory() as d:
     probs = [classify_clip_file(clip, m.eval(), cfg, "cpu")
              for m in (model, again)]
 assert probs[0].shape == (4,) and np.array_equal(probs[0], probs[1]), probs
+
+# One two-stream train step on windows of the clip's frames.
+import dataclasses
+from video_analytics_tpu_torch.runtime import train_two_stream as tts
+tcfg = dataclasses.replace(cfg, preprocess=dataclasses.replace(
+    cfg.preprocess, random_crop=True, random_flip=True))
+win = torch.from_numpy(np.stack([frames[:3], frames[1:4]]))
+states = tts.create_two_stream_states(model, 0.01, "both")
+ex = tts.build_examples(win, tcfg, "both", tts.draw_crops(
+    torch.Generator().manual_seed(0), win, tcfg))
+metrics = {k: step(ex[k], torch.tensor([0, 3]))
+           for k, step in tts.make_two_stream_train_steps(states).items()}
+assert all(np.isfinite(float(m["loss"])) for m in metrics.values()), metrics
 resp = json.loads(out.getvalue().splitlines()[0])
 assert resp["id"] == 3 and len(resp["results"]) == 2, resp
 for r in resp["results"]:

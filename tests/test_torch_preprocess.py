@@ -134,9 +134,26 @@ def test_preprocess_clip_matches(rng):
     ours = tp.preprocess_clip(torch.from_numpy(x), cfg).numpy()
     # 1e-3 on [0, 255] is 1e-3 / 255 / min(std) after normalisation.
     np.testing.assert_allclose(ours, ref, atol=1e-3 / 255 / 0.224)
-    with pytest.raises(NotImplementedError):
-        tp.preprocess_clip(torch.from_numpy(x),
-                           dataclasses.replace(cfg, random_crop=True))
+    # The training branch: resize, then the crop and flip that the
+    # reference draws from its key (split in 3: top, left, flip).
+    import jax
+    train = dataclasses.replace(cfg, random_crop=True, random_flip=True)
+    with pytest.raises(ValueError, match="crops"):
+        tp.preprocess_clip(torch.from_numpy(x), train)
+    h, w = tp.short_side_hw(80, 100, 72)
+    for seed in range(4):
+        key = jax.random.PRNGKey(seed)
+        k1, k2, k3 = jax.random.split(key, 3)
+        crops = (torch.tensor([int(jax.random.randint(k1, (), 0,
+                                                      h - 64 + 1))]),
+                 torch.tensor([int(jax.random.randint(k2, (), 0,
+                                                      w - 64 + 1))]),
+                 torch.tensor([bool(jax.random.bernoulli(k3))]))
+        ref = np.asarray(jp.preprocess_clip(
+            jnp.asarray(x),
+            jax_config.PreprocessConfig(**dataclasses.asdict(train)), key))
+        ours = tp.preprocess_clip(torch.from_numpy(x), train, crops).numpy()
+        np.testing.assert_allclose(ours, ref, atol=1e-3 / 255 / 0.224)
 
 
 def test_rgb_to_gray_and_flow_stacks_match(rng):

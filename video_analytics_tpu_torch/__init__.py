@@ -13,7 +13,8 @@ serve``) and the stage chain ``extract-frames`` → ``compute-flow`` (at the
 native resolution) → ``extract-features`` / ``classify-clip``, with
 checkpoints in the reference's msgpack format; the UCF101 evaluation
 ``eval-ucf101`` (sequential and batched, threaded decode) on the synthetic
-UCF101 or the real one, and ``convert-weights``.
+UCF101 or the real one, ``convert-weights``, and ``train`` (fine-tuning
+either or both streams on one GPU, the examples built on the device).
 
 Importing this package imports no JAX and nothing of the JAX package: it
 keeps its own copies of the configuration dataclasses (``config.py``) and

@@ -1,17 +1,19 @@
 """Command line of the PyTorch/CUDA port: ``tpuva-torch``.
 
 Port of the ``extract-frames``, ``compute-flow``, ``extract-features``,
-``classify-clip``, ``serve``, ``eval-ucf101`` and ``convert-weights``
-subcommands of ``video_analytics_tpu/cli/main.py``, with the same flags
-and the same JSON lines (less SpyNet and its ``--spynet-checkpoint``;
-less ``compute-flow``'s ``--exact`` and ``--no-bucket``, which choose
-between paths the port does not have: its warp is always the exact
-gather, its flow always at the native resolution; and less
-``eval-ucf101``'s multi-host flags) and, for ``serve``, the same
-stdin/stdout line protocol.  The model is initialised from a seed
-(``serve --seed``, 0 elsewhere) unless ``--checkpoint`` names a msgpack
-file, which either package may have written.  Every command that computes
-runs on the first CUDA device unless ``--device`` says otherwise.
+``classify-clip``, ``serve``, ``eval-ucf101``, ``convert-weights`` and
+``train`` subcommands of ``video_analytics_tpu/cli/main.py``, with the
+same flags and the same JSON lines (less SpyNet and its
+``--spynet-checkpoint``; less ``compute-flow``'s ``--exact`` and
+``--no-bucket``, which choose between paths the port does not have: its
+warp is always the exact gather, its flow always at the native
+resolution; and less the multi-host flags of ``eval-ucf101`` and
+``train``) and, for ``serve``, the same stdin/stdout line protocol.  The
+model is initialised from a seed (``serve --seed`` and ``train --seed``, 0
+elsewhere) unless ``--checkpoint`` (``train``: ``--init-checkpoint``)
+names a msgpack file, which either package may have written.  Every
+command that computes runs on the first CUDA device unless ``--device``
+says otherwise.
 
 Usage::
 
@@ -24,6 +26,8 @@ Usage::
     tpuva-torch eval-ucf101 --videos UCF101/videos \\
         --annotations UCF101/annotations --checkpoint two_stream.msgpack \\
         --batched
+    tpuva-torch train --videos UCF101/videos \\
+        --annotations UCF101/annotations --out two_stream.msgpack
     tpuva-torch serve --device cpu ...            # plain PyTorch, no kernels
 """
 
@@ -182,9 +186,10 @@ def _add_flow_args(p) -> None:
                     help="median kernel between warps (0/1/3/5)")
 
 
-def _add_model_args(p, window: bool = True) -> None:
+def _add_model_args(p, window: bool = True, inference: bool = True) -> None:
     """Args that determine the model/pipeline geometry: they must match
-    whatever wrote the checkpoint."""
+    whatever wrote the checkpoint.  `inference` adds the inference-only
+    ``--fold-bn`` and ``--checkpoint``."""
     p.add_argument("--num-classes", type=int, default=101)
     p.add_argument("--arch", choices=["resnet18", "resnet34", "resnet50"],
                    default="resnet18", help="backbone for both streams")
@@ -194,13 +199,14 @@ def _add_model_args(p, window: bool = True) -> None:
     p.add_argument("--resize-short", type=int, default=256)
     p.add_argument("--width", type=int, default=64,
                    help="ResNet base width (64 = standard ResNet-18)")
-    p.add_argument("--fold-bn", action="store_true",
-                   help="fold BatchNorms into conv weights at load "
-                        "time (inference only; exact f32 composition)")
-    p.add_argument("--checkpoint", default=None,
-                   help="msgpack checkpoint of both streams (written by "
-                        "this package or the JAX one); without it the "
-                        "weights are random")
+    if inference:
+        p.add_argument("--fold-bn", action="store_true",
+                       help="fold BatchNorms into conv weights at load "
+                            "time (inference only; exact f32 composition)")
+        p.add_argument("--checkpoint", default=None,
+                       help="msgpack checkpoint of both streams (written by "
+                            "this package or the JAX one); without it the "
+                            "weights are random")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' fails without a GPU")
     if window:
@@ -476,6 +482,95 @@ def cmd_convert_weights(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    """Fine-tune the two-stream model (``--stream rgb|flow|both``) on
+    UCF101-layout data and write a two-stream checkpoint that
+    ``classify-clip`` and ``eval-ucf101`` of either package load.
+
+    Decode worker threads sample random windows (``TrainWindowSampler``)
+    while the device runs the steps, and ``DevicePrefetcher`` copies batch
+    k+1 to the device while step k runs.  Each step builds both streams'
+    examples on the device (the flow through the kernels) and takes one
+    SGD step per trained stream.  ``--cache-dir`` caches decoded frames as
+    per-clip .npy, so later epochs decode no container.  The crop draws
+    come from a ``torch.Generator`` seeded with ``--seed``, so they differ
+    from the JAX command's."""
+    import dataclasses
+
+    import torch
+    from video_analytics_tpu_torch.ingest.prefetch import DevicePrefetcher
+    from video_analytics_tpu_torch.ingest.train_loader import (
+        DecodeWorkersExited, TrainWindowSampler)
+    from video_analytics_tpu_torch.io.dataset import UCF101
+    from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+    from video_analytics_tpu_torch.runtime import train_two_stream as tts
+    from video_analytics_tpu_torch.runtime.checkpoint import (
+        load_variables, save_variables)
+    from video_analytics_tpu_torch.utils.device import require_cuda
+    from video_analytics_tpu_torch.utils.logging import get_logger
+
+    if _spynet_refused(args):
+        return 2
+    log = get_logger("tpuva.train")
+    device = require_cuda(args.device)
+    cfg = _pipeline_config(args)
+    # Random crop always; horizontal flip unless --no-flip (flipped frames
+    # negate the flow's u: wrong for direction-sensitive labels).
+    cfg = dataclasses.replace(cfg, preprocess=dataclasses.replace(
+        cfg.preprocess, random_crop=True, random_flip=not args.no_flip))
+    ds = UCF101(videos_root=args.videos, annotations_root=args.annotations,
+                split=args.split)
+    records = ds.train_records()
+    model = TwoStreamModel.create(num_classes=args.num_classes,
+                                  flow_stack=cfg.preprocess.flow_stack,
+                                  width=args.width, arch=args.arch)
+    model.init(torch.Generator().manual_seed(args.seed))
+    if args.init_checkpoint:
+        model.load_flax_variables(load_variables(args.init_checkpoint,
+                                                 model.flax_variables()))
+    model.to(device)
+    states = tts.create_two_stream_states(model, args.lr, args.stream)
+    steps = tts.make_two_stream_train_steps(states)
+    sampler = TrainWindowSampler(
+        records, window=tts.train_window_len(cfg), batch=args.batch,
+        seed=args.seed, max_frames=args.max_frames,
+        num_workers=args.num_workers, cache_dir=args.cache_dir)
+
+    def host_batches():
+        for i, batch in enumerate(sampler.batches()):
+            if i >= args.steps:
+                return
+            yield batch
+
+    feed = DevicePrefetcher(host_batches(), depth=2, device=device)
+    metrics = None
+    n_done = 0
+    try:
+        for metrics in tts.train_iter(
+                feed, steps, cfg, args.stream,
+                torch.Generator().manual_seed(args.seed)):
+            n_done += 1
+            if n_done % args.log_every == 0:
+                log.info("step %d %s (queue ahead: %d)", n_done, " ".join(
+                    f"{k}: loss {float(m['loss']):.4f} "
+                    f"acc {float(m['accuracy']):.3f}"
+                    for k, m in metrics.items()), sampler.qsize())
+    except DecodeWorkersExited as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    finally:
+        sampler.stop()
+        feed.close()
+    save_variables(args.out, tts.two_stream_variables(model))
+    result = {"steps": n_done, "checkpoint": args.out,
+              "stream": args.stream, "ingest": dict(sampler.stats)}
+    if metrics is not None:
+        for k, m in metrics.items():
+            result[f"final_loss_{k}"] = float(m["loss"])
+    print(json.dumps(result))
+    return 0
+
+
 def cmd_serve(args) -> int:
     """Long-running classify server over a stdin/stdout line protocol
     (runtime/serve.py).  --warmup builds the kernels and runs the path
@@ -618,6 +713,42 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--batch-clips", type=int, default=8)
     _add_flow_args(ev)
     ev.set_defaults(fn=cmd_eval_ucf101)
+
+    tr = sub.add_parser("train",
+                        help="fine-tune the two-stream model on UCF101")
+    tr.add_argument("--videos", required=True)
+    tr.add_argument("--annotations", required=True)
+    tr.add_argument("--out", required=True, help="checkpoint output path")
+    tr.add_argument("--split", type=int, default=1)
+    tr.add_argument("--stream", choices=["rgb", "flow", "both"],
+                    default="both", help="which stream(s) to train")
+    tr.add_argument("--algo", choices=["tvl1", "farneback", "spynet"],
+                    default="tvl1",
+                    help="flow algorithm feeding the temporal stream "
+                         "(spynet is not ported yet)")
+    _add_model_args(tr, inference=False)
+    tr.add_argument("--max-frames", type=int, default=120,
+                    help="decode cap per training clip")
+    tr.add_argument("--num-workers", type=int, default=2,
+                    help="decode worker threads feeding the train loop")
+    tr.add_argument("--cache-dir", default=None,
+                    help="cache decoded frames as per-clip .npy here; "
+                         "later epochs skip container decode")
+    tr.add_argument("--batch", type=int, default=32)
+    tr.add_argument("--steps", type=int, default=1000)
+    tr.add_argument("--lr", type=float, default=1e-3)
+    tr.add_argument("--seed", type=int, default=0,
+                    help="seed of the initial weights, the window sampling "
+                         "and the crop draws")
+    tr.add_argument("--no-flip", action="store_true",
+                    help="disable horizontal-flip augmentation (needed "
+                         "for direction-sensitive label sets: flipping "
+                         "frames negates the flow u channel)")
+    tr.add_argument("--init-checkpoint", default=None,
+                    help="msgpack checkpoint of both streams to start from")
+    tr.add_argument("--log-every", type=int, default=20)
+    _add_flow_args(tr)
+    tr.set_defaults(fn=cmd_train)
 
     cw = sub.add_parser(
         "convert-weights",

@@ -8,6 +8,9 @@ fc), with torchvision's parameter names, so
 it one for one.  The flow-stream variant differs only in its stem's
 input channels (2·L stacked flow components).
 
+In training mode the BatchNorms keep the reference's (flax's) running
+statistics, the biased batch variance (``BatchNorm2d``).
+
 ``fold_bn=True`` is the inference-only folded form of the reference
 (``_conv_norm``): every convolution carries a bias, the folded
 BatchNorm's shift, and the norm slots are identities;
@@ -24,6 +27,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 
 def _conv(in_ch: int, out_ch: int, kernel: int, strides: int, padding: int,
@@ -31,8 +35,34 @@ def _conv(in_ch: int, out_ch: int, kernel: int, strides: int, padding: int,
     return nn.Conv2d(in_ch, out_ch, kernel, strides, padding, bias=fold_bn)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training mode keeps flax's statistics.
+
+    The reference's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` normalizes
+    a training batch with its mean and biased variance and updates
+    ``var ← 0.9·var + 0.1·biased_var``.  ``nn.BatchNorm2d`` normalizes the
+    same way but stores the unbiased variance, n/(n-1) times larger (4/3 at
+    the last stage of a batch of 4 at 1×1).  Here the normalization is
+    ``F.batch_norm`` with no running buffers (differentiable, cuDNN on the
+    card) and the buffers take the biased variance under ``no_grad``.  Eval
+    mode is ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(keep).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 def _norm(ch: int, fold_bn: bool) -> nn.Module:
-    return nn.Identity() if fold_bn else nn.BatchNorm2d(ch)
+    return nn.Identity() if fold_bn else BatchNorm2d(ch)
 
 
 def _downsample(in_ch: int, out_ch: int, strides: int, fold_bn: bool

@@ -1,12 +1,17 @@
 """Preprocessing on the device: resize → crop → normalize → stack.
 
-Port of ``video_analytics_tpu/ops/preprocess.py`` (the eval branch, which
-is what serving and the stage commands run).  Arrays stay NHWC at these
-public boundaries, as in the reference.  Numerics follow the same oracles:
+Port of ``video_analytics_tpu/ops/preprocess.py``: the eval branch, which
+serving and the stage commands run, and the training branch's random crop
+and flip.  Arrays stay NHWC at these public boundaries, as in the
+reference.  Numerics follow the same oracles:
 
 - resize: bilinear with half-pixel centers and no antialiasing —
   cv2.resize(INTER_LINEAR) semantics;
 - center crop: torchvision's rounding, top = round((H - c)/2);
+- random crop + flip: one offset and one flip per window, shared by its
+  frames; the draws come from an explicit ``torch.Generator`` on the host
+  (``sample_crop_flip``) and are applied on the device in one gather
+  (``crop_flip``), so a caller can also hand in another generator's draws;
 - normalize: x/255 → (x - mean)/std with ImageNet statistics.
 
 The fused resize + center crop is the reference's
@@ -47,7 +52,7 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     return torch.einsum("...hwc,ho,wp->...opc", x.float(), wh, ww)
 
 
-def _short_side_hw(h: int, w: int, short: int) -> Tuple[int, int]:
+def short_side_hw(h: int, w: int, short: int) -> Tuple[int, int]:
     """(h, w) scaled so that the short side equals `short`, keeping aspect
     (torchvision Resize(int) semantics)."""
     if h <= w:
@@ -58,7 +63,7 @@ def _short_side_hw(h: int, w: int, short: int) -> Tuple[int, int]:
 def resize_short_side(x: torch.Tensor, short: int) -> torch.Tensor:
     """Resize (..., H, W, C) so the short side equals `short`, keeping
     aspect."""
-    return resize_bilinear(x, _short_side_hw(x.shape[-3], x.shape[-2],
+    return resize_bilinear(x, short_side_hw(x.shape[-3], x.shape[-2],
                                              short))
 
 
@@ -83,7 +88,7 @@ def crop_source_geometry(h: int, w: int, short: int, crop: int):
     (resize_short_center_crop) and the host transport crop
     (ingest.windows.slice_crop_source).
     """
-    rh, rw = _short_side_hw(h, w, short)
+    rh, rw = short_side_hw(h, w, short)
     if rh < crop or rw < crop:
         raise ValueError(f"cannot center-crop {crop} from {(rh, rw)}")
     top = int(round((rh - crop) / 2.0))
@@ -154,15 +159,71 @@ def normalize(x: torch.Tensor, mean, std) -> torch.Tensor:
     return (x.float() / 255.0 - mean) / std
 
 
-def preprocess_clip(frames: torch.Tensor, cfg: PreprocessConfig
+def sample_crop_flip(generator: torch.Generator, batch: int, h: int, w: int,
+                     crop: int, flip: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Draw a random crop (and, with `flip`, a horizontal flip) for each of
+    `batch` windows of (h, w) frames: ``(tops, lefts, flips)``, int64,
+    int64 and bool tensors of shape (batch,) on the CPU, from `generator`.
+    Offsets are uniform over every crop that fits, as the reference's
+    ``random_crop_flip`` draws them; flips are fair coins, or all False."""
+    if h < crop or w < crop:
+        raise ValueError(f"cannot crop {crop} from {(h, w)}")
+    tops = torch.randint(0, h - crop + 1, (batch,), generator=generator)
+    lefts = torch.randint(0, w - crop + 1, (batch,), generator=generator)
+    if flip:
+        flips = torch.rand(batch, generator=generator) < 0.5
+    else:
+        flips = torch.zeros(batch, dtype=torch.bool)
+    return tops, lefts, flips
+
+
+def crop_flip(x: torch.Tensor, tops: torch.Tensor, lefts: torch.Tensor,
+              flips: torch.Tensor, crop: int) -> torch.Tensor:
+    """(B, T, H, W, C) windows → (B, T, crop, crop, C): window b cropped at
+    (tops[b], lefts[b]), the same offset for all its frames, and mirrored
+    along W where flips[b] — the reference's vmapped ``random_crop_flip``
+    given the same draws.  The draws are host tensors (checked there);
+    they cross to x's device in one copy, and one batched gather applies
+    them, with nothing waiting for the device."""
+    B, _, H, W, _ = x.shape
+    draws = torch.stack([tops.long(), lefts.long(), flips.long()])
+    if draws.shape != (3, B):
+        raise ValueError(f"expected {B} draws each, got {tuple(draws.shape)}")
+    if not (0 <= int(draws[:2].min()) and int(tops.max()) + crop <= H
+            and int(lefts.max()) + crop <= W):
+        raise ValueError(f"crop offsets outside {(H, W)} for crop {crop}")
+    draws = draws.to(x.device, non_blocking=True)
+    r = torch.arange(crop, device=x.device)
+    rows = draws[0, :, None] + r                              # (B, crop)
+    cols = draws[1, :, None] + torch.where(draws[2, :, None] != 0,
+                                           crop - 1 - r, r)
+    b = torch.arange(B, device=x.device)[:, None, None]
+    # Advanced indices on either side of the T slice: the broadcast
+    # (B, crop, crop) dimensions come first.
+    out = x[b, :, rows[:, :, None], cols[:, None, :]]       # (B, c, c, T, C)
+    return out.permute(0, 3, 1, 2, 4)
+
+
+def preprocess_clip(frames: torch.Tensor, cfg: PreprocessConfig,
+                    crops: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]] = None
                     ) -> torch.Tensor:
-    """(T, H, W, 3) uint8 RGB → (T, crop, crop, 3) normalized float32
-    (the eval transform; training's random crop is not ported yet)."""
+    """(T, H, W, 3) uint8 RGB → (T, crop, crop, 3) normalized float32.
+
+    With ``cfg.random_crop`` (training) the clip is resized and then
+    cropped and flipped by `crops`, the ``sample_crop_flip`` draws of a
+    batch of one (the reference's PRNG key); otherwise the eval transform,
+    resize + center crop."""
     if cfg.random_crop:
-        raise NotImplementedError(
-            "random_crop (training) is not ported yet; see ROADMAP.md")
-    x = resize_short_center_crop(frames, cfg.resize_short, cfg.crop,
-                                 src_hw=cfg.src_hw)
+        if crops is None:
+            raise ValueError("random_crop requires the drawn crops "
+                             "(sample_crop_flip)")
+        x = resize_short_side(frames, cfg.resize_short)
+        x = crop_flip(x[None], *crops, cfg.crop)[0]
+    else:
+        x = resize_short_center_crop(frames, cfg.resize_short, cfg.crop,
+                                     src_hw=cfg.src_hw)
     return normalize(x, cfg.mean, cfg.std)
 
 

@@ -99,8 +99,10 @@ def _crop(frames: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
     the eval resize + center crop that both streams start from."""
     pre = cfg.preprocess
     if pre.random_crop:
-        raise NotImplementedError(
-            "random_crop (training) is not ported yet; see ROADMAP.md")
+        # The reference's inference paths take the center crop only; the
+        # random crop belongs to training (train_two_stream.build_examples).
+        raise ValueError("random_crop is a training transform; inference "
+                         "takes the center crop")
     return pp.resize_short_center_crop(frames, pre.resize_short, pre.crop,
                                        src_hw=pre.src_hw)
 
