@@ -71,11 +71,15 @@ by the commands themselves.  Phases, each reported on a JSON line:
    15 ``.flo`` files, one read back; farneback_1080p: the same command on
    3 frames of 1080×1920 with ``--fb-levels 4`` (its 1/16 level pre-blurs
    with 39 taps: K-D in two launches, the blur pass ``fb_prologue_blur``
-   first) and with ``--fb-winsize 33``, counts held to the expected
-   numbers and every ``.flo`` equal to the plain path's flow; K-D at 39 and
-   79 taps and the three window routes (33, 75, 201 taps: ``fb_iteration``;
-   K-E + ``fb_window_solve``; K-E + ``sep_corr`` twice) against their plain
-   versions;
+   first), with ``--fb-winsize 33`` and with ``--fb-winsize 201`` (K-E and
+   ``sep_corr`` along y and along x with the solve at every iteration),
+   counts held to the expected numbers and every ``.flo`` equal to the
+   plain path's flow; K-D at 39 and 79 taps and the three window routes
+   (33, 75, 201 and 1,401 taps: ``fb_iteration``; K-E +
+   ``fb_window_solve``; K-E + ``sep_corr`` twice) against their plain
+   versions; ``sep_corr`` at 201 taps at the 1/8 level and at 1080×1920
+   (2 pairs), both passes equal to their plain versions, timed beside the
+   plain versions and one ``nn.Conv2d`` (replicate padding, TF32 off);
 8. tvl1_chunk_kernels: K-G ``pd_chunk`` (several primal-dual iterations
    per launch on shared-memory tiles) against its plain version at the
    five TV-L1 level sizes of a 1080×1920 frame (2 pairs), with and without
@@ -98,7 +102,9 @@ by the commands themselves.  Phases, each reported on a JSON line:
    just before and held to the expected numbers just after (K-G on every
    level, the per-iteration kernels not at all); the first pair's flow
    against the plain path's and the scene's motion; one flow call of 2
-   pairs timed and profiled;
+   pairs timed and profiled; K-C at the five levels of that call (2 pairs,
+   ties and zeros of both signs) equal to its plain version, timed beside
+   it with its bound;
 10. stage_chain: a checkpoint written from seed 0 and read back, then
    ``extract-features`` on the flow directory of phase 9 and on its
    frames, and ``classify-clip --checkpoint ... --windows 3`` on a 1080p
@@ -144,17 +150,18 @@ Then it prints the kernel table (``{"kernels": [...]}``: for each kernel
 its launches on its main path and which path that is (``launches_from``:
 the serve requests; for K-A, K-C, K-G and ``band_flags`` the
 ``compute-flow`` command of phase 9; for K-D's blur pass the
-``--fb-levels 4`` command of farneback_1080p; under
-``launches_eval_ucf101`` those of phase 11's commands, under
-``launches_train`` those of phase 12's; K-H, K-B, the ε reduction,
-K-E, ``sep_corr`` and ``fb_window_solve``, whose arithmetic the commands
-run inside ``tvl1_scale`` and ``fb_iteration`` or only at shapes no
-command here gives, are on no command's path: 0 launches, and under
-``check_launches`` those of the phase that holds them against their plain
-versions; ``sep_corr``'s two instantiations, the one-plane
+``--fb-levels 4`` command of farneback_1080p, for K-E and ``sep_corr``
+its ``--fb-winsize 201`` command; under ``launches_eval_ucf101`` those
+of phase 11's commands, under ``launches_train`` those of phase 12's;
+K-H, K-B, the ε reduction and ``fb_window_solve``, whose arithmetic the
+commands run inside ``tvl1_scale`` and ``fb_iteration`` or only at
+shapes no command here gives, are on no command's path: 0 launches, and
+under ``check_launches`` those of the phase that holds them against
+their plain versions; ``sep_corr``'s two instantiations, the one-plane
 correlation and the five-plane one with the solve epilogue, have a row
-each), its time paced by the host's launches (``ms``: CUDA events around
-20 calls of the wrapper), its own duration on the device (``device_ms``:
+each, timed at 201 taps at 1080×1920, the library's convolution along
+the same axis beside each), its time paced by the host's launches
+(``ms``: CUDA events around 20 calls of the wrapper), its own duration on the device (``device_ms``:
 the kernel's summed device time over its launches under
 ``torch.profiler``), its plain version's time, the time
 of one PyTorch call that computes the same function where there is one,
@@ -201,6 +208,7 @@ NATIVE = (240, 320)    # UCF101's native frame size, for compute-flow
 CF_BATCH = 8           # compute-flow's --batch: frame pairs per flow call
 FB_FRAMES = 16
 
+CARD = {}              # nvidia-smi's "name, power.limit", set by main()
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published peak
 F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
 
@@ -212,6 +220,18 @@ def bound(nbytes: float, flops: float):
     by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     by_ops = 1e3 * flops / F32_FLOP_PER_S
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def median_ops(k: int) -> float:
+    """min/max operations an output of K-C takes: its generated tile
+    schedule's count over the tile's outputs."""
+    from video_analytics_tpu_torch.ops.median import (
+        MEDIAN_TILE, separable_median_schedule)
+    return (len(separable_median_schedule(k)[2])
+            / (MEDIAN_TILE[0] * MEDIAN_TILE[1]))
+
+
+BATCHER_25 = 113       # compare-exchanges of the pruned network K-C ran
 
 
 def emit(obj) -> None:
@@ -902,6 +922,10 @@ def farneback_1080p_phase(torch, np, dev):
             check(lib.va_fb_window_smem(n, neq)
                   == (want if want <= 232448 else -1),
                   f"window_smem({n}, {planes}) is not the library's")
+    for planes in (1, 5):
+        check(lib.va_sep_corr_smem(planes)
+              == fk.sep_corr_smem(1401, 1, planes),
+              f"sep_corr_smem for {planes} planes is not the library's")
     planes = [scene(np, t, H, W, seed=9, fmax=FB_FMAX)
               for t in range(FB_HD_FRAMES)]
     frames = np.stack([np.stack([g * img for g in (1.0, 0.85, 0.7)], axis=-1)
@@ -911,7 +935,8 @@ def farneback_1080p_phase(torch, np, dev):
         src = os.path.join(tmp, "frames")
         write_frames(frames, src)
         gray = rgb_to_gray(torch.from_numpy(_load_frames(src, None)).to(dev))
-        for flag, value in (("--fb-levels", 4), ("--fb-winsize", 33)):
+        for flag, value in (("--fb-levels", 4), ("--fb-winsize", 33),
+                            ("--fb-winsize", 201)):
             cfg = FarnebackConfig(**{flag[5:]: value})
             levels = _level_sizes(H, W, cfg)
             forms = [fk.prologue_form(H, W, lh, lw, sc, cfg.poly_n)
@@ -1009,7 +1034,7 @@ def farneback_1080p_phase(torch, np, dev):
     flow = 2.0 * torch.randn((R0.shape[0], 2, lh, lw), device=dev,
                              generator=g)
     routes = {}
-    for n in (33, 75, 201):
+    for n in (33, 75, 201, 1401):
         taps = [1.0 / n] * n
         zero_fb_counts(fk)
         got = fk.fb_iterate(R0, R1, flow, taps)
@@ -1024,11 +1049,86 @@ def farneback_1080p_phase(torch, np, dev):
         routes[n] = {"route": route, "launches": counts,
                      "ms": cuda_ms(torch, lambda: fk.fb_iterate(
                          R0, R1, flow, taps), 5)}
+
+    # K-F where the window route takes it, 201 taps: at the 1/8 level and at
+    # 1080x1920, 2 pairs, along y and along x with the solve.
+    sep, kf, eighth = {}, {}, (lh, lw)
+    for lh, lw in (eighth, (H, W)):
+        R = fk.fb_prologue_plain(gray, lh / H, (lh, lw), cfg.poly_n,
+                                 cfg.poly_sigma)
+        fl = 2.0 * torch.randn((R.shape[0] - 1, 2, lh, lw), device=dev,
+                               generator=g)
+        M = fk.fb_warp_neq_plain(R[:-1].contiguous(), R[1:].contiguous(), fl)
+        del R, fl
+        sep[f"{lh}x{lw}"], rows = sep_corr_at(torch, M, 201)
+        if (lh, lw) == (H, W):
+            kf = rows
+        del M
     emit({"phase": "farneback_1080p", "frames": FB_HD_FRAMES,
           "commands": report, "fb_prologue_two_launch_form": kd,
-          "window_routes_at": [lh, lw], "window_routes": routes,
-          "tolerance": TOL_FB})
-    return total, {"fb_prologue_blur": table}
+          "window_routes_at": list(eighth), "window_routes": routes,
+          "sep_corr_201_taps": sep, "tolerance": TOL_FB, **CARD})
+    return total, {"fb_prologue_blur": table, **kf}
+
+
+def sep_corr_at(torch, M, n: int):
+    """K-F with n box taps on the normal-equation planes M (B, 5, h, w):
+    along y, and along x with the solve, each equal to its plain version,
+    timed (paced and device), with the plain version's time, the library's
+    (one ``nn.Conv2d`` with replicate padding, TF32 off, along the same
+    axis, checked against the plain correlation) and the bound (2
+    operations a tap, output and plane, against the bytes).  Returns (the
+    numbers by pass, {kernel row: (max_abs_err, (ms, plain_ms,
+    library_ms), bound, device_ms)})."""
+    import torch.nn as nn
+
+    from video_analytics_tpu_torch.ops.cuda import farneback as fk
+    from video_analytics_tpu_torch.ops.kernels import farneback_window_taps
+
+    B, _, h, w = M.shape
+    taps = farneback_window_taps(n, False)
+    px = B * h * w
+    bounds = {"sep_corr": bound(2 * 4 * 5 * px, 2 * n * 5 * px),
+              "sep_corr_x_solve": bound(7 * 4 * px, (2 * n * 5 + 12) * px)}
+    numbers, rows = {}, {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, axis, solve in (("sep_corr", 0, False),
+                                  ("sep_corr_x_solve", 1, True)):
+            got = fk.sep_corr(M, taps, axis, solve)
+            want = fk.sep_corr_plain(M, taps, axis, solve)
+            check(torch.equal(got, want),
+                  f"{name} with {n} taps at {h}x{w} is not the plain "
+                  f"version's")
+            shape = (n, 1) if axis == 0 else (1, n)
+            pad = (n // 2, 0) if axis == 0 else (0, n // 2)
+            conv = nn.Conv2d(1, 1, shape, padding=pad, padding_mode="replicate",
+                             bias=False).to(M.device)
+            planes = M.reshape(B * 5, 1, h, w)
+            with torch.no_grad():
+                conv.weight.copy_(torch.tensor(taps).view(1, 1, *shape))
+                e = (conv(planes).reshape(M.shape)
+                     - fk.sep_corr_plain(M, taps, axis)).abs().max().item()
+                check(e <= 1e-5 * M.abs().max().item(),
+                      f"the library convolution is not sep_corr at {h}x{w}: "
+                      f"{e}")
+                library_ms = cuda_ms(torch, lambda: conv(planes), 3)
+            times = (cuda_ms(torch, lambda: fk.sep_corr(M, taps, axis, solve),
+                             10),
+                     cuda_ms(torch, lambda: fk.sep_corr_plain(M, taps, axis,
+                                                              solve), 2),
+                     library_ms)
+            dev_ms = device_ms(torch, lambda: fk.sep_corr(M, taps, axis, solve),
+                               "sep_corr_kernel", 3)
+            rows[name] = (0.0, times, bounds[name], dev_ms)
+            numbers[name] = {"ms": times[0], "device_ms": dev_ms,
+                             "plain_ms": times[1], "library_ms": library_ms,
+                             "bound_ms": bounds[name][0],
+                             "bound_by": bounds[name][1]}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return numbers, rows
 
 
 def tvl1_level_inputs(torch, np, dev, h, w, pairs):
@@ -1691,6 +1791,45 @@ def run_cli(argv):
     return rc, json.loads(lines[-1]) if lines else None
 
 
+def median_levels(torch, dev, pairs: int = 2):
+    """K-C at k = 5 at the five TV-L1 levels of 1080x1920, `pairs` pairs
+    of (u, v) planes with ties, a constant region and zeros of both signs,
+    every image active (as the scale-end median of a flow call runs it):
+    equal to the plain version by value, its device duration and the plain
+    version's time, and the bound, with the pruned Batcher network's
+    operations beside it.  Returns {level: numbers}."""
+    from video_analytics_tpu_torch.config import TVL1Config
+    from video_analytics_tpu_torch.flow.tvl1 import _level_sizes
+    from video_analytics_tpu_torch.ops.cuda import tvl1_solve as ts
+
+    g = torch.Generator(dev).manual_seed(21)
+    on = torch.ones(pairs, dtype=torch.int32, device=dev)
+    report = {}
+    for h, w in _level_sizes(*FULL_HD, TVL1Config()):
+        uv = torch.round(4.0 * torch.randn((pairs, 2, h, w), device=dev,
+                                           generator=g)) / 2.0
+        uv[:, :, : h // 3, : w // 3] = 1.5
+        uv[torch.rand(uv.shape, device=dev, generator=g) < 0.1] = -0.0
+        out = torch.empty_like(uv)
+        check(torch.equal(ts.median5(uv, 5, on, out=out),
+                          ts.median5_plain(uv, 5, on)),
+              f"median5 at {h}x{w} is not the plain version's")
+        px = pairs * 2 * h * w
+        b = bound(8 * px, median_ops(5) * px)
+        report[f"{h}x{w}"] = {
+            "device_ms": device_ms(torch, lambda: ts.median5(uv, 5, on,
+                                                            out=out),
+                                   "median_kernel"),
+            "ms": cuda_ms(torch, lambda: ts.median5(uv, 5, on, out=out), 10),
+            "plain_ms": cuda_ms(torch, lambda: ts.median5_plain(uv, 5, on),
+                                2),
+            "bound_ms": b[0], "bound_by": b[1],
+            "bound_ms_batcher_network": bound(
+                8 * px, 2 * BATCHER_25 * px)[0]}
+        del uv, out
+    return report
+
+
 def tvl1_1080p_phase(torch, np, dev, work: str):
     """``compute-flow --algo tvl1`` with ``TVL1Config()`` on a frames
     directory of 1080x1920 frames under `work`, with the launch counts of
@@ -1790,6 +1929,7 @@ def tvl1_1080p_phase(torch, np, dev, work: str):
         call_ms = cuda_ms(torch, flow_call, 2)
         chain_ms = cuda_ms(torch, chain_call, 2)
         prof = device_profile(torch, flow_call)
+    medians = median_levels(torch, dev)
     emit({"phase": "tvl1_1080p", "frames": HD_FRAMES, "batch": CF_BATCH,
           "command_seconds": seconds,
           "command_seconds_per_pair": seconds / (HD_FRAMES - 1),
@@ -1803,7 +1943,8 @@ def tvl1_1080p_phase(torch, np, dev, work: str):
           "flow_call_ms_per_iteration_path": chain_ms,
           "max_abs_vs_per_iteration_path": chain_dev,
           "busy_share_of_unprofiled": prof["device_busy_ms"] / call_ms,
-          "profile": prof})
+          "profile": prof, "median5_min_max_per_output": median_ops(5),
+          "median5_levels_2_pairs": medians, **CARD})
     return launches, src, out
 
 
@@ -2562,6 +2703,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    CARD["card"] = gpu
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "nvidia_smi": gpu, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
@@ -2789,24 +2931,25 @@ def main(argv=None) -> int:
     # its gradients, I0 and the flow and writes 4; pd_step reads prep, the
     # flow and the dual (10) and writes 6; median5 reads and writes u, v;
     # eps_reduce reads the per-block sums.  Operations per pixel: 3
-    # bilinear samples and the prep (~45); one primal-dual step (~70); 113
-    # compare-exchanges of a min and a max per plane.  pd_solve_warp's and
-    # tvl1_scale's are those of the rounds their images took (warp_bound,
-    # scale_bound).  Launches are those of the serve requests where the
-    # serve path runs the kernel; tvl1_scale's also on the mid-size
-    # commands' path (launches_tvl1_midsize); K-A, K-C, K-G and band_flags
-    # on the 1080p TV-L1 command's; K-D's blur pass on the 1080p Farneback
-    # command's (--fb-levels 4); K-H, K-B, the ε reduction, K-E, sep_corr
-    # and fb_window_solve are on no command's path (tvl1_scale and
-    # fb_iteration hold their arithmetic; K-B and ε take only a level too
-    # wide for a cluster; K-E, sep_corr and fb_window_solve only windows
-    # beyond 73 taps): their launches are 0, and check_launches counts
-    # those of the phase that holds them against their plain versions.
+    # bilinear samples and the prep (~45); one primal-dual step (~70); the
+    # min/max of K-C's generated tile schedule per plane (median_ops).
+    # pd_solve_warp's and tvl1_scale's are those of the rounds their images
+    # took (warp_bound, scale_bound).  Launches are those of the serve
+    # requests where the serve path runs the kernel; tvl1_scale's also on
+    # the mid-size commands' path (launches_tvl1_midsize); K-A, K-C, K-G and
+    # band_flags on the 1080p TV-L1 command's; K-D's blur pass on the 1080p
+    # Farneback command's (--fb-levels 4), K-E and sep_corr on its
+    # --fb-winsize 201 command's; K-H, K-B, the ε reduction and
+    # fb_window_solve are on no command's path (tvl1_scale and fb_iteration
+    # hold their arithmetic; K-B and ε take only a level too wide for a
+    # cluster; fb_window_solve only windows of 75-193 taps): their launches
+    # are 0, and check_launches counts those of the phase that holds them
+    # against their plain versions.
     px = PAIRS * SIZES[0] * SIZES[0]
     blocks = ts.pd_blocks(SIZES[0], SIZES[0])
     bounds = {"warp_prep": bound(10 * 4 * px, 45 * px),
               "tvl1_pd_step": bound(16 * 4 * px, 70 * px),
-              "median5": bound(4 * 4 * px, 2 * 2 * 113 * px),
+              "median5": bound(4 * 4 * px, 2 * median_ops(5) * px),
               "tvl1_eps_reduce": bound(4 * PAIRS * blocks + 8 * PAIRS,
                                        PAIRS * blocks),
               **fb_bounds,
@@ -2860,7 +3003,6 @@ def main(argv=None) -> int:
             ("fb_iteration", "fb_window_solve.cu", fbk + "946",
              [fbk + "826"])]
     off_path = ("tvl1_pd_warp", "tvl1_pd_step", "tvl1_eps_reduce",
-                "fb_warp_neq", "sep_corr", "sep_corr_x_solve",
                 "fb_window_solve")
     for name, *_ in rows:
         if name in off_path:

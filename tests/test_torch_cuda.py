@@ -74,13 +74,50 @@ def test_warp_prep_matches_plain(dev):
     assert torch.equal(got, warp_prep_plain(i13, i0, uv))
 
 
+def _median_planes(dev, b, h, w, seed=0):
+    """(b, 2, h, w) flow planes with what a selection network can get
+    wrong: ties (values on a coarse grid), a constant region, and zeros of
+    both signs."""
+    g = torch.Generator(dev).manual_seed(seed)
+    uv = torch.round(4.0 * torch.randn((b, 2, h, w), device=dev,
+                                       generator=g)) / 2.0
+    uv[:, :, : h // 3, : w // 3] = 1.5
+    zeros = torch.rand((b, 2, h, w), device=dev, generator=g) < 0.2
+    signs = torch.where(torch.rand((b, 2, h, w), device=dev, generator=g)
+                        < 0.5, -1.0, 1.0)
+    return torch.where(zeros, 0.0 * signs, uv).contiguous()
+
+
 @pytest.mark.parametrize("k", [3, 5])
-def test_median5_bit_exact_with_mask(dev, k):
-    _, _, uv = _level(dev, b=4)
+@pytest.mark.parametrize("h,w", [(37, 53), (5, 7), (2, 40), (40, 3), (1, 1),
+                                 (70, 130), (1080, 1920)])
+def test_median5_bit_exact_with_mask(dev, k, h, w):
+    """Equal by value (torch.equal: -0 equals +0) to the plain version, on
+    planes narrower than a block's 32 columns or shorter than a thread's 8
+    rows or than k, and at the full 1080p level; a masked image passes
+    through."""
+    uv = _median_planes(dev, 4, h, w, seed=h * w)
+    if (h, w) == (37, 53):
+        _, _, uv = _level(dev, b=4)
     active = torch.tensor([1, 0, 0, 1], dtype=torch.int32, device=dev)
     for mask in (None, active):
-        assert torch.equal(ts.median5(uv, k, mask),
-                           ts.median5_plain(uv, k, mask))
+        got = ts.median5(uv, k, mask)
+        assert torch.equal(got, ts.median5_plain(uv, k, mask))
+    assert torch.equal(got[1:3], uv[1:3])
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_median5_unaligned_rows(dev, k):
+    """Rows of a multiple of four floats that start 4 bytes past a 16-byte
+    boundary take the one-float loads, not the 16-byte ones."""
+    uv = _median_planes(dev, 2, 24, 64, seed=k)
+    store = torch.empty(uv.numel() + 1, device=dev)
+    x = store[1:].view(uv.shape)
+    x.copy_(uv)
+    out = torch.empty(uv.numel() + 1, device=dev)[1:].view(uv.shape)
+    active = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    assert torch.equal(ts.median5(x, k, active, out=out),
+                       ts.median5_plain(uv, k, active))
 
 
 @pytest.mark.parametrize("epsilon", [0.01, 0.0])
@@ -548,7 +585,7 @@ def test_fb_prologue_two_launch_form_matches_plain(dev, hw, scale, out_hw,
                                                  1.5))
 
 
-@pytest.mark.parametrize("winsize", [33, 75, 201])
+@pytest.mark.parametrize("winsize", [33, 75, 201, 1401])
 def test_long_windows_match_plain(dev, winsize):
     """Every window length runs on kernels (``window_route``), each of the
     three compositions equal to the plain iteration."""
@@ -609,8 +646,9 @@ def test_fb_warp_neq_matches_plain(dev, h, w):
     assert torch.equal(got, fk.fb_warp_neq_plain(R0, R1, flow))
 
 
-@pytest.mark.parametrize("gaussian,winsize", [(False, 15), (True, 15),
-                                              (False, 9), (True, 31)])
+@pytest.mark.parametrize("gaussian,winsize", [
+    (False, 15), (True, 15), (False, 9), (True, 31), (False, 201),
+    (True, 201), (False, 1401), (True, 1401), (False, 2001), (True, 2001)])
 @pytest.mark.parametrize("axis", [0, 1])
 def test_sep_corr_matches_plain(dev, axis, gaussian, winsize):
     from video_analytics_tpu_torch.ops.kernels import farneback_window_taps
@@ -627,6 +665,25 @@ def test_sep_corr_matches_plain(dev, axis, gaussian, winsize):
     assert fk.sep_corr.launches_solve == n_solve + 1
     assert got.shape == (2, 2, 37, 53)
     assert torch.equal(got, fk.sep_corr_plain(M, taps, axis, solve=True))
+
+
+@pytest.mark.parametrize("b,h,w", [(3, 540, 960), (2, 135, 240),
+                                   (1, 300, 7)])
+@pytest.mark.parametrize("winsize", [201, 1401])
+def test_sep_corr_large_planes_match_plain(dev, b, h, w, winsize):
+    """Planes of many blocks along and across the axis, at both of the
+    kernel's outputs-per-thread (the grid at 540x960 gives every SM four
+    blocks, the 1/8 level of 1080p does not), with and without the solve."""
+    from video_analytics_tpu_torch.ops.kernels import farneback_window_taps
+    g = torch.Generator(dev).manual_seed(h + winsize)
+    M = torch.randn((b, 5, h, w), device=dev, generator=g)
+    M[:, :3] = M[:, :3].abs()
+    taps = farneback_window_taps(winsize, True)
+    for axis in (0, 1):
+        assert torch.equal(fk.sep_corr(M, taps, axis),
+                           fk.sep_corr_plain(M, taps, axis))
+        assert torch.equal(fk.sep_corr(M, taps, axis, solve=True),
+                           fk.sep_corr_plain(M, taps, axis, solve=True))
 
 
 @pytest.mark.parametrize("gaussian,winsize", [(False, 15), (True, 15),

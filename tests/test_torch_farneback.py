@@ -437,6 +437,8 @@ def test_use_initial_flow_matches_reference(pair):
     ("levels4", {"levels": 4, "iterations": 1}, (512, 512)),
     # A window of 33 taps.
     ("winsize33", {"winsize": 33, "levels": 1}, (96, 128)),
+    # A window of 201 taps: the route through K-E and sep_corr twice.
+    ("winsize201", {"winsize": 201, "levels": 1}, (48, 64)),
 ])
 def test_farneback_beyond_31_taps_matches_reference(name, kw, shape):
     """Parameters the first kernels refused on the card (a blur or window
@@ -465,11 +467,28 @@ def test_window_route_rule():
         assert fk.window_smem(n + 2, 5 if n == 73 else 1) > 232448
     # The default window: 15 taps, a 32x32 tile with a halo of 7.
     assert fk.window_smem(15, 5) == 4 * (32 * 48 + 5 * 46 * 46 + 15)
-    # sep_corr holds up to 1,753 taps along y, 1,387 along x with the solve.
-    assert fk.sep_corr_smem(1753, 0, 1) <= 232448 < fk.sep_corr_smem(
-        1755, 0, 1)
-    assert fk.sep_corr_smem(1387, 1, 5) <= 232448 < fk.sep_corr_smem(
-        1389, 1, 5)
+    # sep_corr streams the taps in chunks: a block's shared memory does not
+    # grow with the window, so the route beyond 193 taps has no end.
+    for planes in (1, 5):
+        assert fk.sep_corr_smem(195, 0, planes) <= 232448
+
+
+@pytest.mark.parametrize("n", [1, 15, 195, 201, 1401, 2001, 100001])
+def test_sep_corr_takes_any_odd_window(n):
+    """F4: the shared memory of a block of sep_corr is a fixed chunk of
+    taps and the samples they reach, the same for every window length
+    and both axes, so no odd window is refused; an even one is."""
+    for planes in (1, 5):
+        smem = fk.sep_corr_smem(n, 0, planes)
+        assert smem == fk.sep_corr_smem(n, 1, planes) \
+            == fk.sep_corr_smem(15, 0, planes)
+        assert smem <= 232448
+        fk._expect_taps([1.0 / n] * n, "sep_corr", smem)
+    with pytest.raises(ValueError, match="odd number of taps"):
+        fk._expect_taps([0.5] * (n + 1), "sep_corr",
+                        fk.sep_corr_smem(n + 1, 0, 1))
+    assert fk.window_route(n) == ("sep_corr" if n > 193 else "iteration"
+                                  if n <= 73 else "window_solve")
 
 
 @pytest.mark.parametrize("hw,scale,form", [

@@ -30,7 +30,7 @@ from video_analytics_tpu_torch.ops.cuda import _build
 from video_analytics_tpu_torch.ops.cuda import tvl1_solve as ts
 from video_analytics_tpu_torch.ops.cuda.warp import warp_prep, warp_prep_plain
 from video_analytics_tpu_torch.ops.median import (
-    _median_network, median_filter2d)
+    _median_network, median_filter2d, separable_median_schedule)
 
 torch.set_num_threads(1)
 
@@ -125,6 +125,73 @@ def test_generated_median_network_selects_median(k2, rng):
                 assert m, line
                 result = w[int(m[1])]
         assert result == sorted(data)[k2 // 2]
+
+
+def _tile_schedule(k):
+    """The generated C of va_median_tile{k} as (tile rows, ops, outputs):
+    ops as (out, fn, a, b), wires named as in the source (v[i], tN)."""
+    src = _build.median_network_header()
+    th = int(re.search(r"#define VA_MEDIAN_TILE_ROWS (\d+)", src)[1])
+    assert re.search(r"#define VA_MEDIAN_TILE_COLS 1\b", src)
+    body = src.split(f"va_median_tile{k}(const float* v, float* o) {{")[1]
+    body = body.split("\n}")[0]
+    wire = r"(v\[\d+\]|t\d+)"
+    ops, outs = [], {}
+    for line in body.strip().splitlines():
+        if m := re.fullmatch(rf"\s*const float (t\d+) = (fminf|fmaxf)"
+                             rf"\({wire}, {wire}\);", line):
+            ops.append(m.groups())
+        else:
+            m = re.fullmatch(rf"\s*o\[(\d+)\] = {wire};", line)
+            assert m, line
+            outs[int(m[1])] = m[2]
+    assert sorted(outs) == list(range(th))
+    return th, ops, [outs[i] for i in range(th)]
+
+
+def _median_by_tile_schedule(x, k):
+    """Interpret the generated tile schedule over whole (B, H, W) planes:
+    every thread's column of outputs from its clamped (replicate)
+    neighbourhood, as csrc/median.cu stages it."""
+    th, ops, outs = _tile_schedule(k)
+    B, H, W = x.shape
+    r = k // 2
+    y0 = np.arange(0, H, th)
+    rows = np.clip(y0[:, None] - r + np.arange(th + k - 1), 0, H - 1)
+    cols = np.clip(np.arange(W)[:, None] - r + np.arange(k), 0, W - 1)
+    # (B, tiles down, W, th + k - 1, k) inputs, row-major per tile.
+    grid = x[:, rows[:, None, :, None], cols[None, :, None, :]]
+    wires = {f"v[{i}]": grid[..., i // k, i % k]
+             for i in range((th + k - 1) * k)}
+    for out, fn, a, b in ops:
+        wires[out] = (np.minimum if fn == "fminf" else np.maximum)(
+            wires[a], wires[b])
+    col = np.stack([wires[o] for o in outs], axis=-1)  # (B, tiles, W, th)
+    return col.transpose(0, 1, 3, 2).reshape(B, -1, W)[:, :H]
+
+
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("h,w", [(37, 53), (16, 24), (5, 7), (2, 3), (1, 1),
+                                 (9, 2)])
+def test_generated_median_tile_schedule_selects_medians(k, h, w, rng):
+    """The CUDA median runs the separable tile schedule as C source
+    generated from separable_median_schedule: interpret that source over
+    whole planes (ties, a constant region, zeros of both signs; planes
+    smaller than a thread's column of outputs or than k) and hold it
+    against median_filter2d and the JAX package's median by value, and
+    the schedule well under half the Batcher network's min/max."""
+    x = np.round(rng.normal(0, 2, (3, h, w)) * 2).astype(np.float32) / 2
+    x[:, : h // 2, : w // 2] = 1.5
+    zero = rng.uniform(size=x.shape) < 0.2
+    x[zero] = np.where(rng.uniform(size=x.shape) < 0.5, -0.0, 0.0)[zero]
+    got = _median_by_tile_schedule(x, k)
+    assert np.array_equal(got, median_filter2d(torch.from_numpy(x), k).numpy())
+    assert np.array_equal(got, np.asarray(jax_median(jnp.asarray(x), k)))
+    th, ops, _ = _tile_schedule(k)
+    rows, cols, sched, outs = separable_median_schedule(k)
+    assert len(ops) == len(sched) and (rows, cols) == (th + k - 1, k)
+    batcher = 2 * sum(j >= 0 for _, j in _median_network(k * k)[0])
+    assert len(ops) / th < batcher / 2
 
 
 # -- the plain versions of the kernels -------------------------------------

@@ -52,6 +52,7 @@ _SIGNATURES = {
     "va_fb_prologue_smem": (_I, _I, _I, _I, _I),
     "va_fb_warp_neq": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     "va_sep_corr": (_P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P),
+    "va_sep_corr_smem": (_I,),
     "va_pd_chunk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                     _F, _F, _P),
     "va_band_flags": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
@@ -74,11 +75,16 @@ build_info: dict = {}
 
 
 def median_network_header() -> str:
-    """C source of ``va_median9`` / ``va_median25``: the pruned
-    selection networks of ``ops.median._median_network``, unrolled."""
-    from video_analytics_tpu_torch.ops.median import _median_network
+    """C source of ``va_median9`` / ``va_median25`` (the pruned selection
+    networks of ``ops.median._median_network``, unrolled; the in-kernel
+    medians of the TV-L1 solvers) and of ``va_median_tile3`` /
+    ``va_median_tile5`` (the tile schedules of
+    ``ops.median.separable_median_schedule``, which csrc/median.cu runs)."""
+    from video_analytics_tpu_torch.ops.median import (
+        MEDIAN_TILE, _median_network, separable_median_schedule)
     lines = ["// Generated by video_analytics_tpu_torch/ops/cuda/_build.py",
-             "// from ops/median._median_network; do not edit.",
+             "// from ops/median._median_network and",
+             "// ops/median.separable_median_schedule; do not edit.",
              "#pragma once", ""]
     for k2 in (9, 25):
         network, wire = _median_network(k2)
@@ -94,6 +100,30 @@ def median_network_header() -> str:
         lines.append(f"  return w[{wire}];")
         lines.append("}")
         lines.append("")
+    th, tw = MEDIAN_TILE
+    lines += [f"#define VA_MEDIAN_TILE_ROWS {th}",
+              f"#define VA_MEDIAN_TILE_COLS {tw}", ""]
+    for k in (3, 5):
+        rows, cols, ops, outputs = separable_median_schedule(k)
+        n_in = rows * cols
+
+        def name(wire: int) -> str:
+            return f"v[{wire}]" if wire < n_in else f"t{wire}"
+
+        batcher = 2 * sum(j >= 0 for _, j in _median_network(k * k)[0])
+        lines += [f"// k = {k}: the medians of a {th} x {tw} tile of outputs "
+                  f"from its {rows} x {cols}",
+                  f"// inputs v (row-major) into o (row-major): {len(ops)} "
+                  f"min/max, {len(ops) / (th * tw):g} an output",
+                  f"// (va_median{k * k}: {batcher}).",
+                  f"__device__ __forceinline__ void va_median_tile{k}"
+                  f"(const float* v, float* o) {{"]
+        for kind, out, a, b in ops:
+            fn = "fminf" if kind == "min" else "fmaxf"
+            lines.append(f"  const float t{out} = {fn}({name(a)}, {name(b)});")
+        lines += [f"  o[{i}] = {name(wire)};"
+                  for i, wire in enumerate(outputs)]
+        lines += ["}", ""]
     return "\n".join(lines)
 
 

@@ -320,12 +320,14 @@ def _taps_on(taps: Sequence[float], device: torch.device) -> torch.Tensor:
 
 
 def sep_corr_smem(n: int, axis: int, planes: int) -> int:
-    """Bytes of shared memory a block of ``sep_corr`` takes: a 32×8 tile
-    of `planes` planes with its halo of n // 2 along the axis, and the
-    taps."""
-    r = n // 2
-    tile = (8 + 2 * r) * 32 if axis == 0 else 8 * (32 + 2 * r)
-    return 4 * (planes * tile + n)
+    """Bytes of shared memory a block of ``sep_corr`` takes at most
+    (``va_sep_corr_smem``), the same for every window length n and both
+    axes: two stages of a chunk of taps (64 for one plane, 32 for the
+    five of the solve) and the samples they reach along the axis for a
+    block's 32 lanes and 8 × R outputs (R = 16, or 8 with five planes)."""
+    chunk, R = (64, 16) if planes == 1 else (32, 8)
+    span = 8 * R + chunk - 1
+    return 4 * 2 * (planes * span * 32 + chunk)
 
 
 def sep_corr(x: torch.Tensor, taps: Sequence[float], axis: int,
@@ -335,8 +337,8 @@ def sep_corr(x: torch.Tensor, taps: Sequence[float], axis: int,
 
     Args:
       x: (B, C, h, w) float32.
-      taps: odd number of taps: up to 1,753 along y, 1,387 along x with
-        the solve (what a block's shared memory holds).
+      taps: odd number of taps, any length: the kernel streams them
+        through shared memory in chunks.
       axis: 0 correlates along y (vertical), 1 along x (horizontal).
       solve: for C = 5, turn the five averaged normal-equation planes of
         each pixel into the flow (``_solve_flow``) before writing.
