@@ -87,24 +87,32 @@ by the commands themselves.  Phases, each reported on a JSON line:
    bands active and with some frozen: the state bit for bit, the band
    error sums to 1e-5 relative; one whole warp through
    ``pd_solve_chunked`` against the per-iteration ``pd_solve`` (bit for
-   bit at ε = 0, within 10·ε with the gates engaged), both timed;
-   ``band_flags`` against its plain version; tvl1_midsize:
+   bit at ε = 0, within 10·ε with the gates engaged), both timed; a
+   round's last ``pd_chunk`` launch, which ends with the bands'
+   convergence test, against ``pd_chunk_plain`` and ``band_flags_plain``
+   run on the partials it wrote (three images: bands and images on both
+   sides of the thresholds, frozen bands and a frozen image, with and
+   without ``prev_act``; and 65,535 images of 8×8), timed with and without
+   the test; tvl1_midsize:
    ``compute-flow --algo tvl1`` on 3 frames of 280×300 and of 240×320,
    whose finest levels are under the size rule and fit only a 16-block
-   cluster: 5 launches of ``tvl1_scale`` each and none of K-A, K-B, the ε
-   reduction or K-C (counted), the flow at ε = 0 equal to the plain
-   path's, a flow call timed; then a 20×4000 pair, whose finest level
-   fits no cluster, through K-A, K-B, the ε reduction and K-C (counted),
-   equal to the plain path at ε = 0;
+   cluster: 5 launches of ``tvl1_scale`` each and none of K-A, K-B or K-C
+   (counted), the flow at ε = 0 equal to the plain path's, a flow call
+   timed; then a 20×4000 pair, whose finest level fits no cluster,
+   through K-A, K-B (a round's last step with the ε test) and K-C, no
+   other launch (counted), equal to the plain path at ε = 0;
 9. tvl1_1080p: ``tpuva-torch compute-flow --algo tvl1`` with
    ``TVL1Config()`` on a frames directory of 11 frames of 1080×1920 (10
    pairs, ``--batch 8``), the launch counts of the TV-L1 kernels set to 0
    just before and held to the expected numbers just after (K-G on every
-   level, the per-iteration kernels not at all); the first pair's flow
+   level, the last of a round but a warp's last ending with the bands'
+   test, the per-iteration kernels not at all); the first pair's flow
    against the plain path's and the scene's motion; one flow call of 2
-   pairs timed and profiled; K-C at the five levels of that call (2 pairs,
-   ties and zeros of both signs) equal to its plain version, timed beside
-   it with its bound;
+   pairs held to 1,250 K-G launches (225 with the test), 25 K-A and 5
+   K-C and nothing else, by the counts and by the port kernels its
+   profile shows, timed and profiled; K-C at the five levels of that call
+   (2 pairs, ties and zeros of both signs) equal to its plain version,
+   timed beside it with its bound;
 10. stage_chain: a checkpoint written from seed 0 and read back, then
    ``extract-features`` on the flow directory of phase 9 and on its
    frames, and ``classify-clip --checkpoint ... --windows 3`` on a 1080p
@@ -148,14 +156,15 @@ by the commands themselves.  Phases, each reported on a JSON line:
 
 Then it prints the kernel table (``{"kernels": [...]}``: for each kernel
 its launches on its main path and which path that is (``launches_from``:
-the serve requests; for K-A, K-C, K-G and ``band_flags`` the
-``compute-flow`` command of phase 9; for K-D's blur pass the
+the serve requests; for K-A, K-C, K-G and K-G's launches with the bands'
+test the ``compute-flow`` command of phase 9; for K-D's blur pass the
 ``--fb-levels 4`` command of farneback_1080p, for K-E and ``sep_corr``
 its ``--fb-winsize 201`` command; under ``launches_eval_ucf101`` those
 of phase 11's commands, under ``launches_train`` those of phase 12's;
-K-H, K-B, the ε reduction and ``fb_window_solve``, whose arithmetic the
-commands run inside ``tvl1_scale`` and ``fb_iteration`` or only at
-shapes no command here gives, are on no command's path: 0 launches, and
+K-H, K-B (and its launches with the ε test) and ``fb_window_solve``,
+whose arithmetic the commands run inside ``tvl1_scale`` and
+``fb_iteration`` or only at shapes no command here gives, are on no
+command's path: 0 launches, and
 under ``check_launches`` those of the phase that holds them against
 their plain versions; ``sep_corr``'s two instantiations, the one-plane
 correlation and the five-plane one with the solve epilogue, have a row
@@ -188,7 +197,7 @@ SERVE_REQUESTS = 3
 
 TOL_WARP = 1e-4        # K-A, on planes of [0, 255] images
 TOL_ROUND = 1e-5       # K-B, u and v after one outer round
-TOL_EPS = 1e-5         # ε reduction, relative to ε² (its scale here)
+TOL_EPS = 1e-5         # the ε test's mean, relative to its value
 # Fused probabilities, kernels vs plain versions.  The flow kernels match
 # their plain versions bit for bit and the CNN calls are the same, so any
 # difference is a fault: with random weights the 101 probabilities sit
@@ -198,6 +207,7 @@ TOL_PROBS = 1e-6
 # the library is built without FMA contraction: they are held to equality.
 TOL_FB = 0.0
 TOL_MEAN_FLOW = 0.15   # px, mean interior flow against the scene's motion
+GRID_YZ = 65535        # blocks a CUDA grid holds along y and along z
 VEL = (1.3, -0.7)      # the scene's motion, px per frame
 # Texture of the Farneback phases' scenes.  On the TV-L1 phases' scene
 # (0.12 rad/px) the second derivatives are so small that the solve's 1e-3
@@ -356,9 +366,9 @@ def device_profile(torch, fn):
 
 # The __global__ functions of video_analytics_tpu_torch/csrc/*.cu, as they
 # appear in a profile's kernel names.
-PORT_KERNELS = ("warp_prep_kernel", "pd_step_kernel", "eps_reduce_kernel",
+PORT_KERNELS = ("warp_prep_kernel", "pd_step_kernel",
                 "median_kernel", "pd_warp_kernel", "pd_chunk_kernel",
-                "band_flags_kernel", "fb_prologue_kernel",
+                "fb_prologue_kernel",
                 "fb_blur_sample_kernel",
                 "fb_warp_neq_kernel", "sep_corr_kernel",
                 "fb_window_solve_kernel")
@@ -397,6 +407,23 @@ def device_ms(torch, fn, kernel: str, reps: int = 5) -> float:
     check(len(hits) == 1 and hits[0]["count"] >= 1,
           f"profile of {kernel}: {prof['port_kernels_device_ms']}")
     return hits[0]["ms_each"]
+
+
+class TestLaunches:
+    """The launches of a solver's wrapper (``pd_step``, ``pd_chunk``) that
+    ended with the round's convergence test, counted like a wrapper's
+    ``launches``: reads and sets the wrapper's ``launches_test``."""
+
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
+
+    @property
+    def launches(self) -> int:
+        return self.wrapper.launches_test
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.wrapper.launches_test = n
 
 
 def zero_counts(kernels) -> None:
@@ -456,8 +483,10 @@ def flow_counters():
 
     tv = {"tvl1_scale": ts.pd_solve_scale, "warp_prep": warp_prep,
           "tvl1_pd_warp": ts.pd_solve_warp, "median5": ts.median5,
-          "tvl1_pd_step": ts.pd_step, "tvl1_eps_reduce": ts.eps_reduce,
-          "tvl1_pd_chunk": ts.pd_chunk, "tvl1_band_flags": ts.band_flags}
+          "tvl1_pd_step": ts.pd_step,
+          "tvl1_pd_step_eps": TestLaunches(ts.pd_step),
+          "tvl1_pd_chunk": ts.pd_chunk,
+          "tvl1_pd_chunk_flags": TestLaunches(ts.pd_chunk)}
 
     def zero():
         zero_counts(tv)
@@ -1409,18 +1438,19 @@ def tvl1_warp_kernel_phase(torch, np, dev):
 # per-iteration chain) and fit one of 16: every level takes tvl1_scale.
 MIDS = ((280, 300), (240, 320))
 MID_FRAMES = 3
-CHAIN = (20, 4000)     # a level too wide for 16 strips: K-A, K-B, ε, K-C
+CHAIN = (20, 4000)     # a level too wide for 16 strips: K-A, K-B, K-C
 
 
 def tvl1_midsize_phase(torch, np, dev):
     """``compute-flow --algo tvl1`` on frames of 280x300 and of 240x320:
     every level, the finest in 16-block clusters, is one launch of
-    ``tvl1_scale`` (counted, and K-A, K-B, the ε reduction, K-C and K-H
-    held to 0); the flow at ε = 0 against the plain path's; one flow call
-    of 2 pairs timed.  Then a pair of 20x4000, whose finest level fits no
-    cluster, through ``tvl1``: K-A, K-B, the ε reduction and K-C on it
-    (counted) and the flow at ε = 0 against the plain path's.  Returns
-    (launches per kernel of the commands, launches of the 20x4000 pair)."""
+    ``tvl1_scale`` (counted, and K-A, K-B, K-C and K-H held to 0); the
+    flow at ε = 0 against the plain path's; one flow call of 2 pairs
+    timed.  Then a pair of 20x4000, whose finest level fits no cluster,
+    through ``tvl1``: K-A, K-B (a round's last step with the ε test) and
+    K-C on it, no other launch (counted), and the flow at ε = 0 against
+    the plain path's.  Returns (launches per kernel of the commands,
+    launches of the 20x4000 pair)."""
     import tempfile
 
     from video_analytics_tpu_torch.cli.main import _load_frames
@@ -1434,7 +1464,8 @@ def tvl1_midsize_phase(torch, np, dev):
     from video_analytics_tpu_torch.ops.preprocess import rgb_to_gray
 
     cfg = TVL1Config()
-    kernels = {"tvl1_pd_step": ts.pd_step, "tvl1_eps_reduce": ts.eps_reduce,
+    kernels = {"tvl1_pd_step": ts.pd_step,
+               "tvl1_pd_step_eps": TestLaunches(ts.pd_step),
                "median5": ts.median5, "warp_prep": warp_prep,
                "tvl1_scale": ts.pd_solve_scale,
                "tvl1_pd_warp": ts.pd_solve_warp, "tvl1_pd_chunk": ts.pd_chunk}
@@ -1532,11 +1563,13 @@ def tvl1_midsize_phase(torch, np, dev):
         chain = read_counts(kernels)
         e_chain = float((got - tvl1(prev, nxt, chain_cfg, plain=True)
                          ).abs().max())
+    # Each round's last pd_step carries the round's ε test, but the warp's
+    # last round, whose test nothing would read.
     rounds = chain_cfg.warps * chain_cfg.outer_iterations
     expected = {**dict.fromkeys(kernels, 0), "warp_prep": chain_cfg.warps,
                 "tvl1_pd_step": rounds * chain_cfg.inner_iterations,
-                "tvl1_eps_reduce": rounds, "median5": rounds + 1,
-                "tvl1_scale": 1}
+                "tvl1_pd_step_eps": rounds - chain_cfg.warps,
+                "median5": rounds + 1, "tvl1_scale": 1}
     check(chain == expected,
           f"tvl1 at {CHAIN} launched {chain}, expected {expected}")
     check(e_chain == 0.0, f"flow at {CHAIN}, epsilon 0, vs the plain path: "
@@ -1563,12 +1596,217 @@ def chunk_bound(B, h, w, iters, median_k):
                  (70 * iters + (2 * 2 * 113 if median_k > 1 else 0)) * px)
 
 
+def split_epsilon(torch, err, px, keep) -> float:
+    """ε whose ε² lies mid-way (geometrically) in the widest gap between
+    the per-pixel errors err / px (where `keep` and positive): sums on
+    both sides of the threshold, none within rounding of it."""
+    r = torch.unique((err / px)[keep & (err > 0)]).double()
+    check(r.numel() >= 2, f"no two errors to split: {r.tolist()}")
+    gap = (r[1:] / r[:-1]).argmax()
+    return float((r[gap] * r[gap + 1]).sqrt().sqrt())
+
+
+def band_test_check(torch, ts, prep, state, cfg, h, w, band, tile, halo,
+                    iters, at_grid_limit: bool):
+    """A round's last ``pd_chunk`` launch with the bands' test, on three
+    images built from the level's (prep, state): image 0 with odd bands
+    moving 1e-2 as much as even ones, two bands in three running and one
+    frozen band still at the first round's inf; image 1 at rest (its error
+    is 0: it converges); image 2 frozen whole, its old errors under ε².  ε²
+    lies mid-way between image 0's band errors, so sums fall on both sides
+    of the bands' thresholds and the images' tests go both ways.  The
+    state must equal ``pd_chunk_plain``'s bit for bit; ``err_band`` and
+    ``act_next`` equal ``band_flags_plain`` run on the partials the same
+    launch wrote (flags exactly, sums to TOL_CHUNK_ERR relative), adaptive
+    or not, with and without ``prev_act``.  With `at_grid_limit` the same
+    at B = 65,535 images of 8x8, a block each (``tiny_band_test_case``).
+    Returns the largest absolute difference of err_band."""
+    dev = prep.device
+    n_bands = -(-h // band)
+    rows = torch.arange(h, device=dev) // band % 2 == 1
+    prep3 = torch.stack([prep[0], prep[0], prep[1]])
+    state3 = torch.stack([state[0], state[0], state[1]])
+    state3[0][:, rows] *= 1e-2
+    prep3[0, 3][rows] *= 1e-2
+    state3[1], prep3[1, 3] = 0.0, 0.0
+    act = torch.ones((3, n_bands), dtype=torch.int32, device=dev)
+    act[0, 2::3] = 0
+    act[2] = 0
+    want, sums = ts.pd_chunk_plain(prep3, state3, act, cfg, iters, band,
+                                   False)
+    px = torch.tensor([min(band, h - band * j) * w for j in range(n_bands)],
+                      dtype=torch.float32, device=dev)
+    eps = split_epsilon(torch, sums[0], px, act[0] == 1)
+    g = torch.Generator(dev).manual_seed(h)
+    old = kept_errors(torch, (3, n_bands), g) * eps ** 2 * px
+    old[0, 2] = float("inf")
+    old[1] = 0.0
+    old[2] *= 0.25
+    cases = [dict(prep=prep3, state=state3, act=act, old=old, want=want,
+                  band=band, tile=tile, halo=halo, iters=iters, px=px,
+                  cfg=dataclasses.replace(cfg, epsilon=eps))]
+    if at_grid_limit:
+        cases.append(tiny_band_test_case(torch, ts, cfg, dev))
+    worst = 0.0
+    for c in cases:
+        act_, old_ = c["act"], c["old"]
+        B, n_b = act_.shape
+        h_, w_ = c["state"].shape[2:]
+        partial = torch.empty(
+            (B, n_b, ts.chunk_partials(h_, w_, c["band"], c["tile"])),
+            device=dev)
+        count = torch.zeros(B, dtype=torch.int32, device=dev)
+        eps_ = c["cfg"].epsilon
+        for adaptive in (True, False):
+            for prev in (None, act_):
+                # With prev_act a band frozen in both launches is left
+                # alone: its rows are in the output buffer already.
+                out = (c["want"].clone() if prev is not None
+                       else torch.full_like(c["state"], float("nan")))
+                errs = [old_.clone(), old_.clone()]
+                nxt = [torch.full_like(act_, -1), torch.full_like(act_, -1)]
+                partial.fill_(float("nan"))
+                ts.pd_chunk(c["prep"], c["state"], act_, c["cfg"],
+                            c["iters"], c["band"], c["tile"], c["halo"],
+                            False, out, partial, prev, count, errs[0], nxt[0],
+                            adaptive)
+                what = (f"pd_chunk with the bands' test at {B}x{h_}x{w_}, "
+                        f"adaptive {adaptive}, prev_act {prev is not None}")
+                check(torch.equal(out, c["want"]), f"{what}: state differs")
+                check(not bool(count.any()), f"{what}: count left nonzero")
+                ts.band_flags_plain(partial, act_, errs[1], nxt[1],
+                                    c["band"], h_, w_, eps_, adaptive)
+                fin = errs[1].isfinite()
+                rel = ((errs[0] - errs[1])[fin].abs()
+                       / errs[1][fin].abs().clamp(min=1e-30)).max().item()
+                check(torch.equal(nxt[0], nxt[1])
+                      and torch.equal(errs[0].isfinite(), fin)
+                      and rel <= TOL_CHUNK_ERR,
+                      f"{what}: flags {nxt[0].tolist()[:3]} vs "
+                      f"{nxt[1].tolist()[:3]}, sums differ by {rel}")
+                worst = max(worst, (errs[0] - errs[1])[fin].abs().max().item())
+                ratio = (errs[1] / c["px"])[fin] / eps_ ** 2
+                check(bool(((ratio - 1).abs() > 1e-3).all()),
+                      f"{what}: a band's sum within 1e-3 of its threshold")
+                if B == 3:
+                    check(bool(nxt[0][0].any()) and not bool(nxt[0][1:].any()),
+                          f"{what}: flags {nxt[0].tolist()}")
+    return worst
+
+
+def kept_errors(torch, shape, g):
+    """Old errors of frozen bands, per ε² a pixel: on both sides of the
+    threshold, none within 10 % of it."""
+    r = torch.rand(shape, device=g.device, generator=g)
+    return torch.where(r < 0.5, 1.8 * r, 0.2 + 1.8 * r)
+
+
+def tiny_band_test_case(torch, ts, cfg, dev):
+    """The bands' test at the grid's limit: 65,535 images of 8x8 (a block
+    and a band each), half of them moving 1e-3 as much as the others,
+    every fifth frozen with its old error: a case of
+    ``band_test_check``."""
+    B, h, w, iters = GRID_YZ, 8, 8, 2
+    g = torch.Generator(dev).manual_seed(5)
+    scale = 10.0 ** -(3 * torch.randint(0, 2, (B, 1, 1, 1), device=dev,
+                                        generator=g)).float()
+    prep = torch.rand((B, 4, h, w), device=dev, generator=g)
+    prep[:, 3:] = (prep[:, 3:] - 0.5) * scale
+    state = (torch.rand((B, 6, h, w), device=dev, generator=g) - 0.5) * scale
+    act = torch.ones((B, 1), dtype=torch.int32, device=dev)
+    act[::5] = 0
+    want, sums = ts.pd_chunk_plain(prep, state, act, cfg, iters, h, False)
+    px = torch.full((1,), float(h * w), device=dev)
+    eps = split_epsilon(torch, sums[:, 0], px, act[:, 0] == 1)
+    old = kept_errors(torch, (B, 1), g) * eps ** 2 * h * w
+    return dict(prep=prep, state=state, act=act, old=old, want=want, band=h,
+                tile=h, halo=iters, iters=iters, px=px,
+                cfg=dataclasses.replace(cfg, epsilon=eps))
+
+
+def eps_test_check(torch, ts, prep, uv, cfg, at_grid_limit: bool) -> float:
+    """A round's last ``pd_step`` with the ε test, on a level's (prep, uv)
+    with live dual variables: image b's flow, duals and residual scaled by
+    10^-(b mod 4), so the images' errors spread over decades and ε² lies
+    mid-way between two of them; image 1 at rest (its error is 0: it
+    converges), image 2 frozen.  The new flow and duals of the active
+    images must equal ``pd_step_plain``'s bit for bit, and ``err`` and the
+    flags equal ``eps_reduce_plain`` run on the partials the same launch
+    wrote (flags exactly, err within TOL_EPS of its value: the images'
+    errors span decades, and the two sums' orders differ).  With
+    `at_grid_limit` the same at B = 65,535 images of 8x8, a block each,
+    half of them moving 1e-3 as much as the others.  Returns the largest
+    absolute difference of err."""
+    dev = uv.device
+    B, _, h, w = uv.shape
+    g = torch.Generator(dev).manual_seed(h)
+    scale = 10.0 ** -(torch.arange(B, device=dev) % 4).float()
+    prep = prep.clone()
+    prep[:, 3] *= scale[:, None, None]
+    uv = uv * scale[:, None, None, None]
+    p = 0.3 * torch.randn((B, 4, h, w), device=dev, generator=g)
+    p *= scale[:, None, None, None]
+    cases = [(prep, uv, p)]
+    if at_grid_limit:
+        n = GRID_YZ
+        s = 10.0 ** -(3 * torch.randint(0, 2, (n, 1, 1, 1), device=dev,
+                                        generator=g)).float()
+        tp = torch.rand((n, 4, 8, 8), device=dev, generator=g)
+        tp[:, 3:] = (tp[:, 3:] - 0.5) * s
+        cases.append((tp, (torch.rand((n, 2, 8, 8), device=dev, generator=g)
+                           - 0.5) * s,
+                      (torch.rand((n, 4, 8, 8), device=dev, generator=g)
+                       - 0.5) * s))
+    worst = 0.0
+    for prep_, uv_, p_ in cases:
+        B, _, h, w = uv_.shape
+        uv_[1], p_[1], prep_[1, 3] = 0.0, 0.0, 0.0
+        want_uv, want_p, want_err = ts.pd_step_plain(prep_, uv_, p_, cfg, True)
+        active = torch.ones(B, dtype=torch.int32, device=dev)
+        active[2::5] = 0
+        eps = split_epsilon(torch, want_err, torch.ones_like(want_err),
+                            active == 1)
+        gated = dataclasses.replace(cfg, epsilon=eps)
+        before = active.clone()
+        uv_out, p_out = torch.empty_like(uv_), torch.empty_like(p_)
+        partial = torch.full((B, ts.pd_blocks(h, w)), float("nan"),
+                             device=dev)
+        count = torch.zeros(B, dtype=torch.int32, device=dev)
+        err = torch.full((B,), float("inf"), device=dev)
+        ts.pd_step(prep_, uv_, p_, active, gated, uv_out, p_out, partial,
+                   count, err)
+        on = before.bool()
+        what = f"pd_step with the ε test at {B}x{h}x{w}"
+        check(torch.equal(uv_out[on], want_uv[on])
+              and torch.equal(p_out[on], want_p[on])
+              and torch.equal(uv_out[~on], uv_[~on]),
+              f"{what}: the state differs from pd_step_plain's")
+        check(not bool(count.any()), f"{what}: count left nonzero")
+        flags, errs = before.clone(), torch.full((B,), float("inf"),
+                                                 device=dev)
+        ts.eps_reduce_plain(partial, flags, errs, h * w, eps)
+        fin = errs.isfinite()
+        e = ((err - errs)[fin].abs()
+             / errs[fin].abs().clamp(min=1e-30)).max().item()
+        check(torch.equal(active, flags) and torch.equal(err.isfinite(), fin)
+              and e <= TOL_EPS,
+              f"{what}: err differs by {e} relative, flags "
+              f"{active.tolist()[:8]} vs {flags.tolist()[:8]}")
+        check(bool(active.any()) and bool((on & (active == 0)).any())
+              and not bool(active[1]),
+              f"{what}: flags {active.tolist()[:8]} do not go both ways")
+        worst = max(worst, (err - errs)[fin].abs().max().item())
+    return worst
+
+
 def tvl1_chunk_kernels_phase(torch, np, dev, sweep: bool):
     """K-G ``pd_chunk`` against its plain version at the five level sizes
-    of a 1080x1920 frame, ``band_flags`` against its plain version, and
-    ``pd_solve_chunked`` against the per-iteration ``pd_solve``.  Returns
-    {name: (max_abs_err, (ms, plain_ms, None), bound, device_ms)} for K-G
-    (a full chunk) and ``band_flags`` at 1080x1920."""
+    of a 1080x1920 frame, a round's last launch with the bands' test
+    against ``pd_chunk_plain`` and ``band_flags_plain``
+    (``band_test_check``), and ``pd_solve_chunked`` against the
+    per-iteration ``pd_solve``.  Returns {name: (max_abs_err, (ms,
+    plain_ms, None), bound, device_ms)} for K-G (a full chunk) and its
+    round's last launch with the test at 1080x1920."""
     from video_analytics_tpu_torch.config import TVL1Config
     from video_analytics_tpu_torch.flow.tvl1 import (
         _level_sizes, whole_plane_level)
@@ -1660,55 +1898,58 @@ def tvl1_chunk_kernels_phase(torch, np, dev, sweep: bool):
                               "halo": halo, **times, "bound_ms": b_ms,
                               "bound_by": b_by,
                               "bound_ms_with_median": bm_ms}
-        # band_flags: sums near the two thresholds, some bands not run.
-        gen = torch.Generator(dev).manual_seed(h)
-        eps2 = cfg.epsilon ** 2
-        n_part = partial.shape[2]
-        sums = (torch.rand(partial.shape, device=dev, generator=gen)
-                * (2 * eps2 * band * w / n_part))
-        sums[0] *= 0.5
-        kept = torch.rand((HD_PAIRS, n_bands), device=dev, generator=gen)
-        flag_err = 0.0
-        for adaptive in (True, False):
-            errs = [(kept * 2 * eps2 * band * w).clone() for _ in range(2)]
-            nxt = [torch.full_like(act, -1) for _ in range(2)]
-            ts.band_flags(sums, act, errs[0], nxt[0], band, h, w,
-                          cfg.epsilon, adaptive)
-            ts.band_flags_plain(sums, act, errs[1], nxt[1], band, h, w,
-                                cfg.epsilon, adaptive)
-            rel = ((errs[0] - errs[1]).abs() / errs[1].abs()).max().item()
-            check(rel <= TOL_CHUNK_ERR and torch.equal(nxt[0], nxt[1]),
-                  f"band_flags at {h}x{w}, adaptive {adaptive}: sums differ "
-                  f"by {rel} relative, flags {nxt[0].tolist()} vs "
-                  f"{nxt[1].tolist()}")
-            flag_err = max(flag_err, (errs[0] - errs[1]).abs().max().item())
-        times["band_flags_ms"] = cuda_ms(torch, lambda: ts.band_flags(
-            sums, on, errs[0], nxt[0], band, h, w, cfg.epsilon, True))
-        # With every band active (`on`, as timed): read the partials and
-        # the flags, write each band's error and next flag; one add per
-        # partial (va_band_flags in csrc/tvl1_pd_chunk.cu).
-        flags_bound = bound(4 * sums.numel() + 12 * on.numel(),
-                            sums.numel())
-        times["band_flags_bound_ms"], times["band_flags_bound_by"] = (
-            flags_bound)
-        times["band_flags_plain_ms"] = cuda_ms(
-            torch, lambda: ts.band_flags_plain(
-                sums, on, errs[1], nxt[1], band, h, w, cfg.epsilon, True))
+        # The round's last launch with the bands' test, against the plain
+        # versions on the same inputs (band_test_check), then timed with
+        # every band active, as the main path runs it, beside the same
+        # launch without the test.
+        rest = K % chunk or chunk
+        flag_err = band_test_check(torch, ts, prep, state, cfg, h, w, band,
+                                   tile, halo, rest, (h, w) == FULL_HD)
+        count = torch.zeros(HD_PAIRS, dtype=torch.int32, device=dev)
+        err_band = torch.full((HD_PAIRS, n_bands), float("inf"), device=dev)
+        nxt = torch.empty_like(on)
+
+        def fused():
+            ts.pd_chunk(prep, state, on, cfg, rest, band, tile, halo, False,
+                        out, partial, None, count, err_band, nxt)
+
+        def plain_round_end():
+            _, sums = ts.pd_chunk_plain(prep, state, on, cfg, rest, band,
+                                        False)
+            ts.band_flags_plain(sums[..., None], on, err_band.clone(),
+                                nxt.clone(), band, h, w, cfg.epsilon, True)
+
+        px = HD_PAIRS * h * w
+        n_part = partial.numel()
+        # The launch's planes, its partials written and read back, and the
+        # bands' flags read and written with their errors.
+        fused_bound = bound(16 * 4 * px + 8 * n_part + 12 * on.numel(),
+                            70 * rest * px + n_part)
+        times.update({
+            "round_end_ms": cuda_ms(torch, fused),
+            "round_end_plain_ms": cuda_ms(torch, plain_round_end, 3),
+            "round_end_bound_ms": fused_bound[0],
+            "round_end_bound_by": fused_bound[1],
+            "round_end_iterations": rest})
         report[f"{h}x{w}"].update(
-            {k: v for k, v in times.items() if k.startswith("band_flags")})
+            {k: v for k, v in times.items() if k.startswith("round_end")})
         if (h, w) == FULL_HD:
             table["tvl1_pd_chunk"] = (
                 max_err, (times["ms"], times["plain_ms"], None), (b_ms, b_by),
                 device_ms(torch, lambda: ts.pd_chunk(
                     prep, state, on, cfg, chunk, band, tile, halo, False,
                     out), "pd_chunk_kernel"))
-            table["tvl1_band_flags"] = (
-                flag_err, (times["band_flags_ms"],
-                           times["band_flags_plain_ms"], None),
-                flags_bound,
-                device_ms(torch, lambda: ts.band_flags(
-                    sums, on, errs[0], nxt[0], band, h, w, cfg.epsilon, True),
-                    "band_flags_kernel"))
+            with_test = device_ms(torch, fused, "pd_chunk_kernel")
+            report[f"{h}x{w}"].update({
+                "round_end_device_ms": with_test,
+                "round_end_device_ms_without_test": device_ms(
+                    torch, lambda: ts.pd_chunk(
+                        prep, state, on, cfg, rest, band, tile, halo, False,
+                        out, partial), "pd_chunk_kernel")})
+            table["tvl1_pd_chunk_flags"] = (
+                flag_err, (times["round_end_ms"],
+                           times["round_end_plain_ms"], None),
+                fused_bound, with_test)
             # One whole warp, both solvers.  At epsilon = 0 no flag clears
             # and the tiling cannot show: bit for bit.
             exact = dataclasses.replace(cfg, epsilon=0.0, outer_iterations=2)
@@ -1743,9 +1984,8 @@ def tvl1_chunk_kernels_phase(torch, np, dev, sweep: bool):
                                                        chunk, False), 2),
                 "chain_ms": cuda_ms(
                     torch, lambda: ts.pd_solve(prep, uv, cfg), 2),
-                "launches_chunked": cfg.outer_iterations * -(-K // chunk)
-                + cfg.outer_iterations - 1,
-                "launches_chain": cfg.outer_iterations * (K + 2)}
+                "launches_chunked": cfg.outer_iterations * -(-K // chunk),
+                "launches_chain": cfg.outer_iterations * (K + 1)}
             if sweep:
                 sw = {}
                 for c in (2, 3, 4, 5, 6, 8, 10, 15):
@@ -1850,9 +2090,11 @@ def tvl1_1080p_phase(torch, np, dev, work: str):
     src, out = os.path.join(work, "frames_1080p"), os.path.join(work,
                                                                 "flow_1080p")
     write_frames(hd_frames(np, HD_FRAMES, seed=5), src)
-    kernels = {"tvl1_pd_chunk": ts.pd_chunk, "tvl1_band_flags": ts.band_flags,
+    kernels = {"tvl1_pd_chunk": ts.pd_chunk,
+               "tvl1_pd_chunk_flags": TestLaunches(ts.pd_chunk),
                "warp_prep": warp_prep, "median5": ts.median5,
-               "tvl1_pd_step": ts.pd_step, "tvl1_eps_reduce": ts.eps_reduce,
+               "tvl1_pd_step": ts.pd_step,
+               "tvl1_pd_step_eps": TestLaunches(ts.pd_step),
                "tvl1_pd_warp": ts.pd_solve_warp,
                "tvl1_scale": ts.pd_solve_scale}
     zero_counts(kernels)
@@ -1867,22 +2109,22 @@ def tvl1_1080p_phase(torch, np, dev, work: str):
 
     # Each flow call of --batch pairs runs, per level, `warps` times one
     # warp_prep and one chunked solve (outer_iterations rounds of
-    # ceil(K / chunk) launches, with one of band_flags between rounds), then
-    # the scale-end median.  Every level of a 1080x1920 frame is above the
-    # size rule: neither the per-iteration kernels nor the cluster solver
-    # are launched at all.
+    # ceil(K / chunk) launches, the last of a round but the warp's last
+    # ending with the bands' test), then the scale-end median.  Every level
+    # of a 1080x1920 frame is above the size rule: neither the
+    # per-iteration kernels nor the cluster solver are launched at all.
     calls = -(-(HD_FRAMES - 1) // CF_BATCH)
     levels = _level_sizes(*FULL_HD, cfg)
-    per_call = sum(
-        cfg.warps * cfg.outer_iterations
-        * -(-cfg.inner_iterations // ts.chunk_params(h, w, cfg)[1])
-        for h, w in levels)
-    expected = {"tvl1_pd_chunk": calls * per_call,
-                "tvl1_band_flags": calls * len(levels) * cfg.warps
-                * (cfg.outer_iterations - 1),
-                "warp_prep": calls * len(levels) * cfg.warps,
-                "median5": calls * len(levels), "tvl1_pd_step": 0,
-                "tvl1_eps_reduce": 0, "tvl1_pd_warp": 0, "tvl1_scale": 0}
+    per_call = {
+        "tvl1_pd_chunk": sum(
+            cfg.warps * cfg.outer_iterations
+            * -(-cfg.inner_iterations // ts.chunk_params(h, w, cfg)[1])
+            for h, w in levels),
+        "tvl1_pd_chunk_flags": len(levels) * cfg.warps
+        * (cfg.outer_iterations - 1),
+        "warp_prep": len(levels) * cfg.warps, "median5": len(levels)}
+    expected = {**dict.fromkeys(kernels, 0),
+                **{k: calls * n for k, n in per_call.items()}}
     check(launches == expected,
           f"compute-flow --algo tvl1 launched {launches}, expected {expected}")
     files = sorted(f for f in os.listdir(out) if f.endswith(".flo"))
@@ -1926,15 +2168,29 @@ def tvl1_1080p_phase(torch, np, dev, work: str):
         chain_dev = float((flow_call() - chain_call()).abs().max())
         check(chain_dev <= 10 * cfg.epsilon,
               f"1080p flow, chunked vs per-iteration path: {chain_dev}")
+        # One flow call of 2 pairs launches the command's kernels per call
+        # and nothing else: no kernel of its own for any convergence test.
+        zero, read = flow_counters()
+        zero()
+        flow_call()
+        call_launches = read()
+        want = {**dict.fromkeys(call_launches, 0), **per_call}
+        check(call_launches == want,
+              f"a 2-pair 1080p flow call launched {call_launches}, expected "
+              f"{want}")
         call_ms = cuda_ms(torch, flow_call, 2)
         chain_ms = cuda_ms(torch, chain_call, 2)
         prof = device_profile(torch, flow_call)
+        seen = {short_kernel_name(k["name"]).split("<")[0]
+                for k in prof["port_kernels_device_ms"]}
+        check(seen <= {"pd_chunk_kernel", "warp_prep_kernel", "median_kernel"},
+              f"a 1080p flow call ran port kernels {seen}")
     medians = median_levels(torch, dev)
     emit({"phase": "tvl1_1080p", "frames": HD_FRAMES, "batch": CF_BATCH,
           "command_seconds": seconds,
           "command_seconds_per_pair": seconds / (HD_FRAMES - 1),
-          "launches": launches, "mean_flow": mean,
-          "max_abs_vs_plain_path": dev_abs,
+          "launches": launches, "launches_per_flow_call": call_launches,
+          "mean_flow": mean, "max_abs_vs_plain_path": dev_abs,
           "bit_equal_to_plain_path": bool(np.array_equal(flow, plain)),
           "tolerance": 10 * cfg.epsilon,
           "max_abs_vs_plain_path_at_epsilon_0": e_exact,
@@ -2015,7 +2271,7 @@ def stage_chain_phase(torch, np, dev, work: str, frames_dir: str,
     kernels = {"tvl1_scale": ts.pd_solve_scale, "warp_prep": warp_prep,
                "tvl1_pd_warp": ts.pd_solve_warp,
                "median5": ts.median5, "tvl1_pd_step": ts.pd_step,
-               "tvl1_eps_reduce": ts.eps_reduce,
+               "tvl1_pd_step_eps": TestLaunches(ts.pd_step),
                "tvl1_pd_chunk": ts.pd_chunk}
     out2 = os.path.join(work, "features_frames.npz")
     zero_counts(kernels)
@@ -2742,7 +2998,7 @@ def main(argv=None) -> int:
     cfg = TVL1Config()
     one_round = dataclasses.replace(cfg, outer_iterations=1)
     errs = {"warp_prep": 0.0, "tvl1_pd_step": 0.0, "median5": 0.0,
-            "tvl1_eps_reduce": 0.0}
+            "tvl1_pd_step_eps": 0.0}
     times = {}
     for size in SIZES:
         i0, i13, uv = tvl1_level_inputs(torch, np, dev, size, size, PAIRS)
@@ -2772,28 +3028,29 @@ def main(argv=None) -> int:
               f"one outer round at {size}: max abs {e} > {TOL_ROUND}")
         errs["tvl1_pd_step"] = max(errs["tvl1_pd_step"], e)
 
-        n_px = size * size
-        eps2 = cfg.epsilon ** 2
-        partial = (torch.rand((PAIRS, ts.pd_blocks(size, size)), device=dev,
-                              generator=torch.Generator(dev).manual_seed(1))
-                   * (4 * eps2 * n_px / ts.pd_blocks(size, size)))
-        flags = [torch.ones(PAIRS, dtype=torch.int32, device=dev)
-                 for _ in range(2)]
-        errv = [torch.full((PAIRS,), float("inf"), device=dev)
-                for _ in range(2)]
-        ts.eps_reduce(partial, flags[0], errv[0], n_px, cfg.epsilon)
-        ts.eps_reduce_plain(partial, flags[1], errv[1], n_px, cfg.epsilon)
-        e = (errv[0] - errv[1]).abs().max().item()
-        check(e <= TOL_EPS * eps2,
-              f"eps_reduce at {size}: max abs {e} > {TOL_EPS} * eps^2")
-        check(torch.equal(flags[0], flags[1]),
-              f"eps_reduce at {size}: flags differ")
-        errs["tvl1_eps_reduce"] = max(errs["tvl1_eps_reduce"], e)
+        errs["tvl1_pd_step_eps"] = max(errs["tvl1_pd_step_eps"],
+                                       eps_test_check(torch, ts, prep_ref, uv,
+                                                      cfg, size == SIZES[0]))
 
         p = torch.zeros((PAIRS, 4, size, size), device=dev)
         uv_out, p_out = torch.empty_like(uv), torch.empty_like(p)
         on = torch.ones(PAIRS, dtype=torch.int32, device=dev)
-        big = partial * 1e3                  # no flag clears while timing
+        # A round's last step with the ε test, timed at ε = 0 (no flag
+        # clears), beside the same step and the test's plain versions.
+        never = dataclasses.replace(cfg, epsilon=0.0)
+        partial = torch.empty((PAIRS, ts.pd_blocks(size, size)), device=dev)
+        count = torch.zeros(PAIRS, dtype=torch.int32, device=dev)
+        errv = torch.full((PAIRS,), float("inf"), device=dev)
+
+        def step_eps():
+            ts.pd_step(prep, uv, p, on, never, uv_out, p_out, partial, count,
+                       errv)
+
+        def step_eps_plain():
+            ts.eps_reduce_plain(
+                ts.pd_step_plain(prep, uv, p, never, True)[2][:, None]
+                * (size * size), on.clone(), errv.clone(), size * size, 0.0)
+
         times[size] = {
             "warp_prep": (
                 cuda_ms(torch, lambda: warp_prep(i13, i0, uv)),
@@ -2805,11 +3062,8 @@ def main(argv=None) -> int:
                 cuda_ms(torch, lambda: ts.pd_step(prep, uv, p, on, cfg,
                                                   uv_out, p_out)),
                 cuda_ms(torch, lambda: ts.pd_step_plain(prep, uv, p, cfg))),
-            "tvl1_eps_reduce": (
-                cuda_ms(torch, lambda: ts.eps_reduce(
-                    big, on, errv[0], n_px, cfg.epsilon)),
-                cuda_ms(torch, lambda: ts.eps_reduce_plain(
-                    big, on, errv[1], n_px, cfg.epsilon)))}
+            "tvl1_pd_step_eps": (cuda_ms(torch, step_eps),
+                                 cuda_ms(torch, step_eps_plain))}
         if size == SIZES[0]:
             times[size]["pd_solve_one_warp"] = (
                 cuda_ms(torch, lambda: ts.pd_solve(prep, uv, cfg), 3),
@@ -2824,10 +3078,8 @@ def main(argv=None) -> int:
                 "tvl1_pd_step": device_ms(
                     torch, lambda: ts.pd_step(prep, uv, p, on, cfg, uv_out,
                                               p_out), "pd_step_kernel"),
-                "tvl1_eps_reduce": device_ms(
-                    torch, lambda: ts.eps_reduce(big, on, errv[0], n_px,
-                                                 cfg.epsilon),
-                    "eps_reduce_kernel")}
+                "tvl1_pd_step_eps": device_ms(torch, step_eps,
+                                              "pd_step_kernel")}
     emit({"phase": "kernels", "sizes": list(SIZES), "pairs": PAIRS,
           "max_abs_err": errs, "median5_bit_exact": True,
           "ms_kernel_vs_plain": times,
@@ -2881,7 +3133,8 @@ def main(argv=None) -> int:
     # K-A, K-H, K-C and the per-iteration kernels not at all.
     kernels = {"tvl1_scale": ts.pd_solve_scale, "warp_prep": warp_prep,
                "tvl1_pd_warp": ts.pd_solve_warp, "median5": ts.median5,
-               "tvl1_pd_step": ts.pd_step, "tvl1_eps_reduce": ts.eps_reduce}
+               "tvl1_pd_step": ts.pd_step,
+               "tvl1_pd_step_eps": TestLaunches(ts.pd_step)}
     request_ms, outs, launches = serve_requests(
         server, frames, lambda: zero_counts(kernels),
         lambda: read_counts(kernels),
@@ -2913,11 +3166,11 @@ def main(argv=None) -> int:
     # -- 8-10. native-resolution TV-L1 and the stage chain -------------------
     kg = tvl1_chunk_kernels_phase(torch, np, dev, args.sweep_chunk)
     mid_launches, chain_launches = tvl1_midsize_phase(torch, np, dev)
-    # K-B and the ε reduction are on no command's path since the levels
-    # between take 16-block clusters: their launches are those of the level
-    # that fits no cluster.
+    # K-B, with and without the ε test, is on no command's path since the
+    # levels between take 16-block clusters: its launches are those of the
+    # level that fits no cluster.
     own_check.update({name: chain_launches[name]
-                      for name in ("tvl1_pd_step", "tvl1_eps_reduce")})
+                      for name in ("tvl1_pd_step", "tvl1_pd_step_eps")})
     hd_launches = native_phases(torch, np, dev)
 
     # -- 11. eval-ucf101 ----------------------------------------------------
@@ -2930,28 +3183,30 @@ def main(argv=None) -> int:
     # TV-L1 bounds at 224², 15 pairs.  Planes moved: warp_prep reads I1 and
     # its gradients, I0 and the flow and writes 4; pd_step reads prep, the
     # flow and the dual (10) and writes 6; median5 reads and writes u, v;
-    # eps_reduce reads the per-block sums.  Operations per pixel: 3
+    # a round's last pd_step also writes and reads back the per-block sums
+    # and reads and writes the flags and errors.  Operations per pixel: 3
     # bilinear samples and the prep (~45); one primal-dual step (~70); the
     # min/max of K-C's generated tile schedule per plane (median_ops).
     # pd_solve_warp's and tvl1_scale's are those of the rounds their images
     # took (warp_bound, scale_bound).  Launches are those of the serve
     # requests where the serve path runs the kernel; tvl1_scale's also on
     # the mid-size commands' path (launches_tvl1_midsize); K-A, K-C, K-G and
-    # band_flags on the 1080p TV-L1 command's; K-D's blur pass on the 1080p
-    # Farneback command's (--fb-levels 4), K-E and sep_corr on its
-    # --fb-winsize 201 command's; K-H, K-B, the ε reduction and
-    # fb_window_solve are on no command's path (tvl1_scale and fb_iteration
-    # hold their arithmetic; K-B and ε take only a level too wide for a
-    # cluster; fb_window_solve only windows of 75-193 taps): their launches
-    # are 0, and check_launches counts those of the phase that holds them
-    # against their plain versions.
+    # its launches with the bands' test on the 1080p TV-L1 command's; K-D's
+    # blur pass on the 1080p Farneback command's (--fb-levels 4), K-E and
+    # sep_corr on its --fb-winsize 201 command's; K-H, K-B (with and
+    # without the ε test) and fb_window_solve are on no command's path
+    # (tvl1_scale and fb_iteration hold their arithmetic; K-B takes only a
+    # level too wide for a cluster; fb_window_solve only windows of 75-193
+    # taps): their launches are 0, and check_launches counts those of the
+    # phase that holds them against their plain versions.
     px = PAIRS * SIZES[0] * SIZES[0]
     blocks = ts.pd_blocks(SIZES[0], SIZES[0])
     bounds = {"warp_prep": bound(10 * 4 * px, 45 * px),
               "tvl1_pd_step": bound(16 * 4 * px, 70 * px),
               "median5": bound(4 * 4 * px, 2 * median_ops(5) * px),
-              "tvl1_eps_reduce": bound(4 * PAIRS * blocks + 8 * PAIRS,
-                                       PAIRS * blocks),
+              "tvl1_pd_step_eps": bound(
+                  16 * 4 * px + 8 * PAIRS * blocks + 12 * PAIRS,
+                  70 * px + PAIRS * blocks),
               **fb_bounds,
               **{name: v[2] for name, v in {**kh, **kg, **fhd}.items()}}
     errs.update(fb_errs)
@@ -2978,16 +3233,17 @@ def main(argv=None) -> int:
              [pallas + "tvl1_solve.py:415", pallas + "tvl1_solve.py:584"]),
             ("median5", "median.cu", pallas + "tvl1_solve.py:75",
              [pallas + "tvl1_solve.py:191", pallas + "tvl1_solve.py:584"]),
-            ("tvl1_eps_reduce", "tvl1_pd.cu", pallas + "tvl1_solve.py:165",
-             [pallas + "tvl1_solve.py:191"]),
+            ("tvl1_pd_step_eps", "tvl1_pd.cu", pallas + "tvl1_solve.py:191",
+             [pallas + "tvl1_solve.py:165", pallas + "tvl1_solve.py:415"]),
             ("tvl1_pd_warp", "tvl1_pd_warp.cu", pallas + "tvl1_solve.py:191",
              [pallas + "tvl1_solve.py:415", pallas + "tvl1_solve.py:584"]),
             ("tvl1_scale", "tvl1_pd_warp.cu", pallas + "tvl1_solve.py:584",
              [pallas + "tvl1_solve.py:500"]),
             ("tvl1_pd_chunk", "tvl1_pd_chunk.cu", pallas + "tvl1_solve.py:890",
              [pallas + "tvl1_solve.py:720", pallas + "tvl1_solve.py:1001"]),
-            ("tvl1_band_flags", "tvl1_pd_chunk.cu",
-             pallas + "tvl1_solve.py:1001", []),
+            ("tvl1_pd_chunk_flags", "tvl1_pd_chunk.cu",
+             pallas + "tvl1_solve.py:890",
+             [pallas + "tvl1_solve.py:1001", pallas + "tvl1_solve.py:1054"]),
             ("fb_prologue", "fb_prologue.cu", fbk + "1191", [fbk + "990"]),
             ("fb_prologue_blur", "fb_prologue.cu", fbk + "1191",
              [fbk + "990"]),
@@ -3002,7 +3258,7 @@ def main(argv=None) -> int:
              [fbk + "263", fbk + "471", fbk + "697", fbk + "946"]),
             ("fb_iteration", "fb_window_solve.cu", fbk + "946",
              [fbk + "826"])]
-    off_path = ("tvl1_pd_warp", "tvl1_pd_step", "tvl1_eps_reduce",
+    off_path = ("tvl1_pd_warp", "tvl1_pd_step", "tvl1_pd_step_eps",
                 "fb_window_solve")
     for name, *_ in rows:
         if name in off_path:

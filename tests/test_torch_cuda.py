@@ -273,40 +273,179 @@ def test_pd_chunk_rejects_bad_arguments(dev):
                     torch.empty((1, 1, 7), device=dev))
 
 
+def _split_epsilon(err, px, keep):
+    """ε whose ε² lies mid-way (geometrically) in the widest gap between
+    the per-pixel errors err / px (where `keep` and positive): sums on
+    both sides of the threshold, none within rounding of it."""
+    r = torch.unique((err / px)[keep & (err > 0)]).double()
+    assert r.numel() >= 2, r
+    gap = (r[1:] / r[:-1]).argmax()
+    return float((r[gap] * r[gap + 1]).sqrt().sqrt())
+
+
 @pytest.mark.parametrize("adaptive", [True, False])
-@pytest.mark.parametrize("b,h,w,band,n_part", [(1, 61, 96, 16, 6),
-                                              (45, 40, 33, 40, 1),
-                                              (3, 1080, 53, 24, 70)])
-def test_band_flags_matches_plain(dev, b, h, w, band, n_part, adaptive):
-    """Flags equal; the kept band sums to 1e-5 relative (their order
-    differs).  Sums are drawn on both sides of the thresholds, none within
-    rounding of one."""
-    g = torch.Generator(dev).manual_seed(h + n_part)
+@pytest.mark.parametrize("b,h,w,band,tile,halo,iters", [
+    (1, 61, 96, 16, 5, 4, 2),      # a tile row past the image's end
+    (45, 40, 33, 40, 40, 12, 2),   # one block an image, 45 images
+    (3, 1080, 53, 24, 10, 4, 2),   # 45 bands; short tile rows at band ends
+])
+def test_pd_chunk_band_test_matches_plain(dev, b, h, w, band, tile, halo,
+                                         iters, adaptive):
+    """The round's last launch with the bands' test: its state equals
+    ``pd_chunk_plain``'s bit for bit; its ``err_band`` and ``act_next``
+    equal ``band_flags_plain`` run on the partials the same launch wrote
+    (flags exactly, sums to 1e-5 relative: their order differs).  Odd
+    bands move 1e-2 as much as even ones, image 1 is at rest (its error is
+    0: it converges), some bands are frozen, with and without
+    ``prev_act``, and the last image keeps the first round's inf."""
+    cfg = TVL1Config(median_filtering=5)
     n_bands = -(-h // band)
-    eps = 0.05
-    scale = eps * eps * band * w
-    partial = torch.rand((b, n_bands, n_part), device=dev,
-                         generator=g) * (2 * scale / n_part)
-    partial[0] *= 0.05
-    act = (torch.rand((b, n_bands), device=dev, generator=g) < 0.7).to(
-        torch.int32)
-    old = torch.rand((b, n_bands), device=dev, generator=g) * 2 * scale
-    old[-1, :1] = float("inf")
+    prep, state, _ = _chunk_inputs(dev, b, h, w, n_bands, seed=h + b)
+    rows = torch.arange(h, device=dev) // band % 2 == 1
+    state[:, :, rows] *= 1e-2
+    prep[:, 3, rows] *= 1e-2
+    if b > 1:
+        state[1] = 0.0
+        prep[1, 3] = 0.0
+    act = torch.ones((b, n_bands), dtype=torch.int32, device=dev)
+    act[0, 1::3] = 0
     act[-1, :1] = 0
-    errs = [old.clone(), old.clone()]
-    nxt = [torch.full_like(act, -1), torch.full_like(act, -1)]
-    n = ts.band_flags.launches
-    ts.band_flags(partial, act, errs[0], nxt[0], band, h, w, eps, adaptive)
-    assert ts.band_flags.launches == n + 1
-    ts.band_flags_plain(partial, act, errs[1], nxt[1], band, h, w, eps,
-                        adaptive)
-    assert torch.equal(nxt[0], nxt[1])
-    finite = errs[1].isfinite()
-    assert torch.equal(errs[0].isfinite(), finite)
-    assert ((errs[0] - errs[1])[finite].abs()
-            <= 1e-5 * errs[1][finite].abs()).all()
+    _, want_err = ts.pd_chunk_plain(prep, state, act, cfg, iters, band, True)
+    px = torch.tensor([min(band, h - band * j) * w for j in range(n_bands)],
+                      dtype=torch.float32, device=dev)
+    eps = _split_epsilon(want_err, px, act == 1)
+    cfg = dataclasses.replace(cfg, epsilon=eps)
+    g = torch.Generator(dev).manual_seed(h)
+    old = torch.rand((b, n_bands), device=dev, generator=g) * 2 * eps ** 2 * px
+    if b > 1:
+        old[1] = 0.0
+    old[-1, :1] = float("inf")
+    partial = torch.full((b, n_bands, ts.chunk_partials(h, w, band, tile)),
+                         float("nan"), device=dev)
+    count = torch.zeros(b, dtype=torch.int32, device=dev)
+    want_state, _ = ts.pd_chunk_plain(prep, state, act, cfg, iters, band,
+                                      True)
+    for prev in (None, act):
+        out = torch.full_like(state, float("nan"))
+        if prev is not None:        # the frozen rows are there already
+            out.copy_(want_state)
+        errs = [old.clone(), old.clone()]
+        nxt = [torch.full_like(act, -1), torch.full_like(act, -1)]
+        n = ts.pd_chunk.launches, ts.pd_chunk.launches_test
+        ts.pd_chunk(prep, state, act, cfg, iters, band, tile, halo, True, out,
+                    partial, prev, count, errs[0], nxt[0], adaptive)
+        assert (ts.pd_chunk.launches, ts.pd_chunk.launches_test) == (
+            n[0] + 1, n[1] + 1)
+        assert torch.equal(out, want_state)
+        assert not count.any()
+        ts.band_flags_plain(partial, act, errs[1], nxt[1], band, h, w, eps,
+                            adaptive)
+        assert torch.equal(nxt[0], nxt[1])
+        finite = errs[1].isfinite()
+        assert torch.equal(errs[0].isfinite(), finite)
+        assert ((errs[0] - errs[1])[finite].abs()
+                <= 1e-5 * errs[1][finite].abs()).all()
+        r = (errs[1] / px)[finite] / eps ** 2
+        assert ((r - 1).abs() > 1e-3).all()
+        mean = errs[1].sum(dim=1) / (h * w) / eps ** 2
+        assert ((mean - 1).abs() > 1e-3).all()
+        if b > 1:
+            assert not nxt[0][1].any()      # the image at rest has stopped
+    assert bool(((want_err / px)[act == 1] < eps ** 2).any())
+    assert bool(((want_err / px)[act == 1] > eps ** 2).any())
     with pytest.raises(ValueError, match="alias"):
-        ts.band_flags(partial, act, errs[0], act, band, h, w, eps, adaptive)
+        ts.pd_chunk(prep, state, act, cfg, iters, band, tile, halo, True,
+                    out, partial, None, count, errs[0], act, adaptive)
+
+
+def test_pd_step_eps_test_matches_plain(dev):
+    """The round's last ``pd_step`` with the ε test: its state equals
+    ``pd_step_plain``'s on the active images; its ``err`` and flags equal
+    ``eps_reduce_plain`` run on the partials the same launch wrote (flags
+    exactly, err to 1e-5 relative).  Image 0 stays above ε², image 1
+    moves 1e-2 as much and falls below, image 2 is at rest and image 3
+    frozen."""
+    cfg = FAST
+    i0, i13, uv = _level(dev, 4, 37, 53)
+    prep = warp_prep_plain(i13, i0, uv)
+    g = torch.Generator(dev).manual_seed(3)
+    p = 0.3 * torch.randn((4, 4, 37, 53), device=dev, generator=g)
+    uv[1] *= 1e-2
+    p[1] *= 1e-2
+    prep[1, 3] *= 1e-2
+    uv[2], p[2], prep[2, 3] = 0.0, 0.0, 0.0
+    want_uv, want_p, want_err = ts.pd_step_plain(prep, uv, p, cfg, True)
+    assert want_err[1] < 0.5 * want_err[0]
+    eps = float((want_err[0] * want_err[1]).double().sqrt().sqrt())
+    cfg = dataclasses.replace(cfg, epsilon=eps)
+    active = torch.tensor([1, 1, 1, 0], dtype=torch.int32, device=dev)
+    before = active.clone()
+    uv_out, p_out = torch.empty_like(uv), torch.empty_like(p)
+    partial = torch.full((4, ts.pd_blocks(37, 53)), float("nan"), device=dev)
+    count = torch.zeros(4, dtype=torch.int32, device=dev)
+    err = torch.full((4,), float("inf"), device=dev)
+    n = ts.pd_step.launches, ts.pd_step.launches_test
+    ts.pd_step(prep, uv, p, active, cfg, uv_out, p_out, partial, count, err)
+    assert (ts.pd_step.launches, ts.pd_step.launches_test) == (n[0] + 1,
+                                                              n[1] + 1)
+    assert torch.equal(uv_out[:3], want_uv[:3])
+    assert torch.equal(uv_out[3], uv[3])
+    assert torch.equal(p_out[:3], want_p[:3])
+    assert not count.any()
+    flags, errs = before.clone(), torch.full((4,), float("inf"), device=dev)
+    ts.eps_reduce_plain(partial, flags, errs, 37 * 53, eps)
+    assert torch.equal(active, flags)
+    assert active.tolist() == [1, 0, 0, 0]
+    assert err[3] == float("inf") and err[2] == 0.0
+    assert ((err[:2] - errs[:2]).abs() <= 1e-5 * errs[:2].abs()).all()
+    with pytest.raises(ValueError, match="together"):
+        ts.pd_step(prep, uv, p, active, cfg, uv_out, p_out, None, count, err)
+
+
+def test_solvers_launch_no_separate_test_kernel(dev):
+    """A whole ``pd_solve_chunked`` and a whole ``pd_solve`` run their
+    rounds' tests inside their solver launches: the library has no test
+    kernel of its own, the profile shows only the solver's kernels, and
+    the counts are the solver's launches alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from video_analytics_tpu_torch.ops.cuda import _build
+    lib = _build.library()
+    assert not hasattr(lib, "va_band_flags")
+    assert not hasattr(lib, "va_eps_reduce")
+    cfg = dataclasses.replace(FAST, epsilon=0.05, inner_iterations=7)
+    i0, i13, uv = _level(dev, 2, 150, 131)
+    prep = warp_prep_plain(i13, i0, uv)
+    band, chunk = 2 * ts.chunk_tile(3, cfg)[0], 3
+    runs = [(lambda: ts.pd_solve_chunked(prep, uv, cfg, band, chunk),
+             {"pd_chunk_kernel"}),
+            (lambda: ts.pd_solve(prep, uv, cfg),
+             {"pd_step_kernel", "median_kernel"})]
+    for solve, kernels in runs:
+        solve()
+        n = (ts.pd_chunk.launches, ts.pd_chunk.launches_test,
+             ts.pd_step.launches, ts.pd_step.launches_test,
+             ts.median5.launches)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            solve()
+            torch.cuda.synchronize()
+        names = {ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA}
+        ours = {k for k in ("pd_chunk_kernel", "pd_step_kernel",
+                            "median_kernel", "band_flags_kernel",
+                            "eps_reduce_kernel")
+                if any(k in name for name in names)}
+        assert ours <= kernels, names
+        rounds = cfg.outer_iterations
+        got = (ts.pd_chunk.launches - n[0], ts.pd_chunk.launches_test - n[1],
+               ts.pd_step.launches - n[2], ts.pd_step.launches_test - n[3],
+               ts.median5.launches - n[4])
+        if "pd_chunk_kernel" in kernels:
+            assert got == (rounds * -(-cfg.inner_iterations // chunk),
+                           rounds - 1, 0, 0, 0)
+        else:
+            assert got == (0, 0, rounds * cfg.inner_iterations, rounds - 1,
+                           rounds)
 
 
 # -- K-H: one warp in one launch, an image per thread-block cluster ----------

@@ -255,11 +255,14 @@ def test_median5_plain_masks_images(rng):
 
 
 def test_eps_reduce_plain_clears_converged(rng):
+    """The plain version of the ε test that a round's last ``pd_step``
+    launch runs: the mean of each active image's partials, its flag
+    cleared under ε², a frozen image's error kept."""
     partial = torch.from_numpy(rng.uniform(0, 1, (4, 6)).astype(np.float32))
     partial[1] *= 1e-6
     active = torch.tensor([1, 1, 0, 1], dtype=torch.int32)
     err = torch.full((4,), float("inf"))
-    ts.eps_reduce(partial, active, err, n_px=30, epsilon=0.01)
+    ts.eps_reduce_plain(partial, active, err, n_px=30, epsilon=0.01)
     assert active.tolist() == [1, 0, 0, 1]
     assert err[2] == float("inf")
     np.testing.assert_allclose(err[[0, 1, 3]].numpy(),
@@ -269,22 +272,30 @@ def test_eps_reduce_plain_clears_converged(rng):
 
 def test_wrappers_take_plain_versions_on_cpu():
     """On CPU tensors each wrapper returns its plain version's result and
-    launches nothing; pd_step, which has no CPU form, refuses them."""
+    launches nothing; pd_step, which has no CPU form, refuses them, with
+    the round's ε test or without."""
     i0, i13, uv = _level_inputs(3, -0.6, 0.9, h=20, w=24)
     i0, i13, uv = (torch.from_numpy(a) for a in (i0, i13, uv))
     counts = (warp_prep.launches, ts.pd_step.launches, ts.median5.launches,
-              ts.eps_reduce.launches)
+              ts.pd_step.launches_test)
     prep = warp_prep(i13, i0, uv)
     assert torch.equal(prep, warp_prep_plain(i13, i0, uv))
     assert torch.equal(ts.median5(uv, 3), ts.median5_plain(uv, 3))
     assert torch.equal(ts.pd_solve(prep, uv, FAST),
                        ts.pd_solve_plain(prep, uv, FAST))
     assert counts == (warp_prep.launches, ts.pd_step.launches,
-                      ts.median5.launches, ts.eps_reduce.launches)
+                      ts.median5.launches, ts.pd_step.launches_test)
     p = torch.zeros((1, 4, 20, 24))
+    one = torch.ones(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        ts.pd_step(prep, uv, p, torch.ones(1, dtype=torch.int32), FAST,
-                   torch.empty_like(uv), torch.empty_like(p))
+        ts.pd_step(prep, uv, p, one, FAST, torch.empty_like(uv),
+                   torch.empty_like(p))
+    with pytest.raises(ValueError, match="CUDA"):
+        ts.pd_step(prep, uv, p, one, FAST, torch.empty_like(uv),
+                   torch.empty_like(p), torch.empty((1, ts.pd_blocks(20, 24))),
+                   torch.zeros(1, dtype=torch.int32), torch.empty(1))
+    assert counts == (warp_prep.launches, ts.pd_step.launches,
+                      ts.median5.launches, ts.pd_step.launches_test)
 
 
 # -- the whole pyramid ------------------------------------------------------

@@ -170,6 +170,55 @@ def test_chunked_adaptive_matches_reference_with_gate_engaged():
     assert np.array_equal(state[:, :2].numpy(), ours)
 
 
+def _rounds_with_the_launch_test(prep, uv, cfg, band, chunk, adaptive):
+    """The rounds of ``pd_solve_chunked`` on the card, restated on the
+    CPU: each round is its ``pd_chunk_plain`` launches, and the bands' test
+    that the round's last launch runs on the card, ``band_flags_plain`` on
+    that launch's band sums, decides the next round's flags; the warp's
+    last round runs no test."""
+    B, _, H, W = uv.shape
+    K = cfg.inner_iterations
+    n_bands = -(-H // band)
+    state = torch.cat([uv, torch.zeros((B, 4, H, W))], dim=1)
+    err_band = torch.full((B, n_bands), float("inf"))
+    act = torch.ones((B, n_bands), dtype=torch.int32)
+    for o in range(cfg.outer_iterations):
+        for c0 in range(0, K, chunk):
+            state, sums = ts.pd_chunk_plain(prep, state, act, cfg,
+                                            min(chunk, K - c0), band,
+                                            c0 == 0)
+        if o + 1 < cfg.outer_iterations:
+            act_next = torch.full_like(act, -1)
+            ts.band_flags_plain(sums[..., None], act, err_band, act_next,
+                                band, H, W, cfg.epsilon, adaptive)
+            act = act_next
+    return state[:, :2]
+
+
+@pytest.mark.parametrize("adaptive", [True, False])
+@pytest.mark.parametrize("gated", [True, False])
+def test_rounds_with_the_launch_test_match_reference(gated, adaptive):
+    """A warp whose rounds end with ``band_flags_plain``, as the card's
+    rounds end with the test in their last launch, equals the reference's
+    banded solver (its rule at ops/pallas/tvl1_solve.py:1054-1070, Pallas
+    in interpret mode) to atol 1e-6, and the port's plain chunked solver to
+    the bit: the gated planes at ε = 0.02 (bands freeze and thaw), and
+    the median case of tests/test_tvl1.py with its gate engaged."""
+    if gated:
+        cfg = TVL1Config(inner_iterations=5, outer_iterations=6,
+                         epsilon=0.02, median_filtering=5)
+        band, chunk, planes = 16, 5, _gated_planes()
+    else:
+        (cfg, band, chunk), planes = CASES[1], _planes(1)
+    ref, plain = _both(planes, cfg, band, chunk, adaptive)
+    prep = torch.from_numpy(np.stack(planes[:4], axis=1))
+    uv = torch.from_numpy(np.stack(planes[4:], axis=1))
+    ours = _rounds_with_the_launch_test(prep, uv, cfg, band, chunk,
+                                        adaptive).numpy()
+    np.testing.assert_allclose(ours, ref, atol=1e-6, rtol=0)
+    assert np.array_equal(ours, plain)
+
+
 def test_pd_chunk_plain_freezes_inactive_bands():
     cfg = TVL1Config(median_filtering=3)
     planes = _planes(5)

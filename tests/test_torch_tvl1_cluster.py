@@ -1,17 +1,20 @@
 """The cluster-resident TV-L1 solver (K-H ``pd_solve_warp``), the
-whole-scale launch built on it (``pd_solve_scale``) and the bands'
-device-side test (``band_flags``) of the port, on the CPU.
+whole-scale launch built on it (``pd_solve_scale``) and the rounds'
+device-side convergence tests (in the last ``pd_chunk`` and ``pd_step``
+launch of a round) of the port, on the CPU.
 
 The CUDA kernels run only on a card (tests/test_torch_cuda.py,
 chip_smoke.py).  Here: the size rule that picks the solver of a pyramid
 level; the kernel's decomposition of an image into 8 or 16 strips, each
 phase reading only the neighbour rows the kernel reads, restated in plain
 PyTorch and held to ``pd_solve_plain`` to the bit; ``band_flags_plain``
-against a numpy restatement of the reference's rule
-(video_analytics_tpu/ops/pallas/tvl1_solve.py:1054-1070);
-``pd_solve_scale_plain`` against the loop of three calls it replaces, and
-``tvl1`` through it against the JAX package; and what the wrappers do
-with CPU tensors.
+(the plain version of the bands' test) against a numpy restatement of
+the reference's rule (video_analytics_tpu/ops/pallas/tvl1_solve.py:
+1054-1070); ``pd_solve_scale_plain`` against the loop of three calls it
+replaces, and ``tvl1`` through it against the JAX package; and what the
+wrappers do with CPU tensors and with tensors that say they lie on the
+card: the test's arguments of the wrong shape, type or device, or
+aliased, are refused before anything launches.
 """
 
 import dataclasses
@@ -269,7 +272,7 @@ def test_strip_decomposition_equals_plain_with_per_image_stops(h, w, blocks):
     assert r1 == rounds[1:2] and torch.equal(alone[0], got[1])
 
 
-# -- band_flags ---------------------------------------------------------------
+# -- the bands' test ----------------------------------------------------------
 
 def _reference_rule(err_band, band_px, n_px, eps2, adaptive):
     """numpy restatement of tvl1_solve_warp_banded's flags
@@ -320,14 +323,18 @@ def test_band_flags_plain_matches_reference_rule(h, w, band, n_part, adaptive):
                            adaptive)
     assert np.array_equal(act_next.numpy().astype(bool), want)
     assert not want[0].any() and want[1].all() and want[2][:2].all()
-    # The wrapper takes the plain version for CPU tensors.
-    n = ts.band_flags.launches
-    err2 = torch.from_numpy(old.copy())
-    act2 = torch.empty_like(act_next)
-    ts.band_flags(torch.from_numpy(partial), torch.from_numpy(act), err2,
-                  act2, band, h, w, eps, adaptive)
-    assert ts.band_flags.launches == n
-    assert torch.equal(act2, act_next) and torch.equal(err2, err_band)
+    # The test runs on the card only, inside a round's last pd_chunk
+    # launch: CPU tensors are refused and nothing launches.
+    n = ts.pd_chunk.launches, ts.pd_chunk.launches_test
+    state = torch.zeros((B, 6, h, w))
+    with pytest.raises(ValueError, match="CUDA"):
+        ts.pd_chunk(torch.zeros((B, 4, h, w)), state, torch.from_numpy(act),
+                    TVL1Config(epsilon=eps), 1, band, 8, 3, False,
+                    torch.empty_like(state), torch.from_numpy(partial), None,
+                    torch.zeros(B, dtype=torch.int32),
+                    torch.from_numpy(old.copy()), torch.empty_like(act_next),
+                    adaptive)
+    assert (ts.pd_chunk.launches, ts.pd_chunk.launches_test) == n
 
 
 # -- the wrappers -------------------------------------------------------------
@@ -390,7 +397,8 @@ def test_cuda_wrappers_refuse_what_they_cannot_launch():
     turns to the plain version.  A level that fits no cluster, and
     arguments the kernels do not take, raise before any launch."""
     cfg = TVL1Config()
-    n = ts.pd_solve_warp.launches, ts.band_flags.launches
+    n = (ts.pd_solve_warp.launches, ts.pd_chunk.launches,
+         ts.pd_step.launches)
     n_scale = ts.pd_solve_scale.launches
     with pytest.raises(ValueError, match="does not fit"):
         ts.pd_solve_warp(_OnCard(1, 4, 20, 4000), _OnCard(1, 2, 20, 4000),
@@ -408,13 +416,136 @@ def test_cuda_wrappers_refuse_what_they_cannot_launch():
     with pytest.raises(TypeError, match="expected a tensor"):
         ts.pd_solve_warp(_OnCard(1, 4, 224, 224), _OnCard(1, 2, 224, 224),
                          cfg)
-    with pytest.raises(ValueError, match="bands"):
-        ts.band_flags(_OnCard(2, 3, 8), None, None, None, 16, 61, 96, 0.01,
-                      True)
     with pytest.raises(TypeError, match="expected a tensor"):
-        ts.band_flags(_OnCard(2, 4, 8), None, None, None, 16, 61, 96, 0.01,
-                      True)
-    assert (ts.pd_solve_warp.launches, ts.band_flags.launches) == n
+        ts.pd_chunk(_OnCard(2, 4, 61, 96), _OnCard(2, 6, 61, 96), None, cfg,
+                    3, 16, 16, 8, False, _OnCard(2, 6, 61, 96))
+    with pytest.raises(TypeError, match="expected a tensor"):
+        ts.pd_step(_OnCard(2, 4, 20, 24), _OnCard(2, 2, 20, 24),
+                   _OnCard(2, 4, 20, 24), None, cfg, _OnCard(2, 2, 20, 24),
+                   _OnCard(2, 4, 20, 24))
+    assert (ts.pd_solve_warp.launches, ts.pd_chunk.launches,
+            ts.pd_step.launches) == n
+
+
+class _CardTensor(torch.Tensor):
+    """A CPU tensor that says it lies on the card: a wrapper reads its
+    shape, type, device and address as a CUDA tensor's, so every check of
+    its arguments runs; these tests give each call one bad argument,
+    which must be refused before anything launches."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _card(t):
+    return t.as_subclass(_CardTensor)
+
+
+def _f(*shape):
+    return _card(torch.zeros(shape))
+
+
+def _i(*shape):
+    return _card(torch.zeros(shape, dtype=torch.int32))
+
+
+def _chunk_args():
+    """Arguments of a round's last ``pd_chunk`` launch with the bands'
+    test (2 images of 61x96 in bands of 16, tiles of 16), all on the
+    card."""
+    B, H, W, band, tile = 2, 61, 96, 16, 16
+    n_bands = -(-H // band)
+    return dict(prep=_f(B, 4, H, W), state=_f(B, 6, H, W),
+                act=_i(B, n_bands), cfg=TVL1Config(), iters=3, band=band,
+                tile=tile, halo=8, do_median=False, state_out=_f(B, 6, H, W),
+                partial=_f(B, n_bands, ts.chunk_partials(H, W, band, tile)),
+                prev_act=_i(B, n_bands), count=_i(B),
+                err_band=_f(B, n_bands), act_next=_i(B, n_bands),
+                adaptive=True)
+
+
+def _step_args():
+    """Arguments of a round's last ``pd_step`` launch with the ε test (2
+    images of 20x24), all on the card."""
+    B, H, W = 2, 20, 24
+    return dict(prep=_f(B, 4, H, W), uv=_f(B, 2, H, W), p=_f(B, 4, H, W),
+                active=_i(B), cfg=TVL1Config(), uv_out=_f(B, 2, H, W),
+                p_out=_f(B, 4, H, W), partial=_f(B, ts.pd_blocks(H, W)),
+                count=_i(B), err=_f(B))
+
+
+_WRONG = {
+    "shape": lambda t: _card(torch.zeros((t.shape[0] + 1, *t.shape[1:]),
+                                         dtype=t.dtype)),
+    "dtype": lambda t: _card(torch.zeros(
+        t.shape, dtype=torch.float64 if t.dtype == torch.float32
+        else torch.int64)),
+    "device": lambda t: torch.zeros(t.shape, dtype=t.dtype),
+}
+
+
+@pytest.mark.parametrize("wrong", sorted(_WRONG))
+@pytest.mark.parametrize("name", ["count", "err_band", "act_next"])
+def test_pd_chunk_refuses_a_bad_test_argument(name, wrong):
+    args = _chunk_args()
+    args[name] = _WRONG[wrong](args[name])
+    n = ts.pd_chunk.launches, ts.pd_chunk.launches_test
+    with pytest.raises(ValueError, match=name):
+        ts.pd_chunk(**args)
+    assert (ts.pd_chunk.launches, ts.pd_chunk.launches_test) == n
+
+
+@pytest.mark.parametrize("wrong", sorted(_WRONG))
+@pytest.mark.parametrize("name", ["count", "err"])
+def test_pd_step_refuses_a_bad_test_argument(name, wrong):
+    args = _step_args()
+    args[name] = _WRONG[wrong](args[name])
+    n = ts.pd_step.launches, ts.pd_step.launches_test
+    with pytest.raises(ValueError, match=name):
+        ts.pd_step(**args)
+    assert (ts.pd_step.launches, ts.pd_step.launches_test) == n
+
+
+@pytest.mark.parametrize("case", ["next_is_act", "next_is_prev_act",
+                                  "no_partial", "no_count", "no_act_next"])
+def test_pd_chunk_refuses_an_aliased_or_partial_test(case):
+    """act_next is written while the launch's blocks read act and
+    prev_act: it must be a buffer of its own; and the test takes the
+    partials, the count, the errors and the next flags together."""
+    args = _chunk_args()
+    if case == "next_is_act":
+        args["act_next"] = args["act"]
+    elif case == "next_is_prev_act":
+        args["act_next"] = args["prev_act"]
+    else:
+        args[case[3:]] = None
+    n = ts.pd_chunk.launches, ts.pd_chunk.launches_test
+    with pytest.raises(ValueError, match="alias" if "next_is" in case
+                       else "together"):
+        ts.pd_chunk(**args)
+    assert (ts.pd_chunk.launches, ts.pd_chunk.launches_test) == n
+
+
+@pytest.mark.parametrize("case", ["count_is_active", "no_partial",
+                                  "no_err"])
+def test_pd_step_refuses_an_aliased_or_partial_test(case):
+    """The count must not be the flags the launch reads and clears, and
+    the ε test takes the partials, the count and the errors together."""
+    args = _step_args()
+    if case == "count_is_active":
+        args["count"] = args["active"]
+    else:
+        args[case[3:]] = None
+    n = ts.pd_step.launches, ts.pd_step.launches_test
+    with pytest.raises(ValueError, match="alias" if "is" in case
+                       else "together"):
+        ts.pd_step(**args)
+    assert (ts.pd_step.launches, ts.pd_step.launches_test) == n
 
 
 # -- the whole-scale launch ---------------------------------------------------

@@ -57,4 +57,18 @@ __device__ __forceinline__ float lerp2(const float* __restrict__ P, int W,
   return top * (1.0f - fy) + bot * fy;
 }
 
+// A block's arrival at a count of blocks, by the thread that wrote what
+// the block leaves for the last one (threadFenceReduction of the CUDA
+// samples, with one acq_rel atomic in place of its fence): the count
+// before it.  Release: what this thread wrote before is visible to the
+// block that counts after it.  Acquire: where this block is the last, what
+// the others wrote before they counted is visible to this thread, and to
+// the block's other threads after a barrier.
+__device__ __forceinline__ int arrive(int* count) {
+  int before;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
+               : "=r"(before) : "l"(count) : "memory");
+  return before;
+}
+
 }  // namespace va

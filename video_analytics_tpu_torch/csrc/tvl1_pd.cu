@@ -1,5 +1,6 @@
-// K-B tvl1_pd_step and the per-image epsilon reduction: the TV-L1
-// primal-dual solver of one warp, one launch per iteration.
+// K-B tvl1_pd_step, with the per-image epsilon test in the launch that
+// ends a round: the TV-L1 primal-dual solver of one warp, one launch per
+// iteration.
 //
 // Replaces the solver body of video_analytics_tpu/ops/pallas/
 // tvl1_solve.py: _solver_kernel (tvl1_solve_warp), _pd_solve_packed
@@ -36,11 +37,17 @@
 //     converged image's blocks only copy (u, v) forward, so its state
 //     stays frozen with no host synchronisation (tvl1_solve.py:165-179);
 //   - on an outer round's last inner step the kernel writes each block's
-//     sum of (un-u)^2 + (vn-v)^2, reduced in a fixed tree order;
-//     va_eps_reduce then sums an image's block partials in a fixed order
-//     and clears its flag when sum / n_px < eps^2.  No float atomics, so
-//     a run repeats bit for bit, and an image's result does not depend on
-//     the batch it rides in.
+//     sum of (un-u)^2 + (vn-v)^2, reduced in a fixed tree order.  With
+//     `count` the same launch then tests the image (the CUDA samples'
+//     threadFenceReduction, va::arrive): each block of image b writes its
+//     partial and counts itself in count[b]; the last to arrive sums the
+//     image's partials in a fixed order (thread t takes t,
+//     t + NT, ..., then the tree), writes err[b], clears active[b] when
+//     sum / n_px < eps^2, and sets count[b] back to 0.  Every block of the
+//     image read active[b] before it arrived, so the write races with
+//     none of them; a frozen image's blocks return at once and its test
+//     does not run.  No float atomics, so a run repeats bit for bit, and
+//     an image's result does not depend on the batch it rides in.
 //
 // Bound on the H100: memory bandwidth.  Per pixel and iteration it reads
 // 10 f32 (4 solver constants, u, v, 4 dual planes) and writes 6, ~64 B,
@@ -69,9 +76,10 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 __global__ void __launch_bounds__(va::NT)
 pd_step_kernel(const float* __restrict__ prep, const float* __restrict__ uv_in,
                const float* __restrict__ p_in, float* __restrict__ uv_out,
-               float* __restrict__ p_out, const int* __restrict__ active,
-               float* __restrict__ partial, int H, int W, float l_t,
-               float theta, float taut) {
+               float* __restrict__ p_out, int* active,
+               float* __restrict__ partial, int* __restrict__ count,
+               float* __restrict__ err, int H, int W, float l_t, float theta,
+               float taut, float n_px, float eps2) {
   using va::TX;
   using va::TY;
   using va::NT;
@@ -163,29 +171,26 @@ pd_step_kernel(const float* __restrict__ prep, const float* __restrict__ uv_in,
     uo[o] = un;
     vo[o] = vn;
   }
-  if (partial != nullptr) {
-    const float s = block_sum(e, red);
-    if (tid == 0)
-      partial[(size_t)b * gridDim.x * gridDim.y + blockIdx.y * gridDim.x +
-              blockIdx.x] = s;
-  }
-}
-
-__global__ void __launch_bounds__(va::NT)
-eps_reduce_kernel(const float* __restrict__ partial, int n_part,
-                  int* __restrict__ active, float* __restrict__ err,
-                  float n_px, float eps2) {
-  __shared__ float red[va::NT];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.y * va::TX + threadIdx.x;
-  if (!active[b]) return;  // uniform over the block
-  float s = 0.0f;
-  for (int i = tid; i < n_part; i += va::NT) s += partial[(size_t)b * n_part + i];
-  s = block_sum(s, red);
+  if (partial == nullptr) return;   // uniform
+  const int n_part = gridDim.x * gridDim.y;
+  const float s = block_sum(e, red);
+  __shared__ int last;
   if (tid == 0) {
-    const float e = s / n_px;
-    err[b] = e;
-    if (e < eps2) active[b] = 0;
+    partial[(size_t)b * n_part + blockIdx.y * gridDim.x + blockIdx.x] = s;
+    if (count != nullptr) last = va::arrive(count + b) == n_part - 1;
+  }
+  if (count == nullptr) return;     // uniform
+  __syncthreads();                  // also: every thread has read red[0]
+  if (!last) return;
+  float t = 0.0f;
+  for (int i = tid; i < n_part; i += NT)
+    t += __ldcg(partial + (size_t)b * n_part + i);
+  t = block_sum(t, red);
+  if (tid == 0) {
+    const float m = t / n_px;
+    err[b] = m;
+    if (m < eps2) active[b] = 0;
+    count[b] = 0;
   }
 }
 
@@ -194,27 +199,21 @@ eps_reduce_kernel(const float* __restrict__ partial, int n_part,
 // prep: (B, 4, H, W) I1wx, I1wy, grad, rho_c; uv_in/uv_out: (B, 2, H, W);
 // p_in/p_out: (B, 4, H, W) p11, p12, p21, p22; active: (B,) int32;
 // partial: (B, cdiv(W, TX) * cdiv(H, TY)), one sum per block, or null when
-// the step needs no error.
+// the step needs no error; count: null, or the ε test in this launch
+// (partial given): count (B,) int32, zero, and left zero; err (B,) float32,
+// the mean squared update of each image still active, whose flag is
+// cleared where it is under eps2.
 VA_EXPORT int va_pd_step(const float* prep, const float* uv_in,
                          const float* p_in, float* uv_out, float* p_out,
-                         const int* active, float* partial, int B, int H,
-                         int W, float l_t, float theta, float taut,
-                         void* stream) {
+                         int* active, float* partial, int* count, float* err,
+                         int B, int H, int W, float l_t, float theta,
+                         float taut, float eps2, void* stream) {
+  if (count != nullptr && (partial == nullptr || err == nullptr))
+    return (int)cudaErrorInvalidValue;
   const dim3 block(va::TX, va::TY);
   const dim3 grid(va::cdiv(W, va::TX), va::cdiv(H, va::TY), B);
   pd_step_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      prep, uv_in, p_in, uv_out, p_out, active, partial, H, W, l_t, theta,
-      taut);
-  return (int)cudaGetLastError();
-}
-
-// partial: (B, n_part); active: (B,) int32, cleared where converged;
-// err: (B,) the mean squared update of each image still active.
-VA_EXPORT int va_eps_reduce(const float* partial, int* active, float* err,
-                            int B, int n_part, float n_px, float eps2,
-                            void* stream) {
-  const dim3 block(va::TX, va::TY);
-  eps_reduce_kernel<<<B, block, 0, (cudaStream_t)stream>>>(
-      partial, n_part, active, err, n_px, eps2);
+      prep, uv_in, p_in, uv_out, p_out, active, partial, count, err, H, W,
+      l_t, theta, taut, (float)((double)H * W), eps2);
   return (int)cudaGetLastError();
 }

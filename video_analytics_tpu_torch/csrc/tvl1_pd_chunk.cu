@@ -61,9 +61,18 @@
 //   - with `partial`, on the chunk's last iteration each block sums
 //     (un-u)^2 + (vn-v)^2 over its tile, per thread, then a shuffle tree,
 //     then the warps in turn, and writes one float (0 from a frozen block).
-//     No float atomics: a run repeats bit for bit.  va_band_flags sums a
-//     band's partials in a fixed order, applies the image's and the bands'
-//     tests and writes the next round's flags, all on the device.
+//     No float atomics: a run repeats bit for bit;
+//   - with the round's test (`BandTest`, on the round's last launch) the
+//     convergence test of the bands runs in the same launch, as the
+//     CUDA samples' threadFenceReduction does it (va::arrive): every block
+//     of image b, whatever path it took, writes its partial and counts
+//     itself in count[b]; the block that arrives last sums each band's
+//     partials in a fixed order (a warp a band, lanes strided, a shuffle
+//     tree, then thread 0 over the bands), applies the image's and the
+//     bands' tests, writes err_band and the next round's flags, and sets
+//     count[b] back to 0.  The test is a function of its own, called
+//     only there, in an instantiation of the kernel of its own, so the
+//     other launches of a round keep the iterations' code unchanged.
 //
 // Bound on the H100.  Per launch the function must read 10 planes and
 // write 6 (64 B per pixel, 19 ps at 3.35 TB/s) for iters * ~70 float
@@ -97,6 +106,16 @@ struct ChunkGeom {
   int median_k;     // 0 (no median in this chunk), 3 or 5
 };
 
+// The round's convergence test, run by the last block of each image.
+struct BandTest {
+  int* count;       // (B,) blocks arrived, 0 between launches; null: no test
+  float* err_band;  // (B, n_bands) each band's summed squared update
+  int* act_next;    // (B, n_bands) the next round's flags
+  float n_px;       // H * W
+  float eps2;
+  int adaptive;
+};
+
 template <int K>
 __device__ __forceinline__ float window_median(const float* __restrict__ st,
                                                int i) {
@@ -114,13 +133,15 @@ __device__ __forceinline__ float window_median(const float* __restrict__ st,
   }
 }
 
-__global__ void __launch_bounds__(GNT, 2)
-pd_chunk_kernel(const float* __restrict__ prep,
-                const float* __restrict__ state_in,
-                float* __restrict__ state_out, const int* __restrict__ act,
-                const int* __restrict__ prev_act, float* __restrict__ partial,
-                ChunkGeom g, float l_t, float theta, float taut) {
-  extern __shared__ float sm[];
+// `iters` iterations of one tile, and its partial.  Its returns end the
+// block's work on the state; the test that may follow needs every block.
+__device__ __forceinline__ void
+pd_chunk_tile(const float* __restrict__ prep,
+              const float* __restrict__ state_in,
+              float* __restrict__ state_out, const int* __restrict__ act,
+              const int* __restrict__ prev_act, float* __restrict__ partial,
+              const ChunkGeom& g, float l_t, float theta, float taut,
+              float* sm) {
   const int H = g.H, W = g.W, S = g.S;
   const size_t hw = (size_t)H * W;
   const int tid = threadIdx.x, tx = tid % GS, ty = tid / GS;
@@ -340,25 +361,37 @@ pd_chunk_kernel(const float* __restrict__ prep,
   }
 }
 
-// One block per image.  A band that ran (act) takes the sum of its blocks'
-// partials as its error, the others keep theirs; the image has converged
-// when the bands' errors sum to less than eps2 a pixel; a band runs next
-// round unless the image has converged or, with `adaptive`, it and both its
-// neighbours are under eps2 a pixel on their own.
-__global__ void __launch_bounds__(GNT)
-band_flags_kernel(const float* __restrict__ partial, int n_part,
-                  const int* __restrict__ act, float* __restrict__ err_band,
-                  int* __restrict__ act_next, int n_bands, int band, int H,
-                  int W, float n_px, float eps2, int adaptive) {
-  extern __shared__ float serr[];      // n_bands errors, then the verdict
-  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+// The test of image b, by its last block, on the partials every block of
+// the image has written (read past L1).  A band that ran (act) takes the
+// sum of its blocks' partials as its error, the others keep theirs; the
+// image has converged when the bands' errors sum to less than eps2 a pixel;
+// a band runs next round unless the image has converged or, with
+// `adaptive`, it and both its neighbours are under eps2 a pixel on their
+// own.  serr: n_bands + 1 floats of shared memory.
+__device__ __noinline__ void band_test(const float* partial, const int* act,
+                                       float* err_band, int* act_next, int b,
+                                       int n_bands, int n_part, int band,
+                                       int H, int W, float n_px, float eps2,
+                                       int adaptive, float* serr) {
+  const int tid = threadIdx.x, lane = tid & 31;
   for (int j = tid >> 5; j < n_bands; j += GNW) {   // a warp per band
     const int o = b * n_bands + j;
     float v;
     if (act[o]) {
+      // Four loads in flight at a time, added in the order q = lane,
+      // lane + 32, ...
+      const float* row = partial + (size_t)o * n_part;
       v = 0.0f;
-      for (int q = lane; q < n_part; q += 32)
-        v += partial[(size_t)o * n_part + q];
+      int q = lane;
+      for (; q + 96 < n_part; q += 128) {
+        const float a = __ldcg(row + q), c = __ldcg(row + q + 32);
+        const float d = __ldcg(row + q + 64), f = __ldcg(row + q + 96);
+        v += a;
+        v += c;
+        v += d;
+        v += f;
+      }
+      for (; q < n_part; q += 32) v += __ldcg(row + q);
 #pragma unroll
       for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
       if (lane == 0) err_band[o] = v;
@@ -369,9 +402,9 @@ band_flags_kernel(const float* __restrict__ partial, int n_part,
   }
   __syncthreads();
   if (tid == 0) {
-    float t = 0.0f;
-    for (int j = 0; j < n_bands; ++j) t += serr[j];
-    serr[n_bands] = t / n_px < eps2 ? 1.0f : 0.0f;
+    float s = 0.0f;
+    for (int j = 0; j < n_bands; ++j) s += serr[j];
+    serr[n_bands] = s / n_px < eps2 ? 1.0f : 0.0f;
   }
   __syncthreads();
   const bool converged = serr[n_bands] != 0.0f;
@@ -388,6 +421,36 @@ band_flags_kernel(const float* __restrict__ partial, int n_part,
   }
 }
 
+// TEST: the launch ends with the round's test (the round's last launch).
+// The others keep the iterations' code as it is without it: the call costs
+// the test's instantiation a 4-byte spill (PERF.md).
+template <bool TEST>
+__global__ void __launch_bounds__(GNT, 2)
+pd_chunk_kernel(const float* __restrict__ prep,
+                const float* __restrict__ state_in,
+                float* __restrict__ state_out, const int* __restrict__ act,
+                const int* __restrict__ prev_act, float* __restrict__ partial,
+                BandTest test, ChunkGeom g, float l_t, float theta,
+                float taut) {
+  extern __shared__ float sm[];
+  pd_chunk_tile(prep, state_in, state_out, act, prev_act, partial, g, l_t,
+                theta, taut, sm);
+  if constexpr (TEST) {
+    // Every block of the image arrives, whatever path it took, once thread
+    // 0 has written its partial.
+    __shared__ int last;
+    const int b = blockIdx.z;
+    if (threadIdx.x == 0)
+      last = va::arrive(test.count + b) == (int)(gridDim.x * gridDim.y) - 1;
+    __syncthreads();   // also: the state planes are free for the test's sums
+    if (!last) return;
+    band_test(partial, act, test.err_band, test.act_next, b, g.n_bands,
+              g.tiles_band * gridDim.x, g.band, g.H, g.W, test.n_px, test.eps2,
+              test.adaptive, sm);
+    if (threadIdx.x == 0) test.count[b] = 0;
+  }
+}
+
 }  // namespace
 
 // prep: (B, 4, H, W) I1wx, I1wy, grad, rho_c; state_in/state_out:
@@ -398,12 +461,17 @@ band_flags_kernel(const float* __restrict__ partial, int n_part,
 // (B, n_bands * cdiv(band, T), cdiv(W, T)), one error sum per block (0 from
 // a frozen block).  halo >= iters + median_k / 2; T + 2 * halo <= 64;
 // median_k in {0, 3, 5}.
+// count: null, or the round's test in this launch (partial given): count
+// (B,) int32, zero, and left zero; err_band (B, n_bands) float32, updated in
+// place for the bands that ran; act_next (B, n_bands) int32, the next
+// round's flags, a buffer other than act and prev_act.
 VA_EXPORT int va_pd_chunk(const float* prep, const float* state_in,
                           float* state_out, const int* act,
-                          const int* prev_act, float* partial, int B, int H,
+                          const int* prev_act, float* partial, int* count,
+                          float* err_band, int* act_next, int B, int H,
                           int W, int band, int T, int halo, int iters,
                           int median_k, float l_t, float theta, float taut,
-                          void* stream) {
+                          float eps2, int adaptive, void* stream) {
   if (iters < 1 || T < 1 || band < 1 ||
       (median_k != 0 && median_k != 3 && median_k != 5) ||
       halo < iters + median_k / 2 || T + 2 * halo > GS)
@@ -419,37 +487,35 @@ VA_EXPORT int va_pd_chunk(const float* prep, const float* state_in,
   g.halo = halo;
   g.iters = iters;
   g.median_k = median_k;
+  BandTest test;
+  test.count = count;
+  test.err_band = err_band;
+  test.act_next = act_next;
+  test.n_px = (float)((double)H * W);
+  test.eps2 = eps2;
+  test.adaptive = adaptive;
+  if (count != nullptr &&
+      (partial == nullptr || err_band == nullptr || act_next == nullptr ||
+       g.n_bands + 1 > N_SMEM_PLANES * PLANE))
+    return (int)cudaErrorInvalidValue;
   constexpr int smem = (N_SMEM_PLANES * PLANE + GNW) * (int)sizeof(float);
+  const bool with_test = count != nullptr;
+  const auto kernel =
+      with_test ? pd_chunk_kernel<true> : pd_chunk_kernel<false>;
   // Above 48 KB a kernel must opt in to its dynamic shared memory.
-  static bool opted_in = false;
-  if (!opted_in) {
+  static bool opted_in[2] = {false, false};
+  if (!opted_in[with_test]) {
     cudaError_t err = cudaFuncSetAttribute(
-        pd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) {
       cudaGetLastError();  // clear it: the next launch must not see it
       return (int)err;
     }
-    opted_in = true;
+    opted_in[with_test] = true;
   }
   const dim3 grid(va::cdiv(W, T), g.n_bands * g.tiles_band, B);
-  pd_chunk_kernel<<<grid, GNT, smem, (cudaStream_t)stream>>>(
-      prep, state_in, state_out, act, prev_act, partial, g, l_t, theta, taut);
-  return (int)cudaGetLastError();
-}
-
-// partial: (B, n_bands, n_part) from the round's last va_pd_chunk; act:
-// (B, n_bands) the flags that round ran with; err_band: (B, n_bands), updated
-// in place for the bands that ran; act_next: (B, n_bands), the next round's
-// flags, a buffer other than act.
-VA_EXPORT int va_band_flags(const float* partial, const int* act,
-                            float* err_band, int* act_next, int B,
-                            int n_bands, int n_part, int band, int H, int W,
-                            float eps2, int adaptive, void* stream) {
-  if (B < 1 || n_bands < 1 || n_bands != va::cdiv(H, band) || n_part < 1)
-    return (int)cudaErrorInvalidValue;
-  const int smem = (n_bands + 1) * (int)sizeof(float);
-  band_flags_kernel<<<B, GNT, smem, (cudaStream_t)stream>>>(
-      partial, n_part, act, err_band, act_next, n_bands, band, H, W,
-      (float)(H * W), eps2, adaptive);
+  kernel<<<grid, GNT, smem, (cudaStream_t)stream>>>(
+      prep, state_in, state_out, act, prev_act, partial, test, g, l_t, theta,
+      taut);
   return (int)cudaGetLastError();
 }

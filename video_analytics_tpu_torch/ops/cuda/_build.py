@@ -44,8 +44,8 @@ _F = ctypes.c_float
 # argtypes of every entry point of the library (csrc/*.cu).
 _SIGNATURES = {
     "va_warp_prep": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "va_pd_step": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
-    "va_eps_reduce": (_P, _P, _P, _I, _I, _F, _F, _P),
+    "va_pd_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                   _F, _P),
     "va_median": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
     "va_fb_prologue": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P,
                        _P, _P, _F, _F, _F, _F, _I, _P),
@@ -53,9 +53,8 @@ _SIGNATURES = {
     "va_fb_warp_neq": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     "va_sep_corr": (_P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P),
     "va_sep_corr_smem": (_I,),
-    "va_pd_chunk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                    _F, _F, _P),
-    "va_band_flags": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "va_pd_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                    _I, _I, _F, _F, _F, _F, _I, _P),
     "va_pd_warp": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
     "va_pd_scale": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                     _F, _F, _P),

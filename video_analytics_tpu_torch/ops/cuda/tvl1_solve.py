@@ -7,17 +7,19 @@ Replaces the solvers of ``video_analytics_tpu/ops/pallas/tvl1_solve.py``
 and ``tvl1_solve_warp_banded`` with its kernel ``_run_chunk``) and their
 in-kernel k×k median.  The kernels are
 ``csrc/tvl1_pd.cu`` (``pd_step``, one primal-dual iteration over the
-batch, and ``eps_reduce``, the per-image convergence test),
-``csrc/median.cu`` (``median5``), ``csrc/tvl1_pd_chunk.cu`` (``pd_chunk``,
-several iterations per launch on shared-memory tiles, and ``band_flags``,
-the bands' convergence test) and ``csrc/tvl1_pd_warp.cu`` (``pd_solve_warp``,
+batch, which on a round's last step also runs the per-image convergence
+test), ``csrc/median.cu`` (``median5``), ``csrc/tvl1_pd_chunk.cu``
+(``pd_chunk``, several iterations per launch on shared-memory tiles, whose
+last launch of a round also runs the bands' convergence test) and
+``csrc/tvl1_pd_warp.cu`` (``pd_solve_warp``,
 a whole warp in one launch with an image's state resident in the shared
 memory of a thread-block cluster); their source notes give the design and
 what bounds each on the H100.
 
 ``pd_solve`` drives one warp: ``outer_iterations`` rounds, each a median
-of the images still active, ``inner_iterations`` primal-dual steps with
-the dual variables reset to zero at the warp's start, and the ε test.
+of the images still active and ``inner_iterations`` primal-dual steps
+with the dual variables reset to zero at the warp's start, the last of
+which carries the ε test.
 Each image stops on its own test, as the Pallas solvers do; the reference
 XLA solver instead runs until the slowest image of the batch converges
 (ROADMAP F1).  The CUDA path keeps the per-image flags on the device and
@@ -33,8 +35,9 @@ kernel's prologue, and the scale-end median closes the launch;
 ``pd_solve_chunked`` drives one warp of a plane too large for either
 (``flow/tvl1.py`` sends it every level the reference sends to its banded
 solver): each round is ``ceil(K / chunk)`` launches of ``pd_chunk``, the
-first of which opens with the median, then one of ``band_flags``: rows
-are gated in bands on their own ε test, as in the reference.
+first of which opens with the median and the last of which ends with the
+bands' test: rows are gated in bands on their own ε test, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -58,10 +61,11 @@ def _solver_constants(cfg: TVL1Config) -> Tuple[float, float, float]:
     return cfg.lambda_ * cfg.theta, cfg.theta, cfg.tau / cfg.theta
 
 
-def _expect_active(active: torch.Tensor, B: int, device) -> None:
+def _expect_active(active: torch.Tensor, B: int, device,
+                   name: str = "active") -> None:
     if (active.dtype != torch.int32 or tuple(active.shape) != (B,)
             or active.device != device or not active.is_contiguous()):
-        raise ValueError(f"active: expected a contiguous ({B},) int32 tensor "
+        raise ValueError(f"{name}: expected a contiguous ({B},) int32 tensor "
                          f"on {device}, got {tuple(active.shape)} "
                          f"{active.dtype} on {active.device}")
 
@@ -162,8 +166,9 @@ def pd_blocks(H: int, W: int) -> int:
 
 def pd_step(prep: torch.Tensor, uv: torch.Tensor, p: torch.Tensor,
             active: torch.Tensor, cfg: TVL1Config, uv_out: torch.Tensor,
-            p_out: torch.Tensor, partial: Optional[torch.Tensor] = None
-            ) -> None:
+            p_out: torch.Tensor, partial: Optional[torch.Tensor] = None,
+            count: Optional[torch.Tensor] = None,
+            err: Optional[torch.Tensor] = None) -> None:
     """One primal-dual iteration of every active image, on CUDA tensors.
 
     prep (B, 4, H, W) from ``warp_prep``; uv (B, 2, H, W) and the dual
@@ -171,7 +176,11 @@ def pd_step(prep: torch.Tensor, uv: torch.Tensor, p: torch.Tensor,
     distinct buffers uv_out and p_out (frozen images copy uv forward and
     leave p_out stale: the solver never reads it again in this warp).
     With ``partial`` ((B, pd_blocks(H, W)) float32), each block's sum of
-    squared updates is written there for ``eps_reduce``."""
+    squared updates is written there.  With ``count`` ((B,) int32, zero,
+    left zero) and ``err`` ((B,) float32) as well, the launch ends with
+    the ε test of ``eps_reduce_plain`` on those sums: err[b] of each active
+    image becomes its mean squared update (summed in a fixed order) and
+    active[b] is cleared where that is under ε²."""
     B, _, H, W = uv.shape
     dev = uv.device
     if not uv.is_cuda:
@@ -186,6 +195,15 @@ def pd_step(prep: torch.Tensor, uv: torch.Tensor, p: torch.Tensor,
     _expect_active(active, B, dev)
     if partial is not None:
         _build.expect(partial, "partial", (B, pd_blocks(H, W)), dev)
+    test = count is not None or err is not None
+    if test:
+        if partial is None or count is None or err is None:
+            raise ValueError("pd_step: the ε test takes partial, count and "
+                             "err together")
+        _expect_active(count, B, dev, "count")
+        _build.expect(err, "err", (B,), dev)
+        if count.data_ptr() == active.data_ptr():
+            raise ValueError("pd_step: count must not alias active")
     l_t, theta, taut = _solver_constants(cfg)
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -193,44 +211,28 @@ def pd_step(prep: torch.Tensor, uv: torch.Tensor, p: torch.Tensor,
         prep.data_ptr(), uv.data_ptr(), p.data_ptr(), uv_out.data_ptr(),
         p_out.data_ptr(), active.data_ptr(),
         None if partial is None else partial.data_ptr(),
-        B, H, W, l_t, theta, taut, stream), "pd_step")
+        count.data_ptr() if test else None, err.data_ptr() if test else None,
+        B, H, W, l_t, theta, taut, cfg.epsilon * cfg.epsilon, stream),
+        "pd_step")
     pd_step.launches += 1
+    pd_step.launches_test += test
 
 
 pd_step.launches = 0
+pd_step.launches_test = 0      # of them, launches that ran the ε test
 
 
 # -- the ε test ---------------------------------------------------------------
 
 def eps_reduce_plain(partial: torch.Tensor, active: torch.Tensor,
                      err: torch.Tensor, n_px: int, epsilon: float) -> None:
-    """Plain PyTorch version of ``eps_reduce`` (in place)."""
+    """Plain PyTorch version of the ε test that ``pd_step`` runs in a
+    round's last launch (in place): for each image still active, err[b] =
+    Σ partial[b] / n_px and its flag is cleared when err[b] < ε²."""
     on = active.bool()
     e = partial.sum(dim=1) / n_px
     err.copy_(torch.where(on, e, err))
     active.copy_((on & ~(e < epsilon * epsilon)).to(active.dtype))
-
-
-def eps_reduce(partial: torch.Tensor, active: torch.Tensor,
-               err: torch.Tensor, n_px: int, epsilon: float) -> None:
-    """Per-image convergence test, in place: for each image still active,
-    err[b] = Σ partial[b] / n_px (summed in a fixed order) and its flag is
-    cleared when err[b] < ε²."""
-    if not partial.is_cuda:
-        return eps_reduce_plain(partial, active, err, n_px, epsilon)
-    B, n_part = partial.shape
-    _build.expect(partial, "partial", (B, n_part), partial.device)
-    _build.expect(err, "err", (B,), partial.device)
-    _expect_active(active, B, partial.device)
-    lib = _build.library()
-    stream = torch.cuda.current_stream(partial.device).cuda_stream
-    _build.check(lib.va_eps_reduce(
-        partial.data_ptr(), active.data_ptr(), err.data_ptr(), B, n_part,
-        float(n_px), epsilon * epsilon, stream), "eps_reduce")
-    eps_reduce.launches += 1
-
-
-eps_reduce.launches = 0
 
 
 # -- one warp ---------------------------------------------------------------
@@ -279,6 +281,7 @@ def pd_solve(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config
     B, _, H, W = uv.shape
     dev = uv.device
     active = torch.ones(B, dtype=torch.int32, device=dev)
+    count = torch.zeros(B, dtype=torch.int32, device=dev)
     err = torch.full((B,), math.inf, dtype=torch.float32, device=dev)
     partial = torch.empty((B, pd_blocks(H, W)), dtype=torch.float32,
                           device=dev)
@@ -286,17 +289,18 @@ def pd_solve(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config
     p_next = torch.empty_like(p)
     bufs = (torch.empty_like(uv), torch.empty_like(uv))
     cur, turn = uv, 0
-    for _ in range(cfg.outer_iterations):
+    for o in range(cfg.outer_iterations):
         if cfg.median_filtering > 1:
             cur = median5(cur, cfg.median_filtering, active, out=bufs[turn])
             turn ^= 1
+        # The round's last step tests it, unless no round follows.
+        test = o + 1 < cfg.outer_iterations
         for i in range(cfg.inner_iterations):
-            last = i == cfg.inner_iterations - 1
+            last = test and i == cfg.inner_iterations - 1
             pd_step(prep, cur, p, active, cfg, bufs[turn], p_next,
-                    partial if last else None)
+                    *((partial, count, err) if last else ()))
             cur, turn = bufs[turn], turn ^ 1
             p, p_next = p_next, p
-        eps_reduce(partial, active, err, H * W, cfg.epsilon)
     return cur
 
 
@@ -531,12 +535,12 @@ def chunk_params(h: int, w: int, cfg: TVL1Config) -> Tuple[int, int]:
     return _TILE_ROWS_PER_BAND * tile, chunk
 
 
-def _expect_band_flags(act: torch.Tensor, B: int, n_bands: int, device
-                       ) -> None:
+def _expect_band_flags(act: torch.Tensor, B: int, n_bands: int, device,
+                       name: str = "act") -> None:
     if (act.dtype != torch.int32 or tuple(act.shape) != (B, n_bands)
             or act.device != device or not act.is_contiguous()):
-        raise ValueError(f"act: expected a contiguous ({B}, {n_bands}) int32 "
-                         f"tensor on {device}, got {tuple(act.shape)} "
+        raise ValueError(f"{name}: expected a contiguous ({B}, {n_bands}) "
+                         f"int32 tensor on {device}, got {tuple(act.shape)} "
                          f"{act.dtype} on {act.device}")
 
 
@@ -574,7 +578,11 @@ def pd_chunk(prep: torch.Tensor, state: torch.Tensor, act: torch.Tensor,
              cfg: TVL1Config, iters: int, band: int, tile: int, halo: int,
              do_median: bool, state_out: torch.Tensor,
              partial: Optional[torch.Tensor] = None,
-             prev_act: Optional[torch.Tensor] = None) -> None:
+             prev_act: Optional[torch.Tensor] = None,
+             count: Optional[torch.Tensor] = None,
+             err_band: Optional[torch.Tensor] = None,
+             act_next: Optional[torch.Tensor] = None,
+             adaptive: bool = True) -> None:
     """`iters` primal-dual iterations of every active band, on CUDA tensors.
 
     prep (B, 4, H, W) from ``warp_prep``; state (B, 6, H, W) holds u, v,
@@ -590,7 +598,15 @@ def pd_chunk(prep: torch.Tensor, state: torch.Tensor, act: torch.Tensor,
     holds the flags of the launch before, which read what this launch
     writes and wrote what it reads (the ping-pong of
     ``pd_solve_chunked``): a band frozen in both is left alone, its rows
-    being equal in both buffers already."""
+    being equal in both buffers already.
+
+    With ``count`` ((B,) int32, zero, left zero), ``err_band``
+    ((B, n_bands) float32) and ``act_next`` ((B, n_bands) int32, a buffer
+    other than act and prev_act) as well as ``partial``, the launch ends
+    with the bands' convergence test of ``band_flags_plain`` (ε from cfg):
+    each band that ran takes the sum of its blocks' partials (in a fixed
+    order) as its ``err_band``, and ``act_next`` receives the next round's
+    flags by the rule of ``_band_flags``."""
     B, _, H, W = state.shape
     dev = state.device
     if not state.is_cuda:
@@ -605,7 +621,7 @@ def pd_chunk(prep: torch.Tensor, state: torch.Tensor, act: torch.Tensor,
     n_bands = -(-H // band)
     _expect_band_flags(act, B, n_bands, dev)
     if prev_act is not None:
-        _expect_band_flags(prev_act, B, n_bands, dev)
+        _expect_band_flags(prev_act, B, n_bands, dev, "prev_act")
     k = cfg.median_filtering if do_median and cfg.median_filtering > 1 else 0
     if k not in (0, 3, 5):
         raise ValueError(f"pd_chunk takes a median of 3 or 5, got {k}")
@@ -615,18 +631,37 @@ def pd_chunk(prep: torch.Tensor, state: torch.Tensor, act: torch.Tensor,
     if partial is not None:
         _build.expect(partial, "partial",
                       (B, n_bands, chunk_partials(H, W, band, tile)), dev)
+    given = [t is not None for t in (count, err_band, act_next)]
+    test = any(given)
+    if test:
+        if partial is None or not all(given):
+            raise ValueError("pd_chunk: the bands' test takes partial, "
+                             "count, err_band and act_next together")
+        _expect_active(count, B, dev, "count")
+        _build.expect(err_band, "err_band", (B, n_bands), dev)
+        _expect_band_flags(act_next, B, n_bands, dev, "act_next")
+        if any(t is not None and act_next.data_ptr() == t.data_ptr()
+               for t in (act, prev_act, count)):
+            raise ValueError("pd_chunk: act_next must not alias act, "
+                             "prev_act or count")
     l_t, theta, taut = _solver_constants(cfg)
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(lib.va_pd_chunk(
         prep.data_ptr(), state.data_ptr(), state_out.data_ptr(),
         act.data_ptr(), None if prev_act is None else prev_act.data_ptr(),
-        None if partial is None else partial.data_ptr(), B, H, W, band, tile,
-        halo, iters, k, l_t, theta, taut, stream), "pd_chunk")
+        None if partial is None else partial.data_ptr(),
+        count.data_ptr() if test else None,
+        err_band.data_ptr() if test else None,
+        act_next.data_ptr() if test else None, B, H, W, band, tile, halo,
+        iters, k, l_t, theta, taut, cfg.epsilon * cfg.epsilon, int(adaptive),
+        stream), "pd_chunk")
     pd_chunk.launches += 1
+    pd_chunk.launches_test += test
 
 
 pd_chunk.launches = 0
+pd_chunk.launches_test = 0     # of them, launches that ran the bands' test
 
 
 def _band_flags(err_band: torch.Tensor, band_px: torch.Tensor, n_px: int,
@@ -656,47 +691,15 @@ def band_flags_plain(partial: torch.Tensor, act: torch.Tensor,
                      err_band: torch.Tensor, act_next: torch.Tensor,
                      band: int, H: int, W: int, epsilon: float,
                      adaptive: bool) -> None:
-    """Plain PyTorch version of ``band_flags`` (in place)."""
+    """Plain PyTorch version of the bands' test that ``pd_chunk`` runs in
+    a round's last launch (in place): each band that ran (``act``) takes
+    the sum of its ``partial`` row (B, n_bands, n_part) as its
+    ``err_band``, and ``act_next`` receives the next round's flags by the
+    rule of ``_band_flags``."""
     err_band.copy_(torch.where(act.bool(), partial.sum(dim=2), err_band))
     run = _band_flags(err_band, _band_px(H, W, band, err_band.device), H * W,
                       epsilon * epsilon, adaptive)
     act_next.copy_(run.to(act_next.dtype))
-
-
-def band_flags(partial: torch.Tensor, act: torch.Tensor,
-               err_band: torch.Tensor, act_next: torch.Tensor, band: int,
-               H: int, W: int, epsilon: float, adaptive: bool) -> None:
-    """The bands' convergence test after one round of ``pd_chunk``, in
-    place: each band that ran (``act``) takes the sum of its blocks'
-    ``partial`` (in a fixed order) as its ``err_band``, and ``act_next``
-    receives the next round's flags by the rule of ``_band_flags``.
-
-    partial (B, n_bands, n_part) float32; act, act_next (B, n_bands)
-    int32, distinct buffers; err_band (B, n_bands) float32."""
-    if not partial.is_cuda:
-        return band_flags_plain(partial, act, err_band, act_next, band, H, W,
-                                epsilon, adaptive)
-    dev = partial.device
-    B, n_bands, n_part = partial.shape
-    if n_bands != -(-H // band):
-        raise ValueError(f"band_flags: {n_bands} bands, expected "
-                         f"{-(-H // band)} for {H} rows in bands of {band}")
-    _build.expect(partial, "partial", (B, n_bands, n_part), dev)
-    _build.expect(err_band, "err_band", (B, n_bands), dev)
-    _expect_band_flags(act, B, n_bands, dev)
-    _expect_band_flags(act_next, B, n_bands, dev)
-    if act_next.data_ptr() == act.data_ptr():
-        raise ValueError("band_flags: act_next must not alias act")
-    lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(lib.va_band_flags(
-        partial.data_ptr(), act.data_ptr(), err_band.data_ptr(),
-        act_next.data_ptr(), B, n_bands, n_part, band, H, W,
-        epsilon * epsilon, int(adaptive), stream), "band_flags")
-    band_flags.launches += 1
-
-
-band_flags.launches = 0
 
 
 def _solve_chunked_plain(prep: torch.Tensor, uv: torch.Tensor,
@@ -727,8 +730,9 @@ def _solve_chunked_cuda(prep: torch.Tensor, uv: torch.Tensor,
                         cfg: TVL1Config, band: int, chunk: int,
                         adaptive: bool) -> torch.Tensor:
     """Every buffer is allocated here, once; a round is its launches of
-    ``pd_chunk``, the last of which writes the error sums, and one of
-    ``band_flags``.  Nothing is read back."""
+    ``pd_chunk``, the last of which writes the error sums and runs the
+    bands' test on them (unless no round follows).  Nothing is read
+    back."""
     B, _, H, W = uv.shape
     dev = uv.device
     K = cfg.inner_iterations
@@ -744,19 +748,22 @@ def _solve_chunked_cuda(prep: torch.Tensor, uv: torch.Tensor,
                           dtype=torch.float32, device=dev)
     err_band = torch.full((B, n_bands), math.inf, dtype=torch.float32,
                           device=dev)
-    act = torch.ones((B, n_bands), dtype=torch.int32, device=dev)
-    act_next = torch.empty_like(act)
+    count = torch.zeros(B, dtype=torch.int32, device=dev)
+    # Three flag buffers in turn: the round's, the next round's (written by
+    # its last launch) and the round's before, which its first launch reads
+    # as prev_act.
+    flags = [torch.ones((B, n_bands), dtype=torch.int32, device=dev)
+             for _ in range(3)]
     prev = None
     for o in range(cfg.outer_iterations):
+        act, act_next = flags[o % 3], flags[(o + 1) % 3]
+        test = o + 1 < cfg.outer_iterations
         for c0 in range(0, K, chunk):
+            last = test and c0 + chunk >= K
             pd_chunk(prep, state, act, cfg, min(chunk, K - c0), band, tile,
-                     halo, c0 == 0, spare,
-                     partial if c0 + chunk >= K else None, prev)
+                     halo, c0 == 0, spare, partial if last else None, prev,
+                     *((count, err_band, act_next, adaptive) if last else ()))
             state, spare, prev = spare, state, act
-        if o + 1 < cfg.outer_iterations:
-            band_flags(partial, act, err_band, act_next, band, H, W,
-                       cfg.epsilon, adaptive)
-            act, act_next = act_next, act
     return state[:, :2].contiguous()
 
 
