@@ -152,7 +152,20 @@ by the commands themselves.  Phases, each reported on a JSON line:
    and ``--stream flow --algo farneback --steps 3``, the launch counts set
    to 0 just before each and held to the expected numbers just after,
    steps/s over steps 2-6 from CUDA events; the checkpoint read by
-   ``eval-ucf101 --batched`` and ``classify-clip``.
+   ``eval-ucf101 --batched`` and ``classify-clip``;
+13. spynet: the learned flow on the bundled weights at full width
+   (``PipelineConfig(flow_algo="spynet")``, 16-frame windows at 224²),
+   which reaches no hand-written kernel (every launch count set to 0 just
+   before each of its paths and held to 0 just after): 2 pairs on the card
+   against the CPU; ms per pair at 224² (15 pairs) and 1080×1920 (2 pairs)
+   beside the float32 operations bound; three ``ClipServer`` requests,
+   one profiled, the window alone against inside a batch;
+   ``compute-flow --algo spynet`` on a 1080p clip; ``eval-ucf101 --algo
+   spynet`` batched against clip by clip; ``build_examples`` with SpyNet
+   (320 pairs) and ``train --algo spynet`` for 3 steps; SpyNet's own
+   training at 64², batch 8: one step's loss on the card against the CPU's,
+   20 steps timed.  ``python3 chip_smoke.py --only spynet`` runs the build
+   and this phase alone.
 
 Then it prints the kernel table (``{"kernels": [...]}``: for each kernel
 its launches on its main path and which path that is (``launches_from``:
@@ -310,7 +323,7 @@ def profile_request(torch, np, server, frames, request_ms):
         rgb = pp.normalize(x, cfg.preprocess.mean, cfg.preprocess.std)
         s_logits = model.spatial(rgb.reshape(-1, *rgb.shape[2:])).mean(0)
         lap("rgb_cnn")
-        stacks = pipeline._flow_stacks(x, cfg, plain=False)[0]
+        stacks = pipeline._flow_stacks(x, cfg, False, server.flow_net)[0]
         lap(f"{algo}_and_stacking")
         t_logits = model.temporal(stacks).mean(0)
         model.fuse(s_logits, t_logits).cpu()
@@ -2376,8 +2389,8 @@ def eval_ucf101_phase(torch, np, dev):
     calls, streamed, started = [], [], []
     real_metrics, real_prefetch = ev.batch_clip_metrics, ev.prefetch_clips
 
-    def metrics_spy(windows, labels, valid, model, bcfg):
-        out = real_metrics(windows, labels, valid, model, bcfg)
+    def metrics_spy(windows, labels, valid, model, bcfg, *rest, **kw):
+        out = real_metrics(windows, labels, valid, model, bcfg, *rest, **kw)
         calls.append((windows, bcfg, out[1]))
         return out
 
@@ -2897,6 +2910,303 @@ def train_phase(torch, np, dev):
     return total
 
 
+SPY_HD_PAIRS = 2           # pairs of the 1080x1920 SpyNet call
+SPY_CLASSES = 2            # the SpyNet phase's synthetic UCF101: 2 classes x
+SPY_CLIPS_PER_CLASS = 4    # 4 clips of 48 frames, half of them test clips
+SPY_CMD_STEPS = 3          # steps of the SpyNet train command
+SPY_TRAIN_STEPS = 20       # SpyNet's own training steps, at 64², batch 8
+SPY_TRAIN_BATCH = 8
+SPY_TRAIN_HW = 64
+# SpyNet on the card against the CPU (cuDNN against the CPU's
+# convolutions, both float32 with TF32 off): the flow in px; a window's
+# probabilities alone and inside a batch (cuDNN may pick another algorithm
+# for another batch size); one training step's loss, relative.
+TOL_SPY_FLOW = 1e-4
+TOL_SPY_BATCH = 1e-5
+TOL_SPY_LOSS = 1e-4
+
+
+def spynet_phase(torch, np, dev):
+    """The learned flow (``--algo spynet``) at full width, on the bundled
+    weights.  SpyNet reaches no hand-written kernel: every launch count is
+    set to 0 just before each path below and held to 0 just after.
+
+    1. 2 pairs at 224² on the card against the CPU (TOL_SPY_FLOW);
+    2. ms per pair (CUDA events) at 224² (15 pairs: one request's flow
+       batch) and at 1080×1920 (2 pairs), beside the float32 operations
+       bound (``models/spynet.conv_flops`` over 67 TFLOP/s) and the share
+       of it reached; device time and busy share of one call
+       (torch.profiler); peak memory;
+    3. ``ClipServer`` with ``PipelineConfig(flow_algo="spynet")``, two
+       ResNet-18s of width 64 from seed 0, 16-frame windows: three
+       requests (ms each), phase 4's profile of one, probabilities summing
+       to 1, and the window alone against inside a batch (TOL_SPY_BATCH);
+    4. ``compute-flow --algo spynet`` on a 3-frame 1080p clip: 2 ``.flo``
+       files, the first equal to SpyNet's flow of the decoded frames;
+    5. ``eval-ucf101 --algo spynet --batched`` and clip by clip on a
+       synthetic UCF101 (4 test clips at 240×320) from a full-width
+       checkpoint: the same counts;
+    6. ``build_examples`` with SpyNet on 32 in-memory 11-frame windows
+       (320 pairs at 224²): ms and device time; then ``train --algo
+       spynet`` for 3 steps at the defaults (batch 32), its checkpoint
+       written;
+    7. SpyNet's own training (``make_spynet_train_step``, Adam, 64²,
+       batch 8) from the bundled weights: one step on the card against
+       the same step on the CPU (the same draws; loss within TOL_SPY_LOSS),
+       then 20 steps timed with CUDA events."""
+    import copy
+    import tempfile
+
+    from video_analytics_tpu_torch.config import PipelineConfig
+    from video_analytics_tpu_torch.ingest.windows import apply_transport_crop
+    from video_analytics_tpu_torch.io.flowio import read_flo
+    from video_analytics_tpu_torch.io.synthetic import build_synthetic_ucf101
+    from video_analytics_tpu_torch.io.video import (
+        VideoReader, synthesize_video)
+    from video_analytics_tpu_torch.models.spynet import (
+        SpyNet, conv_flops, default_spynet_checkpoint,
+        make_spynet_train_step)
+    from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+    from video_analytics_tpu_torch.ops.preprocess import rgb_to_gray
+    from video_analytics_tpu_torch.runtime import pipeline
+    from video_analytics_tpu_torch.runtime import train_two_stream as tts
+    from video_analytics_tpu_torch.runtime.checkpoint import (
+        load_variables, save_variables)
+    from video_analytics_tpu_torch.runtime.serve import ClipServer
+
+    zero, read = flow_counters()
+    nothing = dict.fromkeys(read(), 0)
+
+    def no_kernels(what: str) -> None:
+        launches = read()
+        check(launches == nothing,
+              f"{what} launched port kernels: {launches}")
+
+    cpu_net = SpyNet(levels=4)
+    cpu_net.load_flax_variables(load_variables(
+        default_spynet_checkpoint(), cpu_net.flax_variables())).eval()
+    net = copy.deepcopy(cpu_net).to(dev)
+    cfg = PipelineConfig(flow_algo="spynet")
+    crop = cfg.preprocess.crop
+    report = {"tolerances": {"flow_vs_cpu_px": TOL_SPY_FLOW,
+                             "probs_alone_vs_batch": TOL_SPY_BATCH,
+                             "train_loss_rel": TOL_SPY_LOSS}}
+
+    def gray_pairs(n: int, h: int, w: int, seed: int):
+        g = torch.from_numpy(np.stack([scene(np, t, h, w, seed)
+                                       for t in range(n + 1)]))
+        return g[:-1], g[1:]
+
+    # 1. The card against the CPU.
+    prev, nxt = gray_pairs(2, crop, crop, 60)
+    with torch.no_grad():
+        zero()
+        got = net(prev.to(dev), nxt.to(dev))
+        torch.cuda.synchronize()
+        no_kernels("SpyNet")
+        want = cpu_net(prev, nxt)
+    err = float((got.cpu() - want).abs().max())
+    check(got.shape == (2, crop, crop, 2) and bool(torch.isfinite(got).all()),
+          f"SpyNet flow {tuple(got.shape)}")
+    check(err <= TOL_SPY_FLOW,
+          f"SpyNet on the card vs the CPU: max abs {err} > {TOL_SPY_FLOW}")
+    report["flow_vs_cpu_max_abs"] = err
+    report["mean_flow_224"] = got[:, 16:-16, 16:-16].reshape(
+        -1, 2).mean(0).tolist()           # the scene moves VEL px a frame
+
+    # 2. ms per pair against the operations bound.
+    for name, (n, h, w) in (("224", (PAIRS, crop, crop)),
+                            ("1080p", (SPY_HD_PAIRS, *FULL_HD))):
+        p, q = (t.to(dev) for t in gray_pairs(n, h, w, 61))
+        with torch.no_grad():
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(torch, lambda: net(p, q), 5)
+            prof = device_profile(torch, lambda: net(p, q))
+        flops = conv_flops(n, h, w)
+        b_ms, b_by = bound(4 * n * h * w * (2 + 2), flops)
+        report[f"flow_{name}"] = {
+            "pairs": n, "hw": [h, w], "ms": ms, "ms_per_pair": ms / n,
+            "gflop": flops / 1e9, "bound_ms": b_ms, "bound_by": b_by,
+            "share_of_bound": b_ms / ms,
+            "device_sum_ms": prof["device_sum_ms"],
+            "device_busy_ms": prof["device_busy_ms"],
+            "busy_share_of_profiled": prof["busy_share_of_profiled"],
+            "top_device_ms": prof["top_device_ms"][:6],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    # 3. Serving.
+    frames = np.stack([np.stack([scene(np, t, 256, 256, seed=c)
+                                 for c in range(3)], axis=-1)
+                       for t in range(16)]).round().astype(np.uint8)
+    model = TwoStreamModel.create(num_classes=cfg.num_classes,
+                                  flow_stack=cfg.preprocess.flow_stack,
+                                  width=64).init(
+        torch.Generator().manual_seed(0))
+    server = ClipServer(model, cfg, dev, flow_net=net)
+    warm_s = server.warmup()
+    request_ms, outs, _ = serve_requests(server, frames, zero, read,
+                                         nothing)
+    probs = outs[0]
+    check(probs.shape == (cfg.num_classes,)
+          and bool(np.isfinite(probs).all()) and bool((probs >= 0).all())
+          and abs(float(probs.sum()) - 1.0) < 1e-4,
+          f"SpyNet serve probs: shape {probs.shape}, sum {probs.sum()}")
+    wins, wcfg = apply_transport_crop(server._windows_from_frames(frames),
+                                      cfg)
+    x = torch.from_numpy(wins[0]).to(dev)
+    with torch.no_grad():
+        alone = pipeline.classify_window(x, server.model, wcfg, flow_net=net)
+        batch = pipeline.classify_batch(torch.stack([x, x.flip(0)]),
+                                        server.model, wcfg, flow_net=net)
+    e_batch = float((batch[0] - alone).abs().max())
+    check(e_batch <= TOL_SPY_BATCH,
+          f"SpyNet window alone vs batched: {e_batch} > {TOL_SPY_BATCH}")
+    report["serve"] = {
+        "warmup_s": warm_s, "request_ms": request_ms,
+        "top1": int(probs.argmax()), "alone_vs_batch_max_abs": e_batch,
+        "repeat_max_abs": max(float(np.abs(o - probs).max()) for o in outs),
+        "flow_gflop_per_request": conv_flops(PAIRS, crop, crop) / 1e9,
+        "flow_bound_ms_per_request": bound(
+            0, conv_flops(PAIRS, crop, crop))[0],
+        "profile": profile_request(torch, np, server, frames, request_ms)}
+
+    with tempfile.TemporaryDirectory() as work:
+        # 4. compute-flow on a 1080p clip.
+        clip = synthesize_video(os.path.join(work, "hd.mp4"),
+                                list(hd_frames(np, 3, seed=62)), fps=25.0)
+        out_dir = os.path.join(work, "flow")
+        zero()
+        t0 = time.perf_counter()
+        rc, res = run_cli(["compute-flow", clip, out_dir, "--algo", "spynet",
+                           "--device", "cuda"])
+        torch.cuda.synchronize()
+        cf_s = time.perf_counter() - t0
+        no_kernels("compute-flow --algo spynet")
+        check(rc == 0 and res["flows"] == 2, f"compute-flow: {rc} {res}")
+        with VideoReader(clip) as r:
+            decoded = r.read_all()
+        with torch.no_grad():
+            g = rgb_to_gray(torch.from_numpy(decoded).to(dev))
+            direct = net(g[:-1], g[1:])[0].cpu().numpy()
+        flo = read_flo(os.path.join(out_dir, "flow_000001.flo"))
+        e_cf = float(np.abs(flo - direct).max())
+        check(flo.shape == (*FULL_HD, 2) and e_cf <= TOL_SPY_FLOW,
+              f"compute-flow .flo {flo.shape} vs SpyNet: {e_cf}")
+        report["compute_flow_1080p"] = {"seconds": cf_s, "flows": 2,
+                                        "max_abs_vs_direct": e_cf}
+
+        # 5. eval-ucf101, batched and clip by clip.
+        ds = build_synthetic_ucf101(
+            os.path.join(work, "ucf101"), num_classes=SPY_CLASSES,
+            clips_per_class=SPY_CLIPS_PER_CLASS, num_frames=EVAL_FRAMES,
+            h=NATIVE[0], w=NATIVE[1], seed=0)
+        ckpt = os.path.join(work, "two_stream.msgpack")
+        save_variables(ckpt, model.flax_variables())
+        base = ["eval-ucf101", "--videos", ds.videos_root, "--annotations",
+                ds.annotations_root, "--checkpoint", ckpt, "--algo",
+                "spynet", "--device", "cuda"]
+        evals = {}
+        for name, extra in (("batched", ["--batched", "--batch-clips", "8"]),
+                            ("sequential", [])):
+            zero()
+            t0 = time.perf_counter()
+            rc, res = run_cli(base + extra)
+            torch.cuda.synchronize()
+            evals[name] = {"seconds": time.perf_counter() - t0, **res}
+            no_kernels(f"eval-ucf101 --algo spynet {extra}")
+            check(rc == 0 and res["failed"] == 0
+                  and res["total"] == len(ds.test_records()),
+                  f"eval-ucf101 --algo spynet {extra}: {rc} {res}")
+        check(evals["batched"]["correct"] == evals["sequential"]["correct"],
+              f"eval-ucf101 --algo spynet batched vs sequential: {evals}")
+        report["eval_ucf101"] = evals
+
+        # 6. build_examples with SpyNet, then the train command.
+        tcfg = dataclasses.replace(cfg, preprocess=dataclasses.replace(
+            cfg.preprocess, random_crop=True, random_flip=True))
+        L = tcfg.preprocess.flow_stack
+        windows = torch.from_numpy(train_windows(np, TRAIN_BATCH, L + 1,
+                                                 seed=40)).to(dev)
+        crops = tts.draw_crops(torch.Generator().manual_seed(0), windows,
+                               tcfg)
+
+        def examples():
+            return tts.build_examples(windows, tcfg, "both", crops,
+                                      flow_net=net)
+
+        zero()
+        ex = examples()
+        torch.cuda.synchronize()
+        no_kernels("build_examples (spynet)")
+        check(ex["flow"].shape == (TRAIN_BATCH, crop, crop, 2 * L)
+              and bool(torch.isfinite(ex["flow"]).all()),
+              f"build_examples (spynet) {tuple(ex['flow'].shape)}")
+        prof = device_profile(torch, examples)
+        flops = conv_flops(TRAIN_BATCH * L, crop, crop)
+        report["build_examples"] = {
+            "pairs": TRAIN_BATCH * L, "ms": cuda_ms(torch, examples, 3),
+            "device_busy_ms": prof["device_busy_ms"],
+            "device_sum_ms": prof["device_sum_ms"],
+            "top_device_ms": prof["top_device_ms"][:6],
+            "flow_gflop": flops / 1e9, "flow_bound_ms": bound(0, flops)[0]}
+        out = os.path.join(work, "spy_train.msgpack")
+        zero()
+        t0 = time.perf_counter()
+        rc, res = run_cli(["train", "--videos", ds.videos_root,
+                           "--annotations", ds.annotations_root, "--out",
+                           out, "--algo", "spynet", "--steps",
+                           str(SPY_CMD_STEPS), "--device", "cuda"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        no_kernels("train --algo spynet")
+        check(rc == 0 and res["steps"] == SPY_CMD_STEPS
+              and os.path.getsize(out) > 0
+              and all(np.isfinite(res[f"final_loss_{k}"])
+                      for k in ("rgb", "flow")),
+              f"train --algo spynet: {rc} {res}")
+        report["train_command"] = {"seconds": train_s, **res}
+
+    # 7. SpyNet's own training: one step against the CPU, then 20 timed.
+    def trainer(m):
+        return make_spynet_train_step(
+            m, torch.optim.Adam(m.parameters(), lr=2e-4),
+            batch=SPY_TRAIN_BATCH, hw=(SPY_TRAIN_HW, SPY_TRAIN_HW),
+            local_blobs=2)
+
+    card_net = copy.deepcopy(cpu_net).to(dev)
+    step = trainer(card_net)
+    # Draws from one CPU generator seed on both sides: the same batch.
+    loss_d, epe_d = step(torch.Generator().manual_seed(7))
+    loss_c, epe_c = trainer(copy.deepcopy(cpu_net))(
+        torch.Generator().manual_seed(7))
+    rel = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+    check(rel <= TOL_SPY_LOSS,
+          f"SpyNet train step loss card {float(loss_d)} vs CPU "
+          f"{float(loss_c)}: {rel} > {TOL_SPY_LOSS}")
+    gen = torch.Generator(dev).manual_seed(8)
+    zero()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses = [step(gen) for _ in range(SPY_TRAIN_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    no_kernels("SpyNet training")
+    losses = [(float(a), float(b)) for a, b in losses]
+    check(all(np.isfinite(v).all() for v in losses),
+          f"SpyNet training losses {losses}")
+    flops = 3 * conv_flops(SPY_TRAIN_BATCH, SPY_TRAIN_HW, SPY_TRAIN_HW)
+    report["spynet_training"] = {
+        "loss_card": float(loss_d), "loss_cpu": float(loss_c),
+        "loss_rel_err": rel, "epe_card": float(epe_d),
+        "epe_cpu": float(epe_c),
+        "steps": SPY_TRAIN_STEPS, "ms_per_step": start.elapsed_time(end)
+        / SPY_TRAIN_STEPS,
+        "first_last_loss": [losses[0][0], losses[-1][0]],
+        "bound_ms_per_step": bound(0, flops)[0]}
+    emit({"phase": "spynet", **report})
+
+
 def native_phases(torch, np, dev, chain: bool = True):
     """The native-resolution flow command and, with `chain`, the stage
     commands that read what it wrote, in one temporary directory.  Returns
@@ -2927,7 +3237,8 @@ def main(argv=None) -> int:
                     choices=["tvl1_warp_kernel", "farneback_kernels",
                              "farneback_1080p", "tvl1_midsize",
                              "tvl1_chunk_kernels", "tvl1_1080p",
-                             "stage_chain", "eval_ucf101", "train"],
+                             "stage_chain", "eval_ucf101", "train",
+                             "spynet"],
                     help="run the build and this phase alone (stage_chain "
                          "with tvl1_1080p, whose directories it reads), for "
                          "work on it; prints no result line")
@@ -2988,6 +3299,8 @@ def main(argv=None) -> int:
         eval_ucf101_phase(torch, np, dev)
     elif args.only == "train":
         train_phase(torch, np, dev)
+    elif args.only == "spynet":
+        spynet_phase(torch, np, dev)
     elif args.only:
         native_phases(torch, np, dev, args.only == "stage_chain")
     if args.only:
@@ -3178,6 +3491,9 @@ def main(argv=None) -> int:
 
     # -- 12. train ----------------------------------------------------------
     train_launches = train_phase(torch, np, dev)
+
+    # -- 13. SpyNet: no port kernel on its path ------------------------------
+    spynet_phase(torch, np, dev)
 
     # -- the kernel table -----------------------------------------------------
     # TV-L1 bounds at 224², 15 pairs.  Planes moved: warp_prep reads I1 and

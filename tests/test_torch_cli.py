@@ -103,14 +103,43 @@ def test_compute_flow_viz_from_frames_dir(tmp_path, tiny_clip, capsys):
     assert sq.max(axis=-1).mean() > bg.max(axis=-1).mean() + 50
 
 
+def test_compute_flow_spynet_matches_reference(tmp_path, tiny_clip, capsys):
+    """--algo spynet at the native resolution against the JAX command's
+    ``--no-bucket`` (its default pads to multiples of 64, which moves
+    SpyNet's border pixels), on the bundled weights and on a
+    --spynet-checkpoint file: .flo files within 1e-4 px."""
+    from video_analytics_tpu_torch.models.spynet import (
+        default_spynet_checkpoint)
+    for extra in ([], ["--spynet-checkpoint", default_spynet_checkpoint()]):
+        ours_dir = str(tmp_path / f"ours{len(extra)}")
+        ref_dir = str(tmp_path / f"ref{len(extra)}")
+        args = ["--algo", "spynet", "--max-frames", "4", "--batch", "2",
+                *extra]
+        rc, res = run_cli(capsys, ["compute-flow", tiny_clip, ours_dir,
+                                   *args, *CPU])
+        assert rc == 0 and res == {"flows": 3, "algo": "spynet",
+                                   "format": "flo", "out_dir": ours_dir}
+        assert jax_main(["compute-flow", tiny_clip, ref_dir, *args,
+                         "--no-bucket"]) == 0
+        capsys.readouterr()
+        for i in (1, 2, 3):
+            ours = read_flo(os.path.join(ours_dir, f"flow_{i:06d}.flo"))
+            ref = read_flo(os.path.join(ref_dir, f"flow_{i:06d}.flo"))
+            assert ours.shape == (120, 160, 2)
+            np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-4)
+    # The square moves (2, 1) px a frame: SpyNet sees it.
+    assert np.abs(ours[15:30, 15:30]).max() > 0.5
+
+
 def test_compute_flow_errors(tmp_path, tiny_clip, capsys, monkeypatch):
-    """< 2 frames and the unported algorithm exit 2; a missing file exits
-    1; the default device is CUDA and fails without a card."""
+    """< 2 frames exit 2; a missing file (clip or --spynet-checkpoint)
+    exits 1; the default device is CUDA and fails without a card."""
     out = str(tmp_path / "x")
     assert main(["compute-flow", tiny_clip, out, "--max-frames", "1",
                  *CPU]) == 2
     assert main(["compute-flow", tiny_clip, out, "--algo", "spynet",
-                 *CPU]) == 2
+                 "--spynet-checkpoint", str(tmp_path / "missing.msgpack"),
+                 *CPU]) == 1
     assert main(["compute-flow", str(tmp_path / "missing.mp4"), out,
                  *CPU]) == 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -174,7 +203,8 @@ MODEL = ["--num-classes", "5", "--width", "8", "--flow-stack", "3",
          "--resize-short", "72", "--crop", "64"]
 ALGOS = {"farneback": ["--algo", "farneback", "--fb-levels", "1",
                        "--fb-iterations", "1"],
-         "tvl1": ["--algo", "tvl1", *TV_FAST, "--tv-epsilon", "0"]}
+         "tvl1": ["--algo", "tvl1", *TV_FAST, "--tv-epsilon", "0"],
+         "spynet": ["--algo", "spynet"]}     # the bundled weights
 TOL_FEATURES = 2e-4      # features and logits, as tests/test_torch_models.py
 TOL_PROBS = 1e-4         # fused probabilities, as classify_window there
 
@@ -213,7 +243,7 @@ def run_jax_cli(capsys, argv):
     return rc, json.loads(out[-1]) if out else None
 
 
-@pytest.mark.parametrize("algo", ["farneback", "tvl1"])
+@pytest.mark.parametrize("algo", ["farneback", "tvl1", "spynet"])
 def test_extract_features_from_frames_matches_reference(
         tmp_path, frames_dir, checkpoint, capsys, algo):
     ours_npz, ref_npz = str(tmp_path / "ours.npz"), str(tmp_path / "ref.npz")
@@ -262,7 +292,7 @@ def test_extract_features_from_flow_dir_matches_reference(
     assert rc == 0 and res["flow"] == [2, 64]
 
 
-@pytest.mark.parametrize("algo", ["farneback", "tvl1"])
+@pytest.mark.parametrize("algo", ["farneback", "tvl1", "spynet"])
 def test_classify_clip_matches_reference(tmp_path, tiny_clip, checkpoint,
                                          capsys, algo):
     args = [*MODEL, *ALGOS[algo], "--checkpoint", checkpoint, "--window", "4",
@@ -328,9 +358,9 @@ def test_serve_loads_checkpoint(monkeypatch, capsys, tiny_clip, checkpoint):
 
 def test_stage_commands_errors(tmp_path, tiny_clip, frames_dir, capsys,
                                monkeypatch):
-    """Too few frames or stored flows, rgb features from a flow directory
-    and the unported algorithm exit 2; the default device is CUDA and
-    fails without a card."""
+    """Too few frames or stored flows and rgb features from a flow
+    directory exit 2; a missing --spynet-checkpoint exits 1; the default
+    device is CUDA and fails without a card."""
     out = str(tmp_path / "o.npz")
     small = [*MODEL, *CPU]
     assert main(["extract-features", tiny_clip, out, "--stream", "flow",
@@ -345,9 +375,11 @@ def test_stage_commands_errors(tmp_path, tiny_clip, frames_dir, capsys,
                  "--max-frames", "3", *CPU]) == 0
     assert main(["extract-features", stored, out, "--stream", "flow",
                  *small]) == 2
-    for cmd in (["extract-features", tiny_clip, out], ["classify-clip",
-                                                       tiny_clip]):
-        assert main([*cmd, "--algo", "spynet", *small]) == 2
+    missing = str(tmp_path / "missing.msgpack")
+    for cmd in (["extract-features", tiny_clip, out, "--stream", "flow"],
+                ["classify-clip", tiny_clip]):
+        assert main([*cmd, "--algo", "spynet", "--spynet-checkpoint",
+                     missing, *small]) == 1
     capsys.readouterr()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for cmd in (["extract-features", tiny_clip, out], ["classify-clip",

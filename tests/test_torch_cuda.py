@@ -983,3 +983,31 @@ def test_device_prefetcher_exact_bytes_with_slow_consumer(dev, depth):
         assert torch.equal(x.cpu(), torch.from_numpy(host[i % 3]))
         got += 1
     assert got == n and pf.stats["batches"] == n
+
+
+@pytest.mark.parametrize("shape", [(2, 57, 75), (3, 224, 224)])
+def test_spynet_on_the_card_matches_the_cpu(dev, shape):
+    """SpyNet on the bundled weights (cuDNN, float32, TF32 off) against
+    the same network on the CPU: every level within 1e-4 px, at odd sizes
+    and at the serve path's 224²; it reaches no hand-written kernel."""
+    import copy
+
+    from video_analytics_tpu_torch.models.spynet import (
+        SpyNet, default_spynet_checkpoint)
+    from video_analytics_tpu_torch.runtime.checkpoint import load_variables
+
+    cpu_net = SpyNet(levels=4)
+    cpu_net.load_flax_variables(load_variables(
+        default_spynet_checkpoint(), cpu_net.flax_variables())).eval()
+    net = copy.deepcopy(cpu_net).to(dev)
+    b, h, w = shape
+    prev, nxt = (t.cpu() for t in _images(dev, b, h, w, seed=4))
+    ts.pd_solve_scale.launches = fk.fb_iteration.launches = 0
+    with torch.no_grad():
+        _, got = net(prev.to(dev), nxt.to(dev), train_all_levels=True)
+        _, want = cpu_net(prev, nxt, train_all_levels=True)
+    torch.cuda.synchronize()
+    assert ts.pd_solve_scale.launches == fk.fb_iteration.launches == 0
+    for g, c in zip(got, want):
+        assert g.shape == c.shape
+        assert float((g.cpu() - c).abs().max()) <= 1e-4

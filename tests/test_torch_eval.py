@@ -378,13 +378,31 @@ def test_eval_ucf101_matches_reference(tmp_path, ucf, checkpoint, capsys,
         assert rc == 0 and ref_b == ours_b
 
 
+def test_eval_ucf101_spynet_batched_matches_reference(tmp_path, ucf,
+                                                     checkpoint, capsys):
+    """--algo spynet --batched on the bundled SpyNet weights: the output
+    JSON equals the JAX command's, and the port's clip-by-clip run's."""
+    args = ["eval-ucf101", "--videos", f"{ucf}/videos", "--annotations",
+            f"{ucf}/annotations", *MODEL, "--algo", "spynet",
+            "--checkpoint", checkpoint, "--windows", "2", "--batched",
+            "--batch-clips", "2"]
+    rc, ours = run_cli(capsys, main, [*args, *CPU])
+    assert rc == 0 and ours["total"] == 2 and ours["failed"] == 0
+    rc, ref = run_cli(capsys, jax_main, args)
+    assert rc == 0 and ref == ours
+    rc, serial = run_cli(capsys, main, [a for a in args
+                                        if a not in ("--batched",)] + CPU)
+    assert rc == 0 and serial == ours
+
+
 def test_eval_ucf101_refusals(ucf, capsys, monkeypatch):
-    """--algo spynet exits 2, missing annotations exit 1, and the default
-    device is CUDA: without a card the command fails and never carries on
-    on the CPU."""
+    """A missing --spynet-checkpoint and missing annotations exit 1, and the
+    default device is CUDA: without a card the command fails and never
+    carries on on the CPU."""
     args = ["eval-ucf101", "--videos", f"{ucf}/videos", "--annotations",
             f"{ucf}/annotations", *MODEL]
-    assert main([*args, "--algo", "spynet", *CPU]) == 2
+    assert main([*args, "--algo", "spynet", "--spynet-checkpoint",
+                 f"{ucf}/missing.msgpack", *CPU]) == 1
     assert main(["eval-ucf101", "--videos", f"{ucf}/videos",
                  "--annotations", f"{ucf}/missing", *MODEL, *CPU]) == 1
     capsys.readouterr()

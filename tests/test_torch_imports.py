@@ -4,7 +4,8 @@ of ``video_analytics_tpu_torch`` and ``chip_smoke`` (OpenCV not among
 them: it is imported where a frame is decoded or resized), answers a serve
 request on the CPU from a clip written by the port's own
 ``synthesize_video``, writes, reads back and classifies from a
-checkpoint, and takes one two-stream train step."""
+checkpoint, takes one two-stream train step, runs the bundled SpyNet and
+trains one with ``tools/torch_train_spynet.py``."""
 
 import os
 import subprocess
@@ -31,7 +32,8 @@ for sub in ("io.video", "io.dataset", "io.flowio", "io.synthetic",
             "flow.farneback", "ops.cuda.farneback", "ops.cuda.tvl1_solve",
             "ingest.prefetch", "runtime.checkpoint", "runtime.evaluate",
             "utils.logging", "ingest.train_loader", "runtime.train",
-            "runtime.train_two_stream", "runtime.profiling"):
+            "runtime.train_two_stream", "runtime.profiling",
+            "models.spynet"):
     assert pkg.__name__ + "." + sub in names, sub
 import chip_smoke                      # import only; main() needs a GPU
 assert "cv2" not in sys.modules        # imported where a frame is touched
@@ -82,6 +84,26 @@ ex = tts.build_examples(win, tcfg, "both", tts.draw_crops(
 metrics = {k: step(ex[k], torch.tensor([0, 3]))
            for k, step in tts.make_two_stream_train_steps(states).items()}
 assert all(np.isfinite(float(m["loss"])) for m in metrics.values()), metrics
+# SpyNet on its bundled weights, and its training tool for one step.
+import importlib.util
+from video_analytics_tpu_torch.models.spynet import (
+    SpyNet, default_spynet_checkpoint, synthetic_pair)
+net = SpyNet()
+net.load_flax_variables(load_variables(default_spynet_checkpoint(),
+                                       net.flax_variables()))
+prev, nxt, gt = synthetic_pair(torch.Generator().manual_seed(0), 1, 40, 48)
+with torch.no_grad():
+    epe = float(((net(prev, nxt) - gt) ** 2).sum(-1).sqrt().mean())
+assert epe < 0.5, epe
+spec = importlib.util.spec_from_file_location(
+    "torch_train_spynet", os.path.join("tools", "torch_train_spynet.py"))
+tool = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tool)
+with tempfile.TemporaryDirectory() as d:
+    assert tool.main(["--steps", "1", "--hw", "32", "--levels", "2",
+                      "--device", "cpu",
+                      "--out", os.path.join(d, "s.msgpack")]) == 0
+    assert os.path.getsize(os.path.join(d, "s.msgpack")) > 0
 resp = json.loads(out.getvalue().splitlines()[0])
 assert resp["id"] == 3 and len(resp["results"]) == 2, resp
 for r in resp["results"]:

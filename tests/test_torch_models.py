@@ -324,7 +324,7 @@ def test_classify_batch_is_per_window(two_stream):
 def test_unported_paths_raise(two_stream):
     _, _, tm = two_stream
     x = torch.from_numpy(_clip())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="spynet"):
         pipeline.classify_window(
             x, tm, dataclasses.replace(CFG, flow_algo="spynet"))
     with pytest.raises(ValueError, match="unknown arch"):

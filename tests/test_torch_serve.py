@@ -140,7 +140,23 @@ def test_cli_serve_refuses_missing_cuda_and_unported_algo(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         main(["serve", "--device", "cuda", *SMALL_ARGS])
     assert main(["serve", "--device", "cpu", "--algo", "spynet",
-                 *SMALL_ARGS]) == 2
+                 "--spynet-checkpoint", "missing_spynet.msgpack",
+                 *SMALL_ARGS]) == 1
+
+
+def test_cli_serve_spynet_on_cpu(monkeypatch, capsys, tiny_clip):
+    """serve --algo spynet answers a request with the bundled SpyNet."""
+    from video_analytics_tpu_torch.cli.main import main
+    stdin = io.StringIO(json.dumps({"path": tiny_clip, "id": 2}) + "\n"
+                        + json.dumps({"cmd": "shutdown"}) + "\n")
+    monkeypatch.setattr(sys, "stdin", stdin)
+    assert main(["serve", "--device", "cpu", "--algo", "spynet", "--topk",
+                 "5", *SMALL_ARGS]) == 0
+    lines = [json.loads(ln)
+             for ln in capsys.readouterr().out.strip().splitlines()]
+    assert lines[0]["id"] == 2 and len(lines[0]["topk"]) == 5, lines
+    assert abs(sum(e["prob"] for e in lines[0]["topk"]) - 1.0) < 1e-5
+    assert lines[1]["ok"] is True
 
 
 def test_package_imports_no_jax():

@@ -226,14 +226,40 @@ def test_train_command_writes_checkpoints_both_packages_read(ucf, tmp_path,
             assert a["prob"] == pytest.approx(b["prob"], abs=1e-4)
 
 
+def test_train_command_spynet(ucf, tmp_path, capsys):
+    """train --algo spynet: the flow stream learns on the frozen bundled
+    SpyNet's flow and the checkpoint classifies with SpyNet in both
+    packages."""
+    from video_analytics_tpu.cli.main import main as jax_main
+    out = str(tmp_path / "spy.msgpack")
+    rc, res = _run(capsys, main, [
+        "train", "--videos", ucf.videos_root, "--annotations",
+        ucf.annotations_root, "--device", "cpu", "--batch", "2",
+        "--max-frames", "10", "--steps", "1", "--stream", "flow",
+        "--algo", "spynet", "--out", out, *MODEL])
+    assert rc == 0 and os.path.exists(out)
+    assert res["steps"] == 1 and math.isfinite(res["final_loss_flow"])
+    argv = ["classify-clip", ucf.train_records()[0].path, "--checkpoint",
+            out, *MODEL, "--window", "4", "--algo", "spynet"]
+    rc, ours = _run(capsys, main, argv + ["--device", "cpu"])
+    assert rc == 0
+    rc, theirs = _run(capsys, jax_main, argv)
+    assert rc == 0
+    for a, b in zip(ours["topk"], theirs["topk"]):
+        assert a["class_id"] == b["class_id"]
+        assert a["prob"] == pytest.approx(b["prob"], abs=1e-4)
+
+
 def test_train_command_refusals(ucf, tmp_path, capsys):
     base = ["train", "--videos", ucf.videos_root, "--annotations",
             ucf.annotations_root, "--out", str(tmp_path / "x.msgpack"),
             "--steps", "1", *MODEL]
     capsys.readouterr()
-    assert main(base + ["--algo", "spynet", "--device", "cpu"]) == 2
+    missing = str(tmp_path / "missing_spynet.msgpack")
+    assert main(base + ["--algo", "spynet", "--spynet-checkpoint", missing,
+                        "--device", "cpu"]) == 1
     err = capsys.readouterr().err.strip().splitlines()
-    assert "spynet" in json.loads(err[-1])["error"]
+    assert missing in err[-1]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             main(base + ["--device", "cuda"])

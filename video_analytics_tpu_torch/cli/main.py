@@ -3,23 +3,24 @@
 Port of the ``extract-frames``, ``compute-flow``, ``extract-features``,
 ``classify-clip``, ``serve``, ``eval-ucf101``, ``convert-weights`` and
 ``train`` subcommands of ``video_analytics_tpu/cli/main.py``, with the
-same flags and the same JSON lines (less SpyNet and its
-``--spynet-checkpoint``; less ``compute-flow``'s ``--exact`` and
-``--no-bucket``, which choose between paths the port does not have: its
-warp is always the exact gather, its flow always at the native
+same flags and the same JSON lines (less ``compute-flow``'s ``--exact``
+and ``--no-bucket``, which choose between paths the port does not have:
+its warp is always the exact gather, its flow always at the native
 resolution; and less the multi-host flags of ``eval-ucf101`` and
 ``train``) and, for ``serve``, the same stdin/stdout line protocol.  The
 model is initialised from a seed (``serve --seed`` and ``train --seed``, 0
 elsewhere) unless ``--checkpoint`` (``train``: ``--init-checkpoint``)
-names a msgpack file, which either package may have written.  Every
-command that computes runs on the first CUDA device unless ``--device``
-says otherwise.
+names a msgpack file, which either package may have written.  ``--algo
+spynet`` reads the learned flow's weights from ``--spynet-checkpoint`` or
+the bundled file.  Every command that computes runs on the first CUDA
+device unless ``--device`` says otherwise.
 
 Usage::
 
     tpuva-torch serve --warmup                    # first CUDA device
     tpuva-torch serve --algo farneback --checkpoint two_stream.msgpack
     tpuva-torch compute-flow clip.mp4 flow/ --algo tvl1
+    tpuva-torch classify-clip clip.mp4 --algo spynet
     tpuva-torch extract-features flow/ feats.npz --stream flow
     tpuva-torch classify-clip clip.mp4 --checkpoint two_stream.msgpack
     tpuva-torch convert-weights resnet18.pth two_stream.msgpack
@@ -94,9 +95,8 @@ def cmd_compute_flow(args) -> int:
     from video_analytics_tpu_torch.runtime.pipeline import compute_flow
     from video_analytics_tpu_torch.utils.device import require_cuda
 
-    if _spynet_refused(args):
-        return 2
     device = require_cuda(args.device)
+    flow_net = _spynet_net(args, device)
     frames = _load_frames(args.src, args.max_frames)
     if len(frames) < 2:
         print("error: need at least 2 frames for flow", file=sys.stderr)
@@ -108,7 +108,8 @@ def cmd_compute_flow(args) -> int:
     with torch.no_grad():
         gray = rgb_to_gray(torch.from_numpy(frames).to(device))
         for s, e in _chunked(len(frames) - 1, args.batch):
-            flow = compute_flow(gray[s:e], gray[s + 1:e + 1], cfg)
+            flow = compute_flow(gray[s:e], gray[s + 1:e + 1], cfg,
+                                flow_net=flow_net)
             for i, f in enumerate(flow.cpu().numpy()):
                 _write_flow(args.out_dir, s + i + 1, f, args.format,
                             args.bound)
@@ -161,7 +162,11 @@ def _pipeline_config(args):
 
 def _add_flow_args(p) -> None:
     """The cv2 flow-parameter surface (calcOpticalFlowFarneback /
-    DualTVL1OpticalFlow_create), per algorithm, with cv2's defaults."""
+    DualTVL1OpticalFlow_create), per algorithm, with cv2's defaults, and
+    the learned flow's checkpoint."""
+    p.add_argument("--spynet-checkpoint", default=None,
+                   help="weights for --algo spynet (default: the bundled "
+                        "checkpoints_data/spynet_synthetic.msgpack)")
     fb = p.add_argument_group("farneback (cv2.calcOpticalFlowFarneback)")
     fb.add_argument("--fb-pyr-scale", type=float, default=None)
     fb.add_argument("--fb-levels", type=int, default=None)
@@ -214,13 +219,20 @@ def _add_model_args(p, window: bool = True, inference: bool = True) -> None:
                        help="frames per sliding window")
 
 
-def _spynet_refused(args) -> bool:
+def _spynet_net(args, device):
+    """The SpyNet of ``--algo spynet`` on `device`, in eval mode (None for
+    the other algorithms): the weights of ``--spynet-checkpoint``, else
+    the bundled ones, read with ``runtime/checkpoint.load_variables``.  A
+    missing file raises FileNotFoundError."""
     if args.algo != "spynet":
-        return False
-    print(json.dumps({"error": "--algo spynet is not ported yet "
-                      "(tvl1 and farneback are; see ROADMAP.md)"}),
-          file=sys.stderr)
-    return True
+        return None
+    from video_analytics_tpu_torch.models.spynet import (
+        SpyNet, default_spynet_checkpoint)
+    from video_analytics_tpu_torch.runtime.checkpoint import load_variables
+    net = SpyNet(levels=4)
+    path = args.spynet_checkpoint or default_spynet_checkpoint()
+    net.load_flax_variables(load_variables(path, net.flax_variables()))
+    return net.to(device).eval()
 
 
 def _load_two_stream(args, device):
@@ -264,8 +276,6 @@ def cmd_extract_features(args) -> int:
         flow_features, rgb_features)
     from video_analytics_tpu_torch.utils.device import require_cuda
 
-    if _spynet_refused(args):
-        return 2
     device = require_cuda(args.device)
     cfg = _pipeline_config(args)
     model = _load_two_stream(args, device)
@@ -319,7 +329,8 @@ def cmd_extract_features(args) -> int:
             print(f"error: flow features need >= {need} frames",
                   file=sys.stderr)
             return 2
-        out["flow"] = flow_features(x, model.temporal, cfg).cpu().numpy()
+        out["flow"] = flow_features(x, model.temporal, cfg,
+                                    _spynet_net(args, device)).cpu().numpy()
     np.savez(args.out, **out)
     print(json.dumps({k: list(v.shape) for k, v in out.items()}
                      | {"out": args.out}))
@@ -332,14 +343,13 @@ def cmd_classify_clip(args) -> int:
     from video_analytics_tpu_torch.runtime.evaluate import classify_clip_file
     from video_analytics_tpu_torch.utils.device import require_cuda
 
-    if _spynet_refused(args):
-        return 2
     device = require_cuda(args.device)
     cfg = _pipeline_config(args)
     model = _load_two_stream(args, device)
+    flow_net = _spynet_net(args, device)
     classes = _load_class_names(args.class_index)
     probs = classify_clip_file(args.video, model, cfg, device,
-                               num_windows=args.windows)
+                               num_windows=args.windows, flow_net=flow_net)
     topk = np.argsort(probs)[::-1][:args.topk]
     result = {"video": args.video,
               "top1": int(topk[0]),
@@ -372,11 +382,10 @@ def cmd_eval_ucf101(args) -> int:
         evaluate, evaluate_batched)
     from video_analytics_tpu_torch.utils.device import require_cuda
 
-    if _spynet_refused(args):
-        return 2
     device = require_cuda(args.device)
     cfg = _pipeline_config(args)
     model = _load_two_stream(args, device)
+    flow_net = _spynet_net(args, device)
     ds = UCF101(videos_root=args.videos, annotations_root=args.annotations,
                 split=args.split)
     if args.batched:
@@ -385,12 +394,14 @@ def cmd_eval_ucf101(args) -> int:
             records = records[:args.limit]
         result = evaluate_batched(records, model, cfg, device,
                                   batch_clips=args.batch_clips,
-                                  num_windows=args.windows, host_resize=True)
+                                  num_windows=args.windows, host_resize=True,
+                                  flow_net=flow_net)
     else:
         result = evaluate(ds.test_records(), model, cfg, device,
                           manifest_path=args.manifest,
                           predictions_path=args.predictions,
-                          limit=args.limit, num_windows=args.windows)
+                          limit=args.limit, num_windows=args.windows,
+                          flow_net=flow_net)
     print(json.dumps(result.as_dict()))
     return 0
 
@@ -509,10 +520,9 @@ def cmd_train(args) -> int:
     from video_analytics_tpu_torch.utils.device import require_cuda
     from video_analytics_tpu_torch.utils.logging import get_logger
 
-    if _spynet_refused(args):
-        return 2
     log = get_logger("tpuva.train")
     device = require_cuda(args.device)
+    flow_net = _spynet_net(args, device)
     cfg = _pipeline_config(args)
     # Random crop always; horizontal flip unless --no-flip (flipped frames
     # negate the flow's u: wrong for direction-sensitive labels).
@@ -548,7 +558,8 @@ def cmd_train(args) -> int:
     try:
         for metrics in tts.train_iter(
                 feed, steps, cfg, args.stream,
-                torch.Generator().manual_seed(args.seed)):
+                torch.Generator().manual_seed(args.seed),
+                flow_net=flow_net):
             n_done += 1
             if n_done % args.log_every == 0:
                 log.info("step %d %s (queue ahead: %d)", n_done, " ".join(
@@ -578,15 +589,14 @@ def cmd_serve(args) -> int:
     from video_analytics_tpu_torch.runtime.serve import ClipServer
     from video_analytics_tpu_torch.utils.device import require_cuda
 
-    if _spynet_refused(args):
-        return 2
     device = require_cuda(args.device)
     cfg = _pipeline_config(args)
     model = _load_two_stream(args, device)
     server = ClipServer(model, cfg, device,
                         classes=_load_class_names(args.class_index),
                         num_windows=args.windows, topk=args.topk,
-                        normalize=not args.raw, max_frames=args.max_frames)
+                        normalize=not args.raw, max_frames=args.max_frames,
+                        flow_net=_spynet_net(args, device))
     if args.warmup:
         if args.raw:
             print(json.dumps({"error": "--warmup needs shape "
@@ -604,7 +614,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpuva-torch",
         description="video analytics on PyTorch/CUDA (two-stream + "
-                    "TV-L1 or Farneback optical flow)")
+                    "TV-L1, Farneback or SpyNet optical flow)")
     sub = p.add_subparsers(dest="command", required=True)
 
     ef = sub.add_parser("extract-frames", help="decode video to frame JPEGs")
@@ -620,7 +630,7 @@ def build_parser() -> argparse.ArgumentParser:
     cf.add_argument("out_dir")
     cf.add_argument("--algo", choices=["tvl1", "farneback", "spynet"],
                     default="tvl1",
-                    help="flow algorithm (spynet is not ported yet)")
+                    help="flow algorithm")
     cf.add_argument("--format", choices=["flo", "jpg", "viz"],
                     default="flo",
                     help="flo = raw .flo files; jpg = quantized uint8 "
@@ -645,7 +655,7 @@ def build_parser() -> argparse.ArgumentParser:
                     default="rgb")
     xf.add_argument("--algo", choices=["tvl1", "farneback", "spynet"],
                     default="tvl1",
-                    help="flow algorithm (spynet is not ported yet)")
+                    help="flow algorithm")
     _add_model_args(xf, window=False)
     xf.add_argument("--max-frames", type=int, default=None)
     xf.add_argument("--bound", type=float, default=20.0,
@@ -658,7 +668,7 @@ def build_parser() -> argparse.ArgumentParser:
     cc.add_argument("video")
     cc.add_argument("--algo", choices=["tvl1", "farneback", "spynet"],
                     default="tvl1",
-                    help="flow algorithm (spynet is not ported yet)")
+                    help="flow algorithm")
     cc.add_argument("--class-index", default=None,
                     help="UCF101 classInd.txt for names")
     _add_model_args(cc)
@@ -672,7 +682,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="long-running classify server (JSON lines on stdin/stdout)")
     sv.add_argument("--algo", choices=["tvl1", "farneback", "spynet"],
                     default="tvl1",
-                    help="flow algorithm (spynet is not ported yet)")
+                    help="flow algorithm")
     sv.add_argument("--class-index", default=None,
                     help="UCF101 classInd.txt for names")
     _add_model_args(sv)
@@ -696,7 +706,7 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--split", type=int, default=1)
     ev.add_argument("--algo", choices=["tvl1", "farneback", "spynet"],
                     default="tvl1",
-                    help="flow algorithm (spynet is not ported yet)")
+                    help="flow algorithm")
     _add_model_args(ev)
     ev.add_argument("--manifest", default=None,
                     help="resume file: clips listed there are skipped, "
@@ -724,8 +734,7 @@ def build_parser() -> argparse.ArgumentParser:
                     default="both", help="which stream(s) to train")
     tr.add_argument("--algo", choices=["tvl1", "farneback", "spynet"],
                     default="tvl1",
-                    help="flow algorithm feeding the temporal stream "
-                         "(spynet is not ported yet)")
+                    help="flow algorithm feeding the temporal stream")
     _add_model_args(tr, inference=False)
     tr.add_argument("--max-frames", type=int, default=120,
                     help="decode cap per training clip")

@@ -217,3 +217,31 @@ def two_stream_torch_to_flax(sd: Mapping[str, torch.Tensor]
         {k[len(stream) + 1:]: v for k, v in sd.items()
          if k.startswith(stream + ".")})
         for stream in ("spatial", "temporal")}
+
+
+def spynet_flax_to_torch(variables: Mapping[str, Any]
+                         ) -> Dict[str, torch.Tensor]:
+    """The reference's SpyNet variables (``{"params": {"level{k}":
+    {"conv{i}" | "conv_out": {"kernel", "bias"}}}}``) → a ``state_dict``
+    for ``models/spynet.SpyNet`` (``nets.{k}.conv{i}.weight`` ...)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for level, convs in variables["params"].items():
+        k = int(level[len("level"):])
+        for name, p in convs.items():
+            _conv(p, f"nets.{k}.{name}", sd)
+    return sd
+
+
+def spynet_torch_to_flax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """A ``SpyNet`` ``state_dict`` → the reference's ``{"params": ...}``
+    tree with numpy leaves (conv OIHW → HWIO)."""
+    params: Dict[str, Any] = {}
+    for key, value in sd.items():
+        _, k, name, leaf = key.split(".")
+        node = params.setdefault(f"level{k}", {}).setdefault(name, {})
+        if leaf == "weight":
+            node["kernel"] = np.ascontiguousarray(
+                np.transpose(_n(value), (2, 3, 1, 0)))
+        else:
+            node["bias"] = _n(value)
+    return {"params": params}

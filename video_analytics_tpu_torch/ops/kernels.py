@@ -148,19 +148,27 @@ def _resize_axis(x: torch.Tensor, n_out: int, dim: int) -> torch.Tensor:
             + x.index_select(dim, i1) * w1.view(shape))
 
 
-def resize_area_like(x: torch.Tensor, out_hw: Tuple[int, int]
-                     ) -> torch.Tensor:
-    """Bilinear resize of (B, H, W) → (B, h, w) (cv2 INTER_LINEAR), the
-    reference's ``jax.image.resize(linear, antialias=False)``.
+def resize_linear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Linear resize of (B, H, W, ...) → (B, h, w, ...) over axes 1 and 2,
+    the reference's ``jax.image.resize(linear, antialias=False)`` (trailing
+    axes, e.g. a flow's (dx, dy), are carried along unchanged).
 
     The reference applies dense (in × out) weight matrices.  Linear
     weights have at most two nonzero taps per output, so this applies
     those two as gathers: elementwise per image, so an image's result
     does not depend on the batch it rides in (a batched matrix product
-    may pick another summation order for another batch size)."""
+    may pick another summation order for another batch size).  It is
+    differentiable with respect to `x`."""
     h, w = out_hw
     y = x if x.shape[1] == h else _resize_axis(x, h, 1)
     return y if y.shape[2] == w else _resize_axis(y, w, 2)
+
+
+def resize_area_like(x: torch.Tensor, out_hw: Tuple[int, int]
+                     ) -> torch.Tensor:
+    """Bilinear resize of (B, H, W) → (B, h, w) (cv2 INTER_LINEAR):
+    ``resize_linear`` of a gray batch."""
+    return resize_linear(x, out_hw)
 
 
 # -- warps and derivatives --------------------------------------------------
@@ -192,6 +200,17 @@ def bilinear_sample(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor
     top = p00 * (1 - fx) + p01 * fx
     bot = p10 * (1 - fx) + p11 * fx
     return top * (1 - fy) + bot * fy
+
+
+def warp_by_flow(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Backward-warp (B, H, W, C) by flow (B, H, W, 2) where
+    flow[..., 0] = dx, flow[..., 1] = dy: out(p) = img(p + flow(p)),
+    clamped to the image (``bilinear_sample``).  Differentiable with
+    respect to both the image and the flow."""
+    _, H, W, _ = flow.shape
+    yy = torch.arange(H, dtype=flow.dtype, device=flow.device)[:, None]
+    xx = torch.arange(W, dtype=flow.dtype, device=flow.device)[None, :]
+    return bilinear_sample(img, yy + flow[..., 1], xx + flow[..., 0])
 
 
 def centered_gradient(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

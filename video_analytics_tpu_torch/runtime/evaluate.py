@@ -31,6 +31,7 @@ from video_analytics_tpu_torch.ingest.windows import (
     apply_transport_crop, host_resize_short, slice_crop_source)
 from video_analytics_tpu_torch.io.dataset import ClipRecord, ProgressManifest
 from video_analytics_tpu_torch.io.video import decode_snippet_windows
+from video_analytics_tpu_torch.models.spynet import SpyNet
 from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
 from video_analytics_tpu_torch.runtime.pipeline import classify_batch
 from video_analytics_tpu_torch.utils.logging import get_logger
@@ -79,7 +80,8 @@ def load_clip_windows(path: str, cfg: PipelineConfig, max_frames: int = 300,
 def classify_clip_file(path: str, model: TwoStreamModel, cfg: PipelineConfig,
                        device: Union[str, torch.device],
                        max_frames: int = 300, num_windows: int = 1,
-                       plain: bool = False) -> np.ndarray:
+                       plain: bool = False,
+                       flow_net: Optional[SpyNet] = None) -> np.ndarray:
     """Decode one clip, classify → class probs.
 
     num_windows=1: the centre window.  num_windows=N: N evenly-spaced
@@ -89,35 +91,39 @@ def classify_clip_file(path: str, model: TwoStreamModel, cfg: PipelineConfig,
     (``runtime.pipeline.classify_batch``).  Only the windows themselves
     are decoded when they cover a small part of the clip
     (``io.video.decode_snippet_windows``).  `model` lives on `device`;
-    ``plain=True`` runs the flow kernels' plain versions.
+    ``plain=True`` runs the flow kernels' plain versions; `flow_net` is the
+    SpyNet of ``flow_algo="spynet"``, on `device`.
     """
     wins, cfg = load_clip_windows(path, cfg, max_frames, num_windows)
     return batch_clip_probs(torch.from_numpy(wins[None]).to(device), model,
-                            cfg, plain=plain)[0].cpu().numpy()
+                            cfg, plain=plain,
+                            flow_net=flow_net)[0].cpu().numpy()
 
 
 def batch_clip_probs(windows: torch.Tensor, model: TwoStreamModel,
-                     cfg: PipelineConfig, plain: bool = False
-                     ) -> torch.Tensor:
+                     cfg: PipelineConfig, plain: bool = False,
+                     flow_net: Optional[SpyNet] = None) -> torch.Tensor:
     """(B, N, T, H, W, 3) uint8 snippet windows → (B, C) clip probs: one
     ``classify_batch`` over all B·N windows (so all B·N·(T−1) frame pairs
     in one flow call), each clip's N window probabilities averaged."""
     B, N = windows.shape[:2]
     probs = classify_batch(windows.reshape(B * N, *windows.shape[2:]), model,
-                           cfg, plain=plain)
+                           cfg, plain=plain, flow_net=flow_net)
     return probs.reshape(B, N, -1).mean(dim=1)
 
 
 def batch_clip_metrics(windows: torch.Tensor, labels: torch.Tensor,
                        valid: torch.Tensor, model: TwoStreamModel,
-                       cfg: PipelineConfig
+                       cfg: PipelineConfig,
+                       flow_net: Optional[SpyNet] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, N, T, H, W, 3) windows, (B,) labels and (B,) bool valid, on one
     device → (correct, preds): the number of valid clips whose top-1 class
     is their label, as a 0-d int64 tensor on that device (nothing is read
     back: the caller sums the counts there and reads one number at the
     end), and the (B,) predicted classes."""
-    preds = batch_clip_probs(windows, model, cfg).argmax(dim=-1)
+    preds = batch_clip_probs(windows, model, cfg,
+                             flow_net=flow_net).argmax(dim=-1)
     correct = ((preds == labels) & valid).sum()
     return correct, preds
 
@@ -138,7 +144,8 @@ def evaluate_batched(records: List[ClipRecord], model: TwoStreamModel,
                      num_workers: int = 2,
                      max_frames: int = 300,
                      num_windows: int = 1,
-                     host_resize: bool = False) -> EvalResult:
+                     host_resize: bool = False,
+                     flow_net: Optional[SpyNet] = None) -> EvalResult:
     """Throughput-oriented eval on one device: threaded decode
     (``ingest.prefetch_clips``) → `num_windows` evenly-spaced snippet
     windows per clip → batches of `batch_clips` clips, each one
@@ -163,7 +170,9 @@ def evaluate_batched(records: List[ClipRecord], model: TwoStreamModel,
     reference pads so that XLA compiles one program; eager PyTorch
     compiles nothing, and padding would compute flow for the copies).  The
     answers do not depend on it: TV-L1 stops each image on its own ε test,
-    and a Farneback pixel depends only on its own pair.
+    and a Farneback pixel depends only on its own pair.  (SpyNet's
+    convolutions may differ in the last bits with the batch size on a GPU,
+    where cuDNN picks its algorithm per shape.)
     """
     device = torch.device(device)
     win = _window_frames(cfg)
@@ -194,7 +203,8 @@ def evaluate_batched(records: List[ClipRecord], model: TwoStreamModel,
         labels = _to_device(np.asarray([by_path[p].label for p in paths],
                                        np.int64), device)
         valid = torch.ones(len(paths), dtype=torch.bool, device=device)
-        c, _ = batch_clip_metrics(windows, labels, valid, model, batch_cfg)
+        c, _ = batch_clip_metrics(windows, labels, valid, model, batch_cfg,
+                                  flow_net=flow_net)
         correct = correct + c
         result.total += len(paths)
 
@@ -217,7 +227,8 @@ def evaluate(records: Iterable[ClipRecord], model: TwoStreamModel,
              manifest_path: Optional[str] = None,
              predictions_path: Optional[str] = None,
              limit: Optional[int] = None,
-             num_windows: int = 1) -> EvalResult:
+             num_windows: int = 1,
+             flow_net: Optional[SpyNet] = None) -> EvalResult:
     """Top-1 clip accuracy over a record list, clip by clip.
 
     A clip done in an earlier run with the same `manifest_path` is
@@ -246,7 +257,7 @@ def evaluate(records: Iterable[ClipRecord], model: TwoStreamModel,
                 result.failures.append((rec.path, repr(e)))
                 continue
             probs = batch_clip_probs(torch.from_numpy(wins[None]).to(device),
-                                     model, wcfg)
+                                     model, wcfg, flow_net=flow_net)
             pred = int(probs[0].argmax())
             result.total += 1
             result.correct += int(pred == rec.label)

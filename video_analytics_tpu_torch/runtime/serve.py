@@ -36,6 +36,7 @@ from video_analytics_tpu_torch.config import PipelineConfig
 from video_analytics_tpu_torch.ingest.prefetch import prefetch_clips
 from video_analytics_tpu_torch.ingest.windows import (
     apply_transport_crop, host_normalize_square)
+from video_analytics_tpu_torch.models.spynet import SpyNet
 from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
 from video_analytics_tpu_torch.runtime.pipeline import (
     classify_batch, classify_window, sample_window)
@@ -50,16 +51,21 @@ class ClipServer:
     normalize=True (default): every decoded clip is host-normalised to
     (T, short, short, 3) (ingest.windows.host_normalize_square), so all
     requests share one window shape and only the cropped region crosses
-    to the device.  normalize=False keeps raw frames.
+    to the device.  normalize=False keeps raw frames.  `flow_net` is the
+    SpyNet that ``cfg.flow_algo == "spynet"`` needs, held on the device
+    beside the model.
     """
 
     def __init__(self, model: TwoStreamModel, cfg: PipelineConfig,
                  device: torch.device,
                  classes: Optional[List[str]] = None,
                  num_windows: int = 1, topk: int = 5,
-                 normalize: bool = True, max_frames: int = 300):
+                 normalize: bool = True, max_frames: int = 300,
+                 flow_net: Optional[SpyNet] = None):
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
+        self.flow_net = (None if flow_net is None
+                         else flow_net.to(self.device).eval())
         self.cfg = cfg
         self.classes = classes
         self.num_windows = max(1, num_windows)
@@ -98,8 +104,9 @@ class ClipServer:
         wins, cfg = apply_transport_crop(wins, self.cfg)
         x = self._to_device(wins)
         if x.shape[0] == 1:
-            return classify_window(x[0], self.model, cfg)
-        return classify_batch(x, self.model, cfg)
+            return classify_window(x[0], self.model, cfg,
+                                   flow_net=self.flow_net)
+        return classify_batch(x, self.model, cfg, flow_net=self.flow_net)
 
     def _classify_fetch(self, probs: torch.Tensor) -> np.ndarray:
         probs = probs.cpu().numpy()
@@ -114,7 +121,8 @@ class ClipServer:
         wins, cfg = apply_transport_crop(wins, self.cfg)
         b, n = wins.shape[:2]
         flat = self._to_device(wins.reshape((b * n,) + wins.shape[2:]))
-        probs = classify_batch(flat, self.model, cfg).cpu().numpy()
+        probs = classify_batch(flat, self.model, cfg,
+                               flow_net=self.flow_net).cpu().numpy()
         return probs.reshape(b, n, -1).mean(1)
 
     def warmup(self) -> float:

@@ -26,6 +26,7 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
 import torch
 
 from video_analytics_tpu_torch.config import PipelineConfig
+from video_analytics_tpu_torch.models.spynet import SpyNet
 from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
 from video_analytics_tpu_torch.ops import preprocess as pp
 from video_analytics_tpu_torch.runtime.pipeline import _sequence_flow
@@ -62,7 +63,8 @@ def draw_crops(generator: torch.Generator, windows: torch.Tensor,
 @torch.no_grad()
 def build_examples(windows: torch.Tensor, cfg: PipelineConfig, stream: str,
                    crops: Crops, plain: bool = False,
-                   timer: Optional[StageTimer] = None
+                   timer: Optional[StageTimer] = None,
+                   flow_net: Optional[SpyNet] = None
                    ) -> Dict[str, torch.Tensor]:
     """(B, T, H, W, 3) uint8 frame windows → per-stream training inputs.
 
@@ -77,9 +79,12 @@ def build_examples(windows: torch.Tensor, cfg: PipelineConfig, stream: str,
     every window runs as one batch (``runtime/pipeline._sequence_flow``:
     the same flow as the reference's ``compute_flow`` on the B·L pairs,
     with Farneback's per-frame work once per frame); ``plain=True`` runs
-    the kernels' plain versions.  Under ``torch.no_grad`` (not
-    ``inference_mode``: the outputs feed a backward pass); with `timer`,
-    the stage ``flow`` is timed with a device fence."""
+    the kernels' plain versions.  With ``flow_algo="spynet"`` the flow is
+    the frozen `flow_net` (the reference's ``flow_variables``): the flow
+    stream trains on learned flow while SpyNet itself stays fixed.  Under
+    ``torch.no_grad`` (not ``inference_mode``: the outputs feed a backward
+    pass); with `timer`, the stage ``flow`` is timed with a device
+    fence."""
     if stream not in STREAMS:
         raise ValueError(f"stream must be one of {STREAMS}, got {stream!r}")
     pre = cfg.preprocess
@@ -97,7 +102,8 @@ def build_examples(windows: torch.Tensor, cfg: PipelineConfig, stream: str,
             raise ValueError(f"need window >= {L + 1} frames, got {T}")
         with _stage(timer, "flow", windows.device):
             gray = pp.rgb_to_gray(x[:, :L + 1])        # (B, L + 1, c, c)
-            flow = _sequence_flow(gray, cfg, plain)     # (B, L, c, c, 2)
+            flow = _sequence_flow(gray, cfg, plain,     # (B, L, c, c, 2)
+                                  flow_net)
         c = flow.shape[2]
         # (B, c, c, L, 2) → channels ordered [u0, v0, u1, v1, ...], as
         # ops.preprocess.stack_flow_windows orders them.
@@ -138,14 +144,16 @@ def two_stream_variables(model: TwoStreamModel) -> Dict[str, Any]:
 def train_iter(feed: Iterable[Tuple[torch.Tensor, torch.Tensor]],
                steps: Dict[str, Callable], cfg: PipelineConfig, stream: str,
                generator: torch.Generator,
-               timer: Optional[StageTimer] = None
+               timer: Optional[StageTimer] = None,
+               flow_net: Optional[SpyNet] = None
                ) -> Iterator[Dict[str, Dict[str, torch.Tensor]]]:
     """The training loop: for each (windows, labels) batch of `feed`, its
     examples (crops drawn from `generator`) and one step of each stream;
     yields {stream: {"loss", "accuracy"}} per step, 0-d device tensors.
     With `timer` the stages ``host_wait`` (the next batch), ``build_examples``
     (of it ``flow``) and ``step_<stream>`` are timed, each fenced on the
-    device: the fences stop the host from queueing ahead."""
+    device: the fences stop the host from queueing ahead.  `flow_net`: the
+    frozen SpyNet of ``flow_algo="spynet"``."""
     it = iter(feed)
     while True:
         with _stage(timer, "host_wait"):
@@ -156,7 +164,7 @@ def train_iter(feed: Iterable[Tuple[torch.Tensor, torch.Tensor]],
         with _stage(timer, "build_examples", windows.device):
             examples = build_examples(windows, cfg, stream,
                                       draw_crops(generator, windows, cfg),
-                                      timer=timer)
+                                      timer=timer, flow_net=flow_net)
         metrics = {}
         for name, step in steps.items():
             with _stage(timer, f"step_{name}", windows.device):
