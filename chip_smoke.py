@@ -3207,6 +3207,456 @@ def spynet_phase(torch, np, dev):
     emit({"phase": "spynet", **report})
 
 
+DIST_WORLD = 2             # processes of the gloo group on the one card
+DIST_TRAIN_STEPS = 2       # two-stream steps at the global batch TRAIN_BATCH
+# Each process of the gloo group, on cuda:0: argv = rank, spec file.
+DIST_WORKER = r"""
+import datetime, hashlib, json, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank = int(sys.argv[1])
+spec = json.load(open(sys.argv[2]))
+sys.path.insert(0, spec["here"])
+import chip_smoke as cs
+from video_analytics_tpu_torch.config import PipelineConfig
+from video_analytics_tpu_torch.io.dataset import UCF101
+from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+from video_analytics_tpu_torch.parallel import mesh
+from video_analytics_tpu_torch.runtime import evaluate as ev
+from video_analytics_tpu_torch.runtime import train_two_stream as tts
+
+torch.cuda.set_device(0)
+dev = torch.device("cuda", 0)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{spec['port']}",
+                        world_size=spec["world"], rank=rank,
+                        timeout=datetime.timedelta(minutes=5))
+zero, read = cs.flow_counters()
+out = {"rank": rank}
+cfg = PipelineConfig()
+model = TwoStreamModel.create(num_classes=cfg.num_classes,
+                              flow_stack=cfg.preprocess.flow_stack,
+                              width=64).init(torch.Generator().manual_seed(0))
+model = model.to(dev).eval()
+records = UCF101(videos_root=spec["videos"],
+                 annotations_root=spec["annotations"]).test_records()
+zero()
+res = ev.evaluate_batched(records, model, cfg, dev,
+                          batch_clips=spec["batch_clips"], host_resize=True)
+torch.cuda.synchronize()
+out["eval"] = res.as_dict()
+out["eval_launches"] = read()
+
+tcfg = cs.train_config()
+model = TwoStreamModel.create(num_classes=cfg.num_classes,
+                              flow_stack=cfg.preprocess.flow_stack,
+                              width=64).init(torch.Generator().manual_seed(0))
+states = tts.create_two_stream_states(model.to(dev), 1e-3, "both")
+steps = tts.make_two_stream_train_steps(states)
+host = cs.train_windows(np, spec["batch"], cfg.preprocess.flow_stack + 1,
+                        seed=40)
+y_host = np.random.default_rng(1).integers(0, cfg.num_classes, spec["batch"])
+rows = slice(rank * spec["batch"] // spec["world"],
+             (rank + 1) * spec["batch"] // spec["world"])
+windows = torch.from_numpy(host[rows]).to(dev)
+y = torch.from_numpy(y_host[rows]).to(dev)
+gen = torch.Generator().manual_seed(0)
+
+
+def step():
+    ex = tts.build_examples(windows, tcfg, "both",
+                            tts.draw_crops(gen, windows, tcfg))
+    return {k: {m: float(v) for m, v in fn(ex[k], y).items()}
+            for k, fn in steps.items()}
+
+
+zero()
+out["losses"] = []
+for i in range(spec["steps"]):
+    out["losses"].append(step())
+    if rank == 0 and i < spec["steps"] - 1:
+        # The state the next step starts from, for the one-process step.
+        torch.save(cs.train_state(states), spec["state"] + f".{i}")
+torch.cuda.synchronize()
+out["train_launches"] = read()
+digest = hashlib.sha256()
+for name, t in model.state_dict().items():
+    digest.update(name.encode() + t.detach().cpu().numpy().tobytes())
+out["state_sha256"] = digest.hexdigest()
+# One more step, timed, with every all-reduce fenced and timed: the
+# group's share of a step (through host memory, gloo on one card).
+real, spent = dist.all_reduce, []
+
+
+def fenced(t, *a, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = real(t, *a, **kw)
+    torch.cuda.synchronize()
+    spent.append(time.perf_counter() - t0)
+    return r
+
+
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+step()
+torch.cuda.synchronize()
+out["step_s"] = time.perf_counter() - t0
+dist.all_reduce = fenced
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+step()
+torch.cuda.synchronize()
+out["fenced_step_s"] = time.perf_counter() - t0
+dist.all_reduce = real
+out["all_reduce_s"], out["all_reduces"] = sum(spent), len(spent)
+dist.destroy_process_group()
+print(json.dumps(out), flush=True)
+"""
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def train_config():
+    """The train command's config: ``PipelineConfig()`` with its random
+    crop and flip."""
+    from video_analytics_tpu_torch.config import PipelineConfig
+    base = PipelineConfig()
+    return dataclasses.replace(base, preprocess=dataclasses.replace(
+        base.preprocess, random_crop=True, random_flip=True))
+
+
+def train_state(states):
+    """The two-stream model's weights and statistics and each stream's SGD
+    momentum, by parameter name (``load_train_state`` restores them)."""
+    model = {k: st.model.state_dict() for k, st in states.items()}
+    momentum = {k: {n: st.optimizer.state[p]["momentum_buffer"]
+                    for n, p in st.model.named_parameters()}
+                for k, st in states.items()}
+    return {"model": model, "momentum": momentum}
+
+
+def load_train_state(states, saved) -> None:
+    for k, st in states.items():
+        st.model.load_state_dict(saved["model"][k])
+        for n, p in st.model.named_parameters():
+            st.optimizer.state[p]["momentum_buffer"] = (
+                saved["momentum"][k][n].clone())
+
+
+def distributed_phase(torch, np, dev):
+    """``parallel/mesh`` on the card, at full width.
+
+    (a) ``eval-ucf101 --batched --coordinator 127.0.0.1:<port>
+        --num-processes 1 --process-id 0`` (a one-process NCCL group) on a
+        synthetic UCF101 of 8 test clips at 240x320, against the same
+        command without the flags: equal JSON, 5 ``tvl1_scale`` launches
+        each and nothing else; then ``evaluate_batched_multiprocess`` in a
+        one-process NCCL group (one NCCL all-reduce of the counts), equal
+        again.
+    (b) two processes on cuda:0 in a gloo group (NCCL refuses two
+        processes on one card), through the library:
+        ``evaluate_batched`` (routed to ``evaluate_batched_multiprocess``:
+        4 clips a process) equal to (a); two two-stream steps at the
+        global batch of 32 (16 a process) from seed 0's weights against
+        one process's steps on the 32 windows, each from the state the
+        processes' step started from (loss within TOL_TRAIN_LOSS, accuracy
+        to a window: a step's rounding differences move the next step's
+        flow-stream loss by up to ~2e-4 relative, as cuDNN's own run-to-run
+        differences do); the processes' weights and
+        statistics bit-equal; each process's launches held (5
+        ``tvl1_scale`` for its eval batch, 5 a step); the all-reduces'
+        share of a third step, for information.
+
+    Returns the launches per kernel summed over (a), (b)'s processes and
+    its one-process reference."""
+    import tempfile
+
+    from video_analytics_tpu_torch.config import PipelineConfig
+    from video_analytics_tpu_torch.io.synthetic import build_synthetic_ucf101
+    from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+    from video_analytics_tpu_torch.parallel import mesh
+    from video_analytics_tpu_torch.runtime import evaluate as ev
+    from video_analytics_tpu_torch.runtime import train_two_stream as tts
+    from video_analytics_tpu_torch.runtime.checkpoint import save_variables
+
+    cfg = PipelineConfig()
+    n_scales = len(SIZES)
+    zero, read = flow_counters()
+    nothing = dict.fromkeys(read(), 0)
+    total = dict(nothing)
+
+    def counted(fn, want, what):
+        zero()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = read()
+        check(launches == {**nothing, **want},
+              f"{what} launched {launches}, expected {want}")
+        for k, n in launches.items():
+            total[k] += n
+        return out
+
+    report = {}
+    with tempfile.TemporaryDirectory() as work:
+        ds = build_synthetic_ucf101(
+            os.path.join(work, "ucf101"), num_classes=EVAL_CLASSES,
+            clips_per_class=EVAL_CLIPS_PER_CLASS, num_frames=EVAL_FRAMES,
+            h=NATIVE[0], w=NATIVE[1], seed=0)
+        records = ds.test_records()
+        ckpt = os.path.join(work, "two_stream.msgpack")
+        model = TwoStreamModel.create(
+            num_classes=cfg.num_classes, flow_stack=cfg.preprocess.flow_stack,
+            width=64).init(torch.Generator().manual_seed(0))
+        save_variables(ckpt, model.flax_variables())
+        model = model.to(dev).eval()
+        base = ["eval-ucf101", "--videos", ds.videos_root, "--annotations",
+                ds.annotations_root, "--checkpoint", ckpt, "--batched",
+                "--batch-clips", str(EVAL_BATCH), "--device", "cuda"]
+        one_batch = {"tvl1_scale": n_scales}
+
+        # (a) a one-process NCCL group.
+        t0 = time.perf_counter()
+        rc, plain = counted(lambda: run_cli(base), one_batch, "eval-ucf101")
+        t1 = time.perf_counter()
+        group = ["--coordinator", f"127.0.0.1:{free_port()}",
+                 "--num-processes", "1", "--process-id", "0"]
+        rc_g, grouped = counted(lambda: run_cli(base + group), one_batch,
+                                "eval-ucf101 --coordinator")
+        t2 = time.perf_counter()
+        check(rc == rc_g == 0 and grouped == plain
+              and plain["total"] == len(records) and plain["failed"] == 0,
+              f"eval-ucf101 in a one-process group: {grouped}, without: "
+              f"{plain}")
+        mesh.init_distributed(f"127.0.0.1:{free_port()}", 1, 0, "cuda")
+        try:
+            lib = counted(lambda: ev.evaluate_batched_multiprocess(
+                records, model, cfg, dev, batch_clips=EVAL_BATCH,
+                host_resize=True), one_batch,
+                "evaluate_batched_multiprocess (NCCL, one process)")
+        finally:
+            mesh.shutdown()
+        check(lib.as_dict() == plain,
+              f"evaluate_batched_multiprocess {lib.as_dict()} != {plain}")
+        report["one_process_nccl"] = {
+            "result": plain, "launches": one_batch,
+            "seconds_without_group": t1 - t0, "seconds_with_group": t2 - t1}
+
+        # (b) two processes on the card in a gloo group.
+        spec = os.path.join(work, "spec.json")
+        state = os.path.join(work, "state.pt")
+        with open(spec, "w") as f:
+            json.dump({"here": HERE, "port": free_port(), "world": DIST_WORLD,
+                       "state": state,
+                       "videos": ds.videos_root,
+                       "annotations": ds.annotations_root,
+                       "batch_clips": EVAL_BATCH, "batch": TRAIN_BATCH,
+                       "steps": DIST_TRAIN_STEPS}, f)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", DIST_WORKER, str(r),
+                                   spec], cwd=HERE, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for r in range(DIST_WORLD)]
+        try:
+            # Meanwhile, one process's steps on the 32 windows.
+            tcfg = train_config()
+            m1 = TwoStreamModel.create(
+                num_classes=cfg.num_classes,
+                flow_stack=cfg.preprocess.flow_stack,
+                width=64).init(torch.Generator().manual_seed(0)).to(dev)
+            states = tts.create_two_stream_states(m1, 1e-3, "both")
+            steps = tts.make_two_stream_train_steps(states)
+            windows = torch.from_numpy(train_windows(
+                np, TRAIN_BATCH, cfg.preprocess.flow_stack + 1,
+                seed=40)).to(dev)
+            y = torch.from_numpy(np.random.default_rng(1).integers(
+                0, cfg.num_classes, TRAIN_BATCH)).to(dev)
+            gen = torch.Generator().manual_seed(0)
+
+            def one_process_step():
+                ex = tts.build_examples(windows, tcfg, "both",
+                                        tts.draw_crops(gen, windows, tcfg))
+                return {k: {m: float(v) for m, v in fn(ex[k], y).items()}
+                        for k, fn in steps.items()}
+
+            ref = [counted(one_process_step, one_batch,
+                           "one process's first train step")]
+            outs = [p.communicate(timeout=600) for p in procs]
+            # Each later step from the state process 0's step started from.
+            for i in range(1, DIST_TRAIN_STEPS):
+                load_train_state(states, torch.load(f"{state}.{i - 1}",
+                                                    map_location=dev))
+                ref.append(counted(one_process_step, one_batch,
+                                   f"one process's train step {i}"))
+            del m1, states, steps, windows
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        seconds = time.perf_counter() - t0
+        for r, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"gloo process {r} exited "
+                  f"{p.returncode}: {stderr[-3000:]}")
+        got = [json.loads(o[0].strip().splitlines()[-1]) for o in outs]
+    want_train = {**nothing, "tvl1_scale": n_scales * DIST_TRAIN_STEPS}
+    worst = 0.0
+    for g in got:
+        check(g["eval"]["total"] == plain["total"]
+              and g["eval"]["correct"] == plain["correct"]
+              and g["eval"]["failures"] == [],
+              f"process {g['rank']} eval {g['eval']}, one process {plain}")
+        check(g["eval_launches"] == {**nothing, **one_batch},
+              f"process {g['rank']} eval launched {g['eval_launches']}")
+        check(g["train_launches"] == want_train,
+              f"process {g['rank']} steps launched {g['train_launches']}")
+        for s, (a, b) in enumerate(zip(g["losses"], ref)):
+            for k in a:
+                rel = abs(a[k]["loss"] - b[k]["loss"]) / abs(b[k]["loss"])
+                worst = max(worst, rel)
+                check(rel <= TOL_TRAIN_LOSS and abs(
+                    a[k]["accuracy"] - b[k]["accuracy"])
+                    <= 1.0 / TRAIN_BATCH + 1e-9,
+                    f"step {s} ({k}): process {g['rank']} {a[k]}, one "
+                    f"process {b[k]}")
+        for k, n in g["eval_launches"].items():
+            total[k] += n + g["train_launches"][k]
+    check(got[0]["losses"] == got[1]["losses"]
+          and got[0]["state_sha256"] == got[1]["state_sha256"],
+          "the two processes' losses or weights differ")
+    report["two_processes_gloo"] = {
+        "eval": got[0]["eval"], "losses_process_0": got[0]["losses"],
+        "losses_one_process": ref, "loss_max_rel_diff": worst,
+        "tolerance_loss_rel": TOL_TRAIN_LOSS,
+        "state_sha256_equal": True, "seconds": seconds,
+        "per_process": [{k: g[k] for k in (
+            "eval_launches", "train_launches", "step_s", "fenced_step_s",
+            "all_reduce_s", "all_reduces")} for g in got],
+        "all_reduce_share_of_fenced_step": [
+            g["all_reduce_s"] / g["fenced_step_s"] for g in got]}
+    emit({"phase": "distributed", "card": CARD.get("card"), **report})
+    return total
+
+
+WARMUP_SIZES = "240x320,1080x1920"
+# The warmup command in a fresh process, then its launches per kernel.
+WARMUP_CODE = r"""
+import json, sys
+import torch
+import chip_smoke as cs
+from video_analytics_tpu_torch.cli.main import main
+zero, read = cs.flow_counters()
+zero()
+rc = main(sys.argv[1:])
+torch.cuda.synchronize()
+print(json.dumps({"rc": rc, "launches": read()}), flush=True)
+"""
+# A fresh process's first flow call at warmup's first shape.
+FIRST_CALL_CODE = r"""
+import json, time
+t0 = time.perf_counter()
+import torch
+from video_analytics_tpu_torch.config import PipelineConfig
+from video_analytics_tpu_torch.ops.cuda import _build
+from video_analytics_tpu_torch.runtime.pipeline import compute_flow
+x = torch.zeros((8, 240, 320), device="cuda")
+torch.cuda.synchronize()
+t1 = time.perf_counter()
+times = []
+for _ in range(2):
+    with torch.no_grad():
+        compute_flow(x, x, PipelineConfig())
+    torch.cuda.synchronize()
+    times.append(time.perf_counter() - t1)
+    t1 = time.perf_counter()
+print(json.dumps({"import_and_cuda_init_s": t1 - t0 - sum(times),
+                  "first_call_s": times[0], "second_call_s": times[1],
+                  "nvcc_seconds": _build.build_info.get("seconds"),
+                  "library": _build.build_info.get("path")}), flush=True)
+"""
+
+
+def warmup_phase(torch, np):
+    """``tpuva-torch warmup --surface all --algos tvl1,farneback --sizes
+    240x320,1080x1920`` in a fresh process, in a copy of the package with
+    no build directory (so it builds the kernels), every launch count set
+    to 0 just before the command and read just after; its entries and
+    their seconds; then a second fresh process's first flow call at the
+    first size, which finds the library warmup built.  Returns the
+    command's launches per kernel."""
+    import shutil
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as work:
+        shutil.copytree(os.path.join(HERE, "video_analytics_tpu_torch"),
+                        os.path.join(work, "video_analytics_tpu_torch"),
+                        ignore=shutil.ignore_patterns("_build",
+                                                      "__pycache__"))
+        shutil.copy(os.path.join(HERE, "chip_smoke.py"), work)
+        env = {**os.environ, "PYTHONPATH": work}
+        argv = ["warmup", "--surface", "all", "--algos", "tvl1,farneback",
+                "--sizes", WARMUP_SIZES, "--device", "cuda"]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", WARMUP_CODE, *argv],
+                              cwd=work, env=env, capture_output=True,
+                              text=True, timeout=900)
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"warmup exited {proc.returncode}: {proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        out, tail = json.loads(lines[-2]), json.loads(lines[-1])
+        check(tail["rc"] == 0, f"warmup returned {tail['rc']}")
+        compiled = out["compiled"]
+        flow = [(e["algo"], tuple(e["bucket"])) for e in compiled
+                if set(e) == {"algo", "bucket", "secs"}]
+        classify = [(e["algo"], e["surface"]) for e in compiled
+                    if set(e) in ({"algo", "surface", "shape", "secs"},
+                                  {"algo", "surface", "secs"})]
+        check(flow == [(a, hw) for a in ("tvl1", "farneback")
+                       for hw in (NATIVE, FULL_HD)]
+              and classify == [(a, s) for a in ("tvl1", "farneback")
+                               for s in ("eval-batched", "serve")]
+              and len(compiled) == 8, f"warmup entries: {compiled}")
+        shapes = [e["shape"] for e in compiled if "shape" in e]
+        check(all(len(s) == 6 and s[:3] == [EVAL_BATCH, 1, 16]
+                  and s[5] == 3 for s in shapes),
+              f"eval-batched shapes {shapes}")
+        cache = out["cache_dir"]
+        check(os.path.realpath(cache).startswith(os.path.realpath(work))
+              and os.path.exists(os.path.join(cache, "libva_kernels.so")),
+              f"warmup's cache_dir {cache} holds no library")
+        launches = tail["launches"]
+        for k in ("tvl1_scale", "tvl1_pd_chunk", "warp_prep", "median5",
+                  "fb_prologue", "fb_iteration"):
+            check(launches[k] > 0, f"warmup launched no {k}: {launches}")
+        t0 = time.perf_counter()
+        again = subprocess.run([sys.executable, "-c", FIRST_CALL_CODE],
+                               cwd=work, env=env, capture_output=True,
+                               text=True, timeout=300)
+        again_s = time.perf_counter() - t0
+        check(again.returncode == 0,
+              f"the second process exited {again.returncode}: "
+              f"{again.stderr[-3000:]}")
+        first = json.loads(again.stdout.strip().splitlines()[-1])
+        check(first["nvcc_seconds"] == 0.0,
+              f"the second process built the kernels: {first}")
+    emit({"phase": "warmup", "card": CARD.get("card"),
+          "command_seconds": seconds,
+          "entries": [{"what": e.get("surface", e.get("bucket")),
+                       "algo": e["algo"], "secs": e["secs"],
+                       **({"shape": e["shape"]} if "shape" in e else {})}
+                      for e in compiled],
+          "launches": launches, "second_process": first,
+          "second_process_seconds": again_s})
+    return launches
+
+
 def native_phases(torch, np, dev, chain: bool = True):
     """The native-resolution flow command and, with `chain`, the stage
     commands that read what it wrote, in one temporary directory.  Returns
@@ -3238,7 +3688,7 @@ def main(argv=None) -> int:
                              "farneback_1080p", "tvl1_midsize",
                              "tvl1_chunk_kernels", "tvl1_1080p",
                              "stage_chain", "eval_ucf101", "train",
-                             "spynet"],
+                             "spynet", "distributed", "warmup"],
                     help="run the build and this phase alone (stage_chain "
                          "with tvl1_1080p, whose directories it reads), for "
                          "work on it; prints no result line")
@@ -3301,6 +3751,10 @@ def main(argv=None) -> int:
         train_phase(torch, np, dev)
     elif args.only == "spynet":
         spynet_phase(torch, np, dev)
+    elif args.only == "distributed":
+        distributed_phase(torch, np, dev)
+    elif args.only == "warmup":
+        warmup_phase(torch, np)
     elif args.only:
         native_phases(torch, np, dev, args.only == "stage_chain")
     if args.only:
@@ -3495,6 +3949,10 @@ def main(argv=None) -> int:
     # -- 13. SpyNet: no port kernel on its path ------------------------------
     spynet_phase(torch, np, dev)
 
+    # -- 14-15. processes and collectives; warmup --------------------------
+    dist_launches = distributed_phase(torch, np, dev)
+    warmup_launches = warmup_phase(torch, np)
+
     # -- the kernel table -----------------------------------------------------
     # TV-L1 bounds at 224², 15 pairs.  Planes moved: warp_prep reads I1 and
     # its gradients, I0 and the flow and writes 4; pd_step reads prep, the
@@ -3607,7 +4065,9 @@ def main(argv=None) -> int:
                        **({"launches_farneback_1080p": fhd_launches[name]}
                           if name in fhd_launches else {}),
                        "launches_eval_ucf101": eval_launches.get(name, 0),
-                       "launches_train": train_launches.get(name, 0)}
+                       "launches_train": train_launches.get(name, 0),
+                       "launches_distributed": dist_launches.get(name, 0),
+                       "launches_warmup": warmup_launches.get(name, 0)}
                       for name, source, replaces, also in rows]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

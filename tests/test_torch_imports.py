@@ -5,7 +5,9 @@ them: it is imported where a frame is decoded or resized), answers a serve
 request on the CPU from a clip written by the port's own
 ``synthesize_video``, writes, reads back and classifies from a
 checkpoint, takes one two-stream train step, runs the bundled SpyNet and
-trains one with ``tools/torch_train_spynet.py``."""
+trains one with ``tools/torch_train_spynet.py``, and evaluates a synthetic
+UCF101 in a one-process gloo group (``parallel/mesh``), through
+``evaluate_batched`` and ``evaluate_batched_multiprocess``."""
 
 import os
 import subprocess
@@ -27,13 +29,13 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
-assert len(names) >= 35, names
+assert len(names) >= 42, names
 for sub in ("io.video", "io.dataset", "io.flowio", "io.synthetic",
             "flow.farneback", "ops.cuda.farneback", "ops.cuda.tvl1_solve",
             "ingest.prefetch", "runtime.checkpoint", "runtime.evaluate",
             "utils.logging", "ingest.train_loader", "runtime.train",
             "runtime.train_two_stream", "runtime.profiling",
-            "models.spynet"):
+            "models.spynet", "parallel.mesh"):
     assert pkg.__name__ + "." + sub in names, sub
 import chip_smoke                      # import only; main() needs a GPU
 assert "cv2" not in sys.modules        # imported where a frame is touched
@@ -104,6 +106,27 @@ with tempfile.TemporaryDirectory() as d:
                       "--device", "cpu",
                       "--out", os.path.join(d, "s.msgpack")]) == 0
     assert os.path.getsize(os.path.join(d, "s.msgpack")) > 0
+# The distributed path: a one-process gloo group.
+import socket
+from video_analytics_tpu_torch.io.synthetic import build_synthetic_ucf101
+from video_analytics_tpu_torch.parallel import mesh
+from video_analytics_tpu_torch.runtime import evaluate as ev
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+with tempfile.TemporaryDirectory() as d:
+    ds = build_synthetic_ucf101(d, num_classes=2, clips_per_class=2,
+                                num_frames=6, h=48, w=64)
+    mesh.init_distributed(f"127.0.0.1:{port}", 1, 0, "cpu")
+    try:
+        assert mesh.process_count() == 1
+        runs = [f(ds.test_records(), model.eval(), cfg, "cpu", batch_clips=2)
+                for f in (ev.evaluate_batched,
+                          ev.evaluate_batched_multiprocess)]
+    finally:
+        mesh.shutdown()
+assert runs[0].as_dict() == runs[1].as_dict(), [r.as_dict() for r in runs]
+assert runs[0].total == 2 and runs[0].failed == 0, runs[0].as_dict()
 resp = json.loads(out.getvalue().splitlines()[0])
 assert resp["id"] == 3 and len(resp["results"]) == 2, resp
 for r in resp["results"]:

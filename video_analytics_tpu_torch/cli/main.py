@@ -1,13 +1,15 @@
 """Command line of the PyTorch/CUDA port: ``tpuva-torch``.
 
 Port of the ``extract-frames``, ``compute-flow``, ``extract-features``,
-``classify-clip``, ``serve``, ``eval-ucf101``, ``convert-weights`` and
-``train`` subcommands of ``video_analytics_tpu/cli/main.py``, with the
-same flags and the same JSON lines (less ``compute-flow``'s ``--exact``
-and ``--no-bucket``, which choose between paths the port does not have:
-its warp is always the exact gather, its flow always at the native
-resolution; and less the multi-host flags of ``eval-ucf101`` and
-``train``) and, for ``serve``, the same stdin/stdout line protocol.  The
+``classify-clip``, ``serve``, ``eval-ucf101``, ``convert-weights``,
+``train`` and ``warmup`` subcommands of ``video_analytics_tpu/cli/main.py``,
+with the same flags and the same JSON lines (less ``compute-flow``'s
+``--exact`` and ``--no-bucket``, which choose between paths the port does
+not have: its warp is always the exact gather, its flow always at the
+native resolution) and, for ``serve``, the same stdin/stdout line
+protocol.  ``eval-ucf101 --batched`` and ``train`` run as one process per
+device with ``--coordinator host:port --num-processes N --process-id I``
+(``parallel/mesh``; NCCL between CUDA devices, gloo on the CPU).  The
 model is initialised from a seed (``serve --seed`` and ``train --seed``, 0
 elsewhere) unless ``--checkpoint`` (``train``: ``--init-checkpoint``)
 names a msgpack file, which either package may have written.  ``--algo
@@ -29,12 +31,16 @@ Usage::
         --batched
     tpuva-torch train --videos UCF101/videos \\
         --annotations UCF101/annotations --out two_stream.msgpack
+    tpuva-torch train ... --coordinator 10.0.0.1:29500 \\
+        --num-processes 2 --process-id 0          # and 1 on the other card
+    tpuva-torch warmup --surface all --sizes 240x320
     tpuva-torch serve --device cpu ...            # plain PyTorch, no kernels
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -154,7 +160,8 @@ def _pipeline_config(args):
                            flow_stack=args.flow_stack)
     fb, tv = _flow_configs(args)
     kw = dict(preprocess=pre, num_classes=args.num_classes,
-              farneback=fb, tvl1=tv, flow_algo=args.algo)
+              farneback=fb, tvl1=tv,
+              flow_algo=getattr(args, "algo", "tvl1"))
     if getattr(args, "window", None) is not None:
         kw["window"] = args.window
     return PipelineConfig(**kw)
@@ -217,6 +224,35 @@ def _add_model_args(p, window: bool = True, inference: bool = True) -> None:
     if window:
         p.add_argument("--window", type=int, default=16,
                        help="frames per sliding window")
+
+
+def _add_distributed_args(p) -> None:
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0; with it this command is "
+                        "one process of N, each on its own device")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+
+
+@contextlib.contextmanager
+def _maybe_init_distributed(args):
+    """The command's device, in a group of processes while the command runs
+    when the launch flags are present: ``--coordinator host:port
+    --num-processes N --process-id I`` make this process one of N
+    (``parallel/mesh.init_distributed``; ``--device cuda`` without an
+    index takes card ``I mod`` the cards visible), after which the eval and
+    train loops work on this process's shard of the records."""
+    from video_analytics_tpu_torch.utils.device import require_cuda
+    if not args.coordinator:
+        yield require_cuda(args.device)
+        return
+    from video_analytics_tpu_torch.parallel import mesh
+    device = mesh.init_distributed(args.coordinator, args.num_processes,
+                                   args.process_id, args.device)
+    try:
+        yield device
+    finally:
+        mesh.shutdown()
 
 
 def _spynet_net(args, device):
@@ -376,13 +412,22 @@ def cmd_eval_ucf101(args) -> int:
     """Top-1 clip accuracy on a UCF101 split's test list: clip by clip
     (resumable with --manifest, --predictions written as JSON lines) or,
     with --batched, threaded decode and batches of --batch-clips clips with
-    the correct count kept on the device."""
+    the correct count kept on the device.  With --coordinator (--batched
+    only) each process evaluates its shard of the list and every process
+    prints the global counts with its own shard's failures."""
+    if args.coordinator and not args.batched:
+        print("error: --coordinator needs --batched (the clip-by-clip "
+              "loop runs in one process)", file=sys.stderr)
+        return 2
+    with _maybe_init_distributed(args) as device:
+        return _eval_ucf101(args, device)
+
+
+def _eval_ucf101(args, device) -> int:
     from video_analytics_tpu_torch.io.dataset import UCF101
     from video_analytics_tpu_torch.runtime.evaluate import (
         evaluate, evaluate_batched)
-    from video_analytics_tpu_torch.utils.device import require_cuda
 
-    device = require_cuda(args.device)
     cfg = _pipeline_config(args)
     model = _load_two_stream(args, device)
     flow_net = _spynet_net(args, device)
@@ -505,7 +550,18 @@ def cmd_train(args) -> int:
     SGD step per trained stream.  ``--cache-dir`` caches decoded frames as
     per-clip .npy, so later epochs decode no container.  The crop draws
     come from a ``torch.Generator`` seeded with ``--seed``, so they differ
-    from the JAX command's."""
+    from the JAX command's.
+
+    With --coordinator each process samples its windows from its own shard
+    of the train records, --batch is rounded up to split evenly over the
+    processes, and each step is the step on the global batch
+    (``runtime/train``); every process prints the result line, process 0
+    alone writes --out while the others wait for it."""
+    with _maybe_init_distributed(args) as device:
+        return _train(args, device)
+
+
+def _train(args, device) -> int:
     import dataclasses
 
     import torch
@@ -514,14 +570,13 @@ def cmd_train(args) -> int:
         DecodeWorkersExited, TrainWindowSampler)
     from video_analytics_tpu_torch.io.dataset import UCF101
     from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+    from video_analytics_tpu_torch.parallel import mesh
     from video_analytics_tpu_torch.runtime import train_two_stream as tts
     from video_analytics_tpu_torch.runtime.checkpoint import (
         load_variables, save_variables)
-    from video_analytics_tpu_torch.utils.device import require_cuda
     from video_analytics_tpu_torch.utils.logging import get_logger
 
     log = get_logger("tpuva.train")
-    device = require_cuda(args.device)
     flow_net = _spynet_net(args, device)
     cfg = _pipeline_config(args)
     # Random crop always; horizontal flip unless --no-flip (flipped frames
@@ -541,8 +596,17 @@ def cmd_train(args) -> int:
     model.to(device)
     states = tts.create_two_stream_states(model, args.lr, args.stream)
     steps = tts.make_two_stream_train_steps(states)
+    procs, pid = mesh.process_count(), mesh.process_index()
+    local_b = args.batch
+    if procs > 1:
+        records = mesh.process_local_records(records)
+        global_b = mesh.global_batch_size(args.batch, procs)
+        local_b = global_b // procs
+        log.info("pod mode: process %d/%d, %d local records, "
+                 "global batch %d (local %d)", pid, procs, len(records),
+                 global_b, local_b)
     sampler = TrainWindowSampler(
-        records, window=tts.train_window_len(cfg), batch=args.batch,
+        records, window=tts.train_window_len(cfg), batch=local_b,
         seed=args.seed, max_frames=args.max_frames,
         num_workers=args.num_workers, cache_dir=args.cache_dir)
 
@@ -572,13 +636,102 @@ def cmd_train(args) -> int:
     finally:
         sampler.stop()
         feed.close()
-    save_variables(args.out, tts.two_stream_variables(model))
+    if pid == 0:
+        save_variables(args.out, tts.two_stream_variables(model))
+    if procs > 1:
+        torch.distributed.barrier()
     result = {"steps": n_done, "checkpoint": args.out,
               "stream": args.stream, "ingest": dict(sampler.stats)}
     if metrics is not None:
         for k, m in metrics.items():
             result[f"final_loss_{k}"] = float(m["loss"])
     print(json.dumps(result))
+    return 0
+
+
+def cmd_warmup(args) -> int:
+    """Pay the first-use costs of the flow and classify paths once, before
+    the work that needs them: the build of the CUDA kernels into the
+    checkout's ``_build/<key>/`` (kept across processes; the directory is
+    printed as ``cache_dir``), cuDNN's choice of algorithms and the caching
+    allocator's first blocks at each shape (both per process).
+
+    ``--surface flow``: ``compute_flow`` on ``--batch`` pairs of zeros at
+    each of ``--sizes``, as ``compute-flow --batch`` calls it (at the size
+    given: the port has no bucket ladder).  ``--surface classify``: the
+    batch function of ``eval-ucf101 --batched`` at the shape it dispatches
+    for clips of ``--src`` (decode, host resize, transport crop, a batch of
+    ``--batch-clips``; ``runtime/evaluate.warm_batched``) and the serve /
+    classify-clip path (``ClipServer.warmup``), on the model of the model
+    flags with random weights.  ``--surface all``: both.  Each entry of
+    ``compiled`` gives its wall seconds."""
+    import dataclasses
+    import time
+
+    import numpy as np
+    import torch
+    from video_analytics_tpu_torch.config import PipelineConfig
+    from video_analytics_tpu_torch.ops.cuda import _build
+    from video_analytics_tpu_torch.runtime.pipeline import compute_flow
+    from video_analytics_tpu_torch.utils.device import require_cuda
+
+    device = require_cuda(args.device)
+    fb, tv = _flow_configs(args)
+    algos = [a.strip() for a in args.algos.split(",") if a.strip()]
+    sizes = []
+    for tok in args.sizes.split(","):
+        h, w = tok.lower().split("x")
+        sizes.append((int(h), int(w)))
+
+    def timed(fn):
+        """fn()'s result and the wall seconds until the device is done."""
+        t0 = time.perf_counter()
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return out, round(time.perf_counter() - t0, 2)
+
+    compiled = []
+    if args.surface in ("flow", "all"):
+        for algo in algos:
+            cfg = PipelineConfig(flow_algo=algo, farneback=fb, tvl1=tv)
+            for h, w in dict.fromkeys(sizes):
+                x = torch.zeros((args.batch, h, w), device=device)
+                with torch.no_grad():
+                    _, secs = timed(lambda: compute_flow(x, x, cfg))
+                compiled.append({"algo": algo, "bucket": [h, w],
+                                 "secs": secs})
+                print(f"warmed {algo} {h}x{w} in {secs}s", file=sys.stderr)
+    if args.surface in ("classify", "all"):
+        from video_analytics_tpu_torch.ingest.windows import (
+            host_resize_short, slice_crop_source)
+        from video_analytics_tpu_torch.runtime.evaluate import warm_batched
+        from video_analytics_tpu_torch.runtime.serve import ClipServer
+
+        sh, sw = (int(t) for t in args.src.lower().split("x"))
+        base_cfg = _pipeline_config(args)
+        model = _load_two_stream(args, device)
+        pre = base_cfg.preprocess
+        win = max(base_cfg.window, pre.flow_stack + 1)
+        # The eval-ucf101 --batched loader's geometry: a --src decode, the
+        # host resize, the transport crop.
+        wins = np.zeros((args.windows, win, sh, sw, 3), np.uint8)
+        wins = np.stack([host_resize_short(w, pre.resize_short)
+                         for w in wins])
+        wins, hw = slice_crop_source(wins, pre.resize_short, pre.crop)
+        for algo in algos:
+            cfg = dataclasses.replace(base_cfg, flow_algo=algo)
+            shape, secs = timed(lambda: warm_batched(
+                model, cfg, wins.shape, hw, args.batch_clips, device))
+            compiled.append({"algo": algo, "surface": "eval-batched",
+                             "shape": list(shape), "secs": secs})
+            print(f"warmed {algo} eval-batched {tuple(shape)} in {secs}s",
+                  file=sys.stderr)
+            server = ClipServer(model, cfg, device, num_windows=args.windows)
+            secs = round(server.warmup(), 2)
+            compiled.append({"algo": algo, "surface": "serve", "secs": secs})
+            print(f"warmed {algo} serve in {secs}s", file=sys.stderr)
+    print(json.dumps({"compiled": compiled, "cache_dir": _build.build_dir()}))
     return 0
 
 
@@ -608,6 +761,9 @@ def cmd_serve(args) -> int:
               flush=True)
     server.serve_forever()
     return 0
+
+
+DEFAULT_WARMUP_SIZES = "240x320,360x480,480x640,720x1280,1080x1920"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -721,6 +877,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="throughput path: threaded decode, batches of "
                          "clips, the correct count kept on the device")
     ev.add_argument("--batch-clips", type=int, default=8)
+    _add_distributed_args(ev)
     _add_flow_args(ev)
     ev.set_defaults(fn=cmd_eval_ucf101)
 
@@ -756,6 +913,7 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--init-checkpoint", default=None,
                     help="msgpack checkpoint of both streams to start from")
     tr.add_argument("--log-every", type=int, default=20)
+    _add_distributed_args(tr)
     _add_flow_args(tr)
     tr.set_defaults(fn=cmd_train)
 
@@ -774,6 +932,33 @@ def build_parser() -> argparse.ArgumentParser:
                     help="init seed for layers not in the state_dict "
                          "(e.g. the fc head on a class-count mismatch)")
     cw.set_defaults(fn=cmd_convert_weights)
+
+    wu = sub.add_parser(
+        "warmup",
+        help="build the kernels and run the flow and classify paths once "
+             "at the given shapes")
+    wu.add_argument("--sizes", default=DEFAULT_WARMUP_SIZES,
+                    help="comma-separated HxW video sizes "
+                         f"(default: {DEFAULT_WARMUP_SIZES})")
+    wu.add_argument("--algos", default="tvl1,farneback")
+    wu.add_argument("--batch", type=int, default=8,
+                    help="compute-flow's --batch: frame pairs per flow call")
+    wu.add_argument("--surface", choices=["flow", "classify", "all"],
+                    default="flow",
+                    help="the compute-flow path at --sizes, the classify "
+                         "paths (eval-ucf101 --batched + serve), or both")
+    wu.add_argument("--src", default="240x320",
+                    help="source video resolution for the classify "
+                         "surface's geometry (UCF101's by default)")
+    wu.add_argument("--batch-clips", type=int, default=8,
+                    help="eval-ucf101's --batch-clips")
+    wu.add_argument("--windows", type=int, default=1,
+                    help="eval-ucf101's and serve's --windows")
+    _add_model_args(wu, inference=False)
+    wu.add_argument("--fold-bn", action="store_true",
+                    help="warm the folded model's classify paths")
+    _add_flow_args(wu)
+    wu.set_defaults(fn=cmd_warmup, checkpoint=None)
     return p
 
 

@@ -29,6 +29,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from video_analytics_tpu_torch.parallel.mesh import (
+    all_reduce_sum, process_count)
+
 
 def _conv(in_ch: int, out_ch: int, kernel: int, strides: int, padding: int,
           fold_bn: bool) -> nn.Conv2d:
@@ -45,19 +48,49 @@ class BatchNorm2d(nn.BatchNorm2d):
     the last stage of a batch of 4 at 1×1).  Here the normalization is
     ``F.batch_norm`` with no running buffers (differentiable, cuDNN on the
     card) and the buffers take the biased variance under ``no_grad``.  Eval
-    mode is ``nn.BatchNorm2d``'s."""
+    mode is ``nn.BatchNorm2d``'s.
+
+    In a group of processes (``parallel/mesh``), each holding its own rows
+    of a training batch, the statistics are those of the global batch, as
+    the reference's BatchNorm computes them over a batch sharded across
+    devices: the mean from summed sums and counts, then the variance as
+    the summed E[(x − E[x])²], both through differentiable all-reduces
+    (the gradient flows back through the sums to every process's rows).
+    Every process then stores the same running statistics.
+    ``nn.SyncBatchNorm`` would store the unbiased variance."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if process_count() > 1:
+            return self._forward_global(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            keep = 1.0 - self.momentum
-            self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(keep).add_(var, alpha=self.momentum)
-            self.num_batches_tracked.add_(1)
+            self._update_running(mean, var)
+        return y
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        keep = 1.0 - self.momentum
+        self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
+        self.running_var.mul_(keep).add_(var, alpha=self.momentum)
+        self.num_batches_tracked.add_(1)
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[1]
+        dims = (0, 2, 3)
+        sums = all_reduce_sum(torch.cat([x.sum(dims),
+                                         x.new_full((1,), x.numel() // c)]))
+        count = sums[c]
+        mean = sums[:c] / count
+        centred = x - mean[None, :, None, None]
+        var = all_reduce_sum(centred.square().sum(dims)) / count
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = centred * scale[None, :, None, None] + self.bias[None, :, None,
+                                                             None]
+        with torch.no_grad():
+            self._update_running(mean, var)
         return y
 
 

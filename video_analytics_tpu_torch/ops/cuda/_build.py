@@ -185,6 +185,12 @@ def _compile(out_dir: str, header: str) -> str:
     return lib_path
 
 
+def build_dir() -> str:
+    """The directory that holds (or will hold) the library built from the
+    checkout's sources: ``_build/<key>/``."""
+    return os.path.join(BUILD_ROOT, _key(median_network_header()))
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib

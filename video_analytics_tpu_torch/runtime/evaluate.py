@@ -2,11 +2,13 @@
 
 Port of ``video_analytics_tpu/runtime/evaluate.py``: ``classify_clip_file``
 (what ``classify-clip`` runs), the clip-by-clip loop ``evaluate`` (a
-resumable manifest, a predictions file, ``limit``) and the throughput
-loop ``evaluate_batched`` (threaded decode, batches of clips, the
-correct count kept on the device), for one device.  The reference's
-multi-process ``evaluate_batched_multiprocess`` and ``warm_batched`` are
-not ported yet.
+resumable manifest, a predictions file, ``limit``), the throughput loop
+``evaluate_batched`` (threaded decode, batches of clips, the correct count
+kept on the device), its form for a group of processes,
+``evaluate_batched_multiprocess`` (each process evaluates its own shard of
+the records; the counts are summed over the group once, at the end), and
+``warm_batched``, which runs the batch function once at the shape
+``evaluate_batched`` gives it.
 
 Failure containment is narrower than the reference's.  A clip that cannot
 be opened, decoded or shaped on the host is counted as ``failed`` and
@@ -33,6 +35,9 @@ from video_analytics_tpu_torch.io.dataset import ClipRecord, ProgressManifest
 from video_analytics_tpu_torch.io.video import decode_snippet_windows
 from video_analytics_tpu_torch.models.spynet import SpyNet
 from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+from video_analytics_tpu_torch.parallel.mesh import (
+    all_reduce_sum, global_batch_size, process_count, process_index,
+    process_local_records)
 from video_analytics_tpu_torch.runtime.pipeline import classify_batch
 from video_analytics_tpu_torch.utils.logging import get_logger
 
@@ -150,7 +155,9 @@ def evaluate_batched(records: List[ClipRecord], model: TwoStreamModel,
     (``ingest.prefetch_clips``) → `num_windows` evenly-spaced snippet
     windows per clip → batches of `batch_clips` clips, each one
     ``batch_clip_metrics`` call.  Protocol-identical to
-    ``evaluate(num_windows=N)``.
+    ``evaluate(num_windows=N)``.  In a group of more than one process
+    (``parallel/mesh``) it is ``evaluate_batched_multiprocess``, as the
+    reference routes a run over several processes.
 
     In the decode workers, `host_resize` resizes each window's short side
     to ``resize_short`` (``host_resize_short``), and every window is sliced
@@ -174,7 +181,25 @@ def evaluate_batched(records: List[ClipRecord], model: TwoStreamModel,
     convolutions may differ in the last bits with the batch size on a GPU,
     where cuDNN picks its algorithm per shape.)
     """
-    device = torch.device(device)
+    if process_count() > 1:
+        return evaluate_batched_multiprocess(
+            records, model, cfg, device, batch_clips=batch_clips,
+            num_workers=num_workers, max_frames=max_frames,
+            num_windows=num_windows, host_resize=host_resize,
+            flow_net=flow_net)
+    result, correct = _evaluate_batches(
+        records, model, cfg, torch.device(device), batch_clips, num_workers,
+        max_frames, num_windows, host_resize, flow_net)
+    result.correct = int(correct.item())
+    return result
+
+
+def _evaluate_batches(records, model, cfg, device, batch_clips, num_workers,
+                      max_frames, num_windows, host_resize, flow_net
+                      ) -> Tuple[EvalResult, torch.Tensor]:
+    """``evaluate_batched``'s loop over `records` on this process: the
+    result with ``total``, ``failed`` and ``failures`` filled, and the
+    correct count as a 0-d int64 tensor on `device`, not yet read."""
     win = _window_frames(cfg)
     pre = cfg.preprocess
     by_path = {r.path: r for r in records}
@@ -197,13 +222,10 @@ def evaluate_batched(records: List[ClipRecord], model: TwoStreamModel,
         if not group:
             return
         paths, winss, hws = zip(*group)
-        batch_cfg = dataclasses.replace(
-            cfg, preprocess=dataclasses.replace(pre, src_hw=hws[0]))
-        windows = _to_device(np.stack(winss), device)   # (n, N, T, H, W, 3)
-        labels = _to_device(np.asarray([by_path[p].label for p in paths],
-                                       np.int64), device)
-        valid = torch.ones(len(paths), dtype=torch.bool, device=device)
-        c, _ = batch_clip_metrics(windows, labels, valid, model, batch_cfg,
+        windows, labels, valid = _place_batch(
+            np.stack(winss), [by_path[p].label for p in paths], device)
+        c, _ = batch_clip_metrics(windows, labels, valid, model,
+                                  _with_src_hw(cfg, hws[0]),
                                   flow_net=flow_net)
         correct = correct + c
         result.total += len(paths)
@@ -217,9 +239,100 @@ def evaluate_batched(records: List[ClipRecord], model: TwoStreamModel,
             flush(key)
     for key in list(pending):
         flush(key)
-    result.correct = int(correct.item())
     result.failed = len(result.failures)
+    return result, correct
+
+
+def _with_src_hw(cfg: PipelineConfig, src_hw) -> PipelineConfig:
+    """`cfg` with the transport crop's source geometry recorded."""
+    return dataclasses.replace(cfg, preprocess=dataclasses.replace(
+        cfg.preprocess, src_hw=src_hw))
+
+
+def _place_batch(windows: np.ndarray, labels, device: torch.device
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One eval batch on `device` as ``evaluate_batched`` dispatches it:
+    (n, N, T, h, w, 3) uint8 windows, (n,) int64 labels and (n,) bool
+    valid, all True.  Shared with ``warm_batched``, which so warms the
+    same calls."""
+    n = windows.shape[0]
+    return (_to_device(windows, device),
+            _to_device(np.asarray(labels, np.int64), device),
+            torch.ones(n, dtype=torch.bool, device=device))
+
+
+def evaluate_batched_multiprocess(records: List[ClipRecord],
+                                  model: TwoStreamModel,
+                                  cfg: PipelineConfig,
+                                  device: Union[str, torch.device],
+                                  batch_clips: int = 8,
+                                  num_workers: int = 2,
+                                  max_frames: int = 300,
+                                  num_windows: int = 1,
+                                  host_resize: bool = False,
+                                  flow_net: Optional[SpyNet] = None
+                                  ) -> EvalResult:
+    """``evaluate_batched`` over a group of processes (``parallel/mesh``),
+    each on its own device.  `records` is the same global list, in the same
+    order, on every process; each process decodes and evaluates only its
+    round-robin shard (``process_local_records``), in batches of
+    ``global_batch_size(batch_clips) / process_count()`` clips, the
+    reference's share of a global batch.
+
+    The reference dispatches every global batch as one collective, so it
+    pads each process's stream with invalid rows to keep the processes in
+    lockstep.  Here a batch involves no other process: the only collective
+    is one all-reduce of (correct, total, failed-shard flag) after the
+    last batch.  ``total`` and ``correct`` are global and the same on every
+    process; ``failures`` and ``failed`` are this process's shard's, as in
+    the reference.  A process none of whose clips could be decoded (or
+    that has none) makes every process raise ``RuntimeError`` (the
+    reference raises on that process alone; here none is left waiting
+    for it)."""
+    device = torch.device(device)
+    procs, pid = process_count(), process_index()
+    if not records:
+        return EvalResult()
+    local = process_local_records(records, pid, procs)
+    result, correct = _evaluate_batches(
+        local, model, cfg, device, global_batch_size(batch_clips, procs)
+        // procs, num_workers, max_frames, num_windows, host_resize,
+        flow_net)
+    counts = torch.stack([correct, torch.tensor(result.total, device=device),
+                          torch.tensor(int(result.total == 0),
+                                       device=device)])
+    correct, total, empty = all_reduce_sum(counts).tolist()
+    if empty:
+        raise RuntimeError(
+            f"process {pid}: {empty} process(es) of {procs} decoded no clip "
+            f"of their shard; this one decoded {result.total} of its "
+            f"{len(local)} record(s) (failures: {result.failures[:3]})")
+    result.correct, result.total = correct, total
     return result
+
+
+def warm_batched(model: TwoStreamModel, cfg: PipelineConfig,
+                 window_shape, src_hw, batch_clips: int,
+                 device: Union[str, torch.device],
+                 flow_net: Optional[SpyNet] = None) -> Tuple[int, ...]:
+    """Run the batch function once, on zeros, at the shape that
+    ``evaluate_batched`` dispatches for clips whose windows, after the
+    decode worker's resize and transport crop, have `window_shape` =
+    (N, T, h, w, 3) and source geometry `src_hw`: a full batch of
+    `batch_clips` clips, or this process's share of the global batch in a
+    group.  Returns the windows' shape.  What the first call at a shape
+    costs on the card (the kernels' build, cuDNN's choice of algorithms,
+    the allocator's first blocks) is paid here."""
+    device = torch.device(device)
+    procs = process_count()
+    n = global_batch_size(batch_clips, procs) // procs
+    arr = np.zeros((n,) + tuple(window_shape), np.uint8)
+    windows, labels, valid = _place_batch(arr, np.zeros(n), device)
+    c, _ = batch_clip_metrics(windows, labels, valid, model,
+                              _with_src_hw(cfg, src_hw),
+                              flow_net=flow_net)
+    c.item()
+    return tuple(windows.shape)
 
 
 def evaluate(records: Iterable[ClipRecord], model: TwoStreamModel,

@@ -1,7 +1,8 @@
 """Two-stream training: spatial, flow-stream or joint fine-tuning.
 
-Port of ``video_analytics_tpu/runtime/train_two_stream.py`` for one
-device:
+Port of ``video_analytics_tpu/runtime/train_two_stream.py``, on one
+device or, with ``parallel/mesh``, one process per device, each holding
+its own rows of the global batch:
 
 - ``build_examples`` turns a batch of uint8 frame windows into training
   inputs for either or both streams on the device: resize → a random crop
@@ -29,6 +30,8 @@ from video_analytics_tpu_torch.config import PipelineConfig
 from video_analytics_tpu_torch.models.spynet import SpyNet
 from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
 from video_analytics_tpu_torch.ops import preprocess as pp
+from video_analytics_tpu_torch.parallel.mesh import (
+    process_count, process_index)
 from video_analytics_tpu_torch.runtime.pipeline import _sequence_flow
 from video_analytics_tpu_torch.runtime.profiling import StageTimer
 from video_analytics_tpu_torch.runtime.train import (
@@ -53,11 +56,17 @@ def draw_crops(generator: torch.Generator, windows: torch.Tensor,
                cfg: PipelineConfig) -> Crops:
     """One crop offset (and flip, with ``cfg.preprocess.random_flip``) per
     window of a (B, T, H, W, 3) batch, at the size ``resize_short``
-    gives its frames."""
+    gives its frames.  In a group of processes, each holding B rows of the
+    global batch, every process draws for the whole global batch (the
+    generators are seeded alike) and keeps its own rows, so the crops are
+    those of one process drawing for the global batch."""
     B, _, H, W, _ = windows.shape
     pre = cfg.preprocess
     h, w = pp.short_side_hw(H, W, pre.resize_short)
-    return pp.sample_crop_flip(generator, B, h, w, pre.crop, pre.random_flip)
+    draws = pp.sample_crop_flip(generator, B * process_count(), h, w,
+                                pre.crop, pre.random_flip)
+    first = B * process_index()
+    return tuple(d[first:first + B] for d in draws)
 
 
 @torch.no_grad()
