@@ -165,7 +165,21 @@ by the commands themselves.  Phases, each reported on a JSON line:
    (320 pairs) and ``train --algo spynet`` for 3 steps; SpyNet's own
    training at 64², batch 8: one step's loss on the card against the CPU's,
    20 steps timed.  ``python3 chip_smoke.py --only spynet`` runs the build
-   and this phase alone.
+   and this phase alone;
+14. distributed: ``parallel/mesh`` (``distributed_phase``): eval-ucf101
+   --batched, TV-L1 and Farneback, in a one-process NCCL group; two gloo
+   processes on the card, eval and train steps; then model_axis
+   (``model_axis_phase``): the full-width model's ``fc`` split over a
+   model group of the two processes at 100 classes, whole at 101, the
+   probabilities against one process's, the all-gathers timed;
+15. warmup: the ``warmup`` command in a fresh copy of the package;
+16. sustained: BASELINE.json config #5, a 128-frame 1080x1920 stream
+   through ``sliding_windows``, ``DevicePrefetcher`` and ``classify_batch``
+   with Farneback and TV-L1 (``sustained_phase``);
+17. async_checkpoint: ``AsyncCheckpointer`` between full-width train
+   steps against the blocking ``save_variables``, restore on the card,
+   the ``.prev`` fallback, a failed write raised at ``wait()``.
+``--only <phase>`` runs the build and that phase alone.
 
 Then it prints the kernel table (``{"kernels": [...]}``: for each kernel
 its launches on its main path and which path that is (``launches_from``:
@@ -173,7 +187,10 @@ the serve requests; for K-A, K-C, K-G and K-G's launches with the bands'
 test the ``compute-flow`` command of phase 9; for K-D's blur pass the
 ``--fb-levels 4`` command of farneback_1080p, for K-E and ``sep_corr``
 its ``--fb-winsize 201`` command; under ``launches_eval_ucf101`` those
-of phase 11's commands, under ``launches_train`` those of phase 12's;
+of phase 11's commands, under ``launches_train`` those of phase 12's,
+under ``launches_distributed``, ``launches_warmup``,
+``launches_sustained`` and ``launches_async_checkpoint`` those of phases
+14-17;
 K-H, K-B (and its launches with the ε test) and ``fb_window_solve``,
 whose arithmetic the commands run inside ``tvl1_scale`` and
 ``fb_iteration`` or only at shapes no command here gives, are on no
@@ -185,7 +202,9 @@ each, timed at 201 taps at 1080×1920, the library's convolution along
 the same axis beside each), its time paced by the host's launches
 (``ms``: CUDA events around 20 calls of the wrapper), its own duration on the device (``device_ms``:
 the kernel's summed device time over its launches under
-``torch.profiler``), its plain version's time, the time
+``torch.profiler``; where no profile recorded the kernel, CUDA events
+around the same calls, and the ``profiler`` line before the kernel table
+says so), its plain version's time, the time
 of one PyTorch call that computes the same function where there is one,
 and its bound, the least time the card could take: bytes read once and
 written once over 3.35 TB/s, or float32 operations over 67 TFLOP/s,
@@ -232,6 +251,9 @@ CF_BATCH = 8           # compute-flow's --batch: frame pairs per flow call
 FB_FRAMES = 16
 
 CARD = {}              # nvidia-smi's "name, power.limit", set by main()
+# torch.profiler sessions that recorded too little, and the device_ms
+# taken with CUDA events instead (see device_profile_until).
+PROFILER = {"retaken_sessions": 0, "device_ms_from_cuda_events": []}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published peak
 F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
 
@@ -403,23 +425,47 @@ def short_kernel_name(name: str) -> str:
     return name[:80]
 
 
+def device_profile_until(torch, fn, ok, tries: int = 5):
+    """device_profile(fn), taken again until ok(profile) holds, at most
+    `tries` times, a little later each time.  The profiler now and then
+    drops records, at times all of a short session's and at times those
+    of several sessions running.  Only for an fn that may run again.
+    Returns (the last profile, whether ok held)."""
+    for i in range(tries):
+        prof = device_profile(torch, fn)
+        if ok(prof):
+            return prof, True
+        PROFILER["retaken_sessions"] += 1
+        time.sleep(0.2 * (i + 1))
+    return prof, False
+
+
 def device_ms(torch, fn, kernel: str, reps: int = 5) -> float:
     """The device duration of one launch of the kernel whose name holds
     `kernel`: `reps` calls of fn() under torch.profiler, the kernel's
     summed device time over its launches.  Unlike ``cuda_ms`` it leaves
-    out the host's pace between launches."""
+    out the host's pace between launches.  If no profile records the
+    kernel, CUDA events around `reps` calls of fn() stand in, and the
+    kernel is listed under ``PROFILER["device_ms_from_cuda_events"]``."""
     fn()
-    # The profiler now and then drops records, at times all of a short
-    # session's: any count will do, and an empty profile is taken again.
-    for _ in range(3):
-        prof = device_profile(torch, lambda: [fn() for _ in range(reps)])
-        hits = [k for k in prof["port_kernels_device_ms"]
+
+    def hits(prof):
+        return [k for k in prof["port_kernels_device_ms"]
                 if kernel in k["name"]]
-        if hits:
-            break
-    check(len(hits) == 1 and hits[0]["count"] >= 1,
+
+    prof, ok = device_profile_until(
+        torch, lambda: [fn() for _ in range(reps)], lambda p: hits(p))
+    if not ok:
+        ms = cuda_ms(torch, fn, reps)
+        PROFILER["device_ms_from_cuda_events"].append(
+            {"kernel": kernel, "ms": ms})
+        print(f"torch.profiler recorded no {kernel}: CUDA events instead",
+              file=sys.stderr, flush=True)
+        return ms
+    found = hits(prof)
+    check(len(found) == 1 and found[0]["count"] >= 1,
           f"profile of {kernel}: {prof['port_kernels_device_ms']}")
-    return hits[0]["ms_each"]
+    return found[0]["ms_each"]
 
 
 class TestLaunches:
@@ -2539,21 +2585,22 @@ def eval_ucf101_phase(torch, np, dev):
               f"eval batch ({name}) vs plain versions: {e} > {TOL_PROBS}")
         agree[name] = e
     # The device time of the tvl1_scale launches of the 120- and 360-pair
-    # calls.  The profiler now and then drops records: a short count is
-    # taken again.
+    # calls (their count is checked above, from the wrapper).  A profile
+    # short of the count is taken again; if none has it, the time is not
+    # measured (null).
     scale_ms = {}
     for name, (windows, bcfg, _) in (("pairs_120", one),
                                      ("pairs_360", three)):
-        for _ in range(3):
-            prof = device_profile(torch, lambda: ev.batch_clip_probs(
-                windows, model, bcfg))
-            hits = [k for k in prof["port_kernels_device_ms"]
+        def scale_hits(prof):
+            return [k for k in prof["port_kernels_device_ms"]
                     if "pd_warp_kernel" in k["name"]]
-            if sum(k["count"] for k in hits) == n_scales:
-                break
-        check(sum(k["count"] for k in hits) == n_scales,
-              f"profile of the {name} call: {prof['port_kernels_device_ms']}")
-        scale_ms[name] = {"tvl1_scale_device_ms": sum(k["ms"] for k in hits),
+
+        prof, ok = device_profile_until(
+            torch, lambda: ev.batch_clip_probs(windows, model, bcfg),
+            lambda p: sum(k["count"] for k in scale_hits(p)) == n_scales)
+        hits = scale_hits(prof)
+        scale_ms[name] = {"tvl1_scale_device_ms":
+                          sum(k["ms"] for k in hits) if ok else None,
                           "by_launch": hits,
                           "batch_call_wall_ms": prof["profiled_wall_ms"],
                           "device_busy_ms": prof["device_busy_ms"]}
@@ -3379,6 +3426,7 @@ def distributed_phase(torch, np, dev):
     import tempfile
 
     from video_analytics_tpu_torch.config import PipelineConfig
+    from video_analytics_tpu_torch.flow.farneback import _level_sizes
     from video_analytics_tpu_torch.io.synthetic import build_synthetic_ucf101
     from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
     from video_analytics_tpu_torch.parallel import mesh
@@ -3444,9 +3492,31 @@ def distributed_phase(torch, np, dev):
             mesh.shutdown()
         check(lib.as_dict() == plain,
               f"evaluate_batched_multiprocess {lib.as_dict()} != {plain}")
+        fb = ["--algo", "farneback"]
+        crop = cfg.preprocess.crop
+        fb_batch = fb_expected(len(_level_sizes(crop, crop, cfg.farneback)),
+                               cfg.farneback.iterations)
+        t3 = time.perf_counter()
+        rc, fb_plain = counted(lambda: run_cli(base + fb), fb_batch,
+                               "eval-ucf101 --algo farneback")
+        t4 = time.perf_counter()
+        group = ["--coordinator", f"127.0.0.1:{free_port()}",
+                 "--num-processes", "1", "--process-id", "0"]
+        rc_g, fb_grouped = counted(lambda: run_cli(base + fb + group),
+                                   fb_batch,
+                                   "eval-ucf101 --algo farneback "
+                                   "--coordinator")
+        t5 = time.perf_counter()
+        check(rc == rc_g == 0 and fb_grouped == fb_plain
+              and fb_plain["total"] == len(records),
+              f"eval-ucf101 --algo farneback in a one-process group: "
+              f"{fb_grouped}, without: {fb_plain}")
         report["one_process_nccl"] = {
             "result": plain, "launches": one_batch,
-            "seconds_without_group": t1 - t0, "seconds_with_group": t2 - t1}
+            "seconds_without_group": t1 - t0, "seconds_with_group": t2 - t1,
+            "farneback": {"result": fb_plain, "launches": fb_batch,
+                          "seconds_without_group": t4 - t3,
+                          "seconds_with_group": t5 - t4}}
 
         # (b) two processes on the card in a gloo group.
         spec = os.path.join(work, "spec.json")
@@ -3541,6 +3611,178 @@ def distributed_phase(torch, np, dev):
         "all_reduce_share_of_fenced_step": [
             g["all_reduce_s"] / g["fenced_step_s"] for g in got]}
     emit({"phase": "distributed", "card": CARD.get("card"), **report})
+    for k, n in model_axis_phase(torch, np, dev).items():
+        total[k] += n
+    return total
+
+
+MODEL_AXIS_CLASSES = (101, 100)   # the fc stays whole; split 50/50
+MODEL_AXIS_WINDOWS = 2            # 16-frame windows at 240x320
+TOL_MODEL_AXIS = 1e-5
+# Each process of the model group, on cuda:0: argv = rank, spec file.
+MODEL_AXIS_WORKER = r"""
+import datetime, json, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank = int(sys.argv[1])
+spec = json.load(open(sys.argv[2]))
+sys.path.insert(0, spec["here"])
+import chip_smoke as cs
+from video_analytics_tpu_torch.config import PipelineConfig
+from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+from video_analytics_tpu_torch.parallel import mesh
+from video_analytics_tpu_torch.runtime.pipeline import classify_batch
+
+torch.cuda.set_device(0)
+dev = torch.device("cuda", 0)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{spec['port']}",
+                        world_size=spec["world"], rank=rank,
+                        timeout=datetime.timedelta(minutes=5))
+group = mesh.model_parallel_groups(spec["world"])
+cfg = PipelineConfig()
+windows = torch.from_numpy(np.load(spec["windows"])).to(dev)
+real, spent = dist.all_gather, []
+
+
+def fenced(*a, **kw):
+    # Both processes arrive before the clock starts: the gather alone.
+    torch.cuda.synchronize()
+    dist.barrier(group=kw["group"])
+    t0 = time.perf_counter()
+    r = real(*a, **kw)
+    torch.cuda.synchronize()
+    spent.append(1e3 * (time.perf_counter() - t0))
+    return r
+
+
+zero, read = cs.flow_counters()
+zero()
+out = {"rank": rank}
+for classes in spec["classes"]:
+    model = TwoStreamModel.create(num_classes=classes, flow_stack=10,
+                                  width=64).init(
+        torch.Generator().manual_seed(0))
+    model = mesh.shard_dense_over_model(model, group).to(dev).eval()
+    with torch.no_grad():
+        probs = classify_batch(windows, model, cfg)
+        dist.all_gather, spent[:] = fenced, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        classify_batch(windows, model, cfg)
+        torch.cuda.synchronize()
+        fenced_ms = 1e3 * (time.perf_counter() - t0)
+        dist.all_gather = real
+    fc = model.spatial.fc
+    out[str(classes)] = {"probs": probs.cpu().tolist(),
+                         "fc": [type(fc).__name__, list(fc.weight.shape)],
+                         "gather_ms": list(spent),
+                         "fenced_classify_ms": fenced_ms}
+torch.cuda.synchronize()
+out["launches"] = read()
+dist.destroy_process_group()
+print(json.dumps(out), flush=True)
+"""
+
+
+def model_axis_phase(torch, np, dev):
+    """The model axis (``parallel/mesh``): two processes on cuda:0 in a
+    gloo group, one model group of both (``model_parallel_groups(2)``),
+    each running ``classify_batch`` (``PipelineConfig()``) on the same 2
+    windows with the full-width ``TwoStreamModel`` after
+    ``shard_dense_over_model``: at 101 classes the ``fc`` stays whole, at
+    100 it is split 50/50 and its outputs all-gathered.  Each process's
+    fused probabilities against the one-process model's on the same
+    windows (TOL_MODEL_AXIS); a second call with every all-gather fenced
+    and timed.  Returns the launches per kernel of both processes and of
+    the one-process reference."""
+    import tempfile
+
+    from video_analytics_tpu_torch.config import PipelineConfig
+    from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+    from video_analytics_tpu_torch.runtime.pipeline import classify_batch
+
+    cfg = PipelineConfig()
+    zero, read = flow_counters()
+    nothing = dict.fromkeys(read(), 0)
+    calls = 2 * len(MODEL_AXIS_CLASSES)
+    frames = np.stack([np.stack([scene(np, t, *NATIVE, seed=c + 3 * w)
+                                 for c in range(3)], axis=-1)
+                       for w in range(MODEL_AXIS_WINDOWS)
+                       for t in range(16)]).round().astype(np.uint8)
+    frames = frames.reshape(MODEL_AXIS_WINDOWS, 16, *NATIVE, 3)
+    with tempfile.TemporaryDirectory() as work:
+        spec = os.path.join(work, "spec.json")
+        np.save(os.path.join(work, "windows.npy"), frames)
+        with open(spec, "w") as f:
+            json.dump({"here": HERE, "port": free_port(), "world": DIST_WORLD,
+                       "windows": os.path.join(work, "windows.npy"),
+                       "classes": list(MODEL_AXIS_CLASSES)}, f)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", MODEL_AXIS_WORKER,
+                                   str(r), spec], cwd=HERE,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for r in range(DIST_WORLD)]
+        try:
+            zero()
+            ref = {}
+            x = torch.from_numpy(frames).to(dev)
+            for classes in MODEL_AXIS_CLASSES:
+                model = TwoStreamModel.create(
+                    num_classes=classes, flow_stack=10, width=64).init(
+                    torch.Generator().manual_seed(0)).to(dev).eval()
+                with torch.no_grad():
+                    ref[classes] = classify_batch(x, model, cfg).cpu()
+                del model
+            torch.cuda.synchronize()
+            launches = read()
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        seconds = time.perf_counter() - t0
+    check(launches == {**nothing, "tvl1_scale": len(SIZES)
+                       * len(MODEL_AXIS_CLASSES)},
+          f"the one-process reference launched {launches}")
+    for r, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"model-axis process {r} exited "
+              f"{p.returncode}: {stderr[-3000:]}")
+    got = [json.loads(o[0].strip().splitlines()[-1]) for o in outs]
+    report = {}
+    for classes in MODEL_AXIS_CLASSES:
+        split = classes % DIST_WORLD == 0
+        want_fc = (["ColumnParallelLinear", [classes // DIST_WORLD, 512]]
+                   if split else ["Linear", [classes, 512]])
+        errs = []
+        for g in got:
+            c = g[str(classes)]
+            check(c["fc"] == want_fc, f"process {g['rank']} fc {c['fc']}, "
+                  f"expected {want_fc}")
+            errs.append(float((torch.tensor(c["probs"])
+                               - ref[classes]).abs().max()))
+            check(len(c["gather_ms"]) == (2 if split else 0),
+                  f"process {g['rank']} gathered {len(c['gather_ms'])} "
+                  f"times at {classes} classes")
+        check(max(errs) <= TOL_MODEL_AXIS, f"model axis at {classes} "
+              f"classes vs one process: {errs} > {TOL_MODEL_AXIS}")
+        report[str(classes)] = {
+            "fc": want_fc, "max_abs_vs_one_process": errs,
+            "gather_ms": [g[str(classes)]["gather_ms"] for g in got],
+            "fenced_classify_ms": [g[str(classes)]["fenced_classify_ms"]
+                                   for g in got]}
+    total = dict(launches)
+    for g in got:
+        check(g["launches"] == {**nothing, "tvl1_scale": len(SIZES) * calls},
+              f"model-axis process {g['rank']} launched {g['launches']}")
+        for k, n in g["launches"].items():
+            total[k] += n
+    emit({"phase": "model_axis", "card": CARD.get("card"),
+          "processes": DIST_WORLD, "windows": MODEL_AXIS_WINDOWS,
+          "tolerance": TOL_MODEL_AXIS, "seconds": seconds, **report})
     return total
 
 
@@ -3657,6 +3899,329 @@ def warmup_phase(torch, np):
     return launches
 
 
+# BASELINE.json config #5 as bench.py's measure_sustained_1080p sets it up:
+# 128 frames of 1080x1920 in windows of 16 (stride 16), 4 windows a
+# classify_batch, through DevicePrefetcher at depth 2.
+SUSTAINED_FRAMES = 128
+SUSTAINED_WINDOW = 16
+SUSTAINED_WB = 4
+SUSTAINED_PASSES = 3       # timed passes, after one warm pass
+
+
+def sustained_frames(np, n: int, h: int, w: int, seed: int):
+    """bench.py's make_frames: a blurred uniform texture on (h+64, w+64),
+    frame t its window at (1.3t mod 40, 2t mod 40), uint8."""
+    import cv2
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(0, 255, (h + 64, w + 64, 3)).astype(np.float32)
+    base = cv2.GaussianBlur(base, (11, 11), 0)
+    frames = []
+    for t in range(n):
+        dx, dy = int(2 * t) % 40, int(1.3 * t) % 40
+        frames.append(base[dy:dy + h, dx:dx + w].astype(np.uint8))
+    return np.stack(frames)
+
+
+def sustained_phase(torch, np, dev):
+    """The sustained 1080p path (BASELINE.json config #5): a 128-frame
+    1080x1920 stream cut by ``sliding_windows`` into 8 windows of 16,
+    batches of 4 fed through ``DevicePrefetcher`` (depth 2) to
+    ``classify_batch`` with the full-width ``TwoStreamModel`` (two
+    ResNet-18s, width 64, 101 classes, float32; the reference's bench
+    builds its CNN in bfloat16), with ``PipelineConfig(flow_algo=
+    "farneback", window=16)`` and then ``PipelineConfig()`` (TV-L1).  Per
+    flow: one warm pass with the launch counts set to 0 just before and
+    held to the expected numbers per batch just after, the peak device
+    memory and the prefetcher's pinned buffers; frames/s (decode excluded)
+    over 3 timed passes; the device-busy share of one pass under
+    torch.profiler; each batch's probabilities against ``classify_batch``
+    on the plain path (TOL_PROBS); the clip's mean over the windows,
+    summed batch by batch, against the mean of ``classify_window`` on each
+    window.  The figures go through ``runtime/metrics.MetricsWriter`` into
+    a temporary file and are read back.  Returns the warm passes'
+    launches per kernel."""
+    import tempfile
+
+    from video_analytics_tpu_torch.config import PipelineConfig
+    from video_analytics_tpu_torch.flow.farneback import _level_sizes
+    from video_analytics_tpu_torch.ingest import (
+        DevicePrefetcher, sliding_windows)
+    from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+    from video_analytics_tpu_torch.runtime.metrics import MetricsWriter
+    from video_analytics_tpu_torch.runtime.pipeline import (
+        classify_batch, classify_window)
+
+    stream = sustained_frames(np, SUSTAINED_FRAMES, *FULL_HD, seed=3)
+    wins = list(sliding_windows(stream, SUSTAINED_WINDOW, SUSTAINED_WINDOW))
+    check(len(wins) == SUSTAINED_FRAMES // SUSTAINED_WINDOW
+          and all(w.shape == (SUSTAINED_WINDOW, *FULL_HD, 3) for w in wins),
+          f"sliding_windows gave {[w.shape for w in wins]}")
+    batches = [np.stack(wins[i:i + SUSTAINED_WB])
+               for i in range(0, len(wins) - SUSTAINED_WB + 1, SUSTAINED_WB)]
+    n_frames = len(batches) * SUSTAINED_WB * SUSTAINED_WINDOW
+    model = TwoStreamModel.create(num_classes=101, flow_stack=10, width=64)
+    model = model.init(torch.Generator().manual_seed(0)).to(dev).eval()
+    zero, read = flow_counters()
+    nothing = dict.fromkeys(read(), 0)
+    total = dict(nothing)
+    report = {"frames": n_frames, "frame_hw": list(FULL_HD),
+              "windows": len(wins), "batches": len(batches),
+              "windows_per_batch": SUSTAINED_WB, "cnn_dtype": "float32",
+              "host_bytes_per_batch": int(batches[0].nbytes)}
+
+    def one_pass(cfg):
+        feed = DevicePrefetcher(batches, depth=2, device=dev)
+        with torch.no_grad():
+            probs = [classify_batch(wb, model, cfg) for wb in feed]
+        torch.cuda.synchronize()
+        return probs, feed
+
+    with tempfile.TemporaryDirectory() as work:
+        writer = MetricsWriter(os.path.join(work, "metrics.jsonl"))
+        emitted = []
+        for algo in ("farneback", "tvl1"):
+            cfg = PipelineConfig(flow_algo=algo, window=SUSTAINED_WINDOW)
+            crop = cfg.preprocess.crop
+            per_batch = (fb_expected(len(_level_sizes(crop, crop,
+                                                      cfg.farneback)),
+                                     cfg.farneback.iterations)
+                         if algo == "farneback"
+                         else {"tvl1_scale": len(SIZES)})
+            want = {**nothing, **{k: v * len(batches)
+                                  for k, v in per_batch.items()}}
+            torch.cuda.reset_peak_memory_stats(dev)
+            zero()
+            probs, feed = one_pass(cfg)
+            launches = read()
+            check(launches == want, f"sustained ({algo}) launched "
+                  f"{launches}, expected {want}")
+            for k, n in launches.items():
+                total[k] += n
+            peak = torch.cuda.max_memory_allocated(dev)
+            pinned = [[tuple(b.shape) for b in slot.buffers]
+                      for slot in feed._slots]
+            check(sum(map(len, pinned)) == len(batches)
+                  and all(shapes in ([], [batches[0].shape])
+                          for shapes in pinned),
+                  f"prefetcher's pinned buffers {pinned}")
+            put_s = feed.stats["put_s"]
+            del feed        # its pinned buffers go back to the host cache
+            fps = []
+            for _ in range(SUSTAINED_PASSES):
+                t0 = time.perf_counter()
+                one_pass(cfg)
+                fps.append(n_frames / (time.perf_counter() - t0))
+            prof, ok = device_profile_until(
+                torch, lambda: one_pass(cfg),
+                lambda p: p["port_kernels_device_ms"])
+            errs = []
+            with torch.no_grad():
+                for b, p in zip(batches, probs):
+                    plain = classify_batch(torch.from_numpy(b).to(dev), model,
+                                           cfg, plain=True)
+                    errs.append(float((plain - p).abs().max()))
+                check(max(errs) <= TOL_PROBS, f"sustained ({algo}) batches "
+                      f"vs the plain path: {errs} > {TOL_PROBS}")
+                streamed = sum(p.sum(0) for p in probs) / len(wins)
+                per_window = torch.stack([classify_window(
+                    torch.from_numpy(w).to(dev), model, cfg)
+                    for w in wins]).mean(0)
+            e_clip = float((streamed - per_window).abs().max())
+            check(e_clip <= TOL_PROBS and abs(float(streamed.sum()) - 1) < 1e-4,
+                  f"sustained ({algo}) clip mean vs per-window mean: {e_clip}")
+            fps_median = float(np.median(fps))
+            busy = (prof["device_busy_ms"] / prof["profiled_wall_ms"]
+                    if ok else None)       # not measured
+            emitted.append(writer.emit(
+                "sustained_1080p_two_stream_fps", fps_median, "frames/s",
+                algo=algo, passes=fps, card=CARD.get("card")))
+            emitted.append(writer.emit(
+                "sustained_1080p_device_busy_share", busy, "", algo=algo))
+            report[algo] = {
+                "frames_per_s_median": fps_median, "frames_per_s_passes": fps,
+                "device_busy_share": busy,
+                "profiled_pass_ms": prof["profiled_wall_ms"],
+                "device_busy_ms": prof["device_busy_ms"],
+                "port_kernels_device_ms": prof["port_kernels_device_ms"],
+                "launches_per_batch": {k: v // len(batches)
+                                       for k, v in launches.items() if v},
+                "max_abs_vs_plain": errs, "clip_mean_vs_windows": e_clip,
+                "max_memory_allocated_bytes": peak,
+                "pinned_buffers": pinned,
+                "prefetcher_put_s": put_s}
+        with open(writer.path) as f:
+            back = [json.loads(line) for line in f]
+    check(back == emitted and [r["metric"] for r in back] == [
+        "sustained_1080p_two_stream_fps",
+        "sustained_1080p_device_busy_share"] * 2,
+          f"metrics read back {back}, emitted {emitted}")
+    emit({"phase": "sustained", "card": CARD.get("card"), **report,
+          "metrics_records": len(back)})
+    return total
+
+
+ASYNC_STEPS = 6
+ASYNC_SAVE_AFTER = (2, 4)
+
+
+def async_checkpoint_phase(torch, np, dev):
+    """``AsyncCheckpointer`` at full width: 6 two-stream ``train`` steps
+    (batch 32 of 11-frame 240x320 windows, ``TVL1Config()``, SGD with
+    momentum) with ``save`` of ``two_stream_variables`` (~90 MB) after
+    steps 2 and 4; the ms of each step, of building the tree (its copy off
+    the card) and of ``save`` (the staging; the write runs meanwhile on
+    the writer thread), then the same 6 steps with the blocking
+    ``save_variables``.  Then: ``save`` of the model's ``state_dict``
+    (CUDA leaves: pinned buffers, one event) timed, and restored into a
+    fresh model's on the card, bit for bit; the step-4 checkpoint
+    restored into a template of CUDA tensors, bit for bit; with the
+    primary deleted, the step-2 one from ``.prev`` with a
+    ``RuntimeWarning``; a write that cannot be made raises at ``wait()``.
+    Returns the launches per kernel of the 12 steps."""
+    import shutil
+    import tempfile
+    import warnings
+
+    from video_analytics_tpu_torch.config import PipelineConfig
+    from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+    from video_analytics_tpu_torch.runtime import train_two_stream as tts
+    from video_analytics_tpu_torch.runtime.checkpoint import (
+        AsyncCheckpointer, save_variables)
+
+    cfg = PipelineConfig()
+    L = cfg.preprocess.flow_stack
+    tcfg = train_config()
+
+    def fresh():
+        return TwoStreamModel.create(num_classes=cfg.num_classes,
+                                     flow_stack=L, width=64).init(
+            torch.Generator().manual_seed(0)).to(dev)
+
+    model = fresh()
+    steps = tts.make_two_stream_train_steps(
+        tts.create_two_stream_states(model, 1e-3, "both"))
+    windows = torch.from_numpy(train_windows(np, TRAIN_BATCH, L + 1,
+                                             seed=40)).to(dev)
+    y = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.num_classes, TRAIN_BATCH)).to(dev)
+    gen = torch.Generator().manual_seed(0)
+
+    def step():
+        ex = tts.build_examples(windows, tcfg, "both",
+                                tts.draw_crops(gen, windows, tcfg))
+        return {k: float(fn(ex[k], y)["loss"]) for k, fn in steps.items()}
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], f"{path}/{k}")
+        else:
+            yield path, tree
+
+    zero, read = flow_counters()
+    report, saved = {}, {}
+    with tempfile.TemporaryDirectory() as work, AsyncCheckpointer() as ck:
+        primary = os.path.join(work, "ck")
+        zero()
+        for mode in ("async", "blocking"):
+            rows = []
+            for i in range(1, ASYNC_STEPS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses = step()
+                torch.cuda.synchronize()
+                row = {"step": i, "step_ms": 1e3 * (time.perf_counter() - t0),
+                       "losses": losses}
+                if i in ASYNC_SAVE_AFTER:
+                    t0 = time.perf_counter()
+                    tree = tts.two_stream_variables(model)
+                    t1 = time.perf_counter()
+                    if mode == "async":
+                        ck.save(primary, tree)
+                        saved[i] = tree
+                    else:
+                        save_variables(os.path.join(work, "ck.msgpack"), tree)
+                    row.update(tree_ms=1e3 * (t1 - t0),
+                               save_ms=1e3 * (time.perf_counter() - t1))
+                rows.append(row)
+            t0 = time.perf_counter()
+            ck.wait()
+            report[mode] = {"steps": rows,
+                            "wait_after_last_step_ms":
+                                1e3 * (time.perf_counter() - t0)}
+        launches = read()
+        want = {**dict.fromkeys(launches, 0),
+                "tvl1_scale": 2 * ASYNC_STEPS * len(SIZES)}
+        check(launches == want, f"the train steps launched {launches}, "
+              f"expected {want}")
+        nbytes = sum(a.nbytes for _, a in leaves(saved[4]))
+
+        # CUDA leaves: the pinned staging alone, then restored on the card.
+        sd = model.state_dict()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(os.path.join(work, "sd"), sd)
+        stage_ms = 1e3 * (time.perf_counter() - t0)
+        other = fresh()
+        other.load_state_dict(ck.restore(os.path.join(work, "sd"),
+                                         other.state_dict()))
+        check(all(torch.equal(a, b) for a, b in zip(
+            model.state_dict().values(), other.state_dict().values())),
+            "the state_dict restored on the card differs")
+
+        def on_card(tree):
+            return {k: on_card(v) if isinstance(v, dict)
+                    else torch.from_numpy(v).to(dev) for k, v in tree.items()}
+
+        def equal(tree, ref):
+            got, want_ = dict(leaves(tree)), dict(leaves(ref))
+            return sorted(got) == sorted(want_) and all(
+                got[k].is_cuda and torch.equal(got[k].cpu(),
+                                               torch.from_numpy(want_[k]))
+                for k in got)
+
+        template = on_card(fresh().flax_variables())
+        check(equal(ck.restore(primary, template), saved[4]),
+              "the step-4 checkpoint restored on the card differs")
+        shutil.rmtree(primary)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            back = ck.restore(primary, template)
+        check(equal(back, saved[2]) and any(
+            issubclass(w.category, RuntimeWarning) for w in caught),
+            "no fallback to the step-2 checkpoint in .prev")
+        # A write that cannot be made is raised at wait().  Root ignores a
+        # directory's mode bits, so there the parent is a regular file.
+        ro = os.path.join(work, "read_only")
+        os.makedirs(ro)
+        os.chmod(ro, 0o555)
+        target = os.path.join(ro, "ck")
+        if os.access(ro, os.W_OK):
+            blocker = os.path.join(work, "a_file")
+            open(blocker, "w").close()
+            target = os.path.join(blocker, "ck")
+        ck.save(target, saved[2])
+        try:
+            ck.wait()
+            failure = None
+        except OSError as e:
+            failure = repr(e)
+        check(failure is not None, f"the write to {target} did not raise")
+    blocking = [r["save_ms"] for r in report["blocking"]["steps"]
+                if "save_ms" in r]
+    staged = [r["save_ms"] for r in report["async"]["steps"]
+              if "save_ms" in r]
+    emit({"phase": "async_checkpoint", "card": CARD.get("card"),
+          "tree_bytes": nbytes, **report,
+          "save_block_ms_async": staged, "save_ms_blocking": blocking,
+          "state_dict_cuda_stage_ms": stage_ms,
+          "restored_on_card_bit_equal": True, "prev_fallback": True,
+          "failed_write": {"target": os.path.relpath(target, work),
+                           "raised_at_wait": failure},
+          "launches": {k: v for k, v in launches.items() if v}})
+    return launches
+
+
 def native_phases(torch, np, dev, chain: bool = True):
     """The native-resolution flow command and, with `chain`, the stage
     commands that read what it wrote, in one temporary directory.  Returns
@@ -3688,9 +4253,11 @@ def main(argv=None) -> int:
                              "farneback_1080p", "tvl1_midsize",
                              "tvl1_chunk_kernels", "tvl1_1080p",
                              "stage_chain", "eval_ucf101", "train",
-                             "spynet", "distributed", "warmup"],
+                             "spynet", "distributed", "model_axis", "warmup",
+                             "sustained", "async_checkpoint"],
                     help="run the build and this phase alone (stage_chain "
-                         "with tvl1_1080p, whose directories it reads), for "
+                         "with tvl1_1080p, whose directories it reads; "
+                         "model_axis is the last part of distributed), for "
                          "work on it; prints no result line")
     ap.add_argument("--sweep-chunk", action="store_true",
                     help="with the tvl1_chunk_kernels phase: also time one "
@@ -3753,8 +4320,14 @@ def main(argv=None) -> int:
         spynet_phase(torch, np, dev)
     elif args.only == "distributed":
         distributed_phase(torch, np, dev)
+    elif args.only == "model_axis":
+        model_axis_phase(torch, np, dev)
     elif args.only == "warmup":
         warmup_phase(torch, np)
+    elif args.only == "sustained":
+        sustained_phase(torch, np, dev)
+    elif args.only == "async_checkpoint":
+        async_checkpoint_phase(torch, np, dev)
     elif args.only:
         native_phases(torch, np, dev, args.only == "stage_chain")
     if args.only:
@@ -3949,9 +4522,13 @@ def main(argv=None) -> int:
     # -- 13. SpyNet: no port kernel on its path ------------------------------
     spynet_phase(torch, np, dev)
 
-    # -- 14-15. processes and collectives; warmup --------------------------
+    # -- 14-15. processes and collectives (the model axis too); warmup -------
     dist_launches = distributed_phase(torch, np, dev)
     warmup_launches = warmup_phase(torch, np)
+
+    # -- 16-17. the sustained 1080p stream; asynchronous checkpoints --------
+    sustained_launches = sustained_phase(torch, np, dev)
+    async_launches = async_checkpoint_phase(torch, np, dev)
 
     # -- the kernel table -----------------------------------------------------
     # TV-L1 bounds at 224², 15 pairs.  Planes moved: warp_prep reads I1 and
@@ -4067,8 +4644,12 @@ def main(argv=None) -> int:
                        "launches_eval_ucf101": eval_launches.get(name, 0),
                        "launches_train": train_launches.get(name, 0),
                        "launches_distributed": dist_launches.get(name, 0),
-                       "launches_warmup": warmup_launches.get(name, 0)}
+                       "launches_warmup": warmup_launches.get(name, 0),
+                       "launches_sustained": sustained_launches.get(name, 0),
+                       "launches_async_checkpoint":
+                           async_launches.get(name, 0)}
                       for name, source, replaces, also in rows]})
+    emit({"phase": "profiler", **PROFILER})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1011,3 +1011,31 @@ def test_spynet_on_the_card_matches_the_cpu(dev, shape):
     for g, c in zip(got, want):
         assert g.shape == c.shape
         assert float((g.cpu() - c).abs().max()) <= 1e-4
+
+
+def test_async_checkpoint_stages_cuda_leaves(dev, tmp_path):
+    """``AsyncCheckpointer.save`` of CUDA tensors: staged into pinned host
+    buffers before it returns (the caller's next in-place change is not
+    saved), and restored onto the card with each template leaf's dtype."""
+    from video_analytics_tpu_torch.runtime.checkpoint import (
+        AsyncCheckpointer)
+
+    g = torch.Generator(dev).manual_seed(0)
+    tree = {"w": torch.randn((1024, 513), device=dev, generator=g),
+            "n": {"b": torch.arange(7, device=dev),
+                  "h": torch.ones(3, dtype=torch.float16, device=dev)}}
+    want = {"w": tree["w"].cpu(), "b": tree["n"]["b"].cpu()}
+    path = str(tmp_path / "ck")
+    with AsyncCheckpointer() as ck:
+        ck.save(path, tree)
+        tree["w"].add_(1.0)
+        tree["n"]["b"].mul_(3)
+        ck.wait()
+        back = ck.restore(path, {"w": torch.zeros((1024, 513), device=dev),
+                                 "n": {"b": torch.zeros(7, device=dev),
+                                       "h": torch.zeros(3, device="cpu")}})
+    assert back["w"].is_cuda and torch.equal(back["w"].cpu(), want["w"])
+    assert back["n"]["b"].is_cuda and back["n"]["b"].dtype == torch.float32
+    assert torch.equal(back["n"]["b"].cpu(), want["b"].float())
+    assert back["n"]["h"].device.type == "cpu"
+    assert torch.equal(back["n"]["h"], torch.ones(3))

@@ -4,7 +4,8 @@ of ``video_analytics_tpu_torch`` and ``chip_smoke`` (OpenCV not among
 them: it is imported where a frame is decoded or resized), answers a serve
 request on the CPU from a clip written by the port's own
 ``synthesize_video``, writes, reads back and classifies from a
-checkpoint, takes one two-stream train step, runs the bundled SpyNet and
+checkpoint (also through ``AsyncCheckpointer``), takes one two-stream
+train step, runs the bundled SpyNet and
 trains one with ``tools/torch_train_spynet.py``, and evaluates a synthetic
 UCF101 in a one-process gloo group (``parallel/mesh``), through
 ``evaluate_batched`` and ``evaluate_batched_multiprocess``."""
@@ -35,7 +36,7 @@ for sub in ("io.video", "io.dataset", "io.flowio", "io.synthetic",
             "ingest.prefetch", "runtime.checkpoint", "runtime.evaluate",
             "utils.logging", "ingest.train_loader", "runtime.train",
             "runtime.train_two_stream", "runtime.profiling",
-            "models.spynet", "parallel.mesh"):
+            "models.spynet", "parallel.mesh", "runtime.metrics"):
     assert pkg.__name__ + "." + sub in names, sub
 import chip_smoke                      # import only; main() needs a GPU
 assert "cv2" not in sys.modules        # imported where a frame is touched
@@ -73,6 +74,20 @@ with tempfile.TemporaryDirectory() as d:
     probs = [classify_clip_file(clip, m.eval(), cfg, "cpu")
              for m in (model, again)]
 assert probs[0].shape == (4,) and np.array_equal(probs[0], probs[1]), probs
+# The asynchronous checkpointer, and the package's re-exports.
+from video_analytics_tpu_torch.runtime.checkpoint import AsyncCheckpointer
+from video_analytics_tpu_torch import PipelineConfig as _root_cfg
+from video_analytics_tpu_torch.ingest import sliding_windows
+from video_analytics_tpu_torch.models import TwoStreamModel as _models_ts
+from video_analytics_tpu_torch.runtime.metrics import MetricsWriter
+assert _root_cfg is PipelineConfig and _models_ts is TwoStreamModel
+assert len(list(sliding_windows(np.stack(frames), 4, 4))) == 2
+with tempfile.TemporaryDirectory() as d, AsyncCheckpointer() as ck:
+    ck.save(os.path.join(d, "ck"), model.state_dict())
+    back = ck.restore(os.path.join(d, "ck"), model.state_dict())
+    rec = MetricsWriter(os.path.join(d, "m.jsonl")).emit("x", 1.0, "s")
+assert all(torch.equal(back[k], v) for k, v in model.state_dict().items())
+assert rec["metric"] == "x"
 
 # One two-stream train step on windows of the clip's frames.
 import dataclasses

@@ -1,0 +1,1 @@
+from video_analytics_tpu_torch.cli.main import main  # noqa: F401

@@ -974,5 +974,23 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 130
 
 
+# The reference scripts' commands, each a console script of its own
+# (pyproject.toml: extract-frames-torch, ...).
+def extract_frames_entry():
+    sys.exit(main(["extract-frames"] + sys.argv[1:]))
+
+
+def compute_flow_entry():
+    sys.exit(main(["compute-flow"] + sys.argv[1:]))
+
+
+def extract_features_entry():
+    sys.exit(main(["extract-features"] + sys.argv[1:]))
+
+
+def classify_clip_entry():
+    sys.exit(main(["classify-clip"] + sys.argv[1:]))
+
+
 if __name__ == "__main__":
     sys.exit(main())

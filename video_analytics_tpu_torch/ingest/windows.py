@@ -1,18 +1,47 @@
 """Host-side clip shaping before frames go to the device.
 
-Port of the serving and eval helpers of
-``video_analytics_tpu/ingest/windows.py`` (numpy only; cv2 is imported
-lazily, where a resize is needed).
+Port of ``video_analytics_tpu/ingest/windows.py`` (numpy only; cv2 is
+imported lazily, where a resize is needed).  ``sliding_windows`` cuts a
+long clip into fixed-shape (window, H, W, C) chunks (BASELINE.json config
+#5, the sustained 1080p stream); temporal pooling is a mean, so the
+per-window results average to the clip's.  The other helpers shape
+frames for serving and eval before the host→device copy.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Iterator, List, Optional
 
 import numpy as np
 
 from video_analytics_tpu_torch.ops.preprocess import crop_source_geometry
+
+
+def window_starts(num_frames: int, window: int, stride: int) -> List[int]:
+    """Start indices covering the clip: always at least one window, and
+    the tail covered by a final (possibly overlapping) window."""
+    if num_frames <= window:
+        return [0]
+    starts = list(range(0, num_frames - window + 1, stride))
+    last = num_frames - window
+    if starts[-1] != last:
+        starts.append(last)
+    return starts
+
+
+def sliding_windows(frames: np.ndarray, window: int,
+                    stride: int) -> Iterator[np.ndarray]:
+    """(T, H, W, C) → fixed-shape (window, H, W, C) views at
+    ``window_starts``; a clip shorter than `window` is padded by repeating
+    its last frame."""
+    t = frames.shape[0]
+    if t < window:
+        pad = np.repeat(frames[-1:], window - t, axis=0)
+        yield np.concatenate([frames, pad], axis=0)
+        return
+    for s in window_starts(t, window, stride):
+        yield frames[s:s + window]
 
 
 def host_normalize_square(frames: np.ndarray, short: int,

@@ -120,6 +120,23 @@ class VideoReader:
         self.close()
 
 
+def open_video(path: str) -> VideoReader:
+    """A ``VideoReader`` on `path` (close it, or use it in a ``with``)."""
+    return VideoReader(path)
+
+
+def iter_frames(path: str, max_frames: Optional[int] = None
+                ) -> Iterator[np.ndarray]:
+    """Stream the decoded RGB frames of `path`, at most `max_frames`, one
+    at a time (no whole-clip array); the container closes when the
+    iteration ends or the generator is closed."""
+    with VideoReader(path) as r:
+        for i, f in enumerate(r):
+            if max_frames is not None and i >= max_frames:
+                return
+            yield f
+
+
 def _frame_count_exact(r: VideoReader, t: int, exact_end: bool) -> bool:
     """Probe a metadata-derived frame count before window starts are
     derived from it: frame t-1 must exist and, when ``exact_end`` (t is

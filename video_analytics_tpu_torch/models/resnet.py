@@ -23,12 +23,13 @@ and the fc layer are cuDNN/cuBLAS, as the reference leaves them to XLA.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from video_analytics_tpu_torch.models.convert import torch_to_flax
 from video_analytics_tpu_torch.parallel.mesh import (
     all_reduce_sum, process_count)
 
@@ -224,6 +225,17 @@ class ResNet(nn.Module):
         if return_features:
             return features
         return self.fc(features)
+
+
+def init_resnet(model: ResNet, generator: torch.Generator,
+                input_hw: Tuple[int, int] = (224, 224)) -> Dict[str, Any]:
+    """Initialise `model` in place from `generator` (``ResNet.init``) and
+    return its variables in the reference's layout (``{"params",
+    "batch_stats"}``, numpy leaves), the tree the reference's
+    ``init_resnet`` returns.  `input_hw`, the size of the reference's
+    dummy batch, is kept for its signature: a torch module's weights are
+    made without a forward pass, and no shape depends on it."""
+    return torch_to_flax(model.init(generator).state_dict())
 
 
 def resnet18(num_classes: int = 1000, in_channels: int = 3,

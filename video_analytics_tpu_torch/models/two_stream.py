@@ -16,6 +16,7 @@ import torch.nn as nn
 from video_analytics_tpu_torch.models import convert
 from video_analytics_tpu_torch.models.resnet import (
     ResNet, resnet18, resnet34, resnet50)
+from video_analytics_tpu_torch.parallel.mesh import ColumnParallelLinear
 
 _ARCHS = {"resnet18": resnet18, "resnet34": resnet34,
              "resnet50": resnet50}
@@ -49,7 +50,15 @@ class TwoStreamModel(nn.Module):
     def flax_variables(self) -> Dict[str, Any]:
         """Both streams' weights as the reference's variable tree
         (``{"spatial": {"params", "batch_stats"}, "temporal": ...}``, numpy
-        leaves): what ``runtime/checkpoint.save_variables`` writes."""
+        leaves): what ``runtime/checkpoint.save_variables`` writes.  A
+        model whose ``fc`` is split over the model axis
+        (``parallel/mesh.shard_dense_over_model``) holds a block of it on
+        each rank and is refused."""
+        if any(isinstance(m, ColumnParallelLinear) for m in self.modules()):
+            raise ValueError("this model's fc is split over the model axis "
+                             "(shard_dense_over_model): each process holds "
+                             "only its block, so it has no whole variable "
+                             "tree to save; save the unsharded model")
         return convert.two_stream_torch_to_flax(self.state_dict())
 
     def load_flax_variables(self, variables: Mapping[str, Any]
@@ -112,3 +121,8 @@ class TwoStreamModel(nn.Module):
         """Fused class probabilities for one clip."""
         return self.fuse(self.spatial_logits(frames),
                          self.temporal_logits(flow_stacks))
+
+
+def top1(probs: torch.Tensor) -> torch.Tensor:
+    """The index of the largest probability along the last axis."""
+    return torch.argmax(probs, dim=-1)

@@ -89,6 +89,14 @@ def gaussian_blur(x: torch.Tensor, sigma: float, n: Optional[int] = None,
     return sepcorr(x, g, g, border=border)
 
 
+def box_blur(x: torch.Tensor, winsize: int, border: str = "edge"
+             ) -> torch.Tensor:
+    """(B, H, W) normalised box filter: `winsize` taps of 1/winsize (in
+    float32, as the reference builds them) along H, then W."""
+    k = np.full((winsize,), 1.0 / winsize, np.float32)
+    return sepcorr(x, k, k, border=border)
+
+
 # -- linear resampling ------------------------------------------------------
 
 def linear_weight_matrix(n_in: int, n_out: int, inv_scale: np.float32,

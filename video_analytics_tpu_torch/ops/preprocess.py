@@ -205,6 +205,19 @@ def crop_flip(x: torch.Tensor, tops: torch.Tensor, lefts: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4)
 
 
+def random_crop_flip(x: torch.Tensor, crop: int, generator: torch.Generator,
+                     flip: bool = True) -> torch.Tensor:
+    """Random spatial crop of (..., H, W, C) frames, one offset per call
+    shared across the clip so that it stays coherent in time, and with
+    `flip` a horizontal flip on a fair coin: ``sample_crop_flip`` draws
+    once from `generator`, ``crop_flip`` applies the draw."""
+    h, w = x.shape[-3], x.shape[-2]
+    tops, lefts, flips = sample_crop_flip(generator, 1, h, w, crop, flip)
+    out = crop_flip(x.reshape(1, -1, h, w, x.shape[-1]), tops, lefts,
+                    flips, crop)
+    return out.reshape(*x.shape[:-3], crop, crop, x.shape[-1])
+
+
 def preprocess_clip(frames: torch.Tensor, cfg: PreprocessConfig,
                     crops: Optional[Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]] = None

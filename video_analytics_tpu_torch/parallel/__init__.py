@@ -1,0 +1,3 @@
+from video_analytics_tpu_torch.parallel.mesh import (  # noqa: F401
+    pad_to_multiple,
+)

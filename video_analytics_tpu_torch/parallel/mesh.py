@@ -18,15 +18,24 @@ The reference's functions and their counterparts:
   the mesh's data axis is the world size;
 - ``make_mesh``, ``data_sharding``, ``replicated``, ``shard_batch``,
   ``assemble_global_batch``: no counterpart.  A process holds only its own
-  rows of a batch and a full copy of the weights; nothing is placed across
-  devices, so there is no mesh to build and no global array to assemble;
+  rows of a batch and a copy of the weights (of its block of an ``fc``
+  split over the model axis); there is no mesh to build and no global
+  array to assemble;
 - XLA's psum of a sharded reduction → ``all_reduce_sum`` (differentiable:
   the BatchNorm statistics of a training batch are sums over the group);
 - ``runtime/train.shard_train_inputs`` (parameters replicated, the batch
   sharded, the gradient psum inserted by XLA) → ``broadcast_from_first``
   once at the start and ``average_gradients`` after each backward pass;
-- ``model_sharding``, ``shard_dense_over_model`` (the model axis): no
-  counterpart; no command places a model across devices.
+- the mesh's ``model`` axis → ``model_parallel_groups``: the reference's
+  mesh is ``devices.reshape(n // mp, mp)``, so a model group is `mp`
+  consecutive ranks and a rank's data index is ``rank // mp``;
+- ``model_sharding`` → ``model_sharding``: this rank's block of a tensor
+  along one dimension;
+- ``shard_dense_over_model`` (a placement that XLA partitions) →
+  ``shard_dense_over_model``: every ``fc`` ``nn.Linear`` whose width
+  divides becomes a ``ColumnParallelLinear``, which computes its block of
+  the outputs and all-gathers them over the model group.  No command
+  takes a flag for it, as none of the reference's does.
 """
 
 from __future__ import annotations
@@ -37,6 +46,8 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn as nn
+import torch.nn.functional as F
 
 from video_analytics_tpu_torch.utils.device import require_cuda
 
@@ -195,3 +206,114 @@ def global_mean(values: torch.Tensor) -> torch.Tensor:
         return values
     return all_reduce_sum(values) / dist.get_world_size()
 
+
+
+# -- the model axis -----------------------------------------------------------
+
+def model_parallel_groups(model_parallel: int
+                          ) -> Optional[dist.ProcessGroup]:
+    """Split the processes into model groups of `model_parallel`
+    consecutive ranks (the reference's ``(data, model)`` mesh: rank r sits
+    at data index ``r // model_parallel``) and return this rank's group.
+    Every rank creates every group, in one order, as ``new_group``
+    requires.  None without a process group."""
+    world = _world()
+    if model_parallel < 1 or world % model_parallel:
+        raise ValueError(f"{world} processes not divisible by "
+                         f"model_parallel={model_parallel}")
+    if not dist.is_initialized():
+        return None
+    groups = [dist.new_group(list(range(first, first + model_parallel)))
+              for first in range(0, world, model_parallel)]
+    return groups[_rank() // model_parallel]
+
+
+def _group_size(group: Optional[dist.ProcessGroup]) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def model_sharding(t: torch.Tensor, group: Optional[dist.ProcessGroup],
+                   dim: int = -1) -> torch.Tensor:
+    """This rank's block of `t` along `dim`: the i-th of `group`'s size
+    equal blocks for the rank at index i of the group (a view)."""
+    size = _group_size(group)
+    if t.shape[dim] % size:
+        raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not "
+                         f"split over {size} model ranks")
+    block = t.shape[dim] // size
+    index = 0 if group is None else dist.get_rank(group)
+    return t.narrow(dim, index * block, block)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the backward sums the input's gradient over the
+    model group, since each rank's output block reaches the input through
+    its own columns of the weight only."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """All-gather of the ranks' output blocks along the last dimension;
+    the backward is this rank's block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, y: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        y = y.contiguous()
+        parts = [torch.empty_like(y) for _ in range(_group_size(group))]
+        dist.all_gather(parts, y, group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return model_sharding(grad, ctx.group).contiguous(), None
+
+
+class ColumnParallelLinear(nn.Module):
+    """An ``nn.Linear`` split by output columns over a model group: it
+    holds this rank's block of ``weight`` (out, in) and ``bias``, computes
+    its block of the outputs and all-gathers the whole row.  Forward and
+    gradients equal the whole layer's (each rank's gradient is that of its
+    own block)."""
+
+    def __init__(self, linear: nn.Linear, group: dist.ProcessGroup):
+        super().__init__()
+        self.group = group
+        self.in_features = linear.in_features
+        self.out_features = linear.out_features
+        self.weight = nn.Parameter(
+            model_sharding(linear.weight.detach(), group, 0).clone())
+        self.bias = (None if linear.bias is None else nn.Parameter(
+            model_sharding(linear.bias.detach(), group, 0).clone()))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _CopyToModel.apply(x, self.group)
+        return _GatherFromModel.apply(F.linear(x, self.weight, self.bias),
+                                      self.group)
+
+
+def shard_dense_over_model(model: nn.Module,
+                           group: Optional[dist.ProcessGroup]) -> nn.Module:
+    """Split every ``fc`` ``nn.Linear`` of `model` whose ``out_features``
+    divides by the model group's size into a ``ColumnParallelLinear``, in
+    place, and return `model`.  An ``fc`` whose width does not divide (an
+    odd class count) stays whole, as the reference's rule leaves it
+    replicated; so does every ``fc`` with a group of one or none."""
+    size = _group_size(group)
+    if size == 1:
+        return model
+    for parent in list(model.modules()):
+        fc = getattr(parent, "fc", None)
+        if isinstance(fc, nn.Linear) and fc.out_features % size == 0:
+            parent.fc = ColumnParallelLinear(fc, group)
+    return model

@@ -16,17 +16,24 @@ True, "shape": {"0": ...}, "chunks": {"0": ...}}`` of flat pieces.  This
 module carries its own small reader and writer of the msgpack subset
 that needs (no ``flax`` or ``msgpack`` package is imported).
 
-The reference's orbax ``AsyncCheckpointer`` belongs to training and is
-not ported.
+``AsyncCheckpointer`` is the counterpart of the reference's orbax-backed
+one: the same contract (a save that returns once the tree is on the host,
+the write on a background thread, ``.prev`` rotation, a torn-save
+fallback, restore into a template's placement) in the port's own format,
+one msgpack file in a directory committed by an atomic rename.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import struct
+import warnings
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
+import torch
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -273,11 +280,11 @@ def _restore(template, state, path: Tuple[str, ...]):
                              f"got {got}")
         return {k: _restore(template[k], state[k], path + (k,))
                 for k in template}
-    want = _as_array(template)
-    if want is not None:
-        if not isinstance(state, np.ndarray) or state.shape != want.shape:
+    if isinstance(template, np.ndarray) or hasattr(template, "detach"):
+        want = tuple(template.shape)     # no copy of a device tensor
+        if not isinstance(state, np.ndarray) or state.shape != want:
             raise ValueError(f"checkpoint does not match the model at "
-                             f"{where}: expected shape {want.shape}, got "
+                             f"{where}: expected shape {want}, got "
                              f"{getattr(state, 'shape', type(state))}")
     return state
 
@@ -309,3 +316,158 @@ def load_variables(path: str, template: Optional[Mapping[str, Any]] = None
     if template is not None:
         tree = _restore(template, tree, ())
     return tree
+
+
+# -- asynchronous saves ---------------------------------------------------------
+
+class _Torn(Exception):
+    """A checkpoint directory without a whole, readable file."""
+
+
+def _stage(tree: Any) -> Any:
+    """`tree` with every array leaf copied to host memory the caller does
+    not hold: CUDA tensors into pinned buffers by copies queued on their
+    device's current stream, then one event a device waited for; CPU
+    tensors and numpy arrays copied.  Array leaves come back as numpy
+    arrays; other leaves as they are."""
+    devices = set()
+
+    def walk(x: Any) -> Any:
+        if isinstance(x, Mapping):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [walk(v) for v in x]
+        if isinstance(x, torch.Tensor):
+            x = x.detach()
+            if x.device.type == "cuda":
+                buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                buf.copy_(x, non_blocking=True)
+                devices.add(x.device)
+                return buf.numpy()
+            return x.numpy().copy()
+        if isinstance(x, np.ndarray):
+            return x.copy()
+        return x
+
+    staged = walk(tree)
+    for dev in devices:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
+        event.synchronize()
+    return staged
+
+
+def _place(template: Any, state: Any) -> Any:
+    """`state` (checked against `template`) with each leaf placed as the
+    template's: a tensor on its device with its dtype, a numpy array with
+    its dtype, anything else as read."""
+    if isinstance(template, Mapping):
+        return {k: _place(template[k], state[k]) for k in template}
+    if isinstance(template, torch.Tensor):
+        return torch.from_numpy(np.array(state)).to(template.device,
+                                                    template.dtype)
+    if isinstance(template, np.ndarray):
+        return np.array(state, dtype=template.dtype)
+    return state
+
+
+class AsyncCheckpointer:
+    """Asynchronous checkpoints for long training runs.
+
+    ``save(path, tree)`` returns once every array leaf of `tree` (CUDA
+    tensors, CPU tensors, numpy arrays in nested dicts) has been copied to
+    host memory, so the caller may change its parameters in the next
+    step; serialising and writing happen on one background thread.
+    ``restore(path, template)`` returns `template`'s structure with each
+    leaf where the template's is: on its device, with its dtype (the
+    counterpart of the reference's restore-to-sharding).
+
+    Layout: a directory at `path` holding one file, ``variables.msgpack``,
+    in the flax msgpack format of ``save_variables`` (the reference's
+    ``load_variables`` reads it).  The directory is not orbax's format.  A
+    save writes ``<path>.tmp`` and renames it to `path`, so a directory at
+    `path` is whole unless its file was cut short by a crash after the
+    rename.
+
+    As in the reference: one save in flight per checkpointer (a save waits
+    for the one before); the committed previous checkpoint is rotated to
+    ``<path>.prev`` before a new write starts (``keep_previous``), and
+    ``restore`` falls back to it, with a ``RuntimeWarning``, only when the
+    primary is missing or torn; any other failure raises.  An error of the
+    background write is raised by the next ``wait()``, ``save()`` or
+    ``close()``.  ``wait()`` (or leaving a ``with`` block) must run before
+    the process ends, or the last save may not be written.
+    """
+
+    FILE = "variables.msgpack"
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1,
+                                        thread_name_prefix="checkpoint")
+        self._pending: Optional[Future] = None
+
+    def save(self, path: str, tree: Any, keep_previous: bool = True) -> None:
+        path = os.path.abspath(path)
+        self.wait()
+        staged = _stage(tree)
+        if keep_previous and os.path.isdir(path):
+            prev = path + ".prev"
+            if os.path.isdir(prev):
+                shutil.rmtree(prev)
+            os.replace(path, prev)
+        self._pending = self._pool.submit(self._write, path, staged)
+
+    def _write(self, path: str, tree: Any) -> None:
+        """Serialise `tree` into ``<path>.tmp/variables.msgpack`` and
+        rename the directory to `path` (on the background thread)."""
+        tmp = path + ".tmp"
+        if os.path.isdir(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        with open(os.path.join(tmp, self.FILE), "wb") as f:
+            f.write(_pack(tree))
+        if os.path.isdir(path):
+            shutil.rmtree(path)          # keep_previous=False
+        os.replace(tmp, path)
+
+    def _read(self, path: str) -> Any:
+        if not os.path.isdir(path):
+            raise FileNotFoundError(f"no checkpoint at {path}")
+        try:
+            return load_variables(os.path.join(path, self.FILE))
+        except (FileNotFoundError, ValueError) as e:
+            raise _Torn(f"torn checkpoint {path}: {e}") from e
+
+    def restore(self, path: str, template: Any) -> Any:
+        path = os.path.abspath(path)
+        self.wait()
+        try:
+            state = self._read(path)
+        except (FileNotFoundError, _Torn) as e:
+            prev = path + ".prev"
+            if not os.path.isdir(prev):
+                raise
+            warnings.warn(
+                f"primary checkpoint {path} missing or torn ({e}); "
+                f"restoring rotated previous checkpoint {prev}",
+                RuntimeWarning)
+            state = self._read(prev)
+        return _place(template, _restore(template, state, ()))
+
+    def wait(self) -> None:
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            pending.result()
+
+    def close(self) -> None:
+        try:
+            self.wait()
+        finally:
+            self._pool.shutdown(wait=True)
+
+    def __enter__(self) -> "AsyncCheckpointer":
+        return self
+
+    def __exit__(self, *exc) -> Optional[bool]:
+        self.close()
+        return None
