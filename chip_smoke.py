@@ -175,10 +175,18 @@ by the commands themselves.  Phases, each reported on a JSON line:
 15. warmup: the ``warmup`` command in a fresh copy of the package;
 16. sustained: BASELINE.json config #5, a 128-frame 1080x1920 stream
    through ``sliding_windows``, ``DevicePrefetcher`` and ``classify_batch``
-   with Farneback and TV-L1 (``sustained_phase``);
+   with Farneback and TV-L1, the CNN in float32 and in bfloat16
+   (``sustained_phase``);
 17. async_checkpoint: ``AsyncCheckpointer`` between full-width train
    steps against the blocking ``save_variables``, restore on the card,
-   the ``.prev`` fallback, a failed write raised at ``wait()``.
+   the ``.prev`` fallback, a failed write raised at ``wait()``;
+18. bf16: the reference's reduced-precision CNN (``dtype=torch.bfloat16``:
+   bfloat16 activations, float32 parameters) at full width on TV-L1 and
+   Farneback serve requests: launches as in float32, the answer against
+   the plain versions, the CNNs against the CPU's bfloat16, the float32
+   model's answer beside it, each stream's ms in both dtypes, cuDNN's
+   kernels, the fc's bfloat16 reductions, one train step against the
+   CPU's (``bf16_phase``).
 ``--only <phase>`` runs the build and that phase alone.
 
 Then it prints the kernel table (``{"kernels": [...]}``: for each kernel
@@ -189,8 +197,8 @@ test the ``compute-flow`` command of phase 9; for K-D's blur pass the
 its ``--fb-winsize 201`` command; under ``launches_eval_ucf101`` those
 of phase 11's commands, under ``launches_train`` those of phase 12's,
 under ``launches_distributed``, ``launches_warmup``,
-``launches_sustained`` and ``launches_async_checkpoint`` those of phases
-14-17;
+``launches_sustained``, ``launches_async_checkpoint`` and
+``launches_bf16`` those of phases 14-18;
 K-H, K-B (and its launches with the ε test) and ``fb_window_solve``,
 whose arithmetic the commands run inside ``tvl1_scale`` and
 ``fb_iteration`` or only at shapes no command here gives, are on no
@@ -256,6 +264,7 @@ CARD = {}              # nvidia-smi's "name, power.limit", set by main()
 PROFILER = {"retaken_sessions": 0, "device_ms_from_cuda_events": []}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published peak
 F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # dense bfloat16 on the tensor cores
 
 
 def bound(nbytes: float, flops: float):
@@ -345,7 +354,8 @@ def profile_request(torch, np, server, frames, request_ms):
         rgb = pp.normalize(x, cfg.preprocess.mean, cfg.preprocess.std)
         s_logits = model.spatial(rgb.reshape(-1, *rgb.shape[2:])).mean(0)
         lap("rgb_cnn")
-        stacks = pipeline._flow_stacks(x, cfg, False, server.flow_net)[0]
+        stacks = pipeline._flow_stacks(x, cfg, False, server.flow_net,
+                                       model.temporal.dtype)[0]
         lap(f"{algo}_and_stacking")
         t_logits = model.temporal(stacks).mean(0)
         model.fuse(s_logits, t_logits).cpu()
@@ -3927,17 +3937,19 @@ def sustained_phase(torch, np, dev):
     1080x1920 stream cut by ``sliding_windows`` into 8 windows of 16,
     batches of 4 fed through ``DevicePrefetcher`` (depth 2) to
     ``classify_batch`` with the full-width ``TwoStreamModel`` (two
-    ResNet-18s, width 64, 101 classes, float32; the reference's bench
-    builds its CNN in bfloat16), with ``PipelineConfig(flow_algo=
-    "farneback", window=16)`` and then ``PipelineConfig()`` (TV-L1).  Per
-    flow: one warm pass with the launch counts set to 0 just before and
+    ResNet-18s, width 64, 101 classes), with ``PipelineConfig(flow_algo=
+    "farneback", window=16)`` and then ``PipelineConfig()`` (TV-L1), first
+    with the CNN in float32 and then in bfloat16 (``dtype``, as the
+    reference's bench builds it; keys ``<algo>_bf16``).  Per flow and
+    dtype: one warm pass with the launch counts set to 0 just before and
     held to the expected numbers per batch just after, the peak device
     memory and the prefetcher's pinned buffers; frames/s (decode excluded)
     over 3 timed passes; the device-busy share of one pass under
     torch.profiler; each batch's probabilities against ``classify_batch``
     on the plain path (TOL_PROBS); the clip's mean over the windows,
     summed batch by batch, against the mean of ``classify_window`` on each
-    window.  The figures go through ``runtime/metrics.MetricsWriter`` into
+    window (TOL_PROBS).  The figures go through
+    ``runtime/metrics.MetricsWriter`` into
     a temporary file and are read back.  Returns the warm passes'
     launches per kernel."""
     import tempfile
@@ -3959,14 +3971,17 @@ def sustained_phase(torch, np, dev):
     batches = [np.stack(wins[i:i + SUSTAINED_WB])
                for i in range(0, len(wins) - SUSTAINED_WB + 1, SUSTAINED_WB)]
     n_frames = len(batches) * SUSTAINED_WB * SUSTAINED_WINDOW
-    model = TwoStreamModel.create(num_classes=101, flow_stack=10, width=64)
-    model = model.init(torch.Generator().manual_seed(0)).to(dev).eval()
+    models = {dtype: TwoStreamModel.create(
+        num_classes=101, flow_stack=10, dtype=dtype, width=64).init(
+            torch.Generator().manual_seed(0)).to(dev).eval()
+        for dtype in (torch.float32, torch.bfloat16)}
     zero, read = flow_counters()
     nothing = dict.fromkeys(read(), 0)
     total = dict(nothing)
     report = {"frames": n_frames, "frame_hw": list(FULL_HD),
               "windows": len(wins), "batches": len(batches),
-              "windows_per_batch": SUSTAINED_WB, "cnn_dtype": "float32",
+              "windows_per_batch": SUSTAINED_WB,
+              "cnn_dtypes": {"": "float32", "_bf16": "bfloat16"},
               "host_bytes_per_batch": int(batches[0].nbytes)}
 
     def one_pass(cfg):
@@ -3979,7 +3994,10 @@ def sustained_phase(torch, np, dev):
     with tempfile.TemporaryDirectory() as work:
         writer = MetricsWriter(os.path.join(work, "metrics.jsonl"))
         emitted = []
-        for algo in ("farneback", "tvl1"):
+        for (algo, dtype), model in (
+                ((a, d), models[d]) for d in models
+                for a in ("farneback", "tvl1")):
+            suffix = "" if dtype == torch.float32 else "_bf16"
             cfg = PipelineConfig(flow_algo=algo, window=SUSTAINED_WINDOW)
             crop = cfg.preprocess.crop
             per_batch = (fb_expected(len(_level_sizes(crop, crop,
@@ -3993,7 +4011,7 @@ def sustained_phase(torch, np, dev):
             zero()
             probs, feed = one_pass(cfg)
             launches = read()
-            check(launches == want, f"sustained ({algo}) launched "
+            check(launches == want, f"sustained ({algo}{suffix}) launched "
                   f"{launches}, expected {want}")
             for k, n in launches.items():
                 total[k] += n
@@ -4020,24 +4038,28 @@ def sustained_phase(torch, np, dev):
                     plain = classify_batch(torch.from_numpy(b).to(dev), model,
                                            cfg, plain=True)
                     errs.append(float((plain - p).abs().max()))
-                check(max(errs) <= TOL_PROBS, f"sustained ({algo}) batches "
-                      f"vs the plain path: {errs} > {TOL_PROBS}")
+                check(max(errs) <= TOL_PROBS,
+                      f"sustained ({algo}{suffix}) batches vs the plain "
+                      f"path: {errs} > {TOL_PROBS}")
                 streamed = sum(p.sum(0) for p in probs) / len(wins)
                 per_window = torch.stack([classify_window(
                     torch.from_numpy(w).to(dev), model, cfg)
                     for w in wins]).mean(0)
             e_clip = float((streamed - per_window).abs().max())
             check(e_clip <= TOL_PROBS and abs(float(streamed.sum()) - 1) < 1e-4,
-                  f"sustained ({algo}) clip mean vs per-window mean: {e_clip}")
+                  f"sustained ({algo}{suffix}) clip mean vs per-window mean: "
+                  f"{e_clip}")
             fps_median = float(np.median(fps))
             busy = (prof["device_busy_ms"] / prof["profiled_wall_ms"]
                     if ok else None)       # not measured
             emitted.append(writer.emit(
                 "sustained_1080p_two_stream_fps", fps_median, "frames/s",
-                algo=algo, passes=fps, card=CARD.get("card")))
+                algo=algo, cnn_dtype=str(dtype), passes=fps,
+                card=CARD.get("card")))
             emitted.append(writer.emit(
-                "sustained_1080p_device_busy_share", busy, "", algo=algo))
-            report[algo] = {
+                "sustained_1080p_device_busy_share", busy, "", algo=algo,
+                cnn_dtype=str(dtype)))
+            report[algo + suffix] = {
                 "frames_per_s_median": fps_median, "frames_per_s_passes": fps,
                 "device_busy_share": busy,
                 "profiled_pass_ms": prof["profiled_wall_ms"],
@@ -4053,7 +4075,7 @@ def sustained_phase(torch, np, dev):
             back = [json.loads(line) for line in f]
     check(back == emitted and [r["metric"] for r in back] == [
         "sustained_1080p_two_stream_fps",
-        "sustained_1080p_device_busy_share"] * 2,
+        "sustained_1080p_device_busy_share"] * 4,
           f"metrics read back {back}, emitted {emitted}")
     emit({"phase": "sustained", "card": CARD.get("card"), **report,
           "metrics_records": len(back)})
@@ -4222,6 +4244,290 @@ def async_checkpoint_phase(torch, np, dev):
     return launches
 
 
+BF16_TRAIN_BATCH = 4
+# Card against the CPU's bfloat16 CNN, each bound set from what the card
+# gave (NVIDIA H100 80GB HBM3, 700.00 W): logits of the largest, measured
+# 4.1e-3-7.5e-3 (the CPU tests' bound against the JAX package);
+# probabilities absolute, measured 5.8e-6-1.0e-5, ten times that (the
+# float32 model is 2.3e-5-5.1e-5 away, which the phase holds apart on
+# its own); a train step's loss relative, measured 5.5e-5-1.6e-4.
+TOL_BF16_LOGITS = 2e-2
+TOL_BF16_PROBS = 1e-4
+TOL_BF16_LOSS = 2e-3
+MMA_MARKS = ("xmma", "gmma", "cutlass", "16816", "tensorop", "hmma")
+
+
+def cnn_kernels(torch, fn, tries: int = 5):
+    """The device kernels of one call of fn() under torch.profiler (taken
+    again, up to `tries` times, while it records none): name (its first
+    160 characters), launches and device ms, by device time; ``bf16_mma``
+    marks a name that is a bfloat16 tensor-core kernel's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    per = {}
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            ms, n = per.get(ev.name, (0.0, 0))
+            per[ev.name] = (ms + (ev.time_range.end
+                                  - ev.time_range.start) / 1e3, n + 1)
+        if per:
+            break
+        PROFILER["retaken_sessions"] += 1
+    check(bool(per), "torch.profiler recorded no kernel of the CNN")
+    low = {name: name.lower() for name in per}
+    return [{"name": name[:160], "launches": n, "ms": ms,
+             "bf16_mma": "bf16" in low[name]
+             and any(m in low[name] for m in MMA_MARKS)}
+            for name, (ms, n) in sorted(per.items(), key=lambda kv: -kv[1][0])]
+
+
+def cnn_flops(torch, net, x) -> float:
+    """Operations of one forward pass of `net` on `x`: 2 per multiply-add
+    of every convolution and linear layer (the products that bound it),
+    from the output shapes that hooks see."""
+    total = [0.0]
+
+    def hook(m, inp, out):
+        if isinstance(m, torch.nn.Conv2d):
+            per = m.in_channels // m.groups * m.kernel_size[0] \
+                * m.kernel_size[1]
+        else:
+            per = m.in_features
+        total[0] += 2.0 * out.numel() * per
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    with torch.no_grad():
+        net(x)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def bf16_phase(torch, np, dev):
+    """Phase 18: the reference's reduced-precision CNN (``dtype``: bfloat16
+    activations, float32 parameters) at full width: two ResNet-18s, width
+    64, 101 classes, crop 224, ``flow_stack`` 10, seed-0 weights, built by
+    ``TwoStreamModel.create(dtype=torch.bfloat16)``.  For TV-L1
+    (``TVL1Config()``) and Farneback, on the serve phases' scenes:
+    three ``ClipServer`` requests with every launch count set to 0 just
+    before and held to the float32 requests' numbers just after (5
+    ``tvl1_scale``; 3 ``fb_prologue`` and 9 ``fb_iteration``); the answer
+    against the plain versions of the kernels (TOL_PROBS: the flow is the
+    same float32); the request's two CNNs against the same bfloat16 model
+    on the CPU on the same inputs (logits TOL_BF16_LOGITS of the largest,
+    probabilities TOL_BF16_PROBS); the float32 model with the same weights
+    on the same request (probabilities' max abs difference, farther than
+    the CPU's bfloat16, top-1 equal);
+    the request's host ms and each stream's CNN ms in bfloat16 and float32
+    (CUDA events); cuDNN's kernels for each stream and for the flow
+    stem's 20-channel convolution alone, from torch.profiler.  Then the
+    ``fc`` with cuBLAS's reduced-precision bfloat16 reductions on and off
+    against a float32 sum of the same bfloat16 products, and one
+    two-stream train step at batch 4 on the card against the CPU (loss
+    TOL_BF16_LOSS).  Returns the requests' launches per kernel."""
+    import copy
+
+    from video_analytics_tpu_torch.config import PipelineConfig
+    from video_analytics_tpu_torch.flow.farneback import _level_sizes
+    from video_analytics_tpu_torch.ingest.windows import apply_transport_crop
+    from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+    from video_analytics_tpu_torch.ops import preprocess as pp
+    from video_analytics_tpu_torch.runtime import pipeline
+    from video_analytics_tpu_torch.runtime import train_two_stream as tts
+    from video_analytics_tpu_torch.runtime.serve import ClipServer
+
+    bf16 = torch.bfloat16
+    pcfg = PipelineConfig()
+    L = pcfg.preprocess.flow_stack
+
+    def build(dtype):
+        return TwoStreamModel.create(num_classes=pcfg.num_classes,
+                                     flow_stack=L, dtype=dtype,
+                                     width=64).init(
+            torch.Generator().manual_seed(0))
+
+    bf, f32 = build(bf16), build(torch.float32)
+    check(bf.spatial.dtype == bf.temporal.dtype == bf16
+          and all(v.dtype != bf16 for v in bf.state_dict().values()),
+          "the bfloat16 model's parameters are not float32")
+    check(all(torch.equal(a, b) for a, b in zip(
+        bf.state_dict().values(), f32.state_dict().values())),
+          "the bfloat16 and float32 models' seed-0 weights differ")
+    cpu = copy.deepcopy(bf).eval()
+    zero, read = flow_counters()
+    nothing = dict.fromkeys(read(), 0)
+    total = dict(nothing)
+    report = {"card": CARD.get("card"), "width": 64,
+              "num_classes": pcfg.num_classes, "crop": pcfg.preprocess.crop,
+              "flow_stack": L}
+    for algo in ("tvl1", "farneback"):
+        fmax = 0.12 if algo == "tvl1" else FB_FMAX
+        frames = np.stack([np.stack([scene(np, t, 256, 256, seed=c,
+                                           fmax=fmax)
+                                     for c in range(3)], axis=-1)
+                           for t in range(16)]).round().astype(np.uint8)
+        cfg = PipelineConfig(flow_algo=algo)
+        per_request = (
+            {"tvl1_scale": len(SIZES)} if algo == "tvl1" else fb_expected(
+                len(_level_sizes(224, 224, cfg.farneback)),
+                cfg.farneback.iterations))
+        server = ClipServer(bf, cfg, dev)
+        warm_s = server.warmup()
+        request_ms, outs, launches = serve_requests(
+            server, frames, zero, read, {**nothing, **per_request})
+        for k, n in launches.items():
+            total[k] += n
+        probs = outs[0]
+        e_plain = check_probs(torch, np, server, frames, probs)
+
+        # The request's CNN inputs, and both CNNs on the card and the CPU.
+        wins, wcfg = apply_transport_crop(server._windows_from_frames(frames),
+                                          server.cfg)
+        with torch.no_grad():
+            x = pipeline._crop(server._to_device(wins), wcfg)
+            rgb = pp.normalize(x, wcfg.preprocess.mean, wcfg.preprocess.std)
+            rgb = rgb.reshape(-1, *rgb.shape[2:])
+            stacks = pipeline._flow_stacks(x, wcfg, False, None, bf16)[0]
+            stacks32 = pipeline._flow_stacks(x, wcfg, False)[0]
+            check(stacks.dtype == bf16 and torch.equal(
+                stacks, stacks32.to(bf16)), "bfloat16 stacks")
+            card = {"spatial": bf.spatial(rgb),
+                    "temporal": bf.temporal(stacks)}
+            host = {"spatial": cpu.spatial(rgb.cpu()),
+                    "temporal": cpu.temporal(stacks.cpu())}
+            fused = bf.fuse(card["spatial"].mean(0), card["temporal"].mean(0))
+            host_fused = cpu.fuse(host["spatial"].mean(0),
+                                  host["temporal"].mean(0))
+        e_request = float(np.abs(fused.cpu().numpy() - probs).max())
+        check(e_request <= TOL_PROBS,
+              f"bf16 ({algo}): the CNNs rerun vs the request: {e_request}")
+        logit_err = {}
+        for k in card:
+            c, h = card[k].cpu(), host[k]
+            check(c.dtype == torch.float32
+                  and torch.equal(c, c.bfloat16().float()),
+                  f"bf16 ({algo}) {k} logits are not bfloat16 values")
+            logit_err[k] = float((c - h).abs().max() / h.abs().max())
+        e_cpu = float((fused.cpu() - host_fused).abs().max())
+        check(max(logit_err.values()) <= TOL_BF16_LOGITS
+              and e_cpu <= TOL_BF16_PROBS,
+              f"bf16 ({algo}) card vs CPU: logits {logit_err}, "
+              f"probabilities {e_cpu}")
+
+        # The float32 model on the same request.
+        p32 = ClipServer(f32, cfg, dev)._classify(
+            server._windows_from_frames(frames))
+        e_f32 = float(np.abs(p32 - probs).max())
+        check(e_cpu < e_f32,
+              f"bf16 ({algo}): the float32 model ({e_f32}) is no farther "
+              f"than the CPU's bfloat16 ({e_cpu}) from the card's answer")
+        check(int(p32.argmax()) == int(probs.argmax()),
+              f"bf16 ({algo}): top-1 {int(probs.argmax())}, float32 "
+              f"{int(p32.argmax())}")
+
+        with torch.no_grad():
+            cnn_ms = {
+                "spatial_bf16": cuda_ms(torch, lambda: bf.spatial(rgb)),
+                "spatial_f32": cuda_ms(torch, lambda: f32.spatial(rgb)),
+                "temporal_bf16": cuda_ms(torch, lambda: bf.temporal(stacks)),
+                "temporal_f32": cuda_ms(torch,
+                                        lambda: f32.temporal(stacks32))}
+            kernels = None
+            if algo == "tvl1":
+                stem_in = stacks.permute(0, 3, 1, 2).contiguous(
+                    memory_format=torch.channels_last)
+                kernels = {
+                    "spatial_bf16": cnn_kernels(torch,
+                                                lambda: bf.spatial(rgb)),
+                    "temporal_bf16": cnn_kernels(
+                        torch, lambda: bf.temporal(stacks)),
+                    "temporal_stem_bf16": cnn_kernels(
+                        torch, lambda: bf.temporal.conv1(stem_in)),
+                    "temporal_stem_f32": cnn_kernels(
+                        torch, lambda: f32.temporal.conv1(stem_in.float()))}
+        flops = {"spatial": cnn_flops(torch, bf.spatial, rgb),
+                 "temporal": cnn_flops(torch, bf.temporal, stacks)}
+        report[algo] = {
+            "warmup_s": warm_s, "request_ms": request_ms,
+            "launches_per_request": {k: v // SERVE_REQUESTS
+                                     for k, v in launches.items() if v},
+            "top1": int(probs.argmax()), "top1_f32": int(p32.argmax()),
+            "probs_max_abs_vs_plain": e_plain,
+            "probs_max_abs_vs_f32_model": e_f32,
+            "card_vs_cpu_logits_rel": logit_err,
+            "card_vs_cpu_probs_max_abs": e_cpu,
+            "cnn_ms_cuda_events": cnn_ms,
+            "cnn_images": {"spatial": rgb.shape[0],
+                           "temporal": stacks.shape[0]},
+            "cnn_gflop": {k: v / 1e9 for k, v in flops.items()},
+            "cnn_bound_ms_bf16": {k: 1e3 * v / BF16_FLOP_PER_S
+                                  for k, v in flops.items()},
+            "cnn_bound_ms_f32": {k: 1e3 * v / F32_FLOP_PER_S
+                                 for k, v in flops.items()},
+            **({"cudnn_kernels": kernels} if kernels else {})}
+
+    # cuBLAS's reduced-precision bfloat16 reductions, on the fc.
+    with torch.no_grad():
+        pooled = bf.spatial(rgb, return_features=True).to(bf16)
+        w = bf.spatial.fc.weight.to(bf16)
+        matmul = torch.backends.cuda.matmul
+        flag = matmul.allow_bf16_reduced_precision_reduction
+        outs = {}
+        for on in (True, False):
+            matmul.allow_bf16_reduced_precision_reduction = on
+            outs[on] = torch.nn.functional.linear(pooled, w)
+        matmul.allow_bf16_reduced_precision_reduction = flag
+        exact = (pooled.double() @ w.double().t()).to(bf16)
+        report["fc_bf16_reduction"] = {
+            "shape": [list(pooled.shape), list(w.shape)],
+            "setting": flag,
+            "reduced_vs_full_max_abs": float(
+                (outs[True].float() - outs[False].float()).abs().max()),
+            "reduced_vs_float64_rounded_max_abs": float(
+                (outs[True].float() - exact.float()).abs().max()),
+            "full_vs_float64_rounded_max_abs": float(
+                (outs[False].float() - exact.float()).abs().max())}
+
+    # One two-stream train step at batch 4, on the card and on the CPU.
+    model = build(bf16)
+    host_model = copy.deepcopy(model)
+    model.to(dev)
+    g = torch.Generator().manual_seed(4)
+    crop = pcfg.preprocess.crop
+    ex = {"rgb": torch.randn((BF16_TRAIN_BATCH, crop, crop, 3), generator=g),
+          "flow": torch.rand((BF16_TRAIN_BATCH, crop, crop, 2 * L),
+                             generator=g) * 2 - 1}
+    y = torch.randint(0, pcfg.num_classes, (BF16_TRAIN_BATCH,), generator=g)
+    card_steps = tts.make_two_stream_train_steps(
+        tts.create_two_stream_states(model, 1e-3, "both"))
+    host_steps = tts.make_two_stream_train_steps(
+        tts.create_two_stream_states(host_model, 1e-3, "both"))
+    steps = {}
+    for k in ("rgb", "flow"):
+        got = float(card_steps[k](ex[k].to(dev), y.to(dev))["loss"])
+        want = float(host_steps[k](ex[k], y)["loss"])
+        rel = abs(got - want) / abs(want)
+        check(rel <= TOL_BF16_LOSS and np.isfinite(got),
+              f"bf16 train step ({k}): card {got}, CPU {want}")
+        steps[k] = {"card_loss": got, "cpu_loss": want, "rel": rel}
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          "a bfloat16 train step left non-float32 parameters")
+    report["train_step_batch4"] = steps
+    report["tolerances"] = {"probs_vs_plain": TOL_PROBS,
+                            "logits_vs_cpu_rel": TOL_BF16_LOGITS,
+                            "probs_vs_cpu": TOL_BF16_PROBS,
+                            "loss_vs_cpu_rel": TOL_BF16_LOSS}
+    emit({"phase": "bf16", **report})
+    return total
+
+
 def native_phases(torch, np, dev, chain: bool = True):
     """The native-resolution flow command and, with `chain`, the stage
     commands that read what it wrote, in one temporary directory.  Returns
@@ -4254,7 +4560,7 @@ def main(argv=None) -> int:
                              "tvl1_chunk_kernels", "tvl1_1080p",
                              "stage_chain", "eval_ucf101", "train",
                              "spynet", "distributed", "model_axis", "warmup",
-                             "sustained", "async_checkpoint"],
+                             "sustained", "async_checkpoint", "bf16"],
                     help="run the build and this phase alone (stage_chain "
                          "with tvl1_1080p, whose directories it reads; "
                          "model_axis is the last part of distributed), for "
@@ -4328,6 +4634,8 @@ def main(argv=None) -> int:
         sustained_phase(torch, np, dev)
     elif args.only == "async_checkpoint":
         async_checkpoint_phase(torch, np, dev)
+    elif args.only == "bf16":
+        bf16_phase(torch, np, dev)
     elif args.only:
         native_phases(torch, np, dev, args.only == "stage_chain")
     if args.only:
@@ -4530,6 +4838,9 @@ def main(argv=None) -> int:
     sustained_launches = sustained_phase(torch, np, dev)
     async_launches = async_checkpoint_phase(torch, np, dev)
 
+    # -- 18. the reference's bfloat16 CNN -------------------------------------
+    bf16_launches = bf16_phase(torch, np, dev)
+
     # -- the kernel table -----------------------------------------------------
     # TV-L1 bounds at 224², 15 pairs.  Planes moved: warp_prep reads I1 and
     # its gradients, I0 and the flow and writes 4; pd_step reads prep, the
@@ -4647,7 +4958,8 @@ def main(argv=None) -> int:
                        "launches_warmup": warmup_launches.get(name, 0),
                        "launches_sustained": sustained_launches.get(name, 0),
                        "launches_async_checkpoint":
-                           async_launches.get(name, 0)}
+                           async_launches.get(name, 0),
+                       "launches_bf16": bf16_launches.get(name, 0)}
                       for name, source, replaces, also in rows]})
     emit({"phase": "profiler", **PROFILER})
     print(gpu, flush=True)

@@ -10,8 +10,10 @@ forward within 1e-5.  The gradient of a loss on those rows equals the
 unsharded port model's on them within 1e-5 on every parameter (the
 ``fc``'s: this process's columns).  With 5 classes the ``fc`` stays whole
 and the answers are the same.  A sharded two-stream model refuses to give
-its variable tree.  Processes are spawned once, from a code string, with
-their inputs written before they start.
+its variable tree.  A bfloat16 model's split ``fc`` computes in bfloat16
+from float32 blocks, and its logits equal the unsharded bfloat16 model's.
+Processes are spawned once, from a code string, with their inputs written
+before they start.
 """
 
 import json
@@ -74,6 +76,14 @@ for classes in spec["classes"]:
              **{"grad/" + n: p.grad for n, p in model.named_parameters()})
     out[f"fc{classes}"] = [type(model.fc).__name__,
                            list(model.fc.weight.shape)]
+bf = resnet.resnet18(num_classes=spec["classes"][0], dtype=torch.bfloat16)
+bf.load_state_dict(convert.flax_to_torch(load_variables(
+    spec["weights"][str(spec["classes"][0])])))
+bf = mesh.shard_dense_over_model(bf, group).eval()
+with torch.no_grad():
+    np.save(f"{spec['out']}/r{rank}_bf16.npy", bf(xs).numpy())
+out["fc_bf16"] = [type(bf.fc).__name__, str(bf.fc.dtype),
+                  str(bf.fc.weight.dtype)]
 two = mesh.shard_dense_over_model(
     TwoStreamModel.create(num_classes=4, flow_stack=1, width=8), group)
 try:
@@ -201,3 +211,25 @@ def test_gradients_match_the_unsharded_model(axis, classes):
 
 def test_sharded_model_refuses_its_variable_tree(axis):
     assert all(line["refused"] for line in axis["lines"])
+
+
+def test_bf16_fc_stays_bf16_over_the_model_axis(axis):
+    """``shard_dense_over_model`` keeps a bfloat16 ``fc``'s dtype: the
+    block computes in bfloat16 (its logits are bfloat16 values) and equals
+    the unsharded bfloat16 model's within 1e-2 of the largest logit."""
+    c = CLASSES[0]
+    model = resnet.resnet18(num_classes=c, dtype=torch.bfloat16)
+    model.load_state_dict(convert.flax_to_torch(load_variables(
+        os.path.join(os.path.dirname(axis["out"]), f"w{c}.msgpack"))))
+    x = np.load(os.path.join(os.path.dirname(axis["out"]), "inputs.npz"))["x"]
+    for r, line in enumerate(axis["lines"]):
+        assert line["fc_bf16"] == ["ColumnParallelLinear", "torch.bfloat16",
+                                   "torch.float32"]
+        d = r // MP
+        got = torch.from_numpy(np.load(os.path.join(axis["out"],
+                                                    f"r{r}_bf16.npy")))
+        assert torch.equal(got, got.bfloat16().float())
+        with torch.no_grad():
+            want = model.eval()(torch.from_numpy(x[d * 4:(d + 1) * 4]))
+        assert float((got - want).abs().max()) <= 1e-2 * float(
+            want.abs().max())

@@ -343,7 +343,8 @@ def cmd_extract_features(args) -> int:
                                  dtype=torch.float32, device=device)
             f = center_crop(f, cfg.preprocess.crop)
             stacks = stacked_flow_input(f, cfg.preprocess.flow_stack,
-                                        cfg.preprocess.flow_bound)
+                                        cfg.preprocess.flow_bound,
+                                        dtype=model.temporal.dtype)
             out["flow"] = model.temporal(
                 stacks, return_features=True).cpu().numpy()
         np.savez(args.out, **out)

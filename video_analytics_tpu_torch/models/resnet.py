@@ -16,6 +16,18 @@ statistics, the biased batch variance (``BatchNorm2d``).
 BatchNorm's shift, and the norm slots are identities;
 ``models/convert.fold_batchnorm`` makes its weights.
 
+``dtype`` is the reference's compute dtype: with ``torch.bfloat16`` the
+input is cast at entry and every convolution, ReLU, max-pool and residual
+add runs in bfloat16, while the parameters and BatchNorm's statistics stay
+float32 (``ops/layers``: the casts happen in ``forward``).  BatchNorm
+computes its statistics and its normalization in float32 and rounds its
+output once to bfloat16, as flax does.  The global mean is accumulated in
+float32 and rounded to bfloat16; ``fc`` takes that bfloat16 value, and the
+features and logits come back as float32.  A folded convolution adds its
+bias after the bfloat16 product is rounded, as flax's ``y += bias`` does
+(two roundings, not cuDNN's fused one), so that the folded bfloat16 model
+answers as the reference's.  The default, float32, runs as before.
+
 Inputs are NHWC at ``ResNet.forward``, as in the reference; inside, the
 network runs NCHW in PyTorch's channels-last memory format.  Convolutions
 and the fc layer are cuDNN/cuBLAS, as the reference leaves them to XLA.
@@ -30,13 +42,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from video_analytics_tpu_torch.models.convert import torch_to_flax
+from video_analytics_tpu_torch.ops.layers import Conv2d, Linear
 from video_analytics_tpu_torch.parallel.mesh import (
     all_reduce_sum, process_count)
 
 
 def _conv(in_ch: int, out_ch: int, kernel: int, strides: int, padding: int,
-          fold_bn: bool) -> nn.Conv2d:
-    return nn.Conv2d(in_ch, out_ch, kernel, strides, padding, bias=fold_bn)
+          dtype: torch.dtype, fold_bn: bool) -> nn.Conv2d:
+    return Conv2d(in_ch, out_ch, kernel, strides, padding, bias=fold_bn,
+                  dtype=dtype)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -58,7 +72,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     the summed E[(x − E[x])²], both through differentiable all-reduces
     (the gradient flows back through the sums to every process's rows).
     Every process then stores the same running statistics.
-    ``nn.SyncBatchNorm`` would store the unbiased variance."""
+    ``nn.SyncBatchNorm`` would store the unbiased variance.
+
+    A bfloat16 input (the model's ``dtype``) is normalized as flax's
+    ``BatchNorm(dtype=bfloat16)`` does it: statistics and normalization in
+    float32 with the float32 weights and running buffers, the output
+    rounded once to bfloat16."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -68,7 +87,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       correction=0)
             self._update_running(mean, var)
         return y
 
@@ -79,6 +99,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.num_batches_tracked.add_(1)
 
     def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        dtype, x = x.dtype, x.float()
         c = x.shape[1]
         dims = (0, 2, 3)
         sums = all_reduce_sum(torch.cat([x.sum(dims),
@@ -92,18 +113,18 @@ class BatchNorm2d(nn.BatchNorm2d):
                                                              None]
         with torch.no_grad():
             self._update_running(mean, var)
-        return y
+        return y.to(dtype)
 
 
 def _norm(ch: int, fold_bn: bool) -> nn.Module:
     return nn.Identity() if fold_bn else BatchNorm2d(ch)
 
 
-def _downsample(in_ch: int, out_ch: int, strides: int, fold_bn: bool
-                ) -> Optional[nn.Sequential]:
+def _downsample(in_ch: int, out_ch: int, strides: int, dtype: torch.dtype,
+                fold_bn: bool) -> Optional[nn.Sequential]:
     if in_ch == out_ch and strides == 1:
         return None
-    return nn.Sequential(_conv(in_ch, out_ch, 1, strides, 0, fold_bn),
+    return nn.Sequential(_conv(in_ch, out_ch, 1, strides, 0, dtype, fold_bn),
                          _norm(out_ch, fold_bn))
 
 
@@ -111,13 +132,14 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_ch: int, filters: int, strides: int = 1,
-                 fold_bn: bool = False):
+                 dtype: torch.dtype = torch.float32, fold_bn: bool = False):
         super().__init__()
-        self.conv1 = _conv(in_ch, filters, 3, strides, 1, fold_bn)
+        self.conv1 = _conv(in_ch, filters, 3, strides, 1, dtype, fold_bn)
         self.bn1 = _norm(filters, fold_bn)
-        self.conv2 = _conv(filters, filters, 3, 1, 1, fold_bn)
+        self.conv2 = _conv(filters, filters, 3, 1, 1, dtype, fold_bn)
         self.bn2 = _norm(filters, fold_bn)
-        self.downsample = _downsample(in_ch, filters, strides, fold_bn)
+        self.downsample = _downsample(in_ch, filters, strides, dtype,
+                                      fold_bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x if self.downsample is None else self.downsample(x)
@@ -132,16 +154,16 @@ class BottleneckBlock(nn.Module):
     expansion = 4
 
     def __init__(self, in_ch: int, filters: int, strides: int = 1,
-                 fold_bn: bool = False):
+                 dtype: torch.dtype = torch.float32, fold_bn: bool = False):
         super().__init__()
         out_ch = filters * self.expansion
-        self.conv1 = _conv(in_ch, filters, 1, 1, 0, fold_bn)
+        self.conv1 = _conv(in_ch, filters, 1, 1, 0, dtype, fold_bn)
         self.bn1 = _norm(filters, fold_bn)
-        self.conv2 = _conv(filters, filters, 3, strides, 1, fold_bn)
+        self.conv2 = _conv(filters, filters, 3, strides, 1, dtype, fold_bn)
         self.bn2 = _norm(filters, fold_bn)
-        self.conv3 = _conv(filters, out_ch, 1, 1, 0, fold_bn)
+        self.conv3 = _conv(filters, out_ch, 1, 1, 0, dtype, fold_bn)
         self.bn3 = _norm(out_ch, fold_bn)
-        self.downsample = _downsample(in_ch, out_ch, strides, fold_bn)
+        self.downsample = _downsample(in_ch, out_ch, strides, dtype, fold_bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x if self.downsample is None else self.downsample(x)
@@ -156,16 +178,17 @@ class ResNet(nn.Module):
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  num_classes: int = 1000, in_channels: int = 3,
-                 width: int = 64, bottleneck: bool = False,
-                 fold_bn: bool = False):
+                 width: int = 64, dtype: torch.dtype = torch.float32,
+                 bottleneck: bool = False, fold_bn: bool = False):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
         self.in_channels = in_channels
         self.num_classes = num_classes
         self.width = width
+        self.dtype = dtype
         self.bottleneck = bottleneck
         self.fold_bn = fold_bn
-        self.conv1 = _conv(in_channels, width, 7, 2, 3, fold_bn)
+        self.conv1 = _conv(in_channels, width, 7, 2, 3, dtype, fold_bn)
         self.bn1 = _norm(width, fold_bn)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         block_cls = BottleneckBlock if bottleneck else BasicBlock
@@ -175,17 +198,18 @@ class ResNet(nn.Module):
             blocks = []
             for block in range(num_blocks):
                 strides = 2 if stage > 0 and block == 0 else 1
-                blocks.append(block_cls(ch, filters, strides, fold_bn))
+                blocks.append(block_cls(ch, filters, strides, dtype=dtype,
+                                        fold_bn=fold_bn))
                 ch = filters * block_cls.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
         self.num_stages = len(stage_sizes)
-        self.fc = nn.Linear(ch, num_classes)
+        self.fc = Linear(ch, num_classes, dtype=dtype)
 
     def clone(self, fold_bn: bool) -> "ResNet":
-        """The same architecture with freshly made weights, in the folded
-        or the unfolded form."""
+        """The same architecture and dtype with freshly made weights, in
+        the folded or the unfolded form."""
         return ResNet(self.stage_sizes, self.num_classes, self.in_channels,
-                      self.width, self.bottleneck, fold_bn)
+                      self.width, self.dtype, self.bottleneck, fold_bn)
 
     @property
     def feature_dim(self) -> int:
@@ -211,20 +235,22 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor, return_features: bool = False
                 ) -> torch.Tensor:
-        """(N, H, W, in_channels) → logits (N, num_classes), or the
-        feature_dim penultimate features when return_features=True."""
+        """(N, H, W, in_channels) → float32 logits (N, num_classes), or
+        the float32 feature_dim penultimate features when
+        return_features=True."""
         if x.shape[-1] != self.in_channels:
             raise ValueError(f"expected {self.in_channels} input channels, "
                              f"got {tuple(x.shape)}")
-        x = x.float().permute(0, 3, 1, 2).contiguous(
+        x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
         x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
         for stage in range(self.num_stages):
             x = getattr(self, f"layer{stage + 1}")(x)
-        features = x.mean(dim=(2, 3))       # global average pool
+        # Global average pool, accumulated in float32 (as jnp.mean does).
+        pooled = x.mean(dim=(2, 3), dtype=torch.float32).to(self.dtype)
         if return_features:
-            return features
-        return self.fc(features)
+            return pooled.float()
+        return self.fc(pooled).float()
 
 
 def init_resnet(model: ResNet, generator: torch.Generator,
@@ -239,25 +265,27 @@ def init_resnet(model: ResNet, generator: torch.Generator,
 
 
 def resnet18(num_classes: int = 1000, in_channels: int = 3,
-             width: int = 64) -> ResNet:
+             dtype: torch.dtype = torch.float32, width: int = 64) -> ResNet:
     return ResNet((2, 2, 2, 2), num_classes=num_classes,
-                  in_channels=in_channels, width=width)
+                  in_channels=in_channels, dtype=dtype, width=width)
 
 
 def resnet34(num_classes: int = 1000, in_channels: int = 3,
-             width: int = 64) -> ResNet:
+             dtype: torch.dtype = torch.float32, width: int = 64) -> ResNet:
     return ResNet((3, 4, 6, 3), num_classes=num_classes,
-                  in_channels=in_channels, width=width)
+                  in_channels=in_channels, dtype=dtype, width=width)
 
 
 def resnet50(num_classes: int = 1000, in_channels: int = 3,
-             width: int = 64) -> ResNet:
+             dtype: torch.dtype = torch.float32, width: int = 64) -> ResNet:
     return ResNet((3, 4, 6, 3), num_classes=num_classes,
-                  in_channels=in_channels, width=width, bottleneck=True)
+                  in_channels=in_channels, dtype=dtype, width=width,
+                  bottleneck=True)
 
 
 def flow_stream_resnet18(stack: int = 10, num_classes: int = 101,
+                         dtype: torch.dtype = torch.float32,
                          width: int = 64) -> ResNet:
     """Temporal-stream net: stem consumes 2*stack flow channels."""
     return resnet18(num_classes=num_classes, in_channels=2 * stack,
-                    width=width)
+                    dtype=dtype, width=width)

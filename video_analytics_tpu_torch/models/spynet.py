@@ -3,10 +3,12 @@
 Port of ``video_analytics_tpu/models/spynet.py``.  A pyramid flow network:
 each level k predicts a residual flow from (I0_k, warp(I1_k, up(flow)),
 up(flow)) with five 7×7 convolutions, coarse to fine.  The convolutions run
-on cuDNN in float32 (TF32 is off, ``utils/device.py``); the warp
-(``ops/kernels.warp_by_flow``, a gather) and the pyramid's and the flow's
-linear resizes (``ops/kernels.resize_linear``, two-tap gathers) are plain
-tensor code, as they are XLA in the reference: no hand-written kernel
+on cuDNN in float32 (TF32 is off, ``utils/device.py``), or in the
+reference's reduced-precision ``dtype`` when one is given (float32
+parameters; the pipeline's SpyNet stays float32, as the reference's); the
+warp (``ops/kernels.warp_by_flow``, a gather) and the pyramid's and the
+flow's linear resizes (``ops/kernels.resize_linear``, two-tap gathers) are
+plain tensor code, as they are XLA in the reference: no hand-written kernel
 stands on this path.  All of it is differentiable, so the same module
 trains (``make_spynet_train_step``) and, frozen, feeds the flow stream
 (``runtime/pipeline`` with ``flow_algo="spynet"``).
@@ -32,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from video_analytics_tpu_torch.models import convert
+from video_analytics_tpu_torch.ops.layers import Conv2d
 from video_analytics_tpu_torch.ops.kernels import (
     gaussian_blur, resize_area_like, resize_linear, warp_by_flow)
 
@@ -40,32 +43,40 @@ FEATURES = (32, 64, 32, 16)
 
 class SpyNetLevel(nn.Module):
     """One pyramid level: (B, 4, h, w) input (I0, I1 warped, u, v) →
-    (B, 2, h, w) residual flow; four 7×7 convolutions with ReLU, then a
-    7×7 convolution to two channels."""
+    (B, 2, h, w) float32 residual flow; four 7×7 convolutions with ReLU,
+    then a 7×7 convolution to two channels.  The convolutions, their bias
+    adds and the ReLUs run in `dtype` (float32 parameters,
+    ``ops/layers.Conv2d``), as the reference's ``SpyNetLevel(dtype=)``."""
 
-    def __init__(self, features: Tuple[int, ...] = FEATURES):
+    def __init__(self, features: Tuple[int, ...] = FEATURES,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         chans = (4, *features)
         for i in range(len(features)):
-            setattr(self, f"conv{i}", nn.Conv2d(chans[i], chans[i + 1], 7,
-                                                padding=3))
-        self.conv_out = nn.Conv2d(chans[-1], 2, 7, padding=3)
+            setattr(self, f"conv{i}", Conv2d(chans[i], chans[i + 1], 7,
+                                             padding=3, dtype=dtype))
+        self.conv_out = Conv2d(chans[-1], 2, 7, padding=3, dtype=dtype)
         self.depth = len(features)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.depth):
             x = torch.relu(getattr(self, f"conv{i}")(x))
-        return self.conv_out(x)
+        return self.conv_out(x).float()
 
 
 class SpyNet(nn.Module):
     """Stack of per-level residual predictors (separate weights per level,
-    coarse → fine).  ``nets[k]`` is the reference's ``level{k}``."""
+    coarse → fine).  ``nets[k]`` is the reference's ``level{k}``.  `dtype`
+    is the levels' compute dtype; the pyramids, warps, resizes and the
+    flow itself stay float32."""
 
-    def __init__(self, levels: int = 4):
+    def __init__(self, levels: int = 4, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.levels = levels
-        self.nets = nn.ModuleList(SpyNetLevel() for _ in range(levels))
+        self.dtype = dtype
+        self.nets = nn.ModuleList(SpyNetLevel(dtype=dtype)
+                                  for _ in range(levels))
 
     def _pyramid(self, img: torch.Tensor) -> List[torch.Tensor]:
         """(B, H, W) → levels, finest first, each (h // 2, w // 2) of the

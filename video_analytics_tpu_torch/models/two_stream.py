@@ -35,13 +35,16 @@ class TwoStreamModel(nn.Module):
     @classmethod
     def create(cls, num_classes: int = 101, flow_stack: int = 10,
                fusion_weights: Tuple[float, float] = (1.0, 1.5),
-               width: int = 64, arch: str = "resnet18") -> "TwoStreamModel":
+               dtype: torch.dtype = torch.float32, width: int = 64,
+               arch: str = "resnet18") -> "TwoStreamModel":
+        """Both streams of `arch`; `dtype` is their compute dtype (the
+        parameters are float32 either way, ``models/resnet``)."""
         if arch not in _ARCHS:
             raise ValueError(f"unknown arch {arch!r}; "
                              f"choose from {sorted(_ARCHS)}")
         build = _ARCHS[arch]
-        return cls(build(num_classes=num_classes, width=width),
-                   build(num_classes=num_classes, width=width,
+        return cls(build(num_classes=num_classes, dtype=dtype, width=width),
+                   build(num_classes=num_classes, dtype=dtype, width=width,
                          in_channels=2 * flow_stack),
                    fusion_weights=fusion_weights)
 
@@ -72,7 +75,7 @@ class TwoStreamModel(nn.Module):
         """Inference-only form with every BatchNorm folded into its
         preceding convolution (``models/convert.fold_batchnorm``): the
         reference's ``folded()`` and ``fold_variables`` in one step, since
-        the module owns its weights."""
+        the module owns its weights.  The streams keep their dtype."""
         out = TwoStreamModel(self.spatial.clone(fold_bn=True),
                              self.temporal.clone(fold_bn=True),
                              self.fusion_weights)

@@ -269,9 +269,14 @@ def normalize_flow_stack(x: torch.Tensor, bound: float = 20.0
 
 
 def stacked_flow_input(flow: torch.Tensor, stack: int, bound: float = 20.0,
+                       dtype: Optional[torch.dtype] = None,
                        stride: int = 1) -> torch.Tensor:
     """``normalize_flow_stack(stack_flow_windows(flow, stack), bound)``
-    with the elementwise clip/scale done before the stacking, which
-    copies each field up to `stack` times."""
-    return stack_flow_windows(normalize_flow_stack(flow, bound), stack,
-                              stride)
+    with the elementwise clip/scale, and the cast to the CNN's `dtype`
+    when it is given, done before the stacking, which copies each field
+    up to `stack` times.  Equal at the CNN input to casting the stacks:
+    the CNN's own cast to its dtype is then a no-op."""
+    f = normalize_flow_stack(flow, bound)
+    if dtype is not None:
+        f = f.to(dtype)
+    return stack_flow_windows(f, stack, stride)

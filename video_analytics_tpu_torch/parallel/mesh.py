@@ -47,8 +47,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn as nn
-import torch.nn.functional as F
 
+from video_analytics_tpu_torch.ops.layers import linear
 from video_analytics_tpu_torch.utils.device import require_cuda
 
 # How long a collective or the rendezvous waits for the other processes
@@ -284,13 +284,15 @@ class ColumnParallelLinear(nn.Module):
     holds this rank's block of ``weight`` (out, in) and ``bias``, computes
     its block of the outputs and all-gathers the whole row.  Forward and
     gradients equal the whole layer's (each rank's gradient is that of its
-    own block)."""
+    own block).  It computes in the dtype of the layer it replaces
+    (``ops/layers.Linear``), with float32 parameters."""
 
     def __init__(self, linear: nn.Linear, group: dist.ProcessGroup):
         super().__init__()
         self.group = group
         self.in_features = linear.in_features
         self.out_features = linear.out_features
+        self.dtype = getattr(linear, "dtype", torch.float32)
         self.weight = nn.Parameter(
             model_sharding(linear.weight.detach(), group, 0).clone())
         self.bias = (None if linear.bias is None else nn.Parameter(
@@ -298,8 +300,8 @@ class ColumnParallelLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _CopyToModel.apply(x, self.group)
-        return _GatherFromModel.apply(F.linear(x, self.weight, self.bias),
-                                      self.group)
+        return _GatherFromModel.apply(
+            linear(x, self.weight, self.bias, self.dtype), self.group)
 
 
 def shard_dense_over_model(model: nn.Module,

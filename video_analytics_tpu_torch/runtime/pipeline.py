@@ -125,13 +125,15 @@ def _crop(frames: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
 
 
 def _flow_stacks(x: torch.Tensor, cfg: PipelineConfig, plain: bool,
-                 flow_net: Optional[SpyNet] = None) -> torch.Tensor:
+                 flow_net: Optional[SpyNet] = None,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """(B, T, h, w, 3) cropped windows → (B, N, h, w, 2L) normalised flow
-    stacks, with one flow batch over all B·(T-1) frame pairs."""
+    stacks in `dtype` (the temporal CNN's), with one flow batch over all
+    B·(T-1) frame pairs."""
     flow = _sequence_flow(pp.rgb_to_gray(x), cfg, plain, flow_net)
     pre = cfg.preprocess
     return torch.stack([pp.stacked_flow_input(f, pre.flow_stack,
-                                              pre.flow_bound)
+                                              pre.flow_bound, dtype=dtype)
                         for f in flow])
 
 
@@ -141,7 +143,8 @@ def flow_features(frames: torch.Tensor, model: ResNet,
                   flow_net: Optional[SpyNet] = None) -> torch.Tensor:
     """(T, H, W, 3) uint8 → (N, 512) flow-stream features: crop → gray →
     flow → stack → CNN."""
-    stacks = _flow_stacks(_crop(frames, cfg)[None], cfg, False, flow_net)[0]
+    stacks = _flow_stacks(_crop(frames, cfg)[None], cfg, False, flow_net,
+                          model.dtype)[0]
     return model(stacks, return_features=True)
 
 
@@ -158,7 +161,8 @@ def classify_batch(windows: torch.Tensor, model: TwoStreamModel,
     rgb = pp.normalize(x, pre.mean, pre.std)
     s_logits = model.spatial(rgb.reshape(B * T, *rgb.shape[2:]))
     s_logits = s_logits.reshape(B, T, -1).mean(dim=1)
-    stacks = _flow_stacks(x, cfg, plain, flow_net)     # (B, N, h, w, 2L)
+    stacks = _flow_stacks(x, cfg, plain, flow_net,     # (B, N, h, w, 2L)
+                          model.temporal.dtype)
     n = stacks.shape[1]
     t_logits = model.temporal(stacks.reshape(B * n, *stacks.shape[2:]))
     t_logits = t_logits.reshape(B, n, -1).mean(dim=1)

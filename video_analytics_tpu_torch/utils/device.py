@@ -1,4 +1,4 @@
-"""Device selection and the float32 precision settings of the port.
+"""Device selection and the precision settings of the port.
 
 TF32 is switched off for matrix products and cuDNN convolutions as soon
 as the package is imported:
@@ -6,10 +6,21 @@ as the package is imported:
 - flow needs full float32: ARCHITECTURE.md ("Flow precision") measured
   10x worse cv2 parity on the TPU with reduced-precision f32, and the
   pyramid resizes and preprocessing crop run as matrix products;
-- the serve CNN is float32 in the reference (``TwoStreamModel.create``
-  defaults to ``dtype=jnp.float32``; ``PipelineConfig.compute_dtype`` is
-  read nowhere), and cuDNN would otherwise run f32 convolutions in TF32,
-  which keeps about three decimal digits.
+- the command line's CNN is float32, as the reference's (its commands
+  build ``TwoStreamModel.create`` at the default ``dtype``;
+  ``PipelineConfig.compute_dtype`` is read nowhere), and cuDNN would
+  otherwise run f32 convolutions in TF32, which keeps about three decimal
+  digits.
+
+The reference's ``dtype=torch.bfloat16`` option (``models/resnet``,
+``models/spynet``: bfloat16 activations, float32 parameters, cast in each
+layer's ``forward``, no autocast) is untouched by these switches, which
+concern float32 operands only.  cuBLAS may reduce bfloat16 products in
+reduced precision (``allow_bf16_reduced_precision_reduction``, PyTorch's
+default, True); it stays on: on the full-width bfloat16 ``fc`` (16×512
+by 512×101, a split-K product) it changed nothing, the output equal to a
+float64 sum rounded to bfloat16 (chip_smoke ``bf16``, on an NVIDIA H100
+80GB HBM3 at 700 W).
 """
 
 from __future__ import annotations
