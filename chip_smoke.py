@@ -7,8 +7,9 @@ Run from the root of a checkout, with no arguments:
 
 It imports no JAX, and fails (non-zero exit, no result line) where
 ``torch.cuda.is_available()`` is false or the package is not beside it.
-OpenCV is needed by the phases that drive the command line (7, 9-12), as
-by the commands themselves.  Phases, each reported on a JSON line:
+OpenCV is needed by the phases that drive the command line (7, 9-12, 19)
+and by the flow-quality families (20), as by the commands themselves.
+Phases, each reported on a JSON line:
 
 1. build: compile every CUDA kernel of the port from
    ``video_analytics_tpu_torch/csrc/`` with nvcc for sm_90a (one nvcc per
@@ -65,7 +66,9 @@ by the commands themselves.  Phases, each reported on a JSON line:
    flow against the scene's (1.3, −0.7), and phase 4's profile of one
    request;
 7. compute_flow: ``tpuva-torch compute-flow --algo farneback --format
-   flo`` on a 16-frame 240×320 frames directory written to a temporary
+   flo --no-bucket`` (the native resolution, as every ``compute-flow`` of
+   phases 7-9 and 13; phase 19 runs the default) on a 16-frame 240×320
+   frames directory written to a temporary
    directory, with the launch counts of the Farneback kernels set to 0
    just before the command and held to the expected numbers just after;
    15 ``.flo`` files, one read back; farneback_1080p: the same command on
@@ -172,7 +175,8 @@ by the commands themselves.  Phases, each reported on a JSON line:
    (``model_axis_phase``): the full-width model's ``fc`` split over a
    model group of the two processes at 100 classes, whole at 101, the
    probabilities against one process's, the all-gathers timed;
-15. warmup: the ``warmup`` command in a fresh copy of the package;
+15. warmup: the ``warmup`` command in a fresh copy of the package (its
+   flow entries at the sizes' 64-pixel buckets);
 16. sustained: BASELINE.json config #5, a 128-frame 1080x1920 stream
    through ``sliding_windows``, ``DevicePrefetcher`` and ``classify_batch``
    with Farneback and TV-L1, the CNN in float32 and in bfloat16
@@ -186,7 +190,23 @@ by the commands themselves.  Phases, each reported on a JSON line:
    the plain versions, the CNNs against the CPU's bfloat16, the float32
    model's answer beside it, each stream's ms in both dtypes, cuDNN's
    kernels, the fc's bfloat16 reductions, one train step against the
-   CPU's (``bf16_phase``).
+   CPU's (``bf16_phase``);
+19. compute_flow_bucketed: ``compute-flow`` with its default flags, which
+   pad each pair at its edges to the next multiple of 64 and crop the flow
+   back (``ops/bucketing``): Farneback and TV-L1 at 240×320 (bucket
+   256×320), TV-L1 at 280×300 (320×320, its finest level on K-G) and
+   1080×1920 (1088×1920), 2 pairs each, the launch counts set to 0 just
+   before each command and held just after to the numbers the flow
+   modules' routes give at the bucket (``expected_flow_launches``), the
+   ``.flo`` files against the plain path's bucketed-then-cropped flow, the
+   command and a flow call timed beside ``--no-bucket``
+   (``compute_flow_bucketed_phase``);
+20. flow_quality: ``tools/torch_flow_quality.py``'s shoot-out at 224², 16
+   pairs a call, the default configs and the bundled SpyNet, 2 validation
+   batches: EPE per family with the launches held (5 ``tvl1_scale``, or 3
+   K-D and 9 ``fb_iteration``, a call; none for SpyNet), the same EPEs
+   through the plain versions within 1e-6, pairs/s, the tool's table
+   (``flow_quality_phase``).
 ``--only <phase>`` runs the build and that phase alone.
 
 Then it prints the kernel table (``{"kernels": [...]}``: for each kernel
@@ -197,8 +217,9 @@ test the ``compute-flow`` command of phase 9; for K-D's blur pass the
 its ``--fb-winsize 201`` command; under ``launches_eval_ucf101`` those
 of phase 11's commands, under ``launches_train`` those of phase 12's,
 under ``launches_distributed``, ``launches_warmup``,
-``launches_sustained``, ``launches_async_checkpoint`` and
-``launches_bf16`` those of phases 14-18;
+``launches_sustained``, ``launches_async_checkpoint``, ``launches_bf16``,
+``launches_compute_flow_bucketed`` and ``launches_flow_quality`` those of
+phases 14-20;
 K-H, K-B (and its launches with the ε test) and ``fb_window_solve``,
 whose arithmetic the commands run inside ``tvl1_scale`` and
 ``fb_iteration`` or only at shapes no command here gives, are on no
@@ -940,8 +961,6 @@ def compute_flow_phase(np):
     import tempfile
 
     from video_analytics_tpu_torch.cli.main import main as cli_main
-    from video_analytics_tpu_torch.config import FarnebackConfig
-    from video_analytics_tpu_torch.flow.farneback import _level_sizes
     from video_analytics_tpu_torch.ops.cuda import farneback as fk
     from video_analytics_tpu_torch.io.flowio import read_flo
     from video_analytics_tpu_torch.io.video import write_frames
@@ -957,7 +976,7 @@ def compute_flow_phase(np):
         t0 = time.perf_counter()
         rc = cli_main(["compute-flow", src, out, "--algo", "farneback",
                        "--format", "flo", "--batch", str(CF_BATCH),
-                       "--device", "cuda"])
+                       "--no-bucket", "--device", "cuda"])
         seconds = time.perf_counter() - t0
         launches = read_fb_counts(fk)
         check(rc == 0, f"compute-flow exited {rc}")
@@ -973,9 +992,9 @@ def compute_flow_phase(np):
           f"compute-flow mean flow {mean}, expected {VEL}")
     # Each flow call of --batch pairs launches the prologue once per level,
     # and fb_iteration once per level and iteration.
-    cfg = FarnebackConfig()
     calls = -(-(FB_FRAMES - 1) // CF_BATCH)
-    expected = fb_expected(len(_level_sizes(H, W, cfg)), cfg.iterations, calls)
+    per_call = expected_flow_launches("farneback", H, W)
+    expected = {k: calls * per_call[k] for k in launches}
     check(launches == expected,
           f"compute-flow launched {launches}, expected {expected}")
     emit({"phase": "compute_flow", "files": len(files), "seconds": seconds,
@@ -1053,8 +1072,8 @@ def farneback_1080p_phase(torch, np, dev):
             t0 = time.perf_counter()
             rc, res = run_cli(["compute-flow", src, out, "--algo",
                                "farneback", "--format", "flo", "--batch",
-                               str(CF_BATCH), flag, str(value), "--device",
-                               "cuda"])
+                               str(CF_BATCH), flag, str(value), "--no-bucket",
+                               "--device", "cuda"])
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             launches = read_fb_counts(fk)
@@ -1557,7 +1576,7 @@ def tvl1_midsize_phase(torch, np, dev):
             t0 = time.perf_counter()
             rc, res = run_cli(["compute-flow", src, out, "--algo", "tvl1",
                                "--format", "flo", "--batch", str(CF_BATCH),
-                               "--device", "cuda"])
+                               "--no-bucket", "--device", "cuda"])
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             launches = read_counts(kernels)
@@ -1567,7 +1586,8 @@ def tvl1_midsize_phase(torch, np, dev):
             t0 = time.perf_counter()
             rc, _ = run_cli(["compute-flow", src, out + "_again", "--algo",
                              "tvl1", "--format", "flo", "--batch",
-                             str(CF_BATCH), "--device", "cuda"])
+                             str(CF_BATCH), "--no-bucket", "--device",
+                             "cuda"])
             torch.cuda.synchronize()
             again = time.perf_counter() - t0
             check(rc == 0, f"compute-flow at {size}, again: {rc}")
@@ -2148,7 +2168,7 @@ def tvl1_1080p_phase(torch, np, dev, work: str):
     directory)."""
     from video_analytics_tpu_torch.cli.main import _load_frames
     from video_analytics_tpu_torch.config import TVL1Config
-    from video_analytics_tpu_torch.flow.tvl1 import _level_sizes, tvl1
+    from video_analytics_tpu_torch.flow.tvl1 import tvl1
     from video_analytics_tpu_torch.io.flowio import read_flo
     from video_analytics_tpu_torch.io.video import write_frames
     from video_analytics_tpu_torch.ops.cuda import tvl1_solve as ts
@@ -2169,7 +2189,8 @@ def tvl1_1080p_phase(torch, np, dev, work: str):
     zero_counts(kernels)
     t0 = time.perf_counter()
     rc, res = run_cli(["compute-flow", src, out, "--algo", "tvl1", "--format",
-                       "flo", "--batch", str(CF_BATCH), "--device", "cuda"])
+                       "flo", "--batch", str(CF_BATCH), "--no-bucket",
+                       "--device", "cuda"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_counts(kernels)
@@ -2183,17 +2204,10 @@ def tvl1_1080p_phase(torch, np, dev, work: str):
     # of a 1080x1920 frame is above the size rule: neither the
     # per-iteration kernels nor the cluster solver are launched at all.
     calls = -(-(HD_FRAMES - 1) // CF_BATCH)
-    levels = _level_sizes(*FULL_HD, cfg)
-    per_call = {
-        "tvl1_pd_chunk": sum(
-            cfg.warps * cfg.outer_iterations
-            * -(-cfg.inner_iterations // ts.chunk_params(h, w, cfg)[1])
-            for h, w in levels),
-        "tvl1_pd_chunk_flags": len(levels) * cfg.warps
-        * (cfg.outer_iterations - 1),
-        "warp_prep": len(levels) * cfg.warps, "median5": len(levels)}
-    expected = {**dict.fromkeys(kernels, 0),
-                **{k: calls * n for k, n in per_call.items()}}
+    per_call = expected_flow_launches("tvl1", *FULL_HD)
+    check(per_call["tvl1_scale"] == 0, f"a 1080p level fits a cluster: "
+                                       f"{per_call}")
+    expected = {k: calls * per_call[k] for k in kernels}
     check(launches == expected,
           f"compute-flow --algo tvl1 launched {launches}, expected {expected}")
     files = sorted(f for f in os.listdir(out) if f.endswith(".flo"))
@@ -2243,7 +2257,7 @@ def tvl1_1080p_phase(torch, np, dev, work: str):
         zero()
         flow_call()
         call_launches = read()
-        want = {**dict.fromkeys(call_launches, 0), **per_call}
+        want = per_call
         check(call_launches == want,
               f"a 2-pair 1080p flow call launched {call_launches}, expected "
               f"{want}")
@@ -3135,7 +3149,7 @@ def spynet_phase(torch, np, dev):
         zero()
         t0 = time.perf_counter()
         rc, res = run_cli(["compute-flow", clip, out_dir, "--algo", "spynet",
-                           "--device", "cuda"])
+                           "--no-bucket", "--device", "cuda"])
         torch.cuda.synchronize()
         cf_s = time.perf_counter() - t0
         no_kernels("compute-flow --algo spynet")
@@ -3809,7 +3823,7 @@ rc = main(sys.argv[1:])
 torch.cuda.synchronize()
 print(json.dumps({"rc": rc, "launches": read()}), flush=True)
 """
-# A fresh process's first flow call at warmup's first shape.
+# A fresh process's first flow call at warmup's first bucket (240x320's).
 FIRST_CALL_CODE = r"""
 import json, time
 t0 = time.perf_counter()
@@ -3817,7 +3831,7 @@ import torch
 from video_analytics_tpu_torch.config import PipelineConfig
 from video_analytics_tpu_torch.ops.cuda import _build
 from video_analytics_tpu_torch.runtime.pipeline import compute_flow
-x = torch.zeros((8, 240, 320), device="cuda")
+x = torch.zeros((8, 256, 320), device="cuda")
 torch.cuda.synchronize()
 t1 = time.perf_counter()
 times = []
@@ -3838,12 +3852,15 @@ def warmup_phase(torch, np):
     """``tpuva-torch warmup --surface all --algos tvl1,farneback --sizes
     240x320,1080x1920`` in a fresh process, in a copy of the package with
     no build directory (so it builds the kernels), every launch count set
-    to 0 just before the command and read just after; its entries and
-    their seconds; then a second fresh process's first flow call at the
-    first size, which finds the library warmup built.  Returns the
-    command's launches per kernel."""
+    to 0 just before the command and read just after; its entries (the
+    flow's at the sizes' buckets, 256x320 and 1088x1920) and their
+    seconds; then a second fresh process's first flow call at the first
+    bucket, which finds the library warmup built.  Returns the command's
+    launches per kernel."""
     import shutil
     import tempfile
+
+    from video_analytics_tpu_torch.ops.bucketing import bucket_hw
 
     with tempfile.TemporaryDirectory() as work:
         shutil.copytree(os.path.join(HERE, "video_analytics_tpu_torch"),
@@ -3870,7 +3887,7 @@ def warmup_phase(torch, np):
         classify = [(e["algo"], e["surface"]) for e in compiled
                     if set(e) in ({"algo", "surface", "shape", "secs"},
                                   {"algo", "surface", "secs"})]
-        check(flow == [(a, hw) for a in ("tvl1", "farneback")
+        check(flow == [(a, bucket_hw(*hw)) for a in ("tvl1", "farneback")
                        for hw in (NATIVE, FULL_HD)]
               and classify == [(a, s) for a in ("tvl1", "farneback")
                                for s in ("eval-batched", "serve")]
@@ -4528,6 +4545,232 @@ def bf16_phase(torch, np, dev):
     return total
 
 
+def expected_flow_launches(algo: str, h: int, w: int):
+    """Launches per kernel of one flow call at (h, w) with the default
+    config, derived from the flow modules' routes: TV-L1 by
+    ``level_solver``, per "warp" level one ``tvl1_scale``, per "chunked"
+    level `warps` K-A, ``ceil(inner / chunk)`` K-G a round (a round's last
+    but a warp's last with the bands' test) and the scale-end K-C;
+    Farneback by
+    ``fb_expected`` over its levels, prologue forms and window route;
+    SpyNet none."""
+    from video_analytics_tpu_torch.config import FarnebackConfig, TVL1Config
+    from video_analytics_tpu_torch.flow import farneback as fb
+    from video_analytics_tpu_torch.flow import tvl1 as tl
+    from video_analytics_tpu_torch.ops.cuda import farneback as fk
+    from video_analytics_tpu_torch.ops.cuda import tvl1_solve as ts
+
+    want = dict.fromkeys(flow_counters()[1](), 0)
+    if algo == "tvl1":
+        cfg = TVL1Config()
+        for lh, lw in tl._level_sizes(h, w, cfg):
+            route = tl.level_solver(lh, lw, cfg.median_filtering)
+            check(route != "chain", f"a level {lh}x{lw} of {h}x{w} takes the "
+                                    f"per-iteration kernels")
+            if route == "warp":
+                want["tvl1_scale"] += 1
+                continue
+            want["tvl1_pd_chunk"] += cfg.warps * cfg.outer_iterations * -(
+                -cfg.inner_iterations // ts.chunk_params(lh, lw, cfg)[1])
+            want["tvl1_pd_chunk_flags"] += cfg.warps * (
+                cfg.outer_iterations - 1)
+            want["warp_prep"] += cfg.warps
+            want["median5"] += 1
+    elif algo == "farneback":
+        cfg = FarnebackConfig()
+        levels = fb._level_sizes(h, w, cfg)
+        forms = [fk.prologue_form(h, w, lh, lw, sc, cfg.poly_n)[0]
+                 for lh, lw, sc in levels]
+        want.update(fb_expected(len(levels), cfg.iterations,
+                                split=forms.count("split"),
+                                route=fk.window_route(cfg.winsize)))
+    return want
+
+
+# compute-flow with its default bucketing: (algorithm, frame size, frames).
+BUCKETED = (("farneback", NATIVE, 3), ("tvl1", NATIVE, 3),
+            ("tvl1", (280, 300), 3), ("tvl1", FULL_HD, 3))
+
+
+def compute_flow_bucketed_phase(torch, np, dev):
+    """``compute-flow`` with its default flags, which pad each pair at its
+    edges to the next multiple of 64 on both axes, compute there and crop
+    back (``ops/bucketing``): Farneback and TV-L1 on 3 frames of 240x320
+    (bucket 256x320), TV-L1 on 3 frames of 280x300 (320x320: its finest
+    level is above the size rule, so K-G there and ``tvl1_scale`` below)
+    and of 1080x1920 (1088x1920).  Each default command's launches,
+    counted from 0 just before it, against ``expected_flow_launches`` at
+    the bucket; its ``.flo`` files against the plain path's
+    bucketed-then-cropped flow on the same decoded frames (Farneback
+    equal; TV-L1 within 10·ε, the reference's bound for a skipped round,
+    since an ε test summed in another order can flip at its threshold;
+    bit-equality reported); the same command with ``--no-bucket`` beside
+    it, and one flow call of each form timed in turns.  Returns the
+    default commands' launches per kernel, summed."""
+    import tempfile
+
+    from video_analytics_tpu_torch.cli.main import _load_frames
+    from video_analytics_tpu_torch.config import FarnebackConfig, TVL1Config
+    from video_analytics_tpu_torch.flow.farneback import farneback
+    from video_analytics_tpu_torch.flow.tvl1 import tvl1
+    from video_analytics_tpu_torch.io.flowio import read_flo
+    from video_analytics_tpu_torch.io.video import write_frames
+    from video_analytics_tpu_torch.ops.bucketing import (
+        bucket_hw, bucketed_flow)
+    from video_analytics_tpu_torch.ops.preprocess import rgb_to_gray
+
+    tv, fbc = TVL1Config(), FarnebackConfig()
+    zero, read = flow_counters()
+    total, report = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for algo, (h, w), n in BUCKETED:
+            fmax = FB_FMAX if algo == "farneback" else 0.12
+            planes = [scene(np, t, h, w, seed=13, fmax=fmax)
+                      for t in range(n)]
+            frames = np.stack([np.stack([g * img for g in (1.0, 0.85, 0.7)],
+                                        axis=-1)
+                               for img in planes]).round().astype(np.uint8)
+            src = os.path.join(tmp, f"frames_{algo}_{h}x{w}")
+            write_frames(frames, src)
+            flows, seconds, counts = {}, {}, {}
+            for form, extra in (("bucketed", []), ("native", ["--no-bucket"])):
+                out = os.path.join(tmp, f"flow_{algo}_{h}x{w}_{form}")
+                zero()
+                t0 = time.perf_counter()
+                rc, res = run_cli(["compute-flow", src, out, "--algo", algo,
+                                   "--format", "flo", "--batch",
+                                   str(CF_BATCH), *extra, "--device", "cuda"])
+                torch.cuda.synchronize()
+                seconds[form] = time.perf_counter() - t0
+                check(rc == 0 and res["flows"] == n - 1,
+                      f"compute-flow --algo {algo} at {h}x{w} {extra}: "
+                      f"{rc} {res}")
+                counts[form] = read()
+                flows[form] = np.stack([read_flo(os.path.join(out, f))
+                                        for f in sorted(os.listdir(out))])
+            launches = counts["bucketed"]
+            bh, bw = bucket_hw(h, w)
+            calls = -(-(n - 1) // CF_BATCH)
+            want = {k: calls * v
+                    for k, v in expected_flow_launches(algo, bh, bw).items()}
+            check(launches == want,
+                  f"compute-flow --algo {algo} at {h}x{w} (bucket {bh}x{bw}) "
+                  f"launched {launches}, expected {want}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+
+            def flow_fn(a, b, plain=False):
+                if algo == "tvl1":
+                    return tvl1(a, b, tv, plain=plain)
+                return farneback(a, b, fbc, plain=plain)
+
+            gray = rgb_to_gray(torch.from_numpy(_load_frames(src, None)).to(
+                dev))
+            prev, nxt = gray[:-1], gray[1:]
+            with torch.no_grad():
+                plain = bucketed_flow(lambda a, b: flow_fn(a, b, True), prev,
+                                      nxt).cpu().numpy()
+                got = flows["bucketed"]
+                dev_abs = float(np.abs(got - plain).max())
+                tol = 10 * tv.epsilon if algo == "tvl1" else TOL_FB
+                check(got.shape == (n - 1, h, w, 2) and dev_abs <= tol,
+                      f"compute-flow --algo {algo} at {h}x{w}: {got.shape}, "
+                      f"max abs {dev_abs} against the plain path's "
+                      f"bucketed flow")
+                mean = got[0, 32:-32, 32:-32].reshape(-1, 2).mean(0).tolist()
+                check(abs(mean[0] - VEL[0]) < TOL_MEAN_FLOW
+                      and abs(mean[1] - VEL[1]) < TOL_MEAN_FLOW,
+                      f"bucketed {algo} at {h}x{w}: mean flow {mean}")
+                t = [cuda_ms(torch, f, 3) for f in (
+                    lambda: bucketed_flow(flow_fn, prev, nxt),
+                    lambda: flow_fn(prev, nxt), lambda: flow_fn(prev, nxt),
+                    lambda: bucketed_flow(flow_fn, prev, nxt))]
+            report[f"{algo} {h}x{w}"] = {
+                "bucket": [bh, bw], "pairs": n - 1,
+                "launches": {k: v for k, v in launches.items() if v},
+                "launches_native": {k: v for k, v in counts["native"].items()
+                                    if v},
+                "max_abs_vs_plain_path": dev_abs,
+                "bit_equal_to_plain_path": bool(np.array_equal(got, plain)),
+                "tolerance": tol, "mean_flow": mean,
+                "max_abs_bucketed_vs_native": float(
+                    np.abs(got - flows["native"]).max()),
+                "command_seconds": seconds["bucketed"],
+                "command_seconds_native": seconds["native"],
+                "flow_call_ms": [t[0], t[3]],
+                "flow_call_ms_native": [t[1], t[2]],
+                "pixels_ratio": bh * bw / (h * w)}
+    emit({"phase": "compute_flow_bucketed", "by_command": report, **CARD})
+    return total
+
+
+# tools/torch_flow_quality.py at its defaults but --val-batches (4 there).
+FQ_HW, FQ_BATCH, FQ_VAL_BATCHES, FQ_REPS = 224, 16, 2, 4
+TOL_FQ = 1e-6          # EPE, kernels against their plain versions
+
+
+def flow_quality_phase(torch, np, dev):
+    """``tools/torch_flow_quality.py``'s shoot-out on the card at 224², 16
+    pairs a call, ``TVL1Config()``, ``FarnebackConfig()`` and the bundled
+    SpyNet, 2 validation batches (the tool's default is 4): each
+    algorithm's EPE per family with the launch counts set to 0 just before
+    and held just after to ``expected_flow_launches`` at 224² times the
+    calls (5 ``tvl1_scale``; 3 ``fb_prologue`` + 9 ``fb_iteration``;
+    SpyNet none), the same EPEs through the kernels' plain versions (TV-L1
+    and Farneback) within 1e-6, pairs/s and the launches of one call; the
+    tool's table.  Returns the launches per kernel of the EPE passes."""
+    import importlib.util
+
+    from video_analytics_tpu_torch.models.spynet import synthetic_pair
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_flow_quality", os.path.join(HERE, "tools",
+                                           "torch_flow_quality.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    fams = tool.families(FQ_HW, FQ_BATCH, FQ_VAL_BATCHES)
+    calls = sum(len(batches) for _, batches in fams.values())
+    fns, ckpt = tool.flow_functions(dev)
+    plain_fns, _ = tool.flow_functions(dev, plain=True)
+    prev, nxt, _ = synthetic_pair(torch.Generator().manual_seed(5), FQ_BATCH,
+                                  FQ_HW, FQ_HW, local_blobs=2)
+    prev, nxt = prev.to(dev), nxt.to(dev)
+    zero, read = flow_counters()
+    results, total, report = {}, {}, {}
+    for name, fn in fns.items():
+        zero()
+        t0 = time.perf_counter()
+        res = tool.measure_epe(fn, fams, dev)
+        epe_s = time.perf_counter() - t0
+        launches = read()
+        want = {k: calls * v for k, v in
+                expected_flow_launches(name, FQ_HW, FQ_HW).items()}
+        check(launches == want,
+              f"flow quality {name}: {launches} over {calls} calls, "
+              f"expected {want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        err = None
+        if name != "spynet":
+            plain = tool.measure_epe(plain_fns[name], fams, dev)
+            err = max(abs(res[k] - plain[k]) for k in res)
+            check(err <= TOL_FQ,
+                  f"flow quality {name}: EPE kernels vs plain {err}: {res} "
+                  f"{plain}")
+        res["pairs_per_sec"] = tool.pairs_per_sec(fn, prev, nxt, FQ_REPS)
+        results[name] = res
+        report[name] = {**res, "epe_seconds": epe_s, "calls": calls,
+                        "max_abs_epe_vs_plain": err,
+                        "launches_per_call": tool.launches_of_one_call(
+                            fn, prev, nxt)}
+    emit({"phase": "flow_quality", "hw": FQ_HW, "batch": FQ_BATCH,
+          "val_batches": FQ_VAL_BATCHES, "reps": FQ_REPS,
+          "by_algo": report, **CARD})
+    tool.print_results(results, FQ_HW, FQ_BATCH,
+                       os.path.relpath(ckpt, HERE))
+    return total
+
+
 def native_phases(torch, np, dev, chain: bool = True):
     """The native-resolution flow command and, with `chain`, the stage
     commands that read what it wrote, in one temporary directory.  Returns
@@ -4560,7 +4803,8 @@ def main(argv=None) -> int:
                              "tvl1_chunk_kernels", "tvl1_1080p",
                              "stage_chain", "eval_ucf101", "train",
                              "spynet", "distributed", "model_axis", "warmup",
-                             "sustained", "async_checkpoint", "bf16"],
+                             "sustained", "async_checkpoint", "bf16",
+                             "compute_flow_bucketed", "flow_quality"],
                     help="run the build and this phase alone (stage_chain "
                          "with tvl1_1080p, whose directories it reads; "
                          "model_axis is the last part of distributed), for "
@@ -4636,6 +4880,10 @@ def main(argv=None) -> int:
         async_checkpoint_phase(torch, np, dev)
     elif args.only == "bf16":
         bf16_phase(torch, np, dev)
+    elif args.only == "compute_flow_bucketed":
+        compute_flow_bucketed_phase(torch, np, dev)
+    elif args.only == "flow_quality":
+        flow_quality_phase(torch, np, dev)
     elif args.only:
         native_phases(torch, np, dev, args.only == "stage_chain")
     if args.only:
@@ -4841,6 +5089,10 @@ def main(argv=None) -> int:
     # -- 18. the reference's bfloat16 CNN -------------------------------------
     bf16_launches = bf16_phase(torch, np, dev)
 
+    # -- 19-20. compute-flow's bucket ladder; the flow-quality shoot-out ------
+    bucket_launches = compute_flow_bucketed_phase(torch, np, dev)
+    fq_launches = flow_quality_phase(torch, np, dev)
+
     # -- the kernel table -----------------------------------------------------
     # TV-L1 bounds at 224², 15 pairs.  Planes moved: warp_prep reads I1 and
     # its gradients, I0 and the flow and writes 4; pd_step reads prep, the
@@ -4959,7 +5211,10 @@ def main(argv=None) -> int:
                        "launches_sustained": sustained_launches.get(name, 0),
                        "launches_async_checkpoint":
                            async_launches.get(name, 0),
-                       "launches_bf16": bf16_launches.get(name, 0)}
+                       "launches_bf16": bf16_launches.get(name, 0),
+                       "launches_compute_flow_bucketed":
+                           bucket_launches.get(name, 0),
+                       "launches_flow_quality": fq_launches.get(name, 0)}
                       for name, source, replaces, also in rows]})
     emit({"phase": "profiler", **PROFILER})
     print(gpu, flush=True)

@@ -2,8 +2,9 @@
 compute-flow, extract-features, classify-clip and serve, driven end to
 end on a synthetic clip, in the pattern of tests/test_cli.py.
 compute-flow is also held against the JAX package's command at the
-native resolution (``--no-bucket``): Farneback within 1e-4 end-point
-error, as in tests/test_torch_farneback.py.  extract-features (frames
+native resolution (``--no-bucket`` in both; the default bucketing is
+tests/test_torch_bucketing.py's): Farneback within 1e-4 end-point error,
+as in tests/test_torch_farneback.py.  extract-features (frames
 and stored flow) and classify-clip are held against the JAX package's
 commands on the same clip and the same checkpoint file, with Farneback
 and with TV-L1 at ε = 0 (with ε > 0 the reference's XLA solver stops a
@@ -47,13 +48,14 @@ def test_extract_frames(tmp_path, tiny_clip, capsys):
 
 def test_compute_flow_flo_matches_reference(tmp_path, tiny_clip, capsys):
     ours_dir, ref_dir = str(tmp_path / "ours"), str(tmp_path / "ref")
-    args = ["--algo", "farneback", "--max-frames", "4", "--batch", "2"]
+    args = ["--algo", "farneback", "--max-frames", "4", "--batch", "2",
+            "--no-bucket"]
     rc, res = run_cli(capsys, ["compute-flow", tiny_clip, ours_dir, *args,
                                *CPU])
     assert rc == 0 and res == {"flows": 3, "algo": "farneback",
                                "format": "flo", "out_dir": ours_dir}
     assert jax_main(["compute-flow", tiny_clip, ref_dir, *args,
-                     "--no-bucket", "--exact"]) == 0
+                     "--exact"]) == 0
     capsys.readouterr()
     for i in (1, 2, 3):
         ours = read_flo(os.path.join(ours_dir, f"flow_{i:06d}.flo"))
@@ -104,23 +106,22 @@ def test_compute_flow_viz_from_frames_dir(tmp_path, tiny_clip, capsys):
 
 
 def test_compute_flow_spynet_matches_reference(tmp_path, tiny_clip, capsys):
-    """--algo spynet at the native resolution against the JAX command's
-    ``--no-bucket`` (its default pads to multiples of 64, which moves
-    SpyNet's border pixels), on the bundled weights and on a
-    --spynet-checkpoint file: .flo files within 1e-4 px."""
+    """--algo spynet at the native resolution (``--no-bucket`` in both
+    commands: the default pads to multiples of 64, which moves SpyNet's
+    border pixels), on the bundled weights and on a --spynet-checkpoint
+    file: .flo files within 1e-4 px."""
     from video_analytics_tpu_torch.models.spynet import (
         default_spynet_checkpoint)
     for extra in ([], ["--spynet-checkpoint", default_spynet_checkpoint()]):
         ours_dir = str(tmp_path / f"ours{len(extra)}")
         ref_dir = str(tmp_path / f"ref{len(extra)}")
         args = ["--algo", "spynet", "--max-frames", "4", "--batch", "2",
-                *extra]
+                "--no-bucket", *extra]
         rc, res = run_cli(capsys, ["compute-flow", tiny_clip, ours_dir,
                                    *args, *CPU])
         assert rc == 0 and res == {"flows": 3, "algo": "spynet",
                                    "format": "flo", "out_dir": ours_dir}
-        assert jax_main(["compute-flow", tiny_clip, ref_dir, *args,
-                         "--no-bucket"]) == 0
+        assert jax_main(["compute-flow", tiny_clip, ref_dir, *args]) == 0
         capsys.readouterr()
         for i in (1, 2, 3):
             ours = read_flo(os.path.join(ours_dir, f"flow_{i:06d}.flo"))
@@ -149,9 +150,8 @@ def test_compute_flow_errors(tmp_path, tiny_clip, capsys, monkeypatch):
 
 def test_compute_flow_cv2_param_surface(tmp_path, tiny_clip, capsys):
     """The --fb-* flags reach the algorithm.  The reference's --exact and
-    --no-bucket choose between paths the port does not have (its warp is
-    always the exact gather, its flow always at the native resolution):
-    the parser refuses them."""
+    --no-bucket are accepted (what they write is
+    tests/test_torch_bucketing.py's)."""
     d1, d2, d3 = (str(tmp_path / n) for n in ("a", "b", "c"))
     base = ["--algo", "farneback", "--max-frames", "3", "--batch", "2", *CPU]
     rc1, _ = run_cli(capsys, ["compute-flow", tiny_clip, d1, *base])
@@ -162,10 +162,9 @@ def test_compute_flow_cv2_param_surface(tmp_path, tiny_clip, capsys):
     a, b = (read_flo(os.path.join(d, "flow_000001.flo")) for d in (d1, d2))
     assert np.abs(a - b).max() > 1e-6
     for flag in ("--exact", "--no-bucket"):
-        with pytest.raises(SystemExit) as exc:
-            main(["compute-flow", tiny_clip, d3, *base, flag])
-        assert exc.value.code == 2
-    capsys.readouterr()
+        rc, res = run_cli(capsys, ["compute-flow", tiny_clip, d3, *base,
+                                   flag])
+        assert rc == 0 and res["flows"] == 2
 
 
 def test_serve_farneback_on_cpu(monkeypatch, capsys, tiny_clip, tmp_path):

@@ -8,7 +8,8 @@ checkpoint (also through ``AsyncCheckpointer``), takes one two-stream
 train step, runs the bundled SpyNet and
 trains one with ``tools/torch_train_spynet.py``, and evaluates a synthetic
 UCF101 in a one-process gloo group (``parallel/mesh``), through
-``evaluate_batched`` and ``evaluate_batched_multiprocess``."""
+``evaluate_batched`` and ``evaluate_batched_multiprocess``; and, in a second
+such interpreter, runs ``tools/torch_flow_quality.py`` at a small size."""
 
 import os
 import subprocess
@@ -159,3 +160,46 @@ def test_port_runs_without_jax_or_the_jax_package():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "served 2" in proc.stdout
+
+
+TOOL_CODE = r"""
+import sys
+for name in ("jax", "flax", "msgpack", "video_analytics_tpu"):
+    sys.modules[name] = None          # any import of it raises ImportError
+
+import contextlib, importlib.util, io, json, os
+import torch
+from video_analytics_tpu_torch.config import FarnebackConfig, TVL1Config
+
+torch.set_num_threads(1)
+spec = importlib.util.spec_from_file_location(
+    "torch_flow_quality", os.path.join("tools", "torch_flow_quality.py"))
+tool = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tool)
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    rc = tool.main(["--hw", "80", "--batch", "1", "--val-batches", "1",
+                    "--reps", "1", "--device", "cpu"],
+                   tvl1_cfg=TVL1Config(nscales=1, warps=1, outer_iterations=1,
+                                       inner_iterations=2),
+                   fb_cfg=FarnebackConfig(levels=1, iterations=1))
+res = [json.loads(ln) for ln in out.getvalue().splitlines()
+       if ln.startswith('{"hw"')]
+assert rc == 0 and res and set(res[0]) >= {"spynet", "tvl1", "farneback"}
+bad = [m for m in ("jax", "flax", "msgpack", "video_analytics_tpu")
+       if sys.modules.get(m) is not None]
+assert not bad, bad
+print("flow quality", sorted(res[0]["tvl1"]))
+"""
+
+
+def test_flow_quality_tool_runs_without_jax_or_the_jax_package():
+    """tools/torch_flow_quality.py, a small run on the CPU, in an
+    interpreter where jax, flax, msgpack and the JAX package cannot be
+    imported."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", TOOL_CODE], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "flow quality" in proc.stdout

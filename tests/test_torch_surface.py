@@ -46,8 +46,6 @@ NOT_PORTED = {
     ("parallel/mesh.py", "assemble_global_batch"): MESH,
     ("runtime/train.py", "shard_train_inputs"):
         MESH + "; broadcast_from_first and average_gradients stand for it",
-    ("ops/bucketing.py", "bucket_hw"): QUEUE1,
-    ("ops/bucketing.py", "bucketed_flow"): QUEUE1,
     ("utils/platform.py", "on_tpu"): QUEUE1,
     ("utils/platform.py", "pallas_interpret"): QUEUE1,
     ("utils/platform.py", "default_compute_dtype"): QUEUE1,

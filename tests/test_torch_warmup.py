@@ -1,5 +1,5 @@
 """``tpuva-torch warmup`` on the CPU at tiny sizes: its JSON has the JAX
-command's keys (one ``compiled`` entry per algorithm and size, and per
+command's keys (one ``compiled`` entry per algorithm and bucket, and per
 algorithm and classify surface, and ``cache_dir``, here the kernels' build
 directory), ``warm_batched`` runs the batch function at the shape that
 ``eval-ucf101 --batched`` then dispatches for clips of ``--src``, and an
@@ -64,8 +64,8 @@ def test_warmup_entries_have_the_reference_keys(surface, capsys,
     eval_ = [e for e in out["compiled"] if e.get("surface") == "eval-batched"]
     serve = [e for e in out["compiled"] if e.get("surface") == "serve"]
     assert len(flow) + len(eval_) + len(serve) == len(out["compiled"])
-    want_flow = ([(a, hw) for a in ("tvl1", "farneback")
-                  for hw in ([24, 32], [30, 40])]
+    # 24x32 and 30x40 share one bucket, warmed once per algorithm.
+    want_flow = ([(a, [64, 64]) for a in ("tvl1", "farneback")]
                  if surface in ("flow", "all") else [])
     assert [(e["algo"], e["bucket"]) for e in flow] == want_flow
     classify = surface in ("classify", "all")
@@ -80,9 +80,10 @@ def test_warmup_entries_have_the_reference_keys(surface, capsys,
 
 
 def test_flow_entry_keys_equal_the_jax_commands(capsys):
-    """The JAX command's flow entry on the same flags (its bucket is the
-    64-multiple ladder's; the port's the size as given)."""
-    argv = ["warmup", "--algos", "farneback", "--sizes", "24x32",
+    """The JAX command's flow entries on the same flags: the same keys,
+    and the same algorithm and bucket (the 64-multiple ladder's, each
+    bucket once) in the same order."""
+    argv = ["warmup", "--algos", "farneback", "--sizes", "24x32,30x40,70x40",
             "--batch", "1", "--surface", "flow",
             *[a for a in MODEL if a not in ("--device", "cpu")]]
     assert jax_main(argv) == 0
@@ -90,8 +91,10 @@ def test_flow_entry_keys_equal_the_jax_commands(capsys):
     ours = _run(argv + ["--device", "cpu"], capsys)
     assert set(ours) == set(theirs)
     assert [set(e) for e in ours["compiled"]] == [
-        set(e) for e in theirs["compiled"]] == [FLOW_KEYS]
-    assert ours["compiled"][0]["bucket"] == [24, 32]
+        set(e) for e in theirs["compiled"]] == [FLOW_KEYS] * 2
+    assert ([(e["algo"], e["bucket"]) for e in ours["compiled"]]
+            == [(e["algo"], e["bucket"]) for e in theirs["compiled"]]
+            == [("farneback", [64, 64]), ("farneback", [128, 64])])
 
 
 def test_warm_batched_shape_is_what_eval_dispatches(tmp_path, capsys,

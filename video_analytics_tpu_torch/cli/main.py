@@ -3,12 +3,11 @@
 Port of the ``extract-frames``, ``compute-flow``, ``extract-features``,
 ``classify-clip``, ``serve``, ``eval-ucf101``, ``convert-weights``,
 ``train`` and ``warmup`` subcommands of ``video_analytics_tpu/cli/main.py``,
-with the same flags and the same JSON lines (less ``compute-flow``'s
-``--exact`` and ``--no-bucket``, which choose between paths the port does
-not have: its warp is always the exact gather, its flow always at the
-native resolution) and, for ``serve``, the same stdin/stdout line
-protocol.  ``eval-ucf101 --batched`` and ``train`` run as one process per
-device with ``--coordinator host:port --num-processes N --process-id I``
+with the same flags and the same JSON lines and, for ``serve``, the same
+stdin/stdout line protocol.  ``compute-flow`` pads each frame pair to the
+reference's 64-pixel buckets unless ``--no-bucket``.  ``eval-ucf101
+--batched`` and ``train`` run as one process per device with
+``--coordinator host:port --num-processes N --process-id I``
 (``parallel/mesh``; NCCL between CUDA devices, gloo on the CPU).  The
 model is initialised from a seed (``serve --seed`` and ``train --seed``, 0
 elsewhere) unless ``--checkpoint`` (``train``: ``--init-checkpoint``)
@@ -94,9 +93,16 @@ def _write_flow(out_dir: str, idx: int, flow, fmt: str, bound: float
 
 def cmd_compute_flow(args) -> int:
     """Dense flow of every consecutive frame pair of a clip or frames
-    directory, at the native resolution, `--batch` pairs per call."""
+    directory, `--batch` pairs per call.  As in the reference, each call
+    pads its pairs at the edges to the next multiple of 64 on both axes,
+    computes the flow there and crops it back (``ops/bucketing``), which
+    changes the flow in a border band; ``--no-bucket`` computes at the
+    native resolution.  ``--exact`` sets ``PipelineConfig.exact_warp`` as
+    the reference does; the port's warp is always the exact gather, so it
+    changes nothing."""
     import torch
     from video_analytics_tpu_torch.config import PipelineConfig
+    from video_analytics_tpu_torch.ops.bucketing import bucketed_flow
     from video_analytics_tpu_torch.ops.preprocess import rgb_to_gray
     from video_analytics_tpu_torch.runtime.pipeline import compute_flow
     from video_analytics_tpu_torch.utils.device import require_cuda
@@ -108,14 +114,20 @@ def cmd_compute_flow(args) -> int:
         print("error: need at least 2 frames for flow", file=sys.stderr)
         return 2
     fb, tv = _flow_configs(args)
-    cfg = PipelineConfig(flow_algo=args.algo, farneback=fb, tvl1=tv)
+    cfg = PipelineConfig(flow_algo=args.algo, farneback=fb, tvl1=tv,
+                         exact_warp=args.exact)
+
+    def flow_fn(prev, nxt):
+        return compute_flow(prev, nxt, cfg, flow_net=flow_net)
+
     os.makedirs(args.out_dir, exist_ok=True)
     written = 0
     with torch.no_grad():
         gray = rgb_to_gray(torch.from_numpy(frames).to(device))
         for s, e in _chunked(len(frames) - 1, args.batch):
-            flow = compute_flow(gray[s:e], gray[s + 1:e + 1], cfg,
-                                flow_net=flow_net)
+            prev, nxt = gray[s:e], gray[s + 1:e + 1]
+            flow = (flow_fn(prev, nxt) if args.no_bucket
+                    else bucketed_flow(flow_fn, prev, nxt))
             for i, f in enumerate(flow.cpu().numpy()):
                 _write_flow(args.out_dir, s + i + 1, f, args.format,
                             args.bound)
@@ -658,8 +670,9 @@ def cmd_warmup(args) -> int:
     allocator's first blocks at each shape (both per process).
 
     ``--surface flow``: ``compute_flow`` on ``--batch`` pairs of zeros at
-    each of ``--sizes``, as ``compute-flow --batch`` calls it (at the size
-    given: the port has no bucket ladder).  ``--surface classify``: the
+    each size's bucket (``ops/bucketing.bucket_hw``), the shape at which
+    ``compute-flow --batch`` then calls it, once per bucket.  ``--surface
+    classify``: the
     batch function of ``eval-ucf101 --batched`` at the shape it dispatches
     for clips of ``--src`` (decode, host resize, transport crop, a batch of
     ``--batch-clips``; ``runtime/evaluate.warm_batched``) and the serve /
@@ -672,6 +685,7 @@ def cmd_warmup(args) -> int:
     import numpy as np
     import torch
     from video_analytics_tpu_torch.config import PipelineConfig
+    from video_analytics_tpu_torch.ops.bucketing import bucket_hw
     from video_analytics_tpu_torch.ops.cuda import _build
     from video_analytics_tpu_torch.runtime.pipeline import compute_flow
     from video_analytics_tpu_torch.utils.device import require_cuda
@@ -696,13 +710,13 @@ def cmd_warmup(args) -> int:
     if args.surface in ("flow", "all"):
         for algo in algos:
             cfg = PipelineConfig(flow_algo=algo, farneback=fb, tvl1=tv)
-            for h, w in dict.fromkeys(sizes):
-                x = torch.zeros((args.batch, h, w), device=device)
+            for bh, bw in dict.fromkeys(bucket_hw(h, w) for h, w in sizes):
+                x = torch.zeros((args.batch, bh, bw), device=device)
                 with torch.no_grad():
                     _, secs = timed(lambda: compute_flow(x, x, cfg))
-                compiled.append({"algo": algo, "bucket": [h, w],
+                compiled.append({"algo": algo, "bucket": [bh, bw],
                                  "secs": secs})
-                print(f"warmed {algo} {h}x{w} in {secs}s", file=sys.stderr)
+                print(f"warmed {algo} {bh}x{bw} in {secs}s", file=sys.stderr)
     if args.surface in ("classify", "all"):
         from video_analytics_tpu_torch.ingest.windows import (
             host_resize_short, slice_crop_source)
@@ -788,6 +802,14 @@ def build_parser() -> argparse.ArgumentParser:
     cf.add_argument("--algo", choices=["tvl1", "farneback", "spynet"],
                     default="tvl1",
                     help="flow algorithm")
+    cf.add_argument("--exact", action="store_true",
+                    help="force the exact gather warp (cv2 warp "
+                         "semantics); the port's warp always is, so this "
+                         "changes nothing")
+    cf.add_argument("--no-bucket", action="store_true",
+                    help="compute flow at the exact native resolution "
+                         "instead of padding to the 64px shape ladder "
+                         "(which changes the flow in a border band)")
     cf.add_argument("--format", choices=["flo", "jpg", "viz"],
                     default="flo",
                     help="flo = raw .flo files; jpg = quantized uint8 "
