@@ -8,7 +8,8 @@ Run from the root of a checkout, with no arguments:
 It imports no JAX, and fails (non-zero exit, no result line) where
 ``torch.cuda.is_available()`` is false or the package is not beside it.
 OpenCV is needed by the phases that drive the command line (7, 9-12, 19)
-and by the flow-quality families (20), as by the commands themselves.
+by the flow-quality families (20) and by the breakdown's clips (21), as
+by the commands themselves.
 Phases, each reported on a JSON line:
 
 1. build: compile every CUDA kernel of the port from
@@ -206,7 +207,17 @@ Phases, each reported on a JSON line:
    batches: EPE per family with the launches held (5 ``tvl1_scale``, or 3
    K-D and 9 ``fb_iteration``, a call; none for SpyNet), the same EPEs
    through the plain versions within 1e-6, pairs/s, the tool's table
-   (``flow_quality_phase``).
+   (``flow_quality_phase``);
+21. eval_breakdown: ``tools/torch_eval_breakdown.py``'s split of batched
+   evaluation at its full protocol (32 synthetic UCF101 clips of 48 frames
+   at 240×320, ``PipelineConfig(flow_algo="farneback", window=16)``, the
+   bfloat16 two-stream model from seed 0, batches of 8, 2 decode workers):
+   decode, host preparation, the pinned copy, device time deep and single,
+   end-to-end clips/s; every key of the reference's line finite, every
+   pass 32 clips and no failure, the ledger adding up, and each timed
+   pass's launches held to 4 batch calls of ``expected_flow_launches`` at
+   224² (12 K-D, 36 ``fb_iteration``, nothing else)
+   (``eval_breakdown_phase``).
 ``--only <phase>`` runs the build and that phase alone.
 
 Then it prints the kernel table (``{"kernels": [...]}``: for each kernel
@@ -218,8 +229,8 @@ its ``--fb-winsize 201`` command; under ``launches_eval_ucf101`` those
 of phase 11's commands, under ``launches_train`` those of phase 12's,
 under ``launches_distributed``, ``launches_warmup``,
 ``launches_sustained``, ``launches_async_checkpoint``, ``launches_bf16``,
-``launches_compute_flow_bucketed`` and ``launches_flow_quality`` those of
-phases 14-20;
+``launches_compute_flow_bucketed``, ``launches_flow_quality`` and
+``launches_eval_breakdown`` those of phases 14-21;
 K-H, K-B (and its launches with the ε test) and ``fb_window_solve``,
 whose arithmetic the commands run inside ``tvl1_scale`` and
 ``fb_iteration`` or only at shapes no command here gives, are on no
@@ -4771,6 +4782,86 @@ def flow_quality_phase(torch, np, dev):
     return total
 
 
+# The keys of tools/eval_breakdown.py's JSON line and of its ledger.
+EB_KEYS = ("decode_ms_per_clip", "hostprep_ms_per_batch",
+           "deviceput_ms_per_batch", "batch_mb", "implied_transfer_mbps",
+           "device_ms_per_batch_deep", "device_ms_per_batch_single",
+           "dispatch_rtt_ms", "clips_per_sec_e2e")
+EB_LEDGER = ("wall_ms_per_clip", "decode_per_clip_2workers",
+             "deviceput_per_clip", "device_compute_per_clip",
+             "dispatch_rtt_per_clip", "hostprep_per_clip",
+             "decode_not_hidden", "unattributed")
+# wall_ms_per_clip, decode_not_hidden and unattributed are each rounded to
+# 0.01, so the ledger's sum may miss the wall by three half-hundredths.
+TOL_EB_LEDGER = 0.015 + 1e-9
+
+
+def eval_breakdown_phase(torch, np, dev):
+    """``tools/torch_eval_breakdown.py``'s ``breakdown`` on the card at its
+    full protocol: the synthetic UCF101's 32 test clips (8 classes x 4, 48
+    frames at 240x320), ``PipelineConfig(flow_algo="farneback",
+    window=16)``, the bfloat16 model from seed 0, batches of 8, 2 decode
+    workers, 3 timed passes.  Each key of the reference's line must be
+    finite, every pass must evaluate the 32 clips with no failure (the tool
+    raises otherwise), the ledger must add up to the wall time per clip,
+    and each timed pass, its launch counts set to 0 just before and read
+    just after, must launch 4 batch calls' worth of
+    ``expected_flow_launches("farneback", 224, 224)`` (3 ``fb_prologue``
+    and 9 ``fb_iteration`` a call) and nothing else.  Returns the launches
+    per kernel summed over the timed passes."""
+    import importlib.util
+    import tempfile
+
+    from video_analytics_tpu_torch.config import PipelineConfig
+    from video_analytics_tpu_torch.io.synthetic import build_synthetic_ucf101
+    from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_eval_breakdown", os.path.join(HERE, "tools",
+                                             "torch_eval_breakdown.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    t0 = time.perf_counter()
+    cfg = PipelineConfig(flow_algo="farneback", window=16)
+    model = TwoStreamModel.create(num_classes=101, flow_stack=tool.FLOW_STACK,
+                                  dtype=torch.bfloat16)
+    model.init(torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    zero, read = flow_counters()
+    with tempfile.TemporaryDirectory() as root:
+        records = build_synthetic_ucf101(
+            root, num_classes=tool.NUM_CLASSES,
+            clips_per_class=tool.CLIPS_PER_CLASS,
+            num_frames=tool.NUM_FRAMES, h=tool.SRC_H, w=tool.SRC_W,
+            train_fraction=0.0).test_records()
+        dataset_s = time.perf_counter() - t0
+        res = tool.breakdown(records, model, cfg, dev, counters=(zero, read))
+    check(len(records) == 32, f"eval breakdown: {len(records)} test clips")
+    bad = [k for k in EB_KEYS if not np.isfinite(res.get(k, np.nan))]
+    bad += [k for k in EB_LEDGER
+            if not np.isfinite(res["ledger"].get(k, np.nan))]
+    check(not bad and len(res["e2e_passes"]) == tool.PASSES
+          and all(np.isfinite(res["e2e_passes"])),
+          f"eval breakdown: keys missing or not finite {bad}: {res}")
+    led = res["ledger"]
+    parts = sum(led[k] for k in EB_LEDGER[2:])
+    check(abs(led["wall_ms_per_clip"] - parts) <= TOL_EB_LEDGER,
+          f"eval breakdown: the ledger's terms sum to {parts}, the wall "
+          f"{led['wall_ms_per_clip']}: {led}")
+    calls = len(records) // tool.BATCH_CLIPS
+    want = {k: calls * v for k, v in
+            expected_flow_launches("farneback", 224, 224).items()}
+    for launches in res["launches_per_pass"]:
+        check(launches == want, f"eval breakdown: a pass launched "
+                                f"{launches}, expected {want}")
+    emit({"phase": "eval_breakdown", "seconds": time.perf_counter() - t0,
+          "dataset_seconds": dataset_s, "clips": len(records),
+          "batch_clips": tool.BATCH_CLIPS, "workers": tool.NUM_WORKERS,
+          "launches_per_pass_want": want, **res, **CARD})
+    tool.print_ledger(res, tool.NUM_WORKERS)
+    return {k: sum(p[k] for p in res["launches_per_pass"]) for k in want}
+
+
 def native_phases(torch, np, dev, chain: bool = True):
     """The native-resolution flow command and, with `chain`, the stage
     commands that read what it wrote, in one temporary directory.  Returns
@@ -4804,7 +4895,8 @@ def main(argv=None) -> int:
                              "stage_chain", "eval_ucf101", "train",
                              "spynet", "distributed", "model_axis", "warmup",
                              "sustained", "async_checkpoint", "bf16",
-                             "compute_flow_bucketed", "flow_quality"],
+                             "compute_flow_bucketed", "flow_quality",
+                             "eval_breakdown"],
                     help="run the build and this phase alone (stage_chain "
                          "with tvl1_1080p, whose directories it reads; "
                          "model_axis is the last part of distributed), for "
@@ -4884,6 +4976,8 @@ def main(argv=None) -> int:
         compute_flow_bucketed_phase(torch, np, dev)
     elif args.only == "flow_quality":
         flow_quality_phase(torch, np, dev)
+    elif args.only == "eval_breakdown":
+        eval_breakdown_phase(torch, np, dev)
     elif args.only:
         native_phases(torch, np, dev, args.only == "stage_chain")
     if args.only:
@@ -5093,6 +5187,9 @@ def main(argv=None) -> int:
     bucket_launches = compute_flow_bucketed_phase(torch, np, dev)
     fq_launches = flow_quality_phase(torch, np, dev)
 
+    # -- 21. the split of batched evaluation's clips/s ------------------------
+    eb_launches = eval_breakdown_phase(torch, np, dev)
+
     # -- the kernel table -----------------------------------------------------
     # TV-L1 bounds at 224², 15 pairs.  Planes moved: warp_prep reads I1 and
     # its gradients, I0 and the flow and writes 4; pd_step reads prep, the
@@ -5214,7 +5311,8 @@ def main(argv=None) -> int:
                        "launches_bf16": bf16_launches.get(name, 0),
                        "launches_compute_flow_bucketed":
                            bucket_launches.get(name, 0),
-                       "launches_flow_quality": fq_launches.get(name, 0)}
+                       "launches_flow_quality": fq_launches.get(name, 0),
+                       "launches_eval_breakdown": eb_launches.get(name, 0)}
                       for name, source, replaces, also in rows]})
     emit({"phase": "profiler", **PROFILER})
     print(gpu, flush=True)

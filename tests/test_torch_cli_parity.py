@@ -1,0 +1,84 @@
+"""The port's command line against the JAX package's, parser by parser.
+
+For each of the nine subcommands both ``build_parser()`` trees are built
+and every action of the subcommand is held to the reference's: its option
+strings (a positional by its dest), default, type, choices, nargs,
+``required`` and action class.  The port may differ only where
+``PORT_ONLY`` names the flag, with its reason."""
+
+import argparse
+import importlib
+
+import pytest
+
+SUBCOMMANDS = ("extract-frames", "compute-flow", "extract-features",
+               "classify-clip", "serve", "eval-ucf101", "train",
+               "convert-weights", "warmup")
+COMPUTES = ("compute-flow", "extract-features", "classify-clip", "serve",
+            "eval-ucf101", "train", "warmup")
+DEVICE = ("the port runs on the card unless told otherwise; the reference "
+          "takes its device from JAX's platform")
+PORT_ONLY = {
+    **{(cmd, ("--device",)): DEVICE for cmd in COMPUTES},
+    ("serve", ("--seed",)):
+        "picks the seed of the random weights served without --checkpoint; "
+        "its default 0 is the reference's fixed seed, so the default "
+        "command serves the reference's weights (tests/test_torch_cli.py "
+        "uses it)",
+}
+
+
+def _subparsers(module: str):
+    parser = importlib.import_module(module).build_parser()
+    for action in parser._actions:
+        if isinstance(action, argparse._SubParsersAction):
+            return action.choices
+    raise AssertionError(f"{module}: no subcommands")
+
+
+def _actions(sub):
+    """{option strings, or (dest,) of a positional: what parsing with it
+    depends on}."""
+    return {tuple(a.option_strings) or (a.dest,):
+            {"default": a.default, "type": a.type, "choices": a.choices,
+             "nargs": a.nargs, "required": a.required,
+             "action": type(a).__name__}
+            for a in sub._actions}
+
+
+@pytest.fixture(scope="module")
+def parsers():
+    return (_subparsers("video_analytics_tpu.cli.main"),
+            _subparsers("video_analytics_tpu_torch.cli.main"))
+
+
+def test_same_subcommands(parsers):
+    ref, port = parsers
+    assert sorted(ref) == sorted(port) == sorted(SUBCOMMANDS)
+
+
+@pytest.mark.parametrize("cmd", SUBCOMMANDS)
+def test_subcommand_parser_matches_reference(parsers, cmd):
+    ref, port = (_actions(p[cmd]) for p in parsers)
+    missing = sorted(set(ref) - set(port))
+    assert not missing, f"{cmd}: the port lacks {missing}"
+    extra = sorted(k for k in set(port) - set(ref)
+                   if (cmd, k) not in PORT_ONLY)
+    assert not extra, f"{cmd}: port-only flags with no named reason {extra}"
+    for key, want in ref.items():
+        assert port[key] == want, (cmd, key, port[key], want)
+    named = {k for c, k in PORT_ONLY if c == cmd}
+    assert named <= set(port) - set(ref), (cmd, named)
+
+
+def test_train_accepts_fold_bn_and_ignores_it():
+    """``train --fold-bn`` parses to the same arguments as without it but
+    for the flag itself, as in the reference, whose ``cmd_train`` never
+    reads it."""
+    from video_analytics_tpu_torch.cli.main import build_parser
+
+    argv = ["train", "--videos", "v", "--annotations", "a", "--out", "o"]
+    plain = vars(build_parser().parse_args(argv))
+    folded = vars(build_parser().parse_args(argv + ["--fold-bn"]))
+    assert folded.pop("fold_bn") is True and plain.pop("fold_bn") is False
+    assert folded == plain

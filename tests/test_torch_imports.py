@@ -9,11 +9,16 @@ train step, runs the bundled SpyNet and
 trains one with ``tools/torch_train_spynet.py``, and evaluates a synthetic
 UCF101 in a one-process gloo group (``parallel/mesh``), through
 ``evaluate_batched`` and ``evaluate_batched_multiprocess``; and, in a second
-such interpreter, runs ``tools/torch_flow_quality.py`` at a small size."""
+such interpreter, where ``bench`` cannot be imported either, runs
+``tools/torch_flow_quality.py`` at a small size and
+``tools/torch_eval_breakdown.py``'s ledger.  Each tool of the reference has
+a ``tools/torch_*.py`` counterpart or a named reason (``TOOLS``)."""
 
 import os
 import subprocess
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -164,7 +169,7 @@ def test_port_runs_without_jax_or_the_jax_package():
 
 TOOL_CODE = r"""
 import sys
-for name in ("jax", "flax", "msgpack", "video_analytics_tpu"):
+for name in ("jax", "flax", "msgpack", "video_analytics_tpu", "bench"):
     sys.modules[name] = None          # any import of it raises ImportError
 
 import contextlib, importlib.util, io, json, os
@@ -186,20 +191,57 @@ with contextlib.redirect_stdout(out):
 res = [json.loads(ln) for ln in out.getvalue().splitlines()
        if ln.startswith('{"hw"')]
 assert rc == 0 and res and set(res[0]) >= {"spynet", "tvl1", "farneback"}
-bad = [m for m in ("jax", "flax", "msgpack", "video_analytics_tpu")
+spec = importlib.util.spec_from_file_location(
+    "torch_eval_breakdown", os.path.join("tools", "torch_eval_breakdown.py"))
+breakdown = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(breakdown)
+led = breakdown.ledger({"decode_ms_per_clip": 30.0,
+                        "hostprep_ms_per_batch": 4.0,
+                        "deviceput_ms_per_batch": 8.0,
+                        "device_ms_per_batch_deep": 16.0,
+                        "dispatch_rtt_ms": 2.0, "clips_per_sec_e2e": 50.0},
+                       8, 2)
+assert led["decode_not_hidden"] == 11.25 and led["unattributed"] == 5.0, led
+bad = [m for m in ("jax", "flax", "msgpack", "video_analytics_tpu", "bench")
        if sys.modules.get(m) is not None]
 assert not bad, bad
 print("flow quality", sorted(res[0]["tvl1"]))
+print("eval breakdown", led["wall_ms_per_clip"])
 """
 
 
 def test_flow_quality_tool_runs_without_jax_or_the_jax_package():
-    """tools/torch_flow_quality.py, a small run on the CPU, in an
-    interpreter where jax, flax, msgpack and the JAX package cannot be
-    imported."""
+    """tools/torch_flow_quality.py, a small run on the CPU, and
+    tools/torch_eval_breakdown.py's ledger, in an interpreter where jax,
+    flax, msgpack, the JAX package and bench.py cannot be imported."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", TOOL_CODE], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "flow quality" in proc.stdout
+    assert "eval breakdown 20.0" in proc.stdout
+
+
+# Each tool of the reference in tools/: its counterpart, or why none.
+TOOLS = {"eval_breakdown.py": "torch_eval_breakdown.py",
+         "flow_quality.py": "torch_flow_quality.py",
+         "train_spynet.py": "torch_train_spynet.py",
+         "roofline.py": "TPU-only: the TPU's roofline and MFU of the JAX "
+                        "package's hot programs",
+         "probe_halo_ceiling.py": "TPU-only: times the banded TV-L1 "
+                                  "solver's halo against the TPU's DMA "
+                                  "alignment"}
+# The port's own tools, with no reference counterpart.
+PORT_OWN = {"median_zero_one.py"}
+REFERENCE_TOOLS = sorted(
+    f for f in os.listdir(os.path.join(REPO, "tools"))
+    if f.endswith(".py") and not f.startswith("torch_") and f not in PORT_OWN)
+
+
+@pytest.mark.parametrize("name", REFERENCE_TOOLS)
+def test_every_reference_tool_is_mapped(name):
+    assert name in TOOLS, f"tools/{name} has no counterpart and no reason"
+    target = TOOLS[name]
+    if target.startswith("torch_"):
+        assert os.path.isfile(os.path.join(REPO, "tools", target)), target

@@ -30,7 +30,7 @@ REF, PORT = "video_analytics_tpu", "video_analytics_tpu_torch"
 NO_JIT = "no jit in the port: the eager function is the entry point"
 MESH = ("a process holds its own rows and a copy of the weights: no mesh "
         "and no global array (parallel/mesh.py's docstring maps each)")
-QUEUE1 = "TPU-only or tunnel-only (ROADMAP Queue 1 item 6)"
+QUEUE1 = "TPU-only or tunnel-only (ROADMAP Queue 1 item 3)"
 NOT_PORTED = {
     ("flow/tvl1.py", "tvl1_jit"): NO_JIT,
     ("flow/farneback.py", "farneback_jit"): NO_JIT,

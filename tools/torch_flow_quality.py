@@ -29,6 +29,14 @@ draws them from JAX's PRNG, so these two rows are the same distribution,
 not the same arrays.  The EPE is ``sqrt(|flow - gt|² + 1e-12)``, the mean
 over pixels and then over batches, taken in float64 on the host.
 
+TV-L1 here is the port's, whose warp is always the exact bilinear gather.
+The reference's table for TV-L1 was taken on the TPU through the Pallas
+path's default separable warp (``exact_warp=False``, a row-then-column
+resample), so its TV-L1 EPEs are not this tool's: on the same numpy
+arrays the JAX package's Pallas path with ``exact_warp=True`` gives this
+tool's rotzoom, squares and brightness EPEs, and with the separable warp
+the reference's higher ones.
+
 Prints one line per algorithm, a line with the device (the card's name
 and power limit as nvidia-smi reports them), the rates and each
 algorithm's hand-kernel launches for one call, the reference's JSON line
@@ -38,7 +46,6 @@ and its markdown table.  With --device cuda and no card it fails.
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -297,24 +304,6 @@ def launches_of_one_call(fn, prev, nxt):
             if n > before[k]}
 
 
-def device_name(device) -> str:
-    """The card's "name, power.limit" as nvidia-smi reports them
-    (``torch.cuda.get_device_name`` without nvidia-smi); "cpu" on the
-    CPU."""
-    import torch
-
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        return dev.type
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60, check=True).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return torch.cuda.get_device_name(dev)
-
-
 def rounded(res):
     """One algorithm's results as the reference prints them: EPEs to 4
     places, pairs/s to 1."""
@@ -357,7 +346,7 @@ def main(argv=None, tvl1_cfg=None, fb_cfg=None) -> int:
 
     import torch
     from video_analytics_tpu_torch.models.spynet import synthetic_pair
-    from video_analytics_tpu_torch.utils.device import require_cuda
+    from video_analytics_tpu_torch.utils.device import card_name, require_cuda
 
     device = require_cuda(args.device)
     fns, ckpt = flow_functions(device, args.spynet_checkpoint, tvl1_cfg,
@@ -373,7 +362,7 @@ def main(argv=None, tvl1_cfg=None, fb_cfg=None) -> int:
         launches[name] = launches_of_one_call(fn, prev, nxt)
         results[name] = res
         print(f"{name}: {rounded(res)}", flush=True)
-    print(json.dumps({"device": str(device), "card": device_name(device),
+    print(json.dumps({"device": str(device), "card": card_name(device),
                       "pairs_per_sec": {n: r["pairs_per_sec"]
                                         for n, r in results.items()},
                       "launches_per_call": launches}), flush=True)

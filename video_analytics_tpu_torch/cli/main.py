@@ -875,7 +875,9 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--raw", action="store_true",
                     help="skip host shape normalisation")
     sv.add_argument("--seed", type=int, default=0,
-                    help="seed of the random model weights")
+                    help="seed of the random model weights without "
+                         "--checkpoint (the port's own flag; its default "
+                         "is the reference's fixed seed 0)")
     _add_flow_args(sv)
     sv.set_defaults(fn=cmd_serve)
 
@@ -916,6 +918,9 @@ def build_parser() -> argparse.ArgumentParser:
                     default="tvl1",
                     help="flow algorithm feeding the temporal stream")
     _add_model_args(tr, inference=False)
+    tr.add_argument("--fold-bn", action="store_true",
+                    help="accepted for the reference's command line; "
+                         "does nothing in training")
     tr.add_argument("--max-frames", type=int, default=120,
                     help="decode cap per training clip")
     tr.add_argument("--num-workers", type=int, default=2,

@@ -25,6 +25,7 @@ float64 sum rounded to bfloat16 (chip_smoke ``bf16``, on an NVIDIA H100
 
 from __future__ import annotations
 
+import subprocess
 from typing import Union
 
 import torch
@@ -50,3 +51,21 @@ def require_cuda(device: Union[str, torch.device]) -> torch.device:
                 f"device {device!r} requested but only "
                 f"{torch.cuda.device_count()} CUDA device(s) are visible")
     return dev
+
+
+def card_name(device: Union[str, torch.device]) -> str:
+    """The card's "name, power.limit" as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` reports them (its first line;
+    ``torch.cuda.get_device_name`` where nvidia-smi cannot be run), the
+    card and limit every timing is read beside; the device type ("cpu")
+    off the GPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev.type
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return torch.cuda.get_device_name(dev)
