@@ -8,8 +8,8 @@ Run from the root of a checkout, with no arguments:
 It imports no JAX, and fails (non-zero exit, no result line) where
 ``torch.cuda.is_available()`` is false or the package is not beside it.
 OpenCV is needed by the phases that drive the command line (7, 9-12, 19)
-by the flow-quality families (20) and by the breakdown's clips (21), as
-by the commands themselves.
+by the flow-quality families (20), by the breakdown's clips (21) and by
+the roofline's frames (22), as by the commands themselves.
 Phases, each reported on a JSON line:
 
 1. build: compile every CUDA kernel of the port from
@@ -217,7 +217,20 @@ Phases, each reported on a JSON line:
    pass 32 clips and no failure, the ledger adding up, and each timed
    pass's launches held to 4 batch calls of ``expected_flow_launches`` at
    224² (12 K-D, 36 ``fb_iteration``, nothing else)
-   (``eval_breakdown_phase``).
+   (``eval_breakdown_phase``);
+22. roofline: ``tools/torch_roofline.py``'s nine programs at the
+   reference's sizes (1080p included) with the bfloat16 model from seed 0:
+   every key finite, every share of a peak at most 100 %, each warm call's
+   launches held to ``expected_flow_launches`` (a Farneback call at 224²:
+   3 K-D, 9 ``fb_iteration``; TV-L1 at 224²: 5 ``tvl1_scale``; at
+   1080×1920: 1,250 K-G, 225 with the bands' test, 25 K-A, 5 K-C), the
+   TV-L1 224² program's operations equal to ``scale_work`` summed over its
+   5 launches for the rounds they reported, the count from the plain
+   versions' rounds on the same 64 pairs and on the first 1080p pair
+   within 1 % of the kernels'; the rows and the tool's table
+   (``roofline_phase``).  The bounds of this script's kernel checks come
+   from the tool (``bound``, ``warp_bound``, ``scale_bound``,
+   ``chunk_bound``, ``farneback_kernel_work``, ``cnn_work``).
 ``--only <phase>`` runs the build and that phase alone.
 
 Then it prints the kernel table (``{"kernels": [...]}``: for each kernel
@@ -229,8 +242,9 @@ its ``--fb-winsize 201`` command; under ``launches_eval_ucf101`` those
 of phase 11's commands, under ``launches_train`` those of phase 12's,
 under ``launches_distributed``, ``launches_warmup``,
 ``launches_sustained``, ``launches_async_checkpoint``, ``launches_bf16``,
-``launches_compute_flow_bucketed``, ``launches_flow_quality`` and
-``launches_eval_breakdown`` those of phases 14-21;
+``launches_compute_flow_bucketed``, ``launches_flow_quality``,
+``launches_eval_breakdown`` and ``launches_roofline`` those of phases
+14-22;
 K-H, K-B (and its launches with the ε test) and ``fb_window_solve``,
 whose arithmetic the commands run inside ``tvl1_scale`` and
 ``fb_iteration`` or only at shapes no command here gives, are on no
@@ -256,6 +270,7 @@ line ``{"ok": true, "device": {...}}``.  Any failed check raises.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
@@ -263,6 +278,24 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def load_tool(name: str):
+    """``tools/<name>.py`` of this checkout, as a module."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "tools", name + ".py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+# The work counts and the card's peaks: one home, the roofline tool.
+ROOFLINE = load_tool("torch_roofline")
+bound = ROOFLINE.bound
+warp_bound = ROOFLINE.warp_bound
+scale_bound = ROOFLINE.scale_bound
+chunk_bound = ROOFLINE.chunk_bound
+
 SIZES = (224, 179, 143, 115, 92)       # TVL1Config() pyramid of a 224² crop
 PAIRS = 15                             # frame pairs of a 16-frame window
 SERVE_REQUESTS = 3
@@ -294,18 +327,6 @@ CARD = {}              # nvidia-smi's "name, power.limit", set by main()
 # torch.profiler sessions that recorded too little, and the device_ms
 # taken with CUDA events instead (see device_profile_until).
 PROFILER = {"retaken_sessions": 0, "device_ms_from_cuda_events": []}
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published peak
-F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12       # dense bfloat16 on the tensor cores
-
-
-def bound(nbytes: float, flops: float):
-    """(bound_ms, bound_by): the least time the card could take to move
-    `nbytes` (each input read once, each output written once) or to do
-    `flops` float32 operations, whichever is larger."""
-    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * flops / F32_FLOP_PER_S
-    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
 def median_ops(k: int) -> float:
@@ -315,9 +336,6 @@ def median_ops(k: int) -> float:
         MEDIAN_TILE, separable_median_schedule)
     return (len(separable_median_schedule(k)[2])
             / (MEDIAN_TILE[0] * MEDIAN_TILE[1]))
-
-
-BATCHER_25 = 113       # compare-exchanges of the pruned network K-C ran
 
 
 def emit(obj) -> None:
@@ -836,33 +854,13 @@ def farneback_kernels_phase(torch, np, dev):
                     "fb_iteration": device_ms(
                         torch, lambda: fk.fb_iteration(R0, R1, flow, taps),
                         "fb_window_solve_kernel")}
-            # Bytes: inputs read once, outputs written once.  Operations:
-            # the separable algorithm's multiplies and adds (blur 2 passes,
-            # 2 taps of each resized axis, 3 vertical + 6 horizontal
-            # expansion sums and the combine; 5 bilinear samples and the
-            # normal equations; one multiply-add per tap and plane).
-            n_blur = len(fk._smooth_taps(scale))
-            px, lpx = FB_FRAMES * H * W, FB_FRAMES * lh * lw
-            resize_ops = (3 * FB_FRAMES * lh * W + 3 * lpx) if scale < 1 else 0
-            bounds = {
-                "fb_prologue": bound(
-                    4 * px + 20 * lpx,
-                    4 * n_blur * px + resize_ops + (18 * n_poly + 8) * lpx),
-                "fb_warp_neq": bound(17 * 4 * B * lh * lw, 100 * B * lh * lw),
-                "sep_corr": bound(10 * 4 * B * lh * lw,
-                                  2 * len(taps) * 5 * B * lh * lw),
-                "sep_corr_x_solve": bound(
-                    7 * 4 * B * lh * lw,
-                    (2 * len(taps) * 5 + 12) * B * lh * lw),
-                # M read and the flow written; both passes and the solve.
-                "fb_window_solve": bound(
-                    7 * 4 * B * lh * lw,
-                    (2 * 2 * len(taps) * 5 + 12) * B * lh * lw),
-                # R0, R1 and the flow read, the flow written; K-E's
-                # operations as well.
-                "fb_iteration": bound(
-                    14 * 4 * B * lh * lw,
-                    (100 + 2 * 2 * len(taps) * 5 + 12) * B * lh * lw)}
+            # Bytes and operations of each kernel at this level
+            # (ROOFLINE.farneback_kernel_work).
+            bounds = {name: bound(*work) for name, work in
+                      ROOFLINE.farneback_kernel_work(
+                          FB_FRAMES, B, H, W, lh, lw, scale,
+                          len(fk._smooth_taps(scale)), n_poly,
+                          len(taps)).items()}
             report[key] = {
                 name: {"ms": t[0], "plain_ms": t[1], "library_ms": t[2],
                        "bound_ms": bounds[name][0],
@@ -1286,28 +1284,6 @@ def tvl1_level_inputs(torch, np, dev, h, w, pairs):
 RAGGED = ((150, 201), (17, 40), (256, 256), (240, 320), (280, 300))
 
 
-def warp_bound(rounds, h, w, inner, median_k):
-    """Bound of one K-H launch: prep, u and v read and u, v written once,
-    against ~70 float operations per pixel and iteration plus, with the
-    median, 113 compare-exchanges (a min and a max) on each of u and v per
-    round, for the rounds each image of this run took."""
-    px = h * w
-    per_round = 70 * inner + (2 * 2 * 113 if median_k > 1 else 0)
-    return bound(8 * 4 * px * len(rounds), per_round * px * sum(rounds))
-
-
-def scale_bound(rounds, h, w, inner, median_k):
-    """Bound of one ``tvl1_scale`` launch: I1, its gradients, I0, u and v
-    read and u, v written once, against the warp's ~45 operations a pixel
-    and warp, the solver's operations for the rounds each image ran in
-    each warp (`rounds`: a list per image) and the scale-end median."""
-    px = h * w
-    med = 2 * 2 * 113 if median_k > 1 else 0
-    ops = sum(45 * len(r) + (70 * inner + med) * sum(r) + med
-              for r in rounds)
-    return bound(8 * 4 * px * len(rounds), ops * px)
-
-
 def tvl1_warp_kernel_phase(torch, np, dev):
     """K-H ``pd_solve_warp`` against ``pd_solve_plain``, ``tvl1_scale``
     (``pd_solve_scale``: all the warps of a scale in one launch) against the
@@ -1685,15 +1661,6 @@ FULL_HD = (1080, 1920)     # a native-resolution frame: every TV-L1 level
                            # of it is above the whole-plane size rule
 HD_PAIRS = 2               # pairs per flow call in the K-G checks
 TOL_CHUNK_ERR = 1e-5       # K-G band sums, relative (their order differs)
-
-
-def chunk_bound(B, h, w, iters, median_k):
-    """Bound of one K-G launch: 10 planes read and 6 written once, against
-    ~70 float operations per pixel and iteration plus, with the median,
-    113 compare-exchanges (a min and a max) on each of u and v."""
-    px = B * h * w
-    return bound(16 * 4 * px,
-                 (70 * iters + (2 * 2 * 113 if median_k > 1 else 0)) * px)
 
 
 def split_epsilon(torch, err, px, keep) -> float:
@@ -2165,7 +2132,7 @@ def median_levels(torch, dev, pairs: int = 2):
                                 2),
             "bound_ms": b[0], "bound_by": b[1],
             "bound_ms_batcher_network": bound(
-                8 * px, 2 * BATCHER_25 * px)[0]}
+                8 * px, 2 * ROOFLINE.BATCHER_25 * px)[0]}
         del uv, out
     return report
 
@@ -3879,6 +3846,10 @@ def warmup_phase(torch, np):
                         ignore=shutil.ignore_patterns("_build",
                                                       "__pycache__"))
         shutil.copy(os.path.join(HERE, "chip_smoke.py"), work)
+        # chip_smoke.py loads its work counts from the roofline tool.
+        os.makedirs(os.path.join(work, "tools"))
+        shutil.copy(os.path.join(HERE, "tools", "torch_roofline.py"),
+                    os.path.join(work, "tools"))
         env = {**os.environ, "PYTHONPATH": work}
         argv = ["warmup", "--surface", "all", "--algos", "tvl1,farneback",
                 "--sizes", WARMUP_SIZES, "--device", "cuda"]
@@ -4315,29 +4286,6 @@ def cnn_kernels(torch, fn, tries: int = 5):
             for name, (ms, n) in sorted(per.items(), key=lambda kv: -kv[1][0])]
 
 
-def cnn_flops(torch, net, x) -> float:
-    """Operations of one forward pass of `net` on `x`: 2 per multiply-add
-    of every convolution and linear layer (the products that bound it),
-    from the output shapes that hooks see."""
-    total = [0.0]
-
-    def hook(m, inp, out):
-        if isinstance(m, torch.nn.Conv2d):
-            per = m.in_channels // m.groups * m.kernel_size[0] \
-                * m.kernel_size[1]
-        else:
-            per = m.in_features
-        total[0] += 2.0 * out.numel() * per
-
-    hooks = [m.register_forward_hook(hook) for m in net.modules()
-             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
-    with torch.no_grad():
-        net(x)
-    for h in hooks:
-        h.remove()
-    return total[0]
-
-
 def bf16_phase(torch, np, dev):
     """Phase 18: the reference's reduced-precision CNN (``dtype``: bfloat16
     activations, float32 parameters) at full width: two ResNet-18s, width
@@ -4480,8 +4428,8 @@ def bf16_phase(torch, np, dev):
                         torch, lambda: bf.temporal.conv1(stem_in)),
                     "temporal_stem_f32": cnn_kernels(
                         torch, lambda: f32.temporal.conv1(stem_in.float()))}
-        flops = {"spatial": cnn_flops(torch, bf.spatial, rgb),
-                 "temporal": cnn_flops(torch, bf.temporal, stacks)}
+        flops = {"spatial": ROOFLINE.cnn_work(bf.spatial, rgb).flops,
+                 "temporal": ROOFLINE.cnn_work(bf.temporal, stacks).flops}
         report[algo] = {
             "warmup_s": warm_s, "request_ms": request_ms,
             "launches_per_request": {k: v // SERVE_REQUESTS
@@ -4495,9 +4443,9 @@ def bf16_phase(torch, np, dev):
             "cnn_images": {"spatial": rgb.shape[0],
                            "temporal": stacks.shape[0]},
             "cnn_gflop": {k: v / 1e9 for k, v in flops.items()},
-            "cnn_bound_ms_bf16": {k: 1e3 * v / BF16_FLOP_PER_S
+            "cnn_bound_ms_bf16": {k: 1e3 * v / ROOFLINE.BF16_FLOP_PER_S
                                   for k, v in flops.items()},
-            "cnn_bound_ms_f32": {k: 1e3 * v / F32_FLOP_PER_S
+            "cnn_bound_ms_f32": {k: 1e3 * v / ROOFLINE.F32_FLOP_PER_S
                                  for k, v in flops.items()},
             **({"cudnn_kernels": kernels} if kernels else {})}
 
@@ -4730,15 +4678,9 @@ def flow_quality_phase(torch, np, dev):
     SpyNet none), the same EPEs through the kernels' plain versions (TV-L1
     and Farneback) within 1e-6, pairs/s and the launches of one call; the
     tool's table.  Returns the launches per kernel of the EPE passes."""
-    import importlib.util
-
     from video_analytics_tpu_torch.models.spynet import synthetic_pair
 
-    spec = importlib.util.spec_from_file_location(
-        "torch_flow_quality", os.path.join(HERE, "tools",
-                                           "torch_flow_quality.py"))
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
+    tool = load_tool("torch_flow_quality")
     fams = tool.families(FQ_HW, FQ_BATCH, FQ_VAL_BATCHES)
     calls = sum(len(batches) for _, batches in fams.values())
     fns, ckpt = tool.flow_functions(dev)
@@ -4809,18 +4751,13 @@ def eval_breakdown_phase(torch, np, dev):
     ``expected_flow_launches("farneback", 224, 224)`` (3 ``fb_prologue``
     and 9 ``fb_iteration`` a call) and nothing else.  Returns the launches
     per kernel summed over the timed passes."""
-    import importlib.util
     import tempfile
 
     from video_analytics_tpu_torch.config import PipelineConfig
     from video_analytics_tpu_torch.io.synthetic import build_synthetic_ucf101
     from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
 
-    spec = importlib.util.spec_from_file_location(
-        "torch_eval_breakdown", os.path.join(HERE, "tools",
-                                             "torch_eval_breakdown.py"))
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
+    tool = load_tool("torch_eval_breakdown")
     t0 = time.perf_counter()
     cfg = PipelineConfig(flow_algo="farneback", window=16)
     model = TwoStreamModel.create(num_classes=101, flow_stack=tool.FLOW_STACK,
@@ -4862,6 +4799,125 @@ def eval_breakdown_phase(torch, np, dev):
     return {k: sum(p[k] for p in res["launches_per_pass"]) for k in want}
 
 
+# The one flow call of each roofline program that makes one: (algorithm,
+# frame size).
+ROOFLINE_FLOW = {"headline_64f": ("farneback", (224, 224)),
+                 "farneback_seq_64p": ("farneback", (224, 224)),
+                 "tvl1_64p_224": ("tvl1", (224, 224)),
+                 "eval_batch_8clips": ("farneback", (224, 224)),
+                 "sustained_1080p_b4x16": ("farneback", (224, 224)),
+                 "tvl1_1080p_b4": ("tvl1", FULL_HD)}
+# The count from the kernels' rounds against the plain versions' on the
+# same pairs: a round may flip at the ε threshold on the order of the
+# test's sum (ROADMAP's watch list), which moves the count by one image's
+# (one band's) round of one warp, ~0.05 % (~0.3 % at 1080p) of it.
+TOL_ROUNDS = 0.01
+
+
+def roofline_phase(torch, np, dev):
+    """Phase 22: ``tools/torch_roofline.py``'s nine programs on the card
+    at the reference's sizes (1080p included), through the tool's
+    ``roofline`` with the bfloat16 model from seed 0.  Every key of every
+    row finite and every share at most 100 % (the tool raises before);
+    each program's warm call, its launch counts set to 0 just before and
+    read just after, launching ``expected_flow_launches`` for its flow
+    calls and nothing else; ``tvl1_64p_224``'s operation count equal to
+    the sum of ``scale_work`` (``scale_bound``'s count) over the 5
+    ``tvl1_scale`` launches it made, for the rounds they reported: one
+    count, read two ways; and the count of the same 64 pairs' rounds, and
+    of the first 1080p pair's, through the plain versions within
+    ``TOL_ROUNDS`` of the kernels'; each program's device-busy share
+    from one call under torch.profiler.  Returns the warm calls' launches
+    per kernel, summed."""
+    from video_analytics_tpu_torch.config import TVL1Config
+    from video_analytics_tpu_torch.flow.tvl1 import tvl1
+
+    t0 = time.perf_counter()
+    proto = ROOFLINE.Protocol()
+    model = ROOFLINE.build_model(proto, dev)
+    rows, extras = ROOFLINE.roofline(proto, dev, model,
+                                     counters=flow_counters())
+    check([r["name"] for r in rows] == list(ROOFLINE.NAMES),
+          f"roofline programs {[r['name'] for r in rows]}")
+    for r in rows:
+        bad = [k for k, v in r.items() if k not in ("name", "count")
+               and not np.isfinite(v)]
+        check(not bad, f"roofline {r['name']}: not finite {bad}: {r}")
+        over = [k for k in ("mfu_mxu_pct", "mfu_vpu_pct", "hbm_pct")
+                if r[k] > 100.0]
+        check(not over, f"roofline {r['name']}: over 100 % {over}: {r}")
+        check(r["count"] == ("rounds" if r["name"].startswith("tvl1")
+                             else "shapes"), f"roofline count {r}")
+    total = {}
+    for name, launches in extras["launches"].items():
+        want = dict.fromkeys(launches, 0)
+        if name in ROOFLINE_FLOW:
+            algo, (h, w) = ROOFLINE_FLOW[name]
+            want.update(expected_flow_launches(algo, h, w))
+        check(launches == want, f"roofline {name} launched {launches}, "
+                                f"expected {want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # One count, read two ways: the program's, and scale_work by launch.
+    cfg = TVL1Config()
+    name = "tvl1_64p_224"
+    levels = extras["rounds"][name]
+    check(len(levels) == extras["launches"][name]["tvl1_scale"]
+          and all(lv.solver == "warp" for lv in levels),
+          f"{name}: levels {[(lv.hw, lv.solver) for lv in levels]}")
+    by_launch = sum((ROOFLINE.scale_work(lv.rounds.tolist(), *lv.hw,
+                                         cfg.inner_iterations,
+                                         cfg.median_filtering)
+                     for lv in levels), ROOFLINE.Work())
+    program = extras["work"][name]
+    check(by_launch == program, f"{name}: the launches' scale_work "
+                                f"{by_launch}, the program's {program}")
+    # The kernels' rounds against the plain versions' on the same pairs:
+    # the 64 at 224² (tvl1_scale) and the first at 1080p (K-G's bands).
+    rounds = {}
+    for name, pairs in (("tvl1_64p_224", None), ("tvl1_1080p_b4", 1)):
+        args = [a[:pairs] for a in extras["args"][name]]
+        kern = ROOFLINE.tvl1_work(ROOFLINE.rounds_of(
+            lambda a, b: tvl1(a, b, cfg), args), cfg)
+        plain = ROOFLINE.tvl1_work(ROOFLINE.rounds_of(
+            lambda a, b: tvl1(a, b, cfg, plain=True), args), cfg)
+        rel = abs(kern.f32 - plain.f32) / plain.f32
+        check(rel <= TOL_ROUNDS, f"{name}: the kernels' count {kern.f32}, "
+                                 f"the plain versions' {plain.f32}")
+        rounds[name] = {"pairs": args[0].shape[0], "kernels_gflop":
+                        kern.f32 / 1e9, "plain_gflop": plain.f32 / 1e9,
+                        "rel": rel}
+    # Where each program's time goes: one call under torch.profiler, its
+    # device-busy union against the row's ms a call.
+    busy = {}
+    with torch.no_grad():
+        for r in rows:
+            fn, args = extras["fn"][r["name"]], extras["args"][r["name"]]
+            prof, _ = device_profile_until(
+                torch, lambda: ROOFLINE.fence([fn(*args)]),
+                lambda p: p["device_events"] > 0)
+            busy[r["name"]] = {
+                "busy_share_of_ms": prof["device_busy_ms"] / r["ms"],
+                **{k: prof[k] for k in (
+                    "profiled_wall_ms", "device_busy_ms", "device_sum_ms",
+                    "device_events")},
+                "top_device_ms": prof["top_device_ms"][:4]}
+    budget = {k: w.flops for k, w in extras["budget"].items()}
+    emit({"phase": "roofline", "seconds": time.perf_counter() - t0,
+          "rows": rows, "peaks": ROOFLINE.peaks(),
+          "tvl1_rounds_of_budget": {
+              k: extras["work"][k].flops / v for k, v in budget.items()},
+          "rounds_kernels_against_plain": rounds,
+          "tvl1_64p_224_rounds_by_level": {
+              f"{lv.hw[0]}x{lv.hw[1]}": int(lv.rounds.sum())
+              for lv in levels},
+          "launches_per_program": extras["launches"],
+          "profile_per_program": busy, **CARD})
+    ROOFLINE.print_table(rows)
+    return total
+
+
 def native_phases(torch, np, dev, chain: bool = True):
     """The native-resolution flow command and, with `chain`, the stage
     commands that read what it wrote, in one temporary directory.  Returns
@@ -4896,7 +4952,7 @@ def main(argv=None) -> int:
                              "spynet", "distributed", "model_axis", "warmup",
                              "sustained", "async_checkpoint", "bf16",
                              "compute_flow_bucketed", "flow_quality",
-                             "eval_breakdown"],
+                             "eval_breakdown", "roofline"],
                     help="run the build and this phase alone (stage_chain "
                          "with tvl1_1080p, whose directories it reads; "
                          "model_axis is the last part of distributed), for "
@@ -4978,6 +5034,8 @@ def main(argv=None) -> int:
         flow_quality_phase(torch, np, dev)
     elif args.only == "eval_breakdown":
         eval_breakdown_phase(torch, np, dev)
+    elif args.only == "roofline":
+        roofline_phase(torch, np, dev)
     elif args.only:
         native_phases(torch, np, dev, args.only == "stage_chain")
     if args.only:
@@ -5190,6 +5248,9 @@ def main(argv=None) -> int:
     # -- 21. the split of batched evaluation's clips/s ------------------------
     eb_launches = eval_breakdown_phase(torch, np, dev)
 
+    # -- 22. the roofline of the hot programs ---------------------------------
+    rl_launches = roofline_phase(torch, np, dev)
+
     # -- the kernel table -----------------------------------------------------
     # TV-L1 bounds at 224², 15 pairs.  Planes moved: warp_prep reads I1 and
     # its gradients, I0 and the flow and writes 4; pd_step reads prep, the
@@ -5212,12 +5273,12 @@ def main(argv=None) -> int:
     # phase that holds them against their plain versions.
     px = PAIRS * SIZES[0] * SIZES[0]
     blocks = ts.pd_blocks(SIZES[0], SIZES[0])
-    bounds = {"warp_prep": bound(10 * 4 * px, 45 * px),
-              "tvl1_pd_step": bound(16 * 4 * px, 70 * px),
+    bounds = {"warp_prep": bound(10 * 4 * px, ROOFLINE.TVL1_WARP_OPS * px),
+              "tvl1_pd_step": bound(16 * 4 * px, ROOFLINE.TVL1_PD_OPS * px),
               "median5": bound(4 * 4 * px, 2 * median_ops(5) * px),
               "tvl1_pd_step_eps": bound(
                   16 * 4 * px + 8 * PAIRS * blocks + 12 * PAIRS,
-                  70 * px + PAIRS * blocks),
+                  ROOFLINE.TVL1_PD_OPS * px + PAIRS * blocks),
               **fb_bounds,
               **{name: v[2] for name, v in {**kh, **kg, **fhd}.items()}}
     errs.update(fb_errs)
@@ -5312,7 +5373,8 @@ def main(argv=None) -> int:
                        "launches_compute_flow_bucketed":
                            bucket_launches.get(name, 0),
                        "launches_flow_quality": fq_launches.get(name, 0),
-                       "launches_eval_breakdown": eb_launches.get(name, 0)}
+                       "launches_eval_breakdown": eb_launches.get(name, 0),
+                       "launches_roofline": rl_launches.get(name, 0)}
                       for name, source, replaces, also in rows]})
     emit({"phase": "profiler", **PROFILER})
     print(gpu, flush=True)

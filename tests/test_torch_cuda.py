@@ -255,6 +255,41 @@ def test_tvl1_chunked_levels_match_plain(dev):
     assert torch.equal(got, tvl1(i0, i1, cfg, plain=True))
 
 
+@pytest.mark.parametrize("route", ["chain", "chunked", "scale"])
+def test_rounds_match_plain(dev, route):
+    """The rounds each solver reports on the card (each image's, each
+    band's on the chunked solver) against its plain version's on the same
+    inputs, with the ε test engaged: equal, but where the order of the
+    test's sum flips a round at the threshold (at most one a warp); at
+    ε = 0 every image runs every round.  Reporting them changes no
+    result."""
+    i0, i13, uv = _level(dev, 3, 150, 131)
+    prep = warp_prep_plain(i13, i0, uv)
+    band, chunk = 2 * ts.chunk_tile(3, FAST)[0], 3
+    shape = {"chain": (3,), "chunked": (3, -(-150 // band)),
+             "scale": (3, FAST.warps)}[route]
+    for eps in (0.05, 0.0):
+        cfg = dataclasses.replace(FAST, epsilon=eps)
+        solve, plain = {
+            "chain": (lambda c, r=None: ts.pd_solve(prep, uv, c, r),
+                      lambda c, r: ts.pd_solve_plain(prep, uv, c, r)),
+            "chunked": (lambda c, r=None: ts.pd_solve_chunked(
+                prep, uv, c, band, chunk, True, r),
+                        lambda c, r: ts.pd_solve_chunked_plain(
+                prep, uv, c, band, chunk, True, r)),
+            "scale": (lambda c, r=None: ts.pd_solve_scale(i13, i0, uv, c, r),
+                      lambda c, r: ts.pd_solve_scale_plain(i13, i0, uv, c,
+                                                           r))}[route]
+        got = torch.full(shape, -1, dtype=torch.int32, device=dev)
+        want = torch.full(shape, -1, dtype=torch.int32, device=dev)
+        assert torch.equal(solve(cfg, got), solve(cfg))
+        plain(cfg, want)
+        assert int(got.min()) >= 0 and int(got.max()) <= cfg.outer_iterations
+        assert (got - want).abs().max().item() <= (1 if eps else 0)
+        if not eps:
+            assert int(got.min()) == cfg.outer_iterations
+
+
 def test_pd_chunk_rejects_bad_arguments(dev):
     cfg = TVL1Config()
     prep, state, act = _chunk_inputs(dev, 1, 40, 40, 1)

@@ -10,8 +10,9 @@ trains one with ``tools/torch_train_spynet.py``, and evaluates a synthetic
 UCF101 in a one-process gloo group (``parallel/mesh``), through
 ``evaluate_batched`` and ``evaluate_batched_multiprocess``; and, in a second
 such interpreter, where ``bench`` cannot be imported either, runs
-``tools/torch_flow_quality.py`` at a small size and
-``tools/torch_eval_breakdown.py``'s ledger.  Each tool of the reference has
+``tools/torch_flow_quality.py`` at a small size,
+``tools/torch_eval_breakdown.py``'s ledger and a work count of
+``tools/torch_roofline.py``.  Each tool of the reference has
 a ``tools/torch_*.py`` counterpart or a named reason (``TOOLS``)."""
 
 import os
@@ -202,18 +203,26 @@ led = breakdown.ledger({"decode_ms_per_clip": 30.0,
                         "dispatch_rtt_ms": 2.0, "clips_per_sec_e2e": 50.0},
                        8, 2)
 assert led["decode_not_hidden"] == 11.25 and led["unattributed"] == 5.0, led
+spec = importlib.util.spec_from_file_location(
+    "torch_roofline", os.path.join("tools", "torch_roofline.py"))
+roofline = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(roofline)
+work = roofline.farneback_work(16, 15, 224, 224, FarnebackConfig())
+assert work.bytes > 0 and work.f32 > 0 and work.bf16 == 0, work
 bad = [m for m in ("jax", "flax", "msgpack", "video_analytics_tpu", "bench")
        if sys.modules.get(m) is not None]
 assert not bad, bad
 print("flow quality", sorted(res[0]["tvl1"]))
 print("eval breakdown", led["wall_ms_per_clip"])
+print("roofline", work.f32)
 """
 
 
 def test_flow_quality_tool_runs_without_jax_or_the_jax_package():
-    """tools/torch_flow_quality.py, a small run on the CPU, and
-    tools/torch_eval_breakdown.py's ledger, in an interpreter where jax,
-    flax, msgpack, the JAX package and bench.py cannot be imported."""
+    """tools/torch_flow_quality.py, a small run on the CPU,
+    tools/torch_eval_breakdown.py's ledger and a Farneback work count of
+    tools/torch_roofline.py, in an interpreter where jax, flax, msgpack,
+    the JAX package and bench.py cannot be imported."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", TOOL_CODE], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -221,14 +230,14 @@ def test_flow_quality_tool_runs_without_jax_or_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "flow quality" in proc.stdout
     assert "eval breakdown 20.0" in proc.stdout
+    assert "roofline " in proc.stdout
 
 
 # Each tool of the reference in tools/: its counterpart, or why none.
 TOOLS = {"eval_breakdown.py": "torch_eval_breakdown.py",
          "flow_quality.py": "torch_flow_quality.py",
          "train_spynet.py": "torch_train_spynet.py",
-         "roofline.py": "TPU-only: the TPU's roofline and MFU of the JAX "
-                        "package's hot programs",
+         "roofline.py": "torch_roofline.py",
          "probe_halo_ceiling.py": "TPU-only: times the banded TV-L1 "
                                   "solver's halo against the TPU's DMA "
                                   "alignment"}

@@ -34,13 +34,20 @@ both packages.
 
 Each image stops on its own ε test, as the reference's Pallas solvers
 do; so an image's flow does not depend on the batch it rides in.
+
+While ``tvl1.rounds`` holds a list (None by default), each call appends
+one ``LevelRounds`` per pyramid level, coarsest first: the outer rounds
+its images (on a chunked level, its images' row bands) ran in each warp,
+as the solvers report them.  The roofline's work count
+(``tools/torch_roofline.py``) reads them; the flow is the same with or
+without them.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -107,6 +114,20 @@ def level_solver(h: int, w: int, median: int,
     return "warp" if warp_geometry(h, w) is not None else "chain"
 
 
+class LevelRounds(NamedTuple):
+    """The rounds one pyramid level of a ``tvl1`` call ran.
+
+    ``rounds`` is int32 on the flow's device: (B, warps) on a "warp"
+    level, (warps, B) on a "chain" level and (warps, B, ceil(h / band))
+    on a "chunked" one, whose row bands of ``band`` rows stop on their
+    own (``band`` is 0 on the other levels)."""
+
+    hw: Tuple[int, int]
+    solver: str
+    band: int
+    rounds: torch.Tensor
+
+
 def tvl1(prev: torch.Tensor, nxt: torch.Tensor,
          cfg: TVL1Config = TVL1Config(),
          initial_flow: Optional[torch.Tensor] = None, plain: bool = False,
@@ -128,6 +149,7 @@ def tvl1(prev: torch.Tensor, nxt: torch.Tensor,
     Returns:
       (B, H, W, 2) float32 flow (dx, dy): prev(p) ≈ next(p + flow(p)).
     """
+    log = tvl1.rounds
     warp = warp_prep_plain if plain else warp_prep
     solve_scale = pd_solve_scale_plain if plain else pd_solve_scale
     solve_chain = pd_solve_plain if plain else pd_solve
@@ -162,17 +184,31 @@ def tvl1(prev: torch.Tensor, nxt: torch.Tensor,
         I1x, I1y = centered_gradient(I1)
         i13 = torch.stack([I1, I1x, I1y], dim=1).contiguous()
         which = level_solver(lh, lw, cfg.median_filtering, whole_plane)
+        band, rounds = 0, None
         if which == "warp":
-            uv = solve_scale(i13, I0, uv, cfg)
+            if log is not None:
+                rounds = I0.new_zeros((B, cfg.warps), dtype=torch.int32)
+                log.append(LevelRounds((lh, lw), which, band, rounds))
+            counts = {} if rounds is None else {"rounds": rounds}
+            uv = solve_scale(i13, I0, uv, cfg, **counts)
             continue
         if which == "chain":
             level_solve = solve_chain
+            shape = (cfg.warps, B)
         else:
             band, chunk = chunk_params(lh, lw, cfg)
             level_solve = functools.partial(solve_chunked, band=band,
                                             chunk=chunk)
-        for _ in range(cfg.warps):
-            uv = level_solve(warp(i13, I0, uv), uv, cfg)
+            shape = (cfg.warps, B, -(-lh // band))
+        if log is not None:
+            rounds = I0.new_zeros(shape, dtype=torch.int32)
+            log.append(LevelRounds((lh, lw), which, band, rounds))
+        for k in range(cfg.warps):
+            counts = {} if rounds is None else {"rounds": rounds[k]}
+            uv = level_solve(warp(i13, I0, uv), uv, cfg, **counts)
         if cfg.median_filtering > 1:
             uv = median(uv, cfg.median_filtering)
     return uv.permute(0, 2, 3, 1)
+
+
+tvl1.rounds = None     # a list to receive each level's LevelRounds

@@ -38,6 +38,11 @@ solver): each round is ``ceil(K / chunk)`` launches of ``pd_chunk``, the
 first of which opens with the median and the last of which ends with the
 bands' test: rows are gated in bands on their own ε test, as in the
 reference.
+
+Every solver and its plain version take an optional ``rounds`` tensor that
+receives the outer rounds each image (for ``pd_solve_chunked``, each band
+of each image) ran, the work its ε test let through; the count changes no
+result.  ``flow/tvl1.tvl1`` passes one while ``tvl1.rounds`` holds a list.
 """
 
 from __future__ import annotations
@@ -237,18 +242,21 @@ def eps_reduce_plain(partial: torch.Tensor, active: torch.Tensor,
 
 # -- one warp ---------------------------------------------------------------
 
-def pd_solve_plain(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config
-                   ) -> torch.Tensor:
+def pd_solve_plain(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config,
+                   rounds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of ``pd_solve``: the reference's
     ``_solve_warp`` with the per-image gate of the Pallas solvers.  Reads
-    the flags on the host each round and stops once all are clear."""
+    the flags on the host each round and stops once all are clear.
+    `rounds`, a (B,) tensor, receives the rounds each image ran."""
     B, _, H, W = uv.shape
     active = torch.ones(B, dtype=torch.bool, device=uv.device)
+    ran = torch.zeros(B, dtype=torch.int32, device=uv.device)
     p = torch.zeros((B, 4, H, W), dtype=torch.float32, device=uv.device)
     eps2 = cfg.epsilon * cfg.epsilon
     for _ in range(cfg.outer_iterations):
         if not bool(active.any()):
             break
+        ran += active.to(torch.int32)
         keep = active.view(B, 1, 1, 1)
         if cfg.median_filtering > 1:
             uv = torch.where(keep, median5_plain(uv, cfg.median_filtering),
@@ -261,23 +269,27 @@ def pd_solve_plain(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config
         uv = torch.where(keep, new_uv, uv)
         p = torch.where(keep, new_p, p)
         active = active & ~(err < eps2)
+    if rounds is not None:
+        rounds.copy_(ran)
     return uv
 
 
-def pd_solve(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config
-             ) -> torch.Tensor:
+def pd_solve(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config,
+             rounds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """All primal-dual iterations of one TV-L1 warp.
 
     Args:
       prep: (B, 4, H, W) from ``warp_prep`` (I1wx, I1wy, grad, rho_c).
       uv: (B, 2, H, W) flow at the warp's start; not modified.
       cfg: the TVL1Config (λ, θ, τ, ε, iteration counts, median size).
+      rounds: optional (B,) int32 tensor that receives the outer rounds
+        each image ran (summed from the flags on the device).
 
     Returns:
       (B, 2, H, W) float32 flow after the warp.
     """
     if not uv.is_cuda:
-        return pd_solve_plain(prep, uv, cfg)
+        return pd_solve_plain(prep, uv, cfg, rounds)
     B, _, H, W = uv.shape
     dev = uv.device
     active = torch.ones(B, dtype=torch.int32, device=dev)
@@ -289,7 +301,11 @@ def pd_solve(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config
     p_next = torch.empty_like(p)
     bufs = (torch.empty_like(uv), torch.empty_like(uv))
     cur, turn = uv, 0
+    if rounds is not None:
+        rounds.zero_()
     for o in range(cfg.outer_iterations):
+        if rounds is not None:
+            rounds += active
         if cfg.median_filtering > 1:
             cur = median5(cur, cfg.median_filtering, active, out=bufs[turn])
             turn ^= 1
@@ -355,7 +371,7 @@ def pd_solve_warp(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config,
       uv: (B, 2, H, W) flow at the warp's start; not modified.
       cfg: the TVL1Config (λ, θ, τ, ε, iteration counts, median size).
       rounds: optional (B,) int32 tensor that receives the outer rounds
-        each image ran (CUDA only).
+        each image ran.
 
     Returns:
       (B, 2, H, W) float32 flow after the warp.
@@ -364,7 +380,7 @@ def pd_solve_warp(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config,
     cluster (``warp_geometry``): the caller picks the solver by that rule.
     """
     if not uv.is_cuda:
-        return pd_solve_plain(prep, uv, cfg)
+        return pd_solve_plain(prep, uv, cfg, rounds)
     B, _, H, W = uv.shape
     dev = uv.device
     if warp_geometry(H, W) is None:
@@ -398,12 +414,16 @@ pd_solve_warp.launches = 0
 # -- tvl1_scale: every warp of one pyramid scale in one launch ---------------
 
 def pd_solve_scale_plain(i13: torch.Tensor, i0: torch.Tensor,
-                         uv: torch.Tensor, cfg: TVL1Config) -> torch.Tensor:
+                         uv: torch.Tensor, cfg: TVL1Config,
+                         rounds: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Plain PyTorch version of ``pd_solve_scale``: ``cfg.warps`` times
     the warp with its prep and one warp's solve, then the scale-end
-    median."""
-    for _ in range(cfg.warps):
-        uv = pd_solve_plain(warp_prep_plain(i13, i0, uv), uv, cfg)
+    median.  `rounds`, a (B, warps) tensor, receives the rounds each
+    image ran in each warp."""
+    for w in range(cfg.warps):
+        uv = pd_solve_plain(warp_prep_plain(i13, i0, uv), uv, cfg,
+                            None if rounds is None else rounds[:, w])
     if cfg.median_filtering > 1:
         uv = median5_plain(uv, cfg.median_filtering)
     return uv
@@ -427,7 +447,7 @@ def pd_solve_scale(i13: torch.Tensor, i0: torch.Tensor, uv: torch.Tensor,
       uv: (B, 2, H, W) flow at the scale's start; not modified.
       cfg: the TVL1Config (warps, λ, θ, τ, ε, iteration counts, median).
       rounds: optional (B, warps) int32 tensor that receives the outer
-        rounds each image ran in each warp (CUDA only).
+        rounds each image ran in each warp.
 
     Returns:
       (B, 2, H, W) float32 flow at the scale's end.
@@ -436,7 +456,7 @@ def pd_solve_scale(i13: torch.Tensor, i0: torch.Tensor, uv: torch.Tensor,
     cluster (``warp_geometry``): the caller picks the solver by that rule.
     """
     if not uv.is_cuda:
-        return pd_solve_scale_plain(i13, i0, uv, cfg)
+        return pd_solve_scale_plain(i13, i0, uv, cfg, rounds)
     B, _, H, W = uv.shape
     dev = uv.device
     geom = warp_geometry(H, W)
@@ -704,7 +724,8 @@ def band_flags_plain(partial: torch.Tensor, act: torch.Tensor,
 
 def _solve_chunked_plain(prep: torch.Tensor, uv: torch.Tensor,
                          cfg: TVL1Config, band: int, chunk: int,
-                         adaptive: bool) -> torch.Tensor:
+                         adaptive: bool,
+                         rounds: Optional[torch.Tensor]) -> torch.Tensor:
     B, _, H, W = uv.shape
     K = cfg.inner_iterations
     eps2 = cfg.epsilon * cfg.epsilon
@@ -714,21 +735,26 @@ def _solve_chunked_plain(prep: torch.Tensor, uv: torch.Tensor,
                                        device=uv.device)], dim=1)
     err_band = torch.full((B, n_bands), math.inf, dtype=torch.float32,
                           device=uv.device)
+    ran = torch.zeros((B, n_bands), dtype=torch.int32, device=uv.device)
     for _ in range(cfg.outer_iterations):
         run = _band_flags(err_band, band_px, H * W, eps2, adaptive)
         if not bool(run.any()):
             break
         act = run.to(torch.int32)
+        ran += act
         for c0 in range(0, K, chunk):
             state, err = pd_chunk_plain(prep, state, act, cfg,
                                         min(chunk, K - c0), band, c0 == 0)
         err_band = torch.where(run, err, err_band)
+    if rounds is not None:
+        rounds.copy_(ran)
     return state[:, :2].contiguous()
 
 
 def _solve_chunked_cuda(prep: torch.Tensor, uv: torch.Tensor,
                         cfg: TVL1Config, band: int, chunk: int,
-                        adaptive: bool) -> torch.Tensor:
+                        adaptive: bool,
+                        rounds: Optional[torch.Tensor]) -> torch.Tensor:
     """Every buffer is allocated here, once; a round is its launches of
     ``pd_chunk``, the last of which writes the error sums and runs the
     bands' test on them (unless no round follows).  Nothing is read
@@ -755,8 +781,12 @@ def _solve_chunked_cuda(prep: torch.Tensor, uv: torch.Tensor,
     flags = [torch.ones((B, n_bands), dtype=torch.int32, device=dev)
              for _ in range(3)]
     prev = None
+    if rounds is not None:
+        rounds.zero_()
     for o in range(cfg.outer_iterations):
         act, act_next = flags[o % 3], flags[(o + 1) % 3]
+        if rounds is not None:
+            rounds += act
         test = o + 1 < cfg.outer_iterations
         for c0 in range(0, K, chunk):
             last = test and c0 + chunk >= K
@@ -769,15 +799,17 @@ def _solve_chunked_cuda(prep: torch.Tensor, uv: torch.Tensor,
 
 def pd_solve_chunked_plain(prep: torch.Tensor, uv: torch.Tensor,
                            cfg: TVL1Config, band: int, chunk: int,
-                           adaptive: bool = True) -> torch.Tensor:
+                           adaptive: bool = True,
+                           rounds: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Plain PyTorch version of ``pd_solve_chunked``.  Reads the flags on
     the host each round and stops once all are clear."""
-    return _solve_chunked_plain(prep, uv, cfg, band, chunk, adaptive)
+    return _solve_chunked_plain(prep, uv, cfg, band, chunk, adaptive, rounds)
 
 
 def pd_solve_chunked(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config,
-                     band: int, chunk: int, adaptive: bool = True
-                     ) -> torch.Tensor:
+                     band: int, chunk: int, adaptive: bool = True,
+                     rounds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """All primal-dual iterations of one TV-L1 warp of a large plane:
     the counterpart of the reference's ``tvl1_solve_warp_banded``.
 
@@ -799,9 +831,12 @@ def pd_solve_chunked(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config,
       band, chunk: rows per gating band (a multiple of the tile that
         ``chunk_tile(chunk, cfg)`` gives) and iterations per launch
         (``chunk_params`` picks both).
+      rounds: optional (B, ceil(H / band)) int32 tensor that receives the
+        outer rounds each band of each image ran (summed from the flags
+        on the device).
 
     Returns:
       (B, 2, H, W) float32 flow after the warp.
     """
     solve = _solve_chunked_cuda if uv.is_cuda else _solve_chunked_plain
-    return solve(prep, uv, cfg, band, chunk, adaptive)
+    return solve(prep, uv, cfg, band, chunk, adaptive, rounds)
