@@ -59,6 +59,7 @@ from video_analytics_tpu_torch.ops.cuda.tvl1_solve import (
 from video_analytics_tpu_torch.ops.cuda.warp import warp_prep, warp_prep_plain
 from video_analytics_tpu_torch.ops.kernels import (
     centered_gradient, gaussian_blur, resize_area_like)
+from video_analytics_tpu_torch.utils.spans import span
 
 _MIN_SIZE = 16         # coarsest pyramid level must keep both dims >= this
 _ZOOM_SIGMA0 = 0.6     # IPOL pre-smoothing constant for pyramid downscale
@@ -163,51 +164,55 @@ def tvl1(prev: torch.Tensor, nxt: torch.Tensor,
 
     # Pyramids finest→coarsest, each level from the previous one.
     I0s, I1s = [I0_full], [I1_full]
-    for s in range(1, len(sizes)):
-        I0s.append(_downscale(I0s[-1], sizes[s], cfg.scale_step))
-        I1s.append(_downscale(I1s[-1], sizes[s], cfg.scale_step))
+    with span("va/tvl1.pyramid"):
+        for s in range(1, len(sizes)):
+            I0s.append(_downscale(I0s[-1], sizes[s], cfg.scale_step))
+            I1s.append(_downscale(I1s[-1], sizes[s], cfg.scale_step))
 
     uv = None
     for s in range(len(sizes) - 1, -1, -1):
         lh, lw = sizes[s]
-        I0, I1 = I0s[s].contiguous(), I1s[s]
-        if uv is None and cfg.use_initial_flow and initial_flow is not None:
-            seed = initial_flow.float().permute(0, 3, 1, 2)
-            seed = resize_area_like(seed.reshape(B * 2, H, W), (lh, lw))
-            uv = (seed * cfg.scale_step ** s).reshape(B, 2, lh, lw)
-        elif uv is None:
-            uv = torch.zeros((B, 2, lh, lw), dtype=torch.float32,
-                             device=I0.device)
-        else:
-            up = resize_area_like(uv.reshape(B * 2, *uv.shape[2:]), (lh, lw))
-            uv = (up * (1.0 / cfg.scale_step)).reshape(B, 2, lh, lw)
-        I1x, I1y = centered_gradient(I1)
-        i13 = torch.stack([I1, I1x, I1y], dim=1).contiguous()
-        which = level_solver(lh, lw, cfg.median_filtering, whole_plane)
-        band, rounds = 0, None
-        if which == "warp":
+        with span("va/tvl1.level.%dx%d", lh, lw):
+            I0, I1 = I0s[s].contiguous(), I1s[s]
+            seeded = cfg.use_initial_flow and initial_flow is not None
+            if uv is None and seeded:
+                seed = initial_flow.float().permute(0, 3, 1, 2)
+                seed = resize_area_like(seed.reshape(B * 2, H, W), (lh, lw))
+                uv = (seed * cfg.scale_step ** s).reshape(B, 2, lh, lw)
+            elif uv is None:
+                uv = torch.zeros((B, 2, lh, lw), dtype=torch.float32,
+                                 device=I0.device)
+            else:
+                up = resize_area_like(uv.reshape(B * 2, *uv.shape[2:]),
+                                      (lh, lw))
+                uv = (up * (1.0 / cfg.scale_step)).reshape(B, 2, lh, lw)
+            I1x, I1y = centered_gradient(I1)
+            i13 = torch.stack([I1, I1x, I1y], dim=1).contiguous()
+            which = level_solver(lh, lw, cfg.median_filtering, whole_plane)
+            band, rounds = 0, None
+            if which == "warp":
+                if log is not None:
+                    rounds = I0.new_zeros((B, cfg.warps), dtype=torch.int32)
+                    log.append(LevelRounds((lh, lw), which, band, rounds))
+                counts = {} if rounds is None else {"rounds": rounds}
+                uv = solve_scale(i13, I0, uv, cfg, **counts)
+                continue
+            if which == "chain":
+                level_solve = solve_chain
+                shape = (cfg.warps, B)
+            else:
+                band, chunk = chunk_params(lh, lw, cfg)
+                level_solve = functools.partial(solve_chunked, band=band,
+                                                chunk=chunk)
+                shape = (cfg.warps, B, -(-lh // band))
             if log is not None:
-                rounds = I0.new_zeros((B, cfg.warps), dtype=torch.int32)
+                rounds = I0.new_zeros(shape, dtype=torch.int32)
                 log.append(LevelRounds((lh, lw), which, band, rounds))
-            counts = {} if rounds is None else {"rounds": rounds}
-            uv = solve_scale(i13, I0, uv, cfg, **counts)
-            continue
-        if which == "chain":
-            level_solve = solve_chain
-            shape = (cfg.warps, B)
-        else:
-            band, chunk = chunk_params(lh, lw, cfg)
-            level_solve = functools.partial(solve_chunked, band=band,
-                                            chunk=chunk)
-            shape = (cfg.warps, B, -(-lh // band))
-        if log is not None:
-            rounds = I0.new_zeros(shape, dtype=torch.int32)
-            log.append(LevelRounds((lh, lw), which, band, rounds))
-        for k in range(cfg.warps):
-            counts = {} if rounds is None else {"rounds": rounds[k]}
-            uv = level_solve(warp(i13, I0, uv), uv, cfg, **counts)
-        if cfg.median_filtering > 1:
-            uv = median(uv, cfg.median_filtering)
+            for k in range(cfg.warps):
+                counts = {} if rounds is None else {"rounds": rounds[k]}
+                uv = level_solve(warp(i13, I0, uv), uv, cfg, **counts)
+            if cfg.median_filtering > 1:
+                uv = median(uv, cfg.median_filtering)
     return uv.permute(0, 2, 3, 1)
 
 

@@ -10,7 +10,8 @@ logged, recorded in ``error_log`` and skipped; the consumer never sees it.
 ``DevicePrefetcher`` copies batch k+1 to the GPU while the consumer's step
 k runs: a worker thread copies each host batch into a pinned buffer and
 issues the copy to the device on a side stream; the consumer's stream
-waits for it on the device, never on the host.
+waits for it on the device, never on the host.  The consumer's wait for a
+placed batch is the span ``va/prefetch.wait`` while a profiler records.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from video_analytics_tpu_torch.utils.logging import get_logger
+from video_analytics_tpu_torch.utils.spans import span
 
 log = get_logger("tpuva.ingest")
 
@@ -229,18 +231,19 @@ class DevicePrefetcher:
 
     def __iter__(self) -> Iterator[Any]:
         while True:
-            entry = self._q.get()
-            if entry is _SENTINEL:
-                self._thread.join()
-                if self._exc is not None:
-                    raise self._exc
-                return
-            item, tensors, event = entry
-            if event is not None:
-                stream = torch.cuda.current_stream(self._device)
-                stream.wait_event(event)
-                for t in tensors:
-                    t.record_stream(stream)
+            with span("va/prefetch.wait"):
+                entry = self._q.get()
+                if entry is _SENTINEL:
+                    self._thread.join()
+                    if self._exc is not None:
+                        raise self._exc
+                    return
+                item, tensors, event = entry
+                if event is not None:
+                    stream = torch.cuda.current_stream(self._device)
+                    stream.wait_event(event)
+                    for t in tensors:
+                        t.record_stream(stream)
             yield item
 
     def close(self, timeout: float = 30.0) -> None:

@@ -42,6 +42,7 @@ from video_analytics_tpu_torch.models.resnet import ResNet
 from video_analytics_tpu_torch.models.spynet import SpyNet
 from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
 from video_analytics_tpu_torch.ops import preprocess as pp
+from video_analytics_tpu_torch.utils.spans import span
 
 
 def _spynet_flow(prev: torch.Tensor, nxt: torch.Tensor,
@@ -130,11 +131,13 @@ def _flow_stacks(x: torch.Tensor, cfg: PipelineConfig, plain: bool,
     """(B, T, h, w, 3) cropped windows → (B, N, h, w, 2L) normalised flow
     stacks in `dtype` (the temporal CNN's), with one flow batch over all
     B·(T-1) frame pairs."""
-    flow = _sequence_flow(pp.rgb_to_gray(x), cfg, plain, flow_net)
+    with span("va/flow"):
+        flow = _sequence_flow(pp.rgb_to_gray(x), cfg, plain, flow_net)
     pre = cfg.preprocess
-    return torch.stack([pp.stacked_flow_input(f, pre.flow_stack,
-                                              pre.flow_bound, dtype=dtype)
-                        for f in flow])
+    with span("va/stack"):
+        return torch.stack([pp.stacked_flow_input(f, pre.flow_stack,
+                                                  pre.flow_bound, dtype=dtype)
+                            for f in flow])
 
 
 @torch.no_grad()
@@ -157,16 +160,22 @@ def classify_batch(windows: torch.Tensor, model: TwoStreamModel,
     once per stream).  `flow_net`: the SpyNet of ``flow_algo="spynet"``."""
     B, T = windows.shape[:2]
     pre = cfg.preprocess
-    x = _crop(windows, cfg)                            # (B, T, h, w, 3)
-    rgb = pp.normalize(x, pre.mean, pre.std)
-    s_logits = model.spatial(rgb.reshape(B * T, *rgb.shape[2:]))
-    s_logits = s_logits.reshape(B, T, -1).mean(dim=1)
-    stacks = _flow_stacks(x, cfg, plain, flow_net,     # (B, N, h, w, 2L)
-                          model.temporal.dtype)
-    n = stacks.shape[1]
-    t_logits = model.temporal(stacks.reshape(B * n, *stacks.shape[2:]))
-    t_logits = t_logits.reshape(B, n, -1).mean(dim=1)
-    return model.fuse(s_logits, t_logits)
+    with span("va/classify_batch"):
+        with span("va/crop"):
+            x = _crop(windows, cfg)                    # (B, T, h, w, 3)
+            rgb = pp.normalize(x, pre.mean, pre.std)
+        with span("va/spatial"):
+            s_logits = model.spatial(rgb.reshape(B * T, *rgb.shape[2:]))
+            s_logits = s_logits.reshape(B, T, -1).mean(dim=1)
+        stacks = _flow_stacks(x, cfg, plain, flow_net,  # (B, N, h, w, 2L)
+                              model.temporal.dtype)
+        n = stacks.shape[1]
+        with span("va/temporal"):
+            t_logits = model.temporal(
+                stacks.reshape(B * n, *stacks.shape[2:]))
+            t_logits = t_logits.reshape(B, n, -1).mean(dim=1)
+        with span("va/fuse"):
+            return model.fuse(s_logits, t_logits)
 
 
 def classify_window(frames: torch.Tensor, model: TwoStreamModel,

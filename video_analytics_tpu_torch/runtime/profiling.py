@@ -5,6 +5,21 @@ device trace with ``torch.profiler`` (a Chrome/Perfetto trace file in
 place of XProf's), and ``StageTimer`` accumulates wall time per named
 stage, fenced by a synchronisation of the device's current stream where
 asked (the reference blocks on an array).
+
+``span`` (from ``utils.spans``) names a stage of the program on the
+profiler's clock while a profiler records, and costs a flag check when
+none does.  The program's spans, outermost first:
+
+  - ``va/classify_batch`` (``runtime.pipeline.classify_batch``), inside
+    it ``va/crop``, ``va/spatial``, ``va/flow``, ``va/stack``,
+    ``va/temporal`` and ``va/fuse``;
+  - ``va/tvl1.pyramid`` and one ``va/tvl1.level.<h>x<w>`` per pyramid
+    level (``flow.tvl1.tvl1``), inside ``va/flow`` on that path;
+  - ``va/prefetch.wait`` (``ingest.prefetch.DevicePrefetcher``): the
+    consumer's wait for a placed batch.
+
+``trace`` records them with the kernels, so its Perfetto file shows the
+stages.
 """
 
 from __future__ import annotations
@@ -17,6 +32,7 @@ from typing import Dict, Optional, Union
 import torch
 
 from video_analytics_tpu_torch.utils.logging import get_logger
+from video_analytics_tpu_torch.utils.spans import span  # noqa: F401
 
 log = get_logger("tpuva.profiling")
 
