@@ -22,14 +22,18 @@ Phases, each reported on a JSON line:
    ``pd_solve_warp`` (one launch per warp, an image per thread-block
    cluster of 8 blocks, or of 16 where the strips need it: 240×320 and
    280×300) against ``pd_solve_plain`` at those sizes and five others,
-   with ``cudaOccupancyMaxActiveClusters`` at both cluster sizes, at ε = 0
+   with ``cudaOccupancyMaxActiveClusters`` at 1, 2, 4, 8 and 16 blocks
+   and the size ``tvl1_scale`` takes at 15 and 120 pairs, at ε = 0
    (bit for bit) and with ε engaged, at medians 5, 3 and
    none, timed beside the per-iteration chain and the non-adaptive chunked
    solver on the same warp; ``tvl1_scale`` (``pd_solve_scale``: every warp
    of a scale with its prep, and the scale-end median, in one launch of
    the same kernel) at the same eight sizes against the chain K-A → K-H
    per warp → K-C (bit for bit, with ε engaged too) and against its plain
-   version, the launch and the chain timed in turns; check that an image
+   version, the launch and the chain timed in turns, and forced to each
+   cluster size that fits (bit for bit against the plain version at
+   ε = 0, the size rule's rounds with ε engaged; ``va_pd_scale`` refusing
+   sizes that do not fit); check that an image
    stops on its own ε test (an easy pair's flow is the same alone and
    batched with a hard pair);
 3. serve: build ``ClipServer`` at full width (two ResNet-18s of width 64,
@@ -298,6 +302,7 @@ chunk_bound = ROOFLINE.chunk_bound
 
 SIZES = (224, 179, 143, 115, 92)       # TVL1Config() pyramid of a 224² crop
 PAIRS = 15                             # frame pairs of a 16-frame window
+SCALE_BLOCKS = (1, 2, 4, 8, 16)        # cluster sizes of tvl1_scale
 SERVE_REQUESTS = 3
 
 TOL_WARP = 1e-4        # K-A, on planes of [0, 255] images
@@ -1322,17 +1327,31 @@ def tvl1_warp_kernel_phase(torch, np, dev):
               f"{lib.va_pd_warp_smem(h, w)} B, constants in shared memory "
               f"{lib.va_pd_warp_consts_in_smem(h, w)}, "
               f"{lib.va_pd_warp_cluster(h, w)} blocks")
-        # cudaOccupancyMaxActiveClusters at both sizes where the strips fit
-        # (a negative CUDA error where they do not).
+        # cudaOccupancyMaxActiveClusters at every size where the strips fit
+        # (a negative CUDA error where they do not), and what
+        # pd_solve_scale asks once a process; the size it takes for a
+        # request's pairs and for the eval batch's.
+        fit = [c for c in SCALE_BLOCKS
+               if ts.strip_geometry(h, w, c) is not None]
         by_size = {cl: lib.va_pd_warp_max_clusters(h, w, PAIRS, cl)
-                   for cl in (8, 16)}
+                   for cl in SCALE_BLOCKS}
+        check(all((by_size[c] >= 1) == (c in fit) for c in SCALE_BLOCKS)
+              and all(ts.resident_clusters(dev.index or 0, h, w, c)
+                      == by_size[c] for c in fit),
+              f"max active clusters of {h}x{w}: {by_size}, fit {fit}")
         clusters = by_size[blocks]
         check(clusters >= 1, f"no cluster of {blocks} blocks of {h}x{w} can "
                              f"be resident: {clusters}")
+        slots = lambda c: ts.resident_clusters(dev.index or 0, h, w, c)
+        chosen = {n: ts.scale_blocks(h, w, n, slots) for n in (PAIRS, 120)}
+        check(chosen[PAIRS] == blocks,
+              f"tvl1_scale of {PAIRS} pairs at {h}x{w} takes {chosen} "
+              f"blocks, the size rule {blocks}")
         entry = {"strip_rows": rows, "constants_in_shared_memory": consts,
                  "smem_bytes": smem, "cluster_blocks": blocks,
                  "max_active_clusters": clusters,
-                 "max_active_clusters_by_size": by_size}
+                 "max_active_clusters_by_size": by_size,
+                 "scale_blocks_by_pairs": chosen}
         rounds = torch.zeros(PAIRS, dtype=torch.int32, device=dev)
 
         def held(c, what, exact):
@@ -1452,6 +1471,31 @@ def tvl1_warp_kernel_phase(torch, np, dev):
               f"plain version")
         scale_err = max(scale_err, e)
         sc["rounds"] = srounds.tolist()
+        # Forced to each size that fits: at epsilon = 0 the plain version
+        # to the bit; with the test engaged, on this scene, the rounds of
+        # the size rule's size (the size only partitions the test's sum).
+        exact = dataclasses.replace(cfg, epsilon=0.0, outer_iterations=2,
+                                    warps=2)
+        want = ts.pd_solve_scale_plain(i13, i0, uv, exact)
+        forced_rounds = torch.zeros_like(srounds)
+        sc["forced"] = {}
+        for c in fit:
+            n = dict(ts.pd_solve_scale.launches_by_blocks)
+            got = ts.pd_solve_scale(i13, i0, uv, exact, blocks=c)
+            check(ts.pd_solve_scale.launches_by_blocks.get(c, 0)
+                  == n.get(c, 0) + 1, f"launch in {c} blocks not counted")
+            check(torch.equal(got, want),
+                  f"tvl1_scale at {h}x{w} in clusters of {c}, epsilon 0: "
+                  f"max abs {(got - want).abs().max().item()} from the "
+                  f"plain version")
+            got = ts.pd_solve_scale(i13, i0, uv, cfg, forced_rounds, c)
+            check(torch.equal(forced_rounds, srounds),
+                  f"tvl1_scale at {h}x{w} in clusters of {c}: rounds "
+                  f"{forced_rounds.tolist()}, in {blocks} "
+                  f"{srounds.tolist()}")
+            sc["forced"][c] = {
+                "equal_to_size_rule_s_flow": torch.equal(got, chain),
+                "max_abs_vs_size_rule_s": (got - chain).abs().max().item()}
         sb_ms, sb_by = scale_bound(sc["rounds"], h, w, cfg.inner_iterations,
                                    cfg.median_filtering)
         # In turns: the launch, the chain, the chain, the launch.
@@ -1499,11 +1543,31 @@ def tvl1_warp_kernel_phase(torch, np, dev):
     check(ts.warp_geometry(*CHAIN) is None
           and lib.va_pd_warp_smem(*CHAIN) < 0
           and lib.va_pd_warp_cluster(*CHAIN) < 0, f"{CHAIN} fits a cluster?")
+    # The library refuses a cluster whose strips do not fit: 224² in 4, 2
+    # or 1 blocks, and sizes the kernel does not take; 92² in one block
+    # without the scratch its constants need.
+    i0, i13, uv = tvl1_level_inputs(torch, np, dev, SIZES[0], SIZES[0], 1)
+    out, scratch = torch.empty_like(uv), torch.empty_like(i13)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    refused = {}
+    for (h, w), c, scr in [((224, 224), 4, scratch), ((224, 224), 2, scratch),
+                           ((224, 224), 1, scratch), ((224, 224), 3, scratch),
+                           ((224, 224), 32, scratch), ((92, 92), 1, None)]:
+        err = lib.va_pd_scale(
+            i13.data_ptr(), i0.data_ptr(), uv.data_ptr(), out.data_ptr(),
+            None if scr is None else scr.data_ptr(), None, 1, h, w, c, 1, 1,
+            1, 5, 0.045, 0.3, 0.833, 0.0, stream)
+        refused[f"{h}x{w}/{c}"] = err
+        check(err == 1, f"va_pd_scale at {h}x{w} in {c} blocks: {err}, "
+                        f"not cudaErrorInvalidValue")
     emit({"phase": "tvl1_warp_kernel", "pairs": PAIRS,
           "max_abs_err": max_err, "tolerance": 0.0,
           "tolerance_where_a_round_may_flip": 10 * cfg.epsilon,
           "tvl1_scale_max_abs_err": scale_err,
           "tvl1_scale_equal_to_chain": True,
+          "va_pd_scale_refused": refused,
+          "tvl1_scale_launches_by_blocks": dict(
+              ts.pd_solve_scale.launches_by_blocks),
           "by_level": report})
     return {"tvl1_pd_warp": (max_err, *table["tvl1_pd_warp"][1:]),
             "tvl1_scale": (scale_err, *table["tvl1_scale"][1:])}

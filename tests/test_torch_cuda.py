@@ -556,10 +556,11 @@ def _chain_scale(i13, i0, uv, cfg):
 ])
 def test_pd_solve_scale_matches_plain(dev, b, h, w, k):
     """The whole-scale launch against its plain version and against the
-    three kernels it fuses.  ε = 0: bit for bit.  With the test engaged it
-    still equals the three kernels to the bit (same strips, same order of
-    the ε sum); against the plain version a round may flip at the
-    threshold, which moves the flow by less than 10·ε a warp."""
+    three kernels it fuses.  ε = 0: bit for bit.  With the test engaged,
+    in the size rule's clusters, it still equals the three kernels to the
+    bit (same strips, same order of the ε sum); against the plain version,
+    in any clusters, a round may flip at the threshold, which moves the
+    flow by less than 10·ε a warp."""
     cfg = dataclasses.replace(FAST, epsilon=0.0, median_filtering=k,
                               outer_iterations=2, warps=3)
     i0, i13, uv = _level(dev, b, h, w)
@@ -583,9 +584,17 @@ def test_pd_solve_scale_matches_plain(dev, b, h, w, k):
                        ts.pd_solve_scale_plain(i13, i0, uv, none))
     assert ts.pd_solve_scale.launches == n
     gated = dataclasses.replace(cfg, epsilon=0.05, outer_iterations=6)
-    got = ts.pd_solve_scale(i13, i0, uv, gated, rounds)
+    # In the size rule's clusters: the chain's strips and order of the sum.
+    rule = ts.warp_geometry(h, w)[3]
+    got = ts.pd_solve_scale(i13, i0, uv, gated, rounds, rule)
     assert torch.equal(got, _chain_scale(i13, i0, uv, gated))
     want = ts.pd_solve_scale_plain(i13, i0, uv, gated)
+    assert (got - want).abs().max().item() <= 10 * gated.epsilon * 3
+    assert ((rounds >= 1) & (rounds <= 6)).all()
+    # In the clusters chosen for the batch (45 images of 19x23 take
+    # fewer blocks than 8, so fewer passes), against the plain version
+    # alike.
+    got = ts.pd_solve_scale(i13, i0, uv, gated, rounds)
     assert (got - want).abs().max().item() <= 10 * gated.epsilon * 3
     assert ((rounds >= 1) & (rounds <= 6)).all()
 
@@ -614,6 +623,57 @@ def test_pd_solve_scale_refuses_what_it_cannot_launch(dev):
     with pytest.raises(ValueError, match="H, W >= 2"):
         ts.pd_solve_scale(z(1, 3, 1, 32), z(1, 1, 32), z(1, 2, 1, 32), cfg)
     assert ts.pd_solve_scale.launches == n
+
+
+@pytest.mark.parametrize("h,w", [(224, 224), (179, 179), (143, 143),
+                                 (115, 115), (92, 92), (240, 320)])
+def test_pd_solve_scale_at_every_cluster_size(dev, h, w):
+    """The whole-scale launch forced to each cluster size whose strips fit
+    (1, 2, 4, 8 or 16 blocks; the constants in shared memory or in the
+    scratch as each size allows): at ε = 0 the plain version's flow to the
+    bit, each launch counted under its size; a size that does not fit is
+    refused before anything launches."""
+    cfg = dataclasses.replace(FAST, epsilon=0.0, outer_iterations=2)
+    i0, i13, uv = _level(dev, 2, h, w)
+    want = ts.pd_solve_scale_plain(i13, i0, uv, cfg)
+    sizes = [c for c in (1, 2, 4, 8, 16)
+             if ts.strip_geometry(h, w, c) is not None]
+    assert ts.warp_geometry(h, w)[3] in sizes
+    for c in sizes:
+        n = ts.pd_solve_scale.launches_by_blocks.get(c, 0)
+        got = ts.pd_solve_scale(i13, i0, uv, cfg, blocks=c)
+        assert ts.pd_solve_scale.launches_by_blocks[c] == n + 1
+        assert torch.equal(got, want), c
+    n = ts.pd_solve_scale.launches
+    for c in sorted({1, 2, 4, 8, 16} - set(sizes)) + [3]:
+        with pytest.raises(ValueError, match=f"clusters of {c} blocks"):
+            ts.pd_solve_scale(i13, i0, uv, cfg, blocks=c)
+    assert ts.pd_solve_scale.launches == n
+
+
+def test_va_pd_scale_refuses_a_cluster_its_strips_do_not_fit(dev):
+    """The library itself refuses (cudaErrorInvalidValue, nothing
+    launched) 224² in 4, 2 or 1 blocks, a size it does not take, and 92²
+    in one block without the scratch its constants need there."""
+    from video_analytics_tpu_torch.ops.cuda import _build
+    lib = _build.library()
+    i0, i13, uv = _level(dev, 1, 224, 224)
+    out, scratch = torch.full_like(uv, 7.0), torch.empty_like(i13)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    l_t, theta, taut = ts._solver_constants(FAST)
+
+    def launch(h, w, blocks, scr):
+        return lib.va_pd_scale(
+            i13.data_ptr(), i0.data_ptr(), uv.data_ptr(), out.data_ptr(),
+            None if scr is None else scr.data_ptr(), None, 1, h, w, blocks,
+            1, 2, 1, 5, l_t, theta, taut, 0.0, stream)
+    for h, w, blocks, scr in [(224, 224, 4, scratch), (224, 224, 2, scratch),
+                              (224, 224, 1, scratch), (224, 224, 3, scratch),
+                              (224, 224, 32, scratch), (92, 92, 1, None)]:
+        assert launch(h, w, blocks, scr) == 1, (h, w, blocks)
+    torch.cuda.synchronize()
+    assert (out == 7.0).all()
+    assert launch(224, 224, 8, None) == 0
 
 
 @pytest.mark.parametrize("batch", [120, 360])

@@ -14,7 +14,9 @@ the reference's rule (video_analytics_tpu/ops/pallas/tvl1_solve.py:
 replaces, and ``tvl1`` through it against the JAX package; and what the
 wrappers do with CPU tensors and with tensors that say they lie on the
 card: the test's arguments of the wrong shape, type or device, or
-aliased, are refused before anything launches.
+aliased, are refused before anything launches.  And the cluster size the
+whole-scale launch takes for a batch (``scale_blocks``), given the card's
+occupancy.
 """
 
 import dataclasses
@@ -244,6 +246,9 @@ def _warp_inputs(seed, b, h, w, still=()):
     (40, 33, 0, None),  # no median
     (37, 29, 5, 16),    # sixteen strips: 3 rows, the 13th of 1, 3 empty
     (64, 20, 3, 16),    # sixteen strips of four rows
+    (37, 29, 5, 1),     # one strip: the whole image in one block
+    (37, 29, 3, 2),     # two strips of 19 and 18 rows
+    (37, 29, 5, 4),     # four strips, the last of 7 rows
 ])
 def test_strip_decomposition_equals_plain_without_the_test(h, w, median,
                                                            blocks):
@@ -257,7 +262,8 @@ def test_strip_decomposition_equals_plain_without_the_test(h, w, median,
 
 
 @pytest.mark.parametrize("h,w,blocks", [(17, 24, None), (37, 29, None),
-                                        (48, 40, None), (48, 40, 16)])
+                                        (48, 40, None), (48, 40, 16),
+                                        (37, 29, 1), (48, 40, 2), (17, 24, 4)])
 def test_strip_decomposition_equals_plain_with_per_image_stops(h, w, blocks):
     """With ε engaged each image leaves on its own round, and the state
     it leaves with is the plain version's to the bit."""
@@ -270,6 +276,90 @@ def test_strip_decomposition_equals_plain_with_per_image_stops(h, w, blocks):
     # An image's result does not depend on its batch.
     alone, r1 = _strip_solve(prep[1:2], uv[1:2], cfg, blocks)
     assert r1 == rounds[1:2] and torch.equal(alone[0], got[1])
+
+
+# -- the cluster size of the whole-scale launch -------------------------------
+
+# Clusters of each size the card holds at once at the cell's levels
+# (cudaOccupancyMaxActiveClusters at one block an SM on an NVIDIA H100 80GB
+# HBM3: chip_smoke.py's `max_active_clusters_by_size`).
+SLOTS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+# The pyramid of a 224² crop, finest first: tvl1_batch's and serve's levels.
+CROP_LEVELS = [(224, 224), (179, 179), (143, 143), (115, 115), (92, 92)]
+
+
+def test_scale_blocks_at_the_batch_of_eight_clips():
+    """120 image pairs a call: 8 passes of 8-block clusters at every level
+    before; now 224² keeps 8 (4 does not fit), 179² and 143² take 4 (4
+    passes), 115² takes 2 (2 passes) and 92² 1 (one pass)."""
+    assert [ts.scale_blocks(h, w, 120, SLOTS.get)
+            for h, w in CROP_LEVELS] == [8, 4, 4, 2, 1]
+    assert [ts.strip_geometry(h, w, c)[1] for (h, w), c in
+            zip(CROP_LEVELS, [8, 4, 4, 2, 1])] == [True, False, True, False,
+                                                   False]
+
+
+@pytest.mark.parametrize("h,w", CROP_LEVELS + [(240, 320), (280, 300)])
+@pytest.mark.parametrize("batch", [1, 15])
+def test_scale_blocks_keeps_the_size_rule_s_size_for_a_request(h, w, batch):
+    """A serve request's 15 pairs (and one pair) fit the card in one pass
+    at the size rule's size: serving keeps its clusters."""
+    assert ts.scale_blocks(h, w, batch, SLOTS.get) == \
+        ts.warp_geometry(h, w)[3]
+
+
+@pytest.mark.parametrize("h,w,solver", LEVELS)
+def test_scale_blocks_never_takes_a_size_that_does_not_fit(h, w, solver):
+    """On a card that would hold every size many times over, and a batch
+    that makes each size's passes grow with it, the smallest cluster
+    whose strips fit wins: never one whose strips do not fit, never one
+    larger than the size rule's; a level that fits no cluster has none."""
+    rule = ts.warp_geometry(h, w)
+    for batch in (1, 15, 120, 10_000):
+        got = ts.scale_blocks(h, w, batch, lambda c: 10_000 // c)
+        if rule is None:
+            assert got is None
+            continue
+        assert ts.strip_geometry(h, w, got) is not None
+        assert got <= rule[3]
+        if batch == 10_000:
+            assert got == min(c for c in (1, 2, 4, 8, 16)
+                              if ts.strip_geometry(h, w, c) is not None)
+    if rule is not None:
+        # A size the card holds no cluster of is passed over.
+        assert ts.scale_blocks(h, w, 10_000,
+                               lambda c: 0 if c < rule[3] else 5) == rule[3]
+
+
+def test_scale_blocks_breaks_a_tie_towards_the_larger_cluster():
+    """2 rows of K pixels (K the pass's fixed cost in pixels), 6 images:
+    one block a cluster, 3 at once, 2 passes of 3K; two blocks, 2 at once,
+    3 passes of 2K.  Equal: the larger cluster."""
+    k = ts._PASS_PX
+    slots = {1: 3, 2: 2}
+    assert ts.warp_geometry(2, k)[3] == 8
+    assert ts.scale_blocks(2, k, 6, lambda c: slots.get(c, 0)) == 2
+    slots[1] = 4     # 4 at once: still 2 passes of 3K
+    assert ts.scale_blocks(2, k, 6, lambda c: slots.get(c, 0)) == 2
+    slots[1] = 6     # one pass of 3K
+    assert ts.scale_blocks(2, k, 6, lambda c: slots.get(c, 0)) == 1
+
+
+@pytest.mark.parametrize("h,w,blocks", [(224, 224, 4), (224, 224, 3),
+                                        (224, 224, 32), (92, 92, 0),
+                                        (240, 320, 8)])
+def test_pd_solve_scale_refuses_a_cluster_its_strips_do_not_fit(h, w,
+                                                                blocks):
+    """A forced size is checked before anything else is: 224² in four
+    blocks needs 304,640 B a block, 240×320 in eight 235,776 B, and 3, 32
+    and 0 are no cluster size the kernel takes."""
+    n = ts.pd_solve_scale.launches
+    by = dict(ts.pd_solve_scale.launches_by_blocks)
+    with pytest.raises(ValueError, match=f"clusters of {blocks} blocks"):
+        ts.pd_solve_scale(_OnCard(1, 3, h, w), _OnCard(1, h, w),
+                          _OnCard(1, 2, h, w), TVL1Config(), blocks=blocks)
+    assert ts.pd_solve_scale.launches == n
+    assert ts.pd_solve_scale.launches_by_blocks == by
 
 
 # -- the bands' test ----------------------------------------------------------

@@ -34,15 +34,21 @@
 //
 // Design.  One block has 227 KB of shared memory, a 224^2 image's six state
 // planes are 1.2 MB; a cluster of eight blocks has 8 x 227 KB.  So:
-//   - grid (CL, B), cluster (CL, 1, 1) with CL = 8 (the portable maximum)
-//     where the strips fit, else 16 (Hopper's non-portable maximum, opted in
-//     per kernel, 16 SMs of one GPC at one block an SM: 240x320, 280x300 and
-//     every square level up to 295^2, the largest under the reference's size
-//     rule, fit 16 and not 8).  The size is chosen per launch and given with
-//     cudaLaunchKernelEx; a level that fits 8 keeps 8 and its bits.  Block r
-//     of an image's cluster owns the
-//     strip of RS = ceil(H / CL) rows from r * RS (a late block's strip may
-//     be short or empty; it still takes part in every barrier).  u, v, p11,
+//   - grid (CL, B), cluster (CL, 1, 1).  CL is given with each launch
+//     (cudaLaunchKernelEx) and may be any of 1, 2, 4, 8 and 16 blocks
+//     whose strips fit (16 is Hopper's non-portable maximum, opted in per
+//     kernel: 16 SMs of one GPC at one block an SM).  va_pd_warp takes the
+//     size of cluster_of: 8 where the strips fit, else 16 (240x320,
+//     280x300 and every square level up to 295^2, the largest under the
+//     reference's size rule, fit 16 and not 8).  va_pd_scale takes the
+//     size its caller chose for the batch (ops/cuda/tvl1_solve.
+//     scale_blocks): a smaller cluster puts more images on the card at
+//     once, so a large batch runs in fewer passes of clusters over the
+//     card, each pass paying the latency of an iteration of a strip.  The
+//     per-pixel arithmetic is the same at every size.  Block r of an
+//     image's cluster owns the strip of RS = ceil(H / CL) rows from r * RS
+//     (a late block's strip may be short or empty; it still takes part in
+//     every barrier; a strip of a cluster of one is the image).  u, v, p11,
 //     p12, p21, p22 of the strip live in its shared memory for the whole
 //     warp: device memory is read once (prep, u, v) and written once (u, v),
 //     and for a whole scale u, v are read once and written once however
@@ -117,7 +123,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int CL_SIZES[] = {8, 16};   // blocks per cluster, tried in order
+constexpr int CL_SIZES[] = {8, 16};   // blocks per cluster of cluster_of,
+                                      // tried in order
 constexpr int WNT = 512;              // threads per block
 constexpr int WNW = WNT / 32;         // warps per block
 constexpr int SCRATCH = 64;           // floats: WNW warp sums, the block's sum,
@@ -148,7 +155,7 @@ constexpr unsigned F_BOT = 8u;        // last row of the strip
 
 struct WarpGeom {
   int H, W;
-  int CL;          // blocks per cluster: 8 or 16
+  int CL;          // blocks per cluster: 1, 2, 4, 8 or 16
   int RS;          // rows per strip: cdiv(H, CL)
   int inner;       // iterations per round
   int outer;       // rounds at most
@@ -584,13 +591,19 @@ Variant* pick(int H, int W, int cl) {
   return nullptr;
 }
 
-// The cluster size of an (H, W) level: the smallest of CL_SIZES whose strips
-// fit a block's shared memory, or 0 where none does.
+// Whether the strips of an (H, W) image fit a block's shared memory in a
+// cluster of cl blocks, cl one of 1, 2, 4, 8 and 16.
+bool fits(int H, int W, int cl) {
+  return H >= 1 && W >= 1 &&
+         (cl == 1 || cl == 2 || cl == 4 || cl == 8 || cl == 16) &&
+         state_bytes(H, W, cl) <= MAX_SMEM && pick(H, W, cl) != nullptr;
+}
+
+// The cluster size of an (H, W) level for one warp: the first of CL_SIZES
+// whose strips fit, or 0 where none does.
 int cluster_of(int H, int W) {
-  if (H < 1 || W < 1) return 0;
   for (int cl : CL_SIZES)
-    if (state_bytes(H, W, cl) <= MAX_SMEM && pick(H, W, cl) != nullptr)
-      return cl;
+    if (fits(H, W, cl)) return cl;
   return 0;
 }
 
@@ -637,34 +650,33 @@ cudaLaunchConfig_t cluster_config(int cl, int B, int smem, cudaStream_t s,
 
 }  // namespace
 
-// Blocks per cluster for an (H, W) image: 8, 16, or -1 where the level fits
-// no cluster.
+// Blocks per cluster of va_pd_warp for an (H, W) image: 8, 16, or -1 where
+// the level fits no cluster.
 VA_EXPORT int va_pd_warp_cluster(int H, int W) {
   const int cl = cluster_of(H, W);
   return cl > 0 ? cl : -1;
 }
 
-// Bytes of dynamic shared memory a block needs for an (H, W) image, or -1
-// where that is more than a block may have: the level does not fit a cluster.
+// Bytes of dynamic shared memory a block of va_pd_warp needs for an (H, W)
+// image, or -1 where that is more than a block may have: the level does not
+// fit a cluster.
 VA_EXPORT int va_pd_warp_smem(int H, int W) {
   const int cl = cluster_of(H, W);
   return cl > 0 ? smem_of(H, W, cl) : -1;
 }
 
 // 1 where I1wx, I1wy and rho_c of a strip of an (H, W) image lie in shared
-// memory, 0 where they are read through L2.
+// memory in va_pd_warp's cluster, 0 where they are read through L2.
 VA_EXPORT int va_pd_warp_consts_in_smem(int H, int W) {
   const int cl = cluster_of(H, W);
   return cl > 0 && consts_fit(H, W, cl) ? 1 : 0;
 }
 
-// Clusters of `cl` blocks (8 or 16) of this kernel that the card can hold at
-// once at (H, W), or the negated CUDA error; the strips of (H, W) must fit
-// at that size.
+// Clusters of `cl` blocks (1, 2, 4, 8 or 16) of this kernel that the card
+// can hold at once at (H, W), or the negated CUDA error; the strips of
+// (H, W) must fit at that size.
 VA_EXPORT int va_pd_warp_max_clusters(int H, int W, int B, int cl) {
-  if (H < 1 || W < 1 || B < 1 || (cl != 8 && cl != 16) ||
-      state_bytes(H, W, cl) > MAX_SMEM || pick(H, W, cl) == nullptr)
-    return -(int)cudaErrorInvalidValue;
+  if (B < 1 || !fits(H, W, cl)) return -(int)cudaErrorInvalidValue;
   const int smem = smem_of(H, W, cl);
   Variant* v = pick(H, W, cl);
   cudaError_t err = opt_in(v, smem, cl);
@@ -685,14 +697,15 @@ VA_EXPORT int va_pd_warp_max_clusters(int H, int W, int B, int cl) {
 
 namespace {
 
-// One launch of the kernel: with prep one warp from its constants, without
-// it `warps` warps that make their own from i13 and i0.
+// One launch of the kernel in clusters of cl blocks: with prep one warp
+// from its constants, without it `warps` warps that make their own from i13
+// and i0.
 int launch(const float* prep, const float* i13, const float* i0,
            const float* uv_in, float* uv_out, float* scratch, int* rounds_out,
-           int B, int H, int W, int warps, int inner, int outer, int median_k,
-           float l_t, float theta, float taut, float eps2, void* stream) {
-  const int cl = cluster_of(H, W);
-  if (cl == 0 || B < 1 || warps < 1 || inner < 1 || outer < 0 ||
+           int B, int H, int W, int cl, int warps, int inner, int outer,
+           int median_k, float l_t, float theta, float taut, float eps2,
+           void* stream) {
+  if (!fits(H, W, cl) || B < 1 || warps < 1 || inner < 1 || outer < 0 ||
       (median_k != 0 && median_k != 3 && median_k != 5))
     return (int)cudaErrorInvalidValue;
   const int smem = smem_of(H, W, cl);
@@ -739,24 +752,28 @@ VA_EXPORT int va_pd_warp(const float* prep, const float* uv_in, float* uv_out,
                          float taut, float eps2, void* stream) {
   if (prep == nullptr) return (int)cudaErrorInvalidValue;
   return launch(prep, nullptr, nullptr, uv_in, uv_out, nullptr, rounds_out, B,
-                H, W, 1, inner, outer, median_k, l_t, theta, taut, eps2,
-                stream);
+                H, W, cluster_of(H, W), 1, inner, outer, median_k, l_t, theta,
+                taut, eps2, stream);
 }
 
-// One pyramid scale.  i13: (B, 3, H, W) planes I1, I1x, I1y; i0: (B, H, W);
-// uv_in, uv_out: (B, 2, H, W), distinct buffers; scratch: (B, 3, H, W), used
-// only where va_pd_warp_consts_in_smem(H, W) is 0 (else it may be null);
-// rounds_out: null, or (B, warps) int32 that receives the rounds each image
-// ran in each warp.  After the last warp the median_k median is applied once
-// more.  H, W >= 2.
+// One pyramid scale in clusters of `blocks` blocks (1, 2, 4, 8 or 16; the
+// strips of (H, W) must fit at that size).  i13: (B, 3, H, W) planes I1,
+// I1x, I1y; i0: (B, H, W); uv_in, uv_out: (B, 2, H, W), distinct buffers;
+// scratch: (B, 3, H, W), used only where the strip's constants do not fit
+// shared memory at that size (else it may be null); rounds_out: null, or
+// (B, warps) int32 that receives the rounds each image ran in each warp.
+// After the last warp the median_k median is applied once more.  H, W >= 2.
 VA_EXPORT int va_pd_scale(const float* i13, const float* i0,
                           const float* uv_in, float* uv_out, float* scratch,
-                          int* rounds_out, int B, int H, int W, int warps,
-                          int inner, int outer, int median_k, float l_t,
-                          float theta, float taut, float eps2, void* stream) {
+                          int* rounds_out, int B, int H, int W, int blocks,
+                          int warps, int inner, int outer, int median_k,
+                          float l_t, float theta, float taut, float eps2,
+                          void* stream) {
   if (i13 == nullptr || i0 == nullptr || H < 2 || W < 2 ||
-      (scratch == nullptr && !va_pd_warp_consts_in_smem(H, W)))
+      !fits(H, W, blocks) ||
+      (scratch == nullptr && !consts_fit(H, W, blocks)))
     return (int)cudaErrorInvalidValue;
   return launch(nullptr, i13, i0, uv_in, uv_out, scratch, rounds_out, B, H, W,
-                warps, inner, outer, median_k, l_t, theta, taut, eps2, stream);
+                blocks, warps, inner, outer, median_k, l_t, theta, taut, eps2,
+                stream);
 }

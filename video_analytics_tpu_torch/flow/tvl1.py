@@ -15,7 +15,8 @@ kernels of a level: where an image's state fits the shared memory of a
 cluster of 8 or 16 thread blocks (every level under the reference's size
 rule but very wide ones), the whole scale (every warp with its prep and
 solve, and the scale-end median) is one launch
-(``ops/cuda/tvl1_solve.pd_solve_scale``); where it does not, K-A per
+(``ops/cuda/tvl1_solve.pd_solve_scale``, in clusters that a large batch
+may take smaller: ``scale_blocks``); where it does not, K-A per
 warp, one launch per iteration (K-B/K-C ``pd_solve``) and K-C at the end;
 at a level too large for the reference's whole-plane solver, K-A, several
 iterations per launch with row bands that stop on their own (K-G

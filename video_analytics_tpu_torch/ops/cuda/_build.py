@@ -56,8 +56,8 @@ _SIGNATURES = {
     "va_pd_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _I, _I, _F, _F, _F, _F, _I, _P),
     "va_pd_warp": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
-    "va_pd_scale": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                    _F, _F, _P),
+    "va_pd_scale": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                    _F, _F, _F, _P),
     "va_fb_window_solve": (_P, _P, _I, _I, _I, _P, _P, _I, _P),
     "va_fb_iteration": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P),
     "va_fb_window_smem": (_I, _I),

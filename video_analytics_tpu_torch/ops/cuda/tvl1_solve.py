@@ -30,7 +30,8 @@ levels whose state fits a cluster's shared memory (``warp_geometry``).
 ``pd_solve_scale`` runs all the warps of such a level in one launch of
 the same kernel: each warp opens with K-A's warp and prep as the
 kernel's prologue, and the scale-end median closes the launch;
-``flow/tvl1.py`` takes it wherever the level fits.
+``flow/tvl1.py`` takes it wherever the level fits.  Its clusters are
+sized for the batch (``scale_blocks``).
 
 ``pd_solve_chunked`` drives one warp of a plane too large for either
 (``flow/tvl1.py`` sends it every level the reference sends to its banded
@@ -47,8 +48,9 @@ result.  ``flow/tvl1.tvl1`` passes one while ``tvl1.rounds`` holds a list.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -322,22 +324,53 @@ def pd_solve(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config,
 
 # -- K-H: one warp in one launch, an image per thread-block cluster ----------
 
-_CLUSTER_SIZES = (8, 16)     # blocks per cluster: the portable maximum, then
-                             # Hopper's non-portable one
+_CLUSTER_SIZES = (8, 16)     # blocks per cluster of the size rule: the
+                             # portable maximum, then Hopper's non-portable one
+_SCALE_BLOCKS = (1, 2, 4, 8, 16)   # the sizes ``pd_solve_scale`` may take
 _BLOCK_SMEM = 232448         # bytes of shared memory a block may opt in to
 _WARP_SCRATCH = 64           # floats beside the planes: the ε test's sums
+# The fixed cost of one pass of clusters over the card, in pixels of a
+# block's strip.  A level of the benchmark's batch (120 images of a 224²
+# crop's pyramid, all in 8-block clusters: 8 passes a level) takes a + b ×
+# (its strip's pixels) device ms; fitted to the five levels' spans
+# (``va/tvl1.level.<h>x<w>``, 33 batches, NVIDIA H100 80GB HBM3 at 700 W):
+# a = 3.675 ms, b = 3.286e-3 ms a pixel, within 5 % at every level, so one
+# pass costs a / b ≈ 1,120 pixels' worth however small its strips: the
+# latency of an iteration (two cluster barriers, short dependent chains).
+_PASS_PX = 1120
+
+
+def strip_geometry(h: int, w: int, blocks: int
+                   ) -> Optional[Tuple[int, bool, int, int]]:
+    """An (h, w) image in a cluster of `blocks` thread blocks (1, 2, 4, 8
+    or 16).  Block r owns rows [r·rows, (r+1)·rows) with rows =
+    ceil(h / blocks), and keeps the six state planes of that strip in its
+    shared memory, four of them with a halo row that a neighbouring block
+    fills; where three more planes fit, I1wx, I1wy and rho_c of the strip
+    lie there too, else they are read through L2 each iteration.
+
+    Returns (rows per strip, whether those constants lie in shared
+    memory, bytes of shared memory a block, blocks), or None where the
+    state alone exceeds the 232,448 B a block may have (or `blocks` is
+    no cluster size the kernel takes)."""
+    if blocks not in _SCALE_BLOCKS:
+        return None
+    rows = -(-h // blocks)
+    smem = 4 * ((6 * rows + 4) * w + _WARP_SCRATCH)
+    if smem > _BLOCK_SMEM:
+        return None
+    consts = smem + 4 * 3 * rows * w <= _BLOCK_SMEM
+    return rows, consts, smem + (4 * 3 * rows * w if consts else 0), blocks
 
 
 def warp_geometry(h: int, w: int
                   ) -> Optional[Tuple[int, bool, int, int]]:
-    """The size rule of ``pd_solve_warp`` and ``pd_solve_scale``.  Block r
-    of an image's cluster of `blocks` owns rows [r·rows, (r+1)·rows) with
-    rows = ceil(h / blocks), and keeps the six state planes of that strip
-    in its shared memory, four of them with a halo row that a neighbouring
-    block fills; where three more planes fit, I1wx, I1wy and rho_c of the
-    strip lie there too, else they are read through L2 each iteration.
-    `blocks` is 8 where the strips fit, else 16 (a non-portable cluster
-    size: one block on each of 16 SMs of one GPC).
+    """The size rule of ``pd_solve_warp`` and of which levels
+    ``pd_solve_scale`` takes: ``strip_geometry`` at 8 blocks where the
+    strips fit, else at 16 (a non-portable cluster size: one block on
+    each of 16 SMs of one GPC).  ``pd_solve_warp`` runs in clusters of
+    that size; ``pd_solve_scale`` chooses its size per launch, for the
+    batch (``scale_blocks``), where before it too took this one.
 
     Returns (rows per strip, whether those constants lie in shared
     memory, bytes of shared memory a block, blocks per cluster), or None
@@ -348,13 +381,52 @@ def warp_geometry(h: int, w: int
     the largest square level under the reference's size rule, 207,456 B.
     A 20×4000 level fits neither (256,256 B in 16 strips of 2 rows)."""
     for blocks in _CLUSTER_SIZES:
-        rows = -(-h // blocks)
-        smem = 4 * ((6 * rows + 4) * w + _WARP_SCRATCH)
-        if smem > _BLOCK_SMEM:
-            continue
-        consts = smem + 4 * 3 * rows * w <= _BLOCK_SMEM
-        return rows, consts, smem + (4 * 3 * rows * w if consts else 0), blocks
+        geom = strip_geometry(h, w, blocks)
+        if geom is not None:
+            return geom
     return None
+
+
+def scale_blocks(h: int, w: int, batch: int,
+                 slots: Callable[[int], int]) -> Optional[int]:
+    """Blocks per cluster of ``pd_solve_scale`` for `batch` images of
+    (h, w).  ``slots(c)`` is the number of clusters of c blocks the card
+    holds at once (``cudaOccupancyMaxActiveClusters``), so the batch runs
+    in ceil(batch / slots(c)) passes, each of which costs a fixed
+    ``_PASS_PX`` plus a strip's pixels.  Of the sizes up to the size
+    rule's (``warp_geometry``) whose strips fit (``strip_geometry``) and
+    of which the card holds a cluster, the one that costs least; ties go
+    to the larger cluster.  (The fixed cost was fitted at the size rule's
+    size; nothing measured says what a wider cluster's barriers cost.)
+    A serve request's 15 images keep the size rule's size; a batch too
+    large for one pass takes smaller clusters where their strips fit.
+    None where the level fits no cluster."""
+    rule = warp_geometry(h, w)
+    if rule is None:
+        return None
+    best = None
+    for blocks in _SCALE_BLOCKS:
+        geom = strip_geometry(h, w, blocks)
+        n = slots(blocks) if geom is not None and blocks <= rule[3] else 0
+        if n < 1:
+            continue
+        cost = -(-batch // n) * (_PASS_PX + geom[0] * w)
+        if best is None or cost <= best[0]:
+            best = (cost, blocks)
+    return None if best is None else best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def resident_clusters(device: int, h: int, w: int, blocks: int) -> int:
+    """Clusters of `blocks` blocks of the solver kernel at (h, w) that
+    card `device` holds at once (``cudaOccupancyMaxActiveClusters``, one
+    block an SM); asked once a process.  The strips must fit."""
+    with torch.cuda.device(device):
+        n = _build.library().va_pd_warp_max_clusters(
+            h, w, _build.GRID_YZ_MAX, blocks)
+    if n < 0:
+        _build.check(-n, "cudaOccupancyMaxActiveClusters")
+    return n
 
 
 def pd_solve_warp(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config,
@@ -430,8 +502,8 @@ def pd_solve_scale_plain(i13: torch.Tensor, i0: torch.Tensor,
 
 
 def pd_solve_scale(i13: torch.Tensor, i0: torch.Tensor, uv: torch.Tensor,
-                   cfg: TVL1Config,
-                   rounds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   cfg: TVL1Config, rounds: Optional[torch.Tensor] = None,
+                   blocks: Optional[int] = None) -> torch.Tensor:
     """One whole pyramid scale of TV-L1 in one launch: ``cfg.warps`` times
     the warp of (I1, ∂I1/∂x, ∂I1/∂y) by the current flow with the
     solver's prep (what ``warp_prep`` computes) and one warp's solve (what
@@ -439,7 +511,7 @@ def pd_solve_scale(i13: torch.Tensor, i0: torch.Tensor, uv: torch.Tensor,
     image's state stays in the shared memory of its cluster from the first
     warp to the last.  Equal to ``pd_solve_scale_plain`` bit for bit
     except where the order of the ε test's sum flips a round at the
-    threshold.
+    threshold; the cluster size only partitions that sum.
 
     Args:
       i13: (B, 3, H, W) float32 planes I1, ∂I1/∂x, ∂I1/∂y.
@@ -448,22 +520,27 @@ def pd_solve_scale(i13: torch.Tensor, i0: torch.Tensor, uv: torch.Tensor,
       cfg: the TVL1Config (warps, λ, θ, τ, ε, iteration counts, median).
       rounds: optional (B, warps) int32 tensor that receives the outer
         rounds each image ran in each warp.
+      blocks: blocks per cluster; by default ``scale_blocks`` chooses for
+        the batch from the card's occupancy.  Tests force each size.
 
     Returns:
       (B, 2, H, W) float32 flow at the scale's end.
 
     Raises ValueError for a CUDA tensor of a level that does not fit a
-    cluster (``warp_geometry``): the caller picks the solver by that rule.
+    cluster (``warp_geometry``): the caller picks the solver by that rule;
+    and for `blocks` whose strips do not fit (``strip_geometry``).
     """
     if not uv.is_cuda:
         return pd_solve_scale_plain(i13, i0, uv, cfg, rounds)
     B, _, H, W = uv.shape
     dev = uv.device
-    geom = warp_geometry(H, W)
-    if geom is None:
+    if warp_geometry(H, W) is None:
         raise ValueError(f"pd_solve_scale: a {H}x{W} level does not fit the "
                          f"shared memory of a cluster (warp_geometry); "
                          f"warp_prep and pd_solve are the kernels for it")
+    if blocks is not None and strip_geometry(H, W, blocks) is None:
+        raise ValueError(f"pd_solve_scale: a {H}x{W} level does not fit "
+                         f"clusters of {blocks} blocks (strip_geometry)")
     if H < 2 or W < 2:
         raise ValueError(f"pd_solve_scale needs H, W >= 2, got {(H, W)}")
     _build.expect(i13, "i13", (B, 3, H, W), dev)
@@ -481,24 +558,34 @@ def pd_solve_scale(i13: torch.Tensor, i0: torch.Tensor, uv: torch.Tensor,
                          f"int32 tensor on {dev}")
     if cfg.warps < 1:        # no warp: the scale is its closing median alone
         return median5(uv, k) if k else uv.clone()
+    if blocks is None:
+        blocks = scale_blocks(H, W, B, functools.partial(
+            resident_clusters, dev.index, H, W))
+        if blocks is None:
+            raise RuntimeError(f"pd_solve_scale: the card holds no cluster "
+                               f"of a {H}x{W} level at any size")
     out = torch.empty_like(uv)
     # Where the strip's constants do not fit shared memory beside the state
     # the kernel keeps them here, each block its own strip's.
-    scratch = None if geom[1] else torch.empty_like(i13)
+    consts = strip_geometry(H, W, blocks)[1]
+    scratch = None if consts else torch.empty_like(i13)
     l_t, theta, taut = _solver_constants(cfg)
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(lib.va_pd_scale(
         i13.data_ptr(), i0.data_ptr(), uv.data_ptr(), out.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
-        None if rounds is None else rounds.data_ptr(), B, H, W, cfg.warps,
-        cfg.inner_iterations, cfg.outer_iterations, k, l_t, theta, taut,
-        cfg.epsilon * cfg.epsilon, stream), "pd_solve_scale")
+        None if rounds is None else rounds.data_ptr(), B, H, W, blocks,
+        cfg.warps, cfg.inner_iterations, cfg.outer_iterations, k, l_t, theta,
+        taut, cfg.epsilon * cfg.epsilon, stream), "pd_solve_scale")
     pd_solve_scale.launches += 1
+    by = pd_solve_scale.launches_by_blocks
+    by[blocks] = by.get(blocks, 0) + 1
     return out
 
 
 pd_solve_scale.launches = 0
+pd_solve_scale.launches_by_blocks = {}   # blocks per cluster → launches
 
 
 # -- K-G: several iterations per launch, for large planes --------------------
