@@ -385,3 +385,91 @@ def test_stage_commands_errors(tmp_path, tiny_clip, frames_dir, capsys,
                                                        tiny_clip]):
         with pytest.raises(RuntimeError, match="is_available"):
             main([*cmd, *MODEL])
+
+
+# -- the video arch: R(2+1)D-34 streams on clip volumes -----------------------
+
+R2P1D = ["--arch", "r2plus1d_34", "--num-classes", "5", "--width", "4",
+         "--resize-short", "36", "--crop", "32", "--window", "9",
+         *ALGOS["farneback"]]
+
+
+@pytest.fixture(scope="module")
+def r2p1d_checkpoint(tmp_path_factory):
+    """(path, model): a checkpoint of a small two-stream R(2+1)D-34 written
+    from a seed, BatchNorm statistics away from 0 and 1."""
+    from tests.test_torch_r2plus1d import seeded
+    from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+    from video_analytics_tpu_torch.runtime.checkpoint import save_variables
+    tm = TwoStreamModel.create(num_classes=5, width=4, arch="r2plus1d_34")
+    seeded(tm.spatial, 21)
+    seeded(tm.temporal, 22)
+    path = str(tmp_path_factory.mktemp("r2p1d") / "two_stream.msgpack")
+    save_variables(path, tm.flax_variables())
+    return path, tm
+
+
+def _plain_clip_probs(video, model, num_windows):
+    """The plain pipeline's clip probabilities for `video` under R2P1D's
+    flags: the command's windows and crop, then the reference model on
+    the port's plain Farneback, Kinetics statistics, fusion 1 : 1."""
+    from tests.test_torch_r2plus1d import plain_clip_probs, state
+    from video_analytics_tpu_torch.cli.main import (
+        _pipeline_config, build_parser)
+    from video_analytics_tpu_torch.flow.farneback import farneback_sequence
+    from video_analytics_tpu_torch.ops import preprocess as pp
+    from video_analytics_tpu_torch.runtime.evaluate import load_clip_windows
+
+    cfg = _pipeline_config(build_parser().parse_args(
+        ["classify-clip", video, *R2P1D]))
+    assert cfg.preprocess.mean == (0.43216, 0.394666, 0.37645)
+    assert cfg.fusion_weights == (1.0, 1.0)
+    wins, cfg = load_clip_windows(video, cfg, num_windows=num_windows)
+    pre = cfg.preprocess
+    x = pp.resize_short_center_crop(torch.from_numpy(wins), pre.resize_short,
+                                    pre.crop, src_hw=pre.src_hw)
+    with torch.no_grad():
+        probs = plain_clip_probs(
+            x, state(model.spatial), state(model.temporal), pre.mean,
+            pre.std, pre.flow_bound, cfg.fusion_weights,
+            lambda g: farneback_sequence(g, cfg.farneback, plain=True))
+    return probs.mean(0).numpy()
+
+
+def test_classify_clip_r2plus1d_34(tiny_clip, r2p1d_checkpoint, capsys):
+    """--arch r2plus1d_34 answers as the plain pipeline on its
+    checkpoint."""
+    path, model = r2p1d_checkpoint
+    rc, res = run_cli(capsys, ["classify-clip", tiny_clip, *R2P1D,
+                               "--checkpoint", path, "--windows", "2",
+                               "--topk", "5", *CPU])
+    assert rc == 0
+    got = {e["class_id"]: e["prob"] for e in res["topk"]}
+    want = _plain_clip_probs(tiny_clip, model, 2)
+    assert sorted(got) == list(range(5))
+    for i in range(5):
+        assert abs(got[i] - want[i]) <= 1e-5, (i, got, want)
+    assert res["top1"] == int(np.argmax(want))
+
+
+def test_eval_ucf101_batched_r2plus1d_34(tmp_path, r2p1d_checkpoint,
+                                         capsys):
+    """eval-ucf101 --batched --arch r2plus1d_34 counts as the clip-by-clip
+    command, whose correct count is the plain pipeline's."""
+    from video_analytics_tpu_torch.io.dataset import UCF101
+    from video_analytics_tpu_torch.io.synthetic import build_synthetic_ucf101
+    root = str(tmp_path / "ucf")
+    build_synthetic_ucf101(root, num_classes=2, clips_per_class=2,
+                           num_frames=14, h=96, w=128)
+    path, model = r2p1d_checkpoint
+    args = ["eval-ucf101", "--videos", f"{root}/videos", "--annotations",
+            f"{root}/annotations", *R2P1D, "--checkpoint", path, *CPU]
+    rc, batched = run_cli(capsys, [*args, "--batched", "--batch-clips", "2"])
+    assert rc == 0 and batched["failed"] == 0 and batched["total"] >= 2
+    rc, serial = run_cli(capsys, args)
+    assert rc == 0 and serial == batched
+    records = UCF101(videos_root=f"{root}/videos",
+                     annotations_root=f"{root}/annotations").test_records()
+    correct = sum(int(np.argmax(_plain_clip_probs(r.path, model, 1))
+                      == r.label) for r in records)
+    assert serial["correct"] == correct and serial["total"] == len(records)

@@ -4,7 +4,8 @@ For each of the nine subcommands both ``build_parser()`` trees are built
 and every action of the subcommand is held to the reference's: its option
 strings (a positional by its dest), default, type, choices, nargs,
 ``required`` and action class.  The port may differ only where
-``PORT_ONLY`` names the flag, with its reason."""
+``PORT_ONLY`` names the flag, or ``PORT_CHANGED`` the flag and the
+attributes that differ, with its reason."""
 
 import argparse
 import importlib
@@ -25,6 +26,22 @@ PORT_ONLY = {
         "its default 0 is the reference's fixed seed, so the default "
         "command serves the reference's weights (tests/test_torch_cli.py "
         "uses it)",
+}
+
+
+CLIP_ARCHS = ("adds the video arch r2plus1d_34 (models/video_resnet), which "
+              "the reference has not; classify-clip and eval-ucf101 run its "
+              "clip volumes")
+ARCH_GEOMETRY = ("left unset it is --arch's own (models.two_stream."
+                 "arch_input): the reference's default for its ResNets, "
+                 "112 / 128 / 33 for r2plus1d_34")
+PORT_CHANGED = {
+    **{(cmd, ("--arch",)): (CLIP_ARCHS, {"choices": [
+        "resnet18", "resnet34", "resnet50", "r2plus1d_34"]})
+       for cmd in ("classify-clip", "eval-ucf101")},
+    **{(cmd, (flag,)): (ARCH_GEOMETRY, {"default": None})
+       for cmd in ("classify-clip", "eval-ucf101")
+       for flag in ("--crop", "--resize-short", "--window")},
 }
 
 
@@ -66,9 +83,30 @@ def test_subcommand_parser_matches_reference(parsers, cmd):
                    if (cmd, k) not in PORT_ONLY)
     assert not extra, f"{cmd}: port-only flags with no named reason {extra}"
     for key, want in ref.items():
-        assert port[key] == want, (cmd, key, port[key], want)
+        _, changed = PORT_CHANGED.get((cmd, key), (None, {}))
+        assert port[key] == {**want, **changed}, (cmd, key, port[key], want)
     named = {k for c, k in PORT_ONLY if c == cmd}
     assert named <= set(port) - set(ref), (cmd, named)
+
+
+@pytest.mark.parametrize("cmd", ["classify-clip", "eval-ucf101"])
+@pytest.mark.parametrize("arch", ["resnet18", "resnet34", "resnet50"])
+def test_arch_geometry_resolves_to_the_reference_default(parsers, cmd,
+                                                         arch):
+    """The flags ``PORT_CHANGED`` leaves unset give the reference's
+    defaults for the reference's archs."""
+    from video_analytics_tpu_torch.cli.main import (
+        _pipeline_config, build_parser)
+
+    ref = _actions(parsers[0][cmd])
+    argv = {"classify-clip": ["classify-clip", "clip.mp4"],
+            "eval-ucf101": ["eval-ucf101", "--videos", "v",
+                            "--annotations", "a"]}[cmd]
+    cfg = _pipeline_config(build_parser().parse_args(argv + ["--arch",
+                                                             arch]))
+    assert (cfg.preprocess.crop, cfg.preprocess.resize_short, cfg.window) \
+        == (ref[("--crop",)]["default"], ref[("--resize-short",)]["default"],
+            ref[("--window",)]["default"])
 
 
 def test_train_accepts_fold_bn_and_ignores_it():

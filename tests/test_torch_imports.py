@@ -254,3 +254,22 @@ def test_every_reference_tool_is_mapped(name):
     target = TOOLS[name]
     if target.startswith("torch_"):
         assert os.path.isfile(os.path.join(REPO, "tools", target)), target
+
+
+@pytest.mark.parametrize("rel", ["tests/torch_r2plus1d.py",
+                                 "bench_h100/reference/r2plus1d.py"])
+def test_r2plus1d_references_import_only_torch(rel):
+    """The plain R(2+1)D references import nothing of the port, of JAX,
+    flax or the JAX package: only torch and the standard library."""
+    import ast
+
+    with open(os.path.join(REPO, rel)) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, rel
+            names.add(node.module.split(".")[0])
+    assert names and names <= {"__future__", "typing", "torch"}, names

@@ -1,8 +1,8 @@
 """The port's spans (``runtime.profiling.span``) on the CPU: a shared null
 context while no profiler records; under ``torch.profiler`` every span
-of a TV-L1 ``classify_batch`` fed by a ``DevicePrefetcher``, nested as
-the stages are; and the same probabilities, flow and rounds with the
-profiler on and off."""
+of a TV-L1 ``classify_batch`` fed by a ``DevicePrefetcher``, and of a
+Farneback one on R(2+1)D streams, nested as the stages are; and the same
+probabilities, flow and rounds with the profiler on and off."""
 
 import contextlib
 
@@ -12,7 +12,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from video_analytics_tpu_torch.config import (
-    PipelineConfig, PreprocessConfig, TVL1Config)
+    FarnebackConfig, PipelineConfig, PreprocessConfig, TVL1Config)
+from video_analytics_tpu_torch.flow import farneback as fb_mod
 from video_analytics_tpu_torch.flow import tvl1 as tvl1_mod
 from video_analytics_tpu_torch.ingest.prefetch import DevicePrefetcher
 from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
@@ -129,4 +130,77 @@ def test_results_are_bit_identical_with_the_profiler_on_and_off(setup):
     off_flow = tvl1_mod.tvl1(gray[:-1], gray[1:], CFG.tvl1)
     on_flow, _ = _traced(lambda: tvl1_mod.tvl1(gray[:-1], gray[1:],
                                                CFG.tvl1))
+    assert torch.equal(off_flow, on_flow)
+
+
+# -- R(2+1)D streams on Farneback -------------------------------------------
+
+CLIP_CFG = PipelineConfig(
+    preprocess=PreprocessConfig(resize_short=72, crop=64),
+    farneback=FarnebackConfig(levels=2, iterations=1, winsize=5),
+    flow_algo="farneback", num_classes=5, window=5)
+CLIP_STAGES = ("va/classify_batch", "va/crop", "va/spatial", "va/flow",
+               "va/volume", "va/temporal", "va/fuse", "va/farneback.pyramid",
+               "va/r2p1d.stem", "va/r2p1d.stage1", "va/r2p1d.stage2",
+               "va/r2p1d.stage3", "va/r2p1d.stage4", "va/r2p1d.head")
+
+
+@pytest.fixture(scope="module")
+def clip_setup():
+    torch.manual_seed(1)
+    model = TwoStreamModel.create(num_classes=5, width=4, arch="r2plus1d_34",
+                                  fusion_weights=(1.0, 1.0)).eval()
+    rng = np.random.default_rng(4)
+    base = rng.integers(0, 256, (2, 72, 80, 3)).astype(np.uint8)
+    windows = torch.from_numpy(np.stack(
+        [[np.roll(base[b], (t, 2 * t), axis=(0, 1)) for t in range(5)]
+         for b in range(2)]))
+    return model, windows
+
+
+def test_every_clip_span_is_traced_and_nested(clip_setup):
+    model, windows = clip_setup
+    _, spans = _traced(lambda: pipeline.classify_batch(windows, model,
+                                                       CLIP_CFG))
+    by_name = {}
+    for e in spans:
+        by_name.setdefault(e.name, []).append(e)
+    for name in CLIP_STAGES:
+        assert name in by_name, (name, sorted(by_name))
+    assert "va/stack" not in by_name
+    batch = by_name["va/classify_batch"]
+    assert len(batch) == 1
+    for name in CLIP_STAGES[1:]:
+        for e in by_name[name]:
+            assert _inside(e, batch), name
+    # Each stream's stem, stages and head once, inside its stream's span.
+    streams = by_name["va/spatial"] + by_name["va/temporal"]
+    for name in CLIP_STAGES[8:]:
+        assert len(by_name[name]) == 2, name
+        assert all(_inside(e, streams) for e in by_name[name]), name
+        assert sum(_inside(e, by_name["va/spatial"])
+                   for e in by_name[name]) == 1, name
+    flow = by_name["va/flow"]
+    assert _inside(by_name["va/farneback.pyramid"][0], flow)
+    sizes = fb_mod._level_sizes(64, 64, CLIP_CFG.farneback)
+    assert len(sizes) == 2
+    levels = [e for e in spans if e.name.startswith("va/farneback.level.")]
+    assert [e.name for e in levels] == [f"va/farneback.level.{h}x{w}"
+                                        for h, w, _ in sizes]
+    assert all(_inside(e, flow) for e in levels)
+    assert all(by_name["va/farneback.pyramid"][0].time_range.end
+               <= e.time_range.start for e in levels)
+
+
+def test_clip_results_are_bit_identical_with_the_profiler_on_and_off(
+        clip_setup):
+    model, windows = clip_setup
+    off = pipeline.classify_batch(windows, model, CLIP_CFG)
+    on, _ = _traced(lambda: pipeline.classify_batch(windows, model,
+                                                    CLIP_CFG))
+    assert torch.equal(off, on)
+    gray = windows[0, :, :64, :64].float().mean(-1)
+    off_flow = fb_mod.farneback_sequence(gray, CLIP_CFG.farneback)
+    on_flow, _ = _traced(lambda: fb_mod.farneback_sequence(
+        gray, CLIP_CFG.farneback))
     assert torch.equal(off_flow, on_flow)

@@ -47,7 +47,10 @@ ctypes launches of ``csrc/``.  Per stage:
   - the CNNs: 2 per multiply-add of every convolution and linear layer
     that runs, every tap included (XLA's count leaves out the taps that
     fall in the padding); BatchNorm, ReLU, the residual add and pooling,
-    which can ride a convolution's epilogue, are not counted.
+    which can ride a convolution's epilogue, are not counted.  The same
+    count of the port's R(2+1)D-34 over clip volumes (its 3-D
+    convolutions): ``r2plus1d_work``, which ``bench_h100/work_r2p1d.py``
+    keeps frozen.
 
 Bytes are per stage, each input read once and each output written once
 (a CNN layer's input, weights and output in the layer's dtype; a TV-L1
@@ -67,6 +70,7 @@ fallback.
 import argparse
 import dataclasses
 import json
+import math
 import os
 import sys
 import time
@@ -332,9 +336,8 @@ def cnn_work(net, x, return_features: bool = False) -> Work:
     parts = []
 
     def hook(m, inp, out):
-        if isinstance(m, torch.nn.Conv2d):
-            per = m.in_channels // m.groups * m.kernel_size[0] \
-                * m.kernel_size[1]
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d)):
+            per = m.in_channels // m.groups * math.prod(m.kernel_size)
         else:
             per = m.in_features
         dtype = getattr(m, "dtype", out.dtype)
@@ -346,7 +349,8 @@ def cnn_work(net, x, return_features: bool = False) -> Work:
                                         + out.numel()), **{unit: ops}))
 
     hooks = [m.register_forward_hook(hook) for m in net.modules()
-             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d,
+                               torch.nn.Linear))]
     try:
         with torch.no_grad():
             net(torch.zeros_like(x), return_features=return_features)
@@ -354,6 +358,24 @@ def cnn_work(net, x, return_features: bool = False) -> Work:
         for h in hooks:
             h.remove()
     return sum(parts, Work())
+
+
+def r2plus1d_work(clips: int, frames: int, crop: int, in_channels: int,
+                  num_classes: int = 101, width: int = 64,
+                  dtype=None) -> Work:
+    """One forward pass of the port's R(2+1)D-34 over `clips` clips of
+    `frames` frames of crop² with `in_channels` channels (3 for RGB, 2
+    for a flow volume): ``cnn_work`` on the model built on the meta
+    device, so nothing is computed."""
+    import torch
+    from video_analytics_tpu_torch.models.video_resnet import r2plus1d_34
+
+    dtype = torch.bfloat16 if dtype is None else dtype
+    with torch.device("meta"):
+        net = r2plus1d_34(num_classes, in_channels, dtype, width).eval()
+        x = torch.empty((clips, frames, crop, crop, in_channels),
+                        dtype=dtype)
+    return cnn_work(net, x)
 
 
 def two_stream_work(model, cfg, seqs: int, T: int, src_hw, device,

@@ -165,18 +165,29 @@ def _flow_configs(args):
 
 def _pipeline_config(args):
     """Build a PipelineConfig from the shared model/preprocess args
-    (_add_model_args); fields not exposed keep their defaults."""
+    (_add_model_args); --resize-short, --crop and --window left unset, the
+    normalisation and the fusion weights are --arch's
+    (``models.two_stream.arch_input``); other fields keep their
+    defaults."""
     from video_analytics_tpu_torch.config import (
         PipelineConfig, PreprocessConfig)
-    pre = PreprocessConfig(resize_short=args.resize_short, crop=args.crop,
-                           flow_stack=args.flow_stack)
+    from video_analytics_tpu_torch.models.two_stream import arch_input
+    inp = arch_input(args.arch)
+
+    def given(name: str, default):
+        value = getattr(args, name, None)
+        return default if value is None else value
+
+    pre = PreprocessConfig(resize_short=given("resize_short",
+                                              inp.resize_short),
+                           crop=given("crop", inp.crop), mean=inp.mean,
+                           std=inp.std, flow_stack=args.flow_stack)
     fb, tv = _flow_configs(args)
-    kw = dict(preprocess=pre, num_classes=args.num_classes,
-              farneback=fb, tvl1=tv,
-              flow_algo=getattr(args, "algo", "tvl1"))
-    if getattr(args, "window", None) is not None:
-        kw["window"] = args.window
-    return PipelineConfig(**kw)
+    return PipelineConfig(preprocess=pre, num_classes=args.num_classes,
+                          farneback=fb, tvl1=tv,
+                          flow_algo=getattr(args, "algo", "tvl1"),
+                          fusion_weights=inp.fusion_weights,
+                          window=given("window", inp.window))
 
 
 def _add_flow_args(p) -> None:
@@ -210,17 +221,31 @@ def _add_flow_args(p) -> None:
                     help="median kernel between warps (0/1/3/5)")
 
 
-def _add_model_args(p, window: bool = True, inference: bool = True) -> None:
+def _add_model_args(p, window: bool = True, inference: bool = True,
+                    clip_archs: bool = False) -> None:
     """Args that determine the model/pipeline geometry: they must match
     whatever wrote the checkpoint.  `inference` adds the inference-only
-    ``--fold-bn`` and ``--checkpoint``."""
+    ``--fold-bn`` and ``--checkpoint``; `clip_archs` the video arch
+    ``r2plus1d_34``, whose streams take clip volumes, and with it
+    ``--crop``, ``--resize-short`` and ``--window`` that default to the
+    arch's own."""
+    archs = ["resnet18", "resnet34", "resnet50"]
+    geometry = {"crop": 224, "resize_short": 256, "window": 16}
+    arch_help = "backbone for both streams"
+    if clip_archs:
+        archs.append("r2plus1d_34")
+        geometry = dict.fromkeys(geometry)
+        arch_help += ("; --crop, --resize-short and --window default to its "
+                      "own: 224, 256, 16 for the ResNets, 112, 128, 33 for "
+                      "r2plus1d_34")
     p.add_argument("--num-classes", type=int, default=101)
-    p.add_argument("--arch", choices=["resnet18", "resnet34", "resnet50"],
-                   default="resnet18", help="backbone for both streams")
+    p.add_argument("--arch", choices=archs, default="resnet18",
+                   help=arch_help)
     p.add_argument("--flow-stack", type=int, default=10,
                    help="L consecutive flow fields per temporal input")
-    p.add_argument("--crop", type=int, default=224)
-    p.add_argument("--resize-short", type=int, default=256)
+    p.add_argument("--crop", type=int, default=geometry["crop"])
+    p.add_argument("--resize-short", type=int,
+                   default=geometry["resize_short"])
     p.add_argument("--width", type=int, default=64,
                    help="ResNet base width (64 = standard ResNet-18)")
     if inference:
@@ -234,7 +259,7 @@ def _add_model_args(p, window: bool = True, inference: bool = True) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' fails without a GPU")
     if window:
-        p.add_argument("--window", type=int, default=16,
+        p.add_argument("--window", type=int, default=geometry["window"],
                        help="frames per sliding window")
 
 
@@ -289,11 +314,13 @@ def _load_two_stream(args, device):
     (serve's --seed, else 0), then loaded from --checkpoint and folded
     (--fold-bn) where asked."""
     import torch
-    from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+    from video_analytics_tpu_torch.models.two_stream import (
+        TwoStreamModel, arch_input)
     from video_analytics_tpu_torch.runtime.checkpoint import load_variables
-    model = TwoStreamModel.create(num_classes=args.num_classes,
-                                  flow_stack=args.flow_stack,
-                                  width=args.width, arch=args.arch)
+    model = TwoStreamModel.create(
+        num_classes=args.num_classes, flow_stack=args.flow_stack,
+        fusion_weights=arch_input(args.arch).fusion_weights,
+        width=args.width, arch=args.arch)
     seed = getattr(args, "seed", 0)
     model.init(torch.Generator().manual_seed(seed))
     if args.checkpoint:
@@ -850,7 +877,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="flow algorithm")
     cc.add_argument("--class-index", default=None,
                     help="UCF101 classInd.txt for names")
-    _add_model_args(cc)
+    _add_model_args(cc, clip_archs=True)
     cc.add_argument("--topk", type=int, default=5)
     cc.add_argument("--windows", type=int, default=1)
     _add_flow_args(cc)
@@ -888,7 +915,7 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--algo", choices=["tvl1", "farneback", "spynet"],
                     default="tvl1",
                     help="flow algorithm")
-    _add_model_args(ev)
+    _add_model_args(ev, clip_archs=True)
     ev.add_argument("--manifest", default=None,
                     help="resume file: clips listed there are skipped, "
                          "each clip done is added (without --batched)")

@@ -11,10 +11,12 @@ expansions, A = (A1 + A2w)/2 and Δb = −(b2w − b1)/2 + A·d; d is solved
 from window-averaged normal equations (AᵀA)d = AᵀΔb, iterated with
 re-warping, coarse to fine over an image pyramid.
 
-Per pyramid level (coarsest first):
+First, at every pyramid level (span ``va/farneback.pyramid``):
   - K-D ``fb_prologue``: the level's pre-blur, resize and polynomial
     expansion of every frame, once per frame (one launch; two where the
     level samples a large frame sparsely, ``prologue_form``);
+then level by level, coarsest first (span
+``va/farneback.level.<h>x<w>``):
   - ``iterations`` times ``fb_iterate``: warp the second frame's
     expansion by the flow and form the normal equations (K-E), average
     them over the window along y and along x, and solve the 2×2 system
@@ -46,6 +48,7 @@ from video_analytics_tpu_torch.config import FarnebackConfig
 from video_analytics_tpu_torch.ops.kernels import (
     _conv1d, bilinear_sample, farneback_window_taps, gaussian_kernel_1d,
     pad_border, resize_area_like, sepcorr)
+from video_analytics_tpu_torch.utils.spans import span
 
 
 # ---------------------------------------------------------------------------
@@ -293,22 +296,29 @@ def _pyramid_flow(frames: torch.Tensor, pair, n_pairs: int,
     frames = frames.float().contiguous()
     _, H, W = frames.shape
     taps = _window_taps(cfg)
+    sizes = _level_sizes(H, W, cfg)
+    # Every level's expansions first (the per-frame work), then the
+    # per-pair iterations level by level, coarse to fine.
+    with span("va/farneback.pyramid"):
+        expansions = [pair(prologue(frames, scale, (lh, lw), cfg.poly_n,
+                                    cfg.poly_sigma))
+                      for lh, lw, scale in sizes]
     flow = None
-    for lh, lw, scale in _level_sizes(H, W, cfg):
-        if flow is not None:
-            # cv2: bilinear-resize the coarser flow and scale values by
-            # exactly 1/pyr_scale (not the rounded size ratio).
-            flow = _resize_flow(flow, (lh, lw), 1.0 / cfg.pyr_scale)
-        elif cfg.use_initial_flow and initial_flow is not None:
-            seed = initial_flow.float().permute(0, 3, 1, 2).contiguous()
-            flow = _resize_flow(seed, (lh, lw), scale)
-        else:
-            flow = torch.zeros((n_pairs, 2, lh, lw), dtype=torch.float32,
-                               device=frames.device)
-        R0, R1 = pair(prologue(frames, scale, (lh, lw), cfg.poly_n,
-                               cfg.poly_sigma))
-        for _ in range(cfg.iterations):
-            flow = iterate(R0, R1, flow, taps)
+    for lh, lw, scale in sizes:
+        R0, R1 = expansions.pop(0)
+        with span("va/farneback.level.%dx%d", lh, lw):
+            if flow is not None:
+                # cv2: bilinear-resize the coarser flow and scale values
+                # by exactly 1/pyr_scale (not the rounded size ratio).
+                flow = _resize_flow(flow, (lh, lw), 1.0 / cfg.pyr_scale)
+            elif cfg.use_initial_flow and initial_flow is not None:
+                seed = initial_flow.float().permute(0, 3, 1, 2).contiguous()
+                flow = _resize_flow(seed, (lh, lw), scale)
+            else:
+                flow = torch.zeros((n_pairs, 2, lh, lw), dtype=torch.float32,
+                                   device=frames.device)
+            for _ in range(cfg.iterations):
+                flow = iterate(R0, R1, flow, taps)
     return flow
 
 

@@ -6,13 +6,16 @@ the JAX package's ``{"params", "batch_stats"}`` tree (numpy arrays, or
 anything ``np.asarray`` takes) and returns a torchvision-named
 ``state_dict`` for ``models/resnet.ResNet``; ``torch_to_flax`` goes the
 other way, so that ``runtime/checkpoint`` can write a file the JAX
-package loads.  Both take BasicBlock and Bottleneck networks and the
-folded form (``{"params"}`` only, convolutions with a bias, no
-BatchNorm).  ``fold_batchnorm`` is the port's copy of the reference's, on
+package loads.  Both take BasicBlock and Bottleneck networks, the video
+ResNet's (2+1)D convolutions (``models/video_resnet``: 5-D kernels, and
+each ``Conv2Plus1d``'s ``spatial``, ``bn``, ``temporal`` flattened to
+``conv1_spatial``, ``conv1_bn``, ``conv1_temporal``) and the folded form
+(``{"params"}`` only, convolutions with a bias, no BatchNorm).  ``fold_batchnorm`` is the port's copy of the reference's, on
 numpy leaves.
 
 Layout mapping (flax → torch):
-- conv HWIO ``(kH, kW, I, O)`` → ``(O, I, kH, kW)``
+- conv HWIO ``(kH, kW, I, O)`` → ``(O, I, kH, kW)``; 3-D ``(kT, kH, kW,
+  I, O)`` → ``(O, I, kT, kH, kW)``
 - Dense ``(I, O)`` → ``(O, I)``
 - BatchNorm scale/bias (params) → weight/bias; mean/var (batch_stats)
   → running_mean/running_var
@@ -30,10 +33,14 @@ import torch
 _BLOCK_NAMES = {"conv1": "conv1", "bn1": "bn1", "conv2": "conv2",
                 "bn2": "bn2", "conv3": "conv3", "bn3": "bn3",
                 "downsample_conv": "downsample.0",
-                "downsample_bn": "downsample.1"}
+                "downsample_bn": "downsample.1",
+                **{f"conv{i}_{part}": f"conv{i}.{part}" for i in (1, 2)
+                   for part in ("spatial", "bn", "temporal")}}
 _FLAX_NAMES = {v: k for k, v in _BLOCK_NAMES.items()}
 _BN_FOR_CONV = {"conv1": "bn1", "conv2": "bn2", "conv3": "bn3",
-                "downsample_conv": "downsample_bn"}
+                "downsample_conv": "downsample_bn",
+                **{f"conv{i}_spatial": f"conv{i}_bn" for i in (1, 2)},
+                **{f"conv{i}_temporal": f"bn{i}" for i in (1, 2)}}
 _BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
               "running_mean": ("batch_stats", "mean"),
               "running_var": ("batch_stats", "var")}
@@ -49,8 +56,9 @@ def _n(x: torch.Tensor) -> np.ndarray:
 
 def _conv(p: Mapping[str, Any], prefix: str,
           sd: Dict[str, torch.Tensor]) -> None:
-    sd[prefix + ".weight"] = _t(np.transpose(np.asarray(p["kernel"]),
-                                             (3, 2, 0, 1)))
+    k = np.asarray(p["kernel"])
+    sd[prefix + ".weight"] = _t(np.transpose(
+        k, (k.ndim - 1, k.ndim - 2, *range(k.ndim - 2))))
     if "bias" in p:                      # the folded form
         sd[prefix + ".bias"] = _t(p["bias"])
 
@@ -78,8 +86,8 @@ def flax_to_torch(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     stats = variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
     for name in sorted(params):
-        if name in ("conv1", "bn1"):
-            _module(name, params, stats, name, sd)
+        if name in _BLOCK_NAMES:                  # the stem
+            _module(name, params, stats, _BLOCK_NAMES[name], sd)
         elif name.startswith("layer"):
             stage, block = name[len("layer"):].split("_")
             for flax_name in params[name]:
@@ -110,7 +118,7 @@ def torch_to_flax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         if mod[0].startswith("layer"):
             path = [f"{mod[0]}_{mod[1]}", _FLAX_NAMES[".".join(mod[2:])]]
         else:
-            path = [mod[0]]
+            path = [_FLAX_NAMES.get(".".join(mod), mod[0])]
         if path[-1] == "fc":
             slot("params", path)["kernel" if leaf == "weight" else "bias"] = (
                 _n(value).T.copy() if leaf == "weight" else _n(value))
@@ -118,8 +126,9 @@ def torch_to_flax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             tree, name = _BN_LEAVES[leaf]
             slot(tree, path)[name] = _n(value)
         elif leaf == "weight":
+            w = _n(value)
             slot("params", path)["kernel"] = np.ascontiguousarray(
-                np.transpose(_n(value), (2, 3, 1, 0)))
+                np.transpose(w, (*range(2, w.ndim), 1, 0)))
         else:
             slot("params", path)["bias"] = _n(value)
     if not out["batch_stats"]:

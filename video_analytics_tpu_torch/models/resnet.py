@@ -47,13 +47,58 @@ from video_analytics_tpu_torch.parallel.mesh import (
     all_reduce_sum, process_count)
 
 
-def _conv(in_ch: int, out_ch: int, kernel: int, strides: int, padding: int,
-          dtype: torch.dtype, fold_bn: bool) -> nn.Conv2d:
-    return Conv2d(in_ch, out_ch, kernel, strides, padding, bias=fold_bn,
-                  dtype=dtype)
+def _conv(in_ch: int, out_ch: int, kernel, strides, padding,
+          dtype: torch.dtype, fold_bn: bool, layer=Conv2d) -> nn.Module:
+    return layer(in_ch, out_ch, kernel, strides, padding, bias=fold_bn,
+                 dtype=dtype)
 
 
-class BatchNorm2d(nn.BatchNorm2d):
+def _reduced_dims(x: torch.Tensor):
+    """Every axis of an (N, C, ...) batch but the channels'."""
+    return (0, *range(2, x.dim()))
+
+
+class _FlaxStatistics:
+    """The training forward of ``BatchNorm2d`` and ``BatchNorm3d``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        if process_count() > 1:
+            return self._forward_global(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=_reduced_dims(x),
+                                       correction=0)
+            self._update_running(mean, var)
+        return y
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        keep = 1.0 - self.momentum
+        self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
+        self.running_var.mul_(keep).add_(var, alpha=self.momentum)
+        self.num_batches_tracked.add_(1)
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        dtype, x = x.dtype, x.float()
+        c = x.shape[1]
+        dims = _reduced_dims(x)
+        per_channel = (1, c) + (1,) * (x.dim() - 2)
+        sums = all_reduce_sum(torch.cat([x.sum(dims),
+                                         x.new_full((1,), x.numel() // c)]))
+        count = sums[c]
+        mean = sums[:c] / count
+        centred = x - mean.view(per_channel)
+        var = all_reduce_sum(centred.square().sum(dims)) / count
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = centred * scale.view(per_channel) + self.bias.view(per_channel)
+        with torch.no_grad():
+            self._update_running(mean, var)
+        return y.to(dtype)
+
+
+class BatchNorm2d(_FlaxStatistics, nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose training mode keeps flax's statistics.
 
     The reference's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` normalizes
@@ -79,53 +124,23 @@ class BatchNorm2d(nn.BatchNorm2d):
     float32 with the float32 weights and running buffers, the output
     rounded once to bfloat16."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        if process_count() > 1:
-            return self._forward_global(x)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                         self.eps)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
-                                       correction=0)
-            self._update_running(mean, var)
-        return y
 
-    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        keep = 1.0 - self.momentum
-        self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
-        self.running_var.mul_(keep).add_(var, alpha=self.momentum)
-        self.num_batches_tracked.add_(1)
-
-    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
-        dtype, x = x.dtype, x.float()
-        c = x.shape[1]
-        dims = (0, 2, 3)
-        sums = all_reduce_sum(torch.cat([x.sum(dims),
-                                         x.new_full((1,), x.numel() // c)]))
-        count = sums[c]
-        mean = sums[:c] / count
-        centred = x - mean[None, :, None, None]
-        var = all_reduce_sum(centred.square().sum(dims)) / count
-        scale = self.weight * torch.rsqrt(var + self.eps)
-        y = centred * scale[None, :, None, None] + self.bias[None, :, None,
-                                                             None]
-        with torch.no_grad():
-            self._update_running(mean, var)
-        return y.to(dtype)
+class BatchNorm3d(_FlaxStatistics, nn.BatchNorm3d):
+    """``BatchNorm2d``'s statistics and dtype rules over (N, C, T, H, W)."""
 
 
-def _norm(ch: int, fold_bn: bool) -> nn.Module:
-    return nn.Identity() if fold_bn else BatchNorm2d(ch)
+def _norm(ch: int, fold_bn: bool, norm=BatchNorm2d) -> nn.Module:
+    return nn.Identity() if fold_bn else norm(ch)
 
 
 def _downsample(in_ch: int, out_ch: int, strides: int, dtype: torch.dtype,
-                fold_bn: bool) -> Optional[nn.Sequential]:
+                fold_bn: bool, layer=Conv2d, norm=BatchNorm2d
+                ) -> Optional[nn.Sequential]:
     if in_ch == out_ch and strides == 1:
         return None
-    return nn.Sequential(_conv(in_ch, out_ch, 1, strides, 0, dtype, fold_bn),
-                         _norm(out_ch, fold_bn))
+    return nn.Sequential(
+        _conv(in_ch, out_ch, 1, strides, 0, dtype, fold_bn, layer),
+        _norm(out_ch, fold_bn, norm))
 
 
 class BasicBlock(nn.Module):
@@ -174,7 +189,11 @@ class BottleneckBlock(nn.Module):
 
 
 class ResNet(nn.Module):
-    """torchvision-compatible ResNet (18/34 BasicBlock, 50 Bottleneck)."""
+    """torchvision-compatible ResNet (18/34 BasicBlock, 50 Bottleneck).
+    ``clip_input``: whether ``forward`` takes clip volumes (N, T, H, W, C)
+    (``models/video_resnet``) instead of images."""
+
+    clip_input = False
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  num_classes: int = 1000, in_channels: int = 3,
@@ -188,28 +207,41 @@ class ResNet(nn.Module):
         self.dtype = dtype
         self.bottleneck = bottleneck
         self.fold_bn = fold_bn
-        self.conv1 = _conv(in_channels, width, 7, 2, 3, dtype, fold_bn)
-        self.bn1 = _norm(width, fold_bn)
+        self._stem()
+        ch = self._stages(self._block())
+        self.num_stages = len(stage_sizes)
+        self.fc = Linear(ch, num_classes, dtype=dtype)
+
+    def _stem(self) -> None:
+        self.conv1 = _conv(self.in_channels, self.width, 7, 2, 3, self.dtype,
+                           self.fold_bn)
+        self.bn1 = _norm(self.width, self.fold_bn)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
-        block_cls = BottleneckBlock if bottleneck else BasicBlock
-        ch = width
-        for stage, num_blocks in enumerate(stage_sizes):
-            filters = width * 2 ** stage
+
+    def _block(self) -> type:
+        return BottleneckBlock if self.bottleneck else BasicBlock
+
+    def _stages(self, block_cls) -> int:
+        """``layer1`` … of `block_cls`, the first block of every stage but
+        the first at stride 2; returns the last stage's channels."""
+        ch = self.width
+        for stage, num_blocks in enumerate(self.stage_sizes):
+            filters = self.width * 2 ** stage
             blocks = []
             for block in range(num_blocks):
                 strides = 2 if stage > 0 and block == 0 else 1
-                blocks.append(block_cls(ch, filters, strides, dtype=dtype,
-                                        fold_bn=fold_bn))
+                blocks.append(block_cls(ch, filters, strides, dtype=self.dtype,
+                                        fold_bn=self.fold_bn))
                 ch = filters * block_cls.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
-        self.num_stages = len(stage_sizes)
-        self.fc = Linear(ch, num_classes, dtype=dtype)
+        return ch
 
     def clone(self, fold_bn: bool) -> "ResNet":
         """The same architecture and dtype with freshly made weights, in
         the folded or the unfolded form."""
-        return ResNet(self.stage_sizes, self.num_classes, self.in_channels,
-                      self.width, self.dtype, self.bottleneck, fold_bn)
+        return type(self)(self.stage_sizes, self.num_classes,
+                          self.in_channels, self.width, self.dtype,
+                          self.bottleneck, fold_bn)
 
     @property
     def feature_dim(self) -> int:
@@ -223,13 +255,13 @@ class ResNet(nn.Module):
         device."""
         with torch.no_grad():
             for m in self.modules():
-                if isinstance(m, (nn.Conv2d, nn.Linear)):
+                if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
                     fan_in = m.weight[0].numel()
                     w = torch.randn(m.weight.shape, generator=generator)
                     m.weight.copy_(w * fan_in ** -0.5)
                     if m.bias is not None:
                         m.bias.zero_()
-                elif isinstance(m, nn.BatchNorm2d):
+                elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
                     m.reset_parameters()
         return self
 
@@ -246,8 +278,12 @@ class ResNet(nn.Module):
         x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
         for stage in range(self.num_stages):
             x = getattr(self, f"layer{stage + 1}")(x)
+        return self._head(x, return_features)
+
+    def _head(self, x: torch.Tensor, return_features: bool) -> torch.Tensor:
         # Global average pool, accumulated in float32 (as jnp.mean does).
-        pooled = x.mean(dim=(2, 3), dtype=torch.float32).to(self.dtype)
+        pooled = x.mean(dim=tuple(range(2, x.dim())),
+                        dtype=torch.float32).to(self.dtype)
         if return_features:
             return pooled.float()
         return self.fc(pooled).float()

@@ -1,5 +1,9 @@
 """Two-stream action recognition: RGB stream + flow stream, temporal
-mean pooling, late fusion (Simonyan & Zisserman 2014).
+mean pooling, late fusion (Simonyan & Zisserman 2014).  With
+``arch="r2plus1d_34"`` each stream is a video ResNet
+(``models/video_resnet``) that takes one clip volume: the RGB frames, or
+the clip's flow fields (2 channels a frame), and the model says so
+(``clip_input``).
 
 Port of ``video_analytics_tpu/models/two_stream.py``.  The reference keeps
 flax modules and variables apart; here ``TwoStreamModel`` is an
@@ -8,18 +12,53 @@ flax modules and variables apart; here ``TwoStreamModel`` is an
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping, Tuple
 
 import torch
 import torch.nn as nn
 
+from video_analytics_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
 from video_analytics_tpu_torch.models import convert
 from video_analytics_tpu_torch.models.resnet import (
     ResNet, resnet18, resnet34, resnet50)
+from video_analytics_tpu_torch.models.video_resnet import r2plus1d_34
 from video_analytics_tpu_torch.parallel.mesh import ColumnParallelLinear
 
 _ARCHS = {"resnet18": resnet18, "resnet34": resnet34,
-             "resnet50": resnet50}
+          "resnet50": resnet50, "r2plus1d_34": r2plus1d_34}
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchInput:
+    """What an arch's published setup feeds it: the short side, crop and
+    window of frames, the normalisation statistics and the late fusion's
+    (spatial, temporal) weights.  The defaults are the image ResNets'
+    (the ``PipelineConfig`` defaults)."""
+
+    resize_short: int = 256
+    crop: int = 224
+    window: int = 16
+    mean: Tuple[float, float, float] = IMAGENET_MEAN
+    std: Tuple[float, float, float] = IMAGENET_STD
+    fusion_weights: Tuple[float, float] = (1.0, 1.5)
+
+
+# R(2+1)D (arXiv:1711.11248): clips of 32 frames resized to 128×171 and
+# centre-cropped to 112² (33 frames make the 32 flow fields), the
+# Kinetics statistics of torchvision's video weights, streams averaged.
+_ARCH_INPUTS = {"r2plus1d_34": ArchInput(
+    resize_short=128, crop=112, window=33,
+    mean=(0.43216, 0.394666, 0.37645), std=(0.22803, 0.22145, 0.216989),
+    fusion_weights=(1.0, 1.0))}
+
+
+def arch_input(arch: str) -> ArchInput:
+    """The preprocessing and fusion that `arch` comes with."""
+    if arch not in _ARCHS:
+        raise ValueError(f"unknown arch {arch!r}; "
+                         f"choose from {sorted(_ARCHS)}")
+    return _ARCH_INPUTS.get(arch, ArchInput())
 
 
 class TwoStreamModel(nn.Module):
@@ -38,15 +77,25 @@ class TwoStreamModel(nn.Module):
                dtype: torch.dtype = torch.float32, width: int = 64,
                arch: str = "resnet18") -> "TwoStreamModel":
         """Both streams of `arch`; `dtype` is their compute dtype (the
-        parameters are float32 either way, ``models/resnet``)."""
+        parameters are float32 either way, ``models/resnet``).  The flow
+        stream of an image arch takes 2·`flow_stack` channels; that of a
+        clip arch one field (u, v) a frame, and `flow_stack` is unused."""
         if arch not in _ARCHS:
             raise ValueError(f"unknown arch {arch!r}; "
                              f"choose from {sorted(_ARCHS)}")
         build = _ARCHS[arch]
-        return cls(build(num_classes=num_classes, dtype=dtype, width=width),
+        spatial = build(num_classes=num_classes, dtype=dtype, width=width)
+        flow_channels = 2 if spatial.clip_input else 2 * flow_stack
+        return cls(spatial,
                    build(num_classes=num_classes, dtype=dtype, width=width,
-                         in_channels=2 * flow_stack),
+                         in_channels=flow_channels),
                    fusion_weights=fusion_weights)
+
+    @property
+    def clip_input(self) -> bool:
+        """Whether each stream takes one clip volume (N, T, H, W, C), as
+        R(2+1)D does, instead of frames or flow stacks."""
+        return self.spatial.clip_input
 
     # -- variables in the reference's layout ----------------------------------
 

@@ -36,13 +36,9 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
     return y if bias is None else y + bias.to(dtype)
 
 
-class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` computing in ``self.dtype`` (float32 parameters):
-    flax ``nn.Conv(dtype=..., param_dtype=float32)``."""
-
-    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.dtype = dtype
+class _RoundedConv:
+    """The forward of a convolution computing in ``self.dtype``: the
+    product rounded to it, then the cast bias added (two roundings)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.dtype == torch.float32:
@@ -51,7 +47,25 @@ class Conv2d(nn.Conv2d):
                                None)
         if self.bias is None:
             return y
-        return y + self.bias.to(self.dtype)[:, None, None]
+        return y + self.bias.to(self.dtype).view(-1, *[1] * (y.dim() - 2))
+
+
+class Conv2d(_RoundedConv, nn.Conv2d):
+    """``nn.Conv2d`` computing in ``self.dtype`` (float32 parameters):
+    flax ``nn.Conv(dtype=..., param_dtype=float32)``."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = dtype
+
+
+class Conv3d(_RoundedConv, nn.Conv3d):
+    """``nn.Conv3d`` computing in ``self.dtype`` (float32 parameters), with
+    ``Conv2d``'s roundings."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = dtype
 
 
 class Linear(nn.Linear):

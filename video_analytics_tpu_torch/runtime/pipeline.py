@@ -17,6 +17,12 @@ the same flow alone or in a batch, and pairs never span two windows.
 plain PyTorch versions even on CUDA tensors: the reference the kernels
 are checked against.
 
+A model whose streams take clip volumes (``TwoStreamModel.clip_input``,
+R(2+1)D) gets each window of T frames as one clip of its first T − 1
+frames and one volume of its T − 1 flow fields, clipped to ±bound and
+scaled by it in the temporal stream's dtype (``va/volume``): one forward
+pass of each stream a window, no temporal mean.
+
 With ``flow_algo="spynet"`` the flow is the learned SpyNet
 (``models/spynet``), passed as ``flow_net``: the port's counterpart of the
 reference's ``variables["flow"]`` / ``flow_variables``.  It is an argument
@@ -164,6 +170,8 @@ def classify_batch(windows: torch.Tensor, model: TwoStreamModel,
         with span("va/crop"):
             x = _crop(windows, cfg)                    # (B, T, h, w, 3)
             rgb = pp.normalize(x, pre.mean, pre.std)
+        if model.clip_input:
+            return _classify_clips(x, rgb, model, cfg, plain, flow_net)
         with span("va/spatial"):
             s_logits = model.spatial(rgb.reshape(B * T, *rgb.shape[2:]))
             s_logits = s_logits.reshape(B, T, -1).mean(dim=1)
@@ -176,6 +184,24 @@ def classify_batch(windows: torch.Tensor, model: TwoStreamModel,
             t_logits = t_logits.reshape(B, n, -1).mean(dim=1)
         with span("va/fuse"):
             return model.fuse(s_logits, t_logits)
+
+
+def _classify_clips(x: torch.Tensor, rgb: torch.Tensor,
+                    model: TwoStreamModel, cfg: PipelineConfig, plain: bool,
+                    flow_net: Optional[SpyNet]) -> torch.Tensor:
+    """``classify_batch`` for streams that take clip volumes: (B, T, h,
+    w, 3) cropped windows and their normalised frames → (B, C)."""
+    with span("va/spatial"):
+        s_logits = model.spatial(rgb[:, :-1])
+    with span("va/flow"):
+        flow = _sequence_flow(pp.rgb_to_gray(x), cfg, plain, flow_net)
+    with span("va/volume"):
+        volume = pp.normalize_flow_stack(
+            flow, cfg.preprocess.flow_bound).to(model.temporal.dtype)
+    with span("va/temporal"):
+        t_logits = model.temporal(volume)
+    with span("va/fuse"):
+        return model.fuse(s_logits, t_logits)
 
 
 def classify_window(frames: torch.Tensor, model: TwoStreamModel,

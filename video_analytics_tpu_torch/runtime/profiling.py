@@ -11,10 +11,16 @@ profiler's clock while a profiler records, and costs a flag check when
 none does.  The program's spans, outermost first:
 
   - ``va/classify_batch`` (``runtime.pipeline.classify_batch``), inside
-    it ``va/crop``, ``va/spatial``, ``va/flow``, ``va/stack``,
-    ``va/temporal`` and ``va/fuse``;
+    it ``va/crop``, ``va/spatial``, ``va/flow``, ``va/stack`` (or, for
+    streams that take clip volumes, ``va/volume``), ``va/temporal`` and
+    ``va/fuse``;
   - ``va/tvl1.pyramid`` and one ``va/tvl1.level.<h>x<w>`` per pyramid
-    level (``flow.tvl1.tvl1``), inside ``va/flow`` on that path;
+    level (``flow.tvl1.tvl1``), or ``va/farneback.pyramid`` and one
+    ``va/farneback.level.<h>x<w>`` per level (``flow.farneback``),
+    inside ``va/flow`` on those paths;
+  - ``va/r2p1d.stem``, ``va/r2p1d.stage<k>`` and ``va/r2p1d.head``
+    (``models.video_resnet.VideoResNet``), inside ``va/spatial`` and
+    ``va/temporal`` on that path;
   - ``va/prefetch.wait`` (``ingest.prefetch.DevicePrefetcher``): the
     consumer's wait for a placed batch.
 
