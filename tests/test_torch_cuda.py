@@ -1134,3 +1134,71 @@ def test_async_checkpoint_stages_cuda_leaves(dev, tmp_path):
     assert torch.equal(back["n"]["b"].cpu(), want["b"].float())
     assert back["n"]["h"].device.type == "cpu"
     assert torch.equal(back["n"]["h"], torch.ones(3))
+
+
+# Kernels of cuDNN's float32 NCHW fallback for 3-D convolutions and its
+# layout conversions around it.
+FALLBACK_KERNELS = ("f32f32", "nchwToNhwc", "nhwcToNchw")
+# BF16_REL of tests/test_torch_r2plus1d.py: bfloat16 R(2+1)D-34 logits
+# against float32 ones, as a share of the largest.
+R2P1D_BF16_REL = 0.015
+
+
+def test_r2p1d_stage1_block_runs_no_fallback_kernel(dev):
+    """A bfloat16 stage-1 ``VideoBasicBlock`` (64 channels, 144 midplanes,
+    32×56², channels-last-3d) launches only bfloat16 channels-last
+    convolutions: its 3×1×1 convolutions take ``Conv3d``'s 2-D route."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from video_analytics_tpu_torch.models.video_resnet import (
+        VideoBasicBlock)
+    from video_analytics_tpu_torch.ops.layers import Conv3d
+
+    block = VideoBasicBlock(64, 64, dtype=torch.bfloat16).to(dev).eval()
+    g = torch.Generator(dev).manual_seed(0)
+    x = torch.randn((4, 64, 32, 56, 56), device=dev, dtype=torch.bfloat16,
+                    generator=g).contiguous(
+                        memory_format=torch.channels_last_3d)
+    with torch.no_grad():
+        block(x)
+        torch.cuda.synchronize()
+        before = Conv3d.as_conv2d
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            y = block(x)
+            torch.cuda.synchronize()
+    assert Conv3d.as_conv2d - before == 2
+    assert y.is_contiguous(memory_format=torch.channels_last_3d)
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert names, "the profiler recorded no kernel"
+    slow = [n for n in names if any(k in n for k in FALLBACK_KERNELS)]
+    assert not slow, slow
+
+
+def test_r2p1d_logits_on_the_card_equal_the_3d_call(dev, monkeypatch):
+    """A narrow bfloat16 R(2+1)D-34 on 112² clips on the card, its stem's
+    and stage 1's temporal convolutions on the 2-D route, against the same
+    network with every convolution as ``nn.Conv3d``'s own 3-D call:
+    within the bfloat16 tolerance the CPU tests hold it to against the
+    float32 reference."""
+    import torch.nn as nn
+
+    from video_analytics_tpu_torch.models.video_resnet import r2plus1d_34
+    from video_analytics_tpu_torch.ops.layers import Conv3d
+
+    model = r2plus1d_34(7, width=8, dtype=torch.bfloat16)
+    model.init(torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    x = torch.randn(2, 8, 112, 112, 3, generator=torch.Generator()
+                    .manual_seed(1)).to(dev)
+    before = Conv3d.as_conv2d
+    with torch.no_grad():
+        got = model(x)
+    assert Conv3d.as_conv2d - before == 7
+    monkeypatch.setattr(Conv3d, "_conv_forward", nn.Conv3d._conv_forward)
+    with torch.no_grad():
+        want = model(x)
+    assert Conv3d.as_conv2d - before == 7
+    scale = want.abs().max()
+    assert scale > 0.05
+    assert (got - want).abs().max() <= R2P1D_BF16_REL * scale
