@@ -19,21 +19,21 @@ Phases, each reported on a JSON line:
    frame pairs at the five pyramid sizes of a 224² crop) and hold it
    against its plain PyTorch version on the same inputs, with the
    tolerance stated; time both with CUDA events; tvl1_warp_kernel: K-H
-   ``pd_solve_warp`` (one launch per warp, an image per thread-block
-   cluster of 8 blocks, or of 16 where the strips need it: 240×320 and
-   280×300) against ``pd_solve_plain`` at those sizes and five others,
-   with ``cudaOccupancyMaxActiveClusters`` at 1, 2, 4, 8 and 16 blocks
-   and the size ``tvl1_scale`` takes at 15 and 120 pairs, at ε = 0
-   (bit for bit) and with ε engaged, at medians 5, 3 and
-   none, timed beside the per-iteration chain and the non-adaptive chunked
-   solver on the same warp; ``tvl1_scale`` (``pd_solve_scale``: every warp
-   of a scale with its prep, and the scale-end median, in one launch of
-   the same kernel) at the same eight sizes against the chain K-A → K-H
-   per warp → K-C (bit for bit, with ε engaged too) and against its plain
-   version, the launch and the chain timed in turns, and forced to each
-   cluster size that fits (bit for bit against the plain version at
-   ε = 0, the size rule's rounds with ε engaged; ``va_pd_scale`` refusing
-   sizes that do not fit); check that an image
+   ``tvl1_scale`` (``pd_solve_scale``: every warp of a scale with its
+   prep, and the scale-end median, in one launch, an image per
+   thread-block cluster of 8 blocks, or of 16 where the strips need it:
+   240×320 and 280×300) at those sizes and five others, its shared
+   memory a block (``va_pd_scale_smem``) against ``strip_geometry`` at
+   1, 2, 4, 8 and 16 blocks, with ``cudaOccupancyMaxActiveClusters`` at
+   each and the size it takes at 15 and 120 pairs; one warp against the
+   plain prep, solve and median at ε = 0 (bit for bit, at medians 5, 3
+   and none), with ε engaged and with every image stopping in round 1;
+   the whole scale against the chain K-A → K-B per warp → K-C and
+   against its plain version (bit for bit at ε = 0, within 10·ε a warp
+   with ε engaged), the launch and the chain timed in turns, and forced
+   to each cluster size that fits (bit for bit against the plain version
+   at ε = 0, the size rule's rounds with ε engaged; ``va_pd_scale``
+   refusing sizes that do not fit); check that an image
    stops on its own ε test (an easy pair's flow is the same alone and
    batched with a hard pair);
 3. serve: build ``ClipServer`` at full width (two ResNet-18s of width 64,
@@ -41,7 +41,7 @@ Phases, each reported on a JSON line:
    up, answer a ping and three classify requests on seeded frames, with
    every kernel's launch counter reset just before the requests and held
    to the expected numbers after them (5 ``tvl1_scale`` per request, one
-   per pyramid scale, and none of K-A, K-H, K-C or the per-iteration
+   per pyramid scale, and none of K-A, K-C or the per-iteration
    kernels); hold the fused probabilities against the same window run
    through the plain versions;
 4. profile: where one request's time goes.  Stage times on the host
@@ -233,8 +233,8 @@ Phases, each reported on a JSON line:
    versions' rounds on the same 64 pairs and on the first 1080p pair
    within 1 % of the kernels'; the rows and the tool's table
    (``roofline_phase``).  The bounds of this script's kernel checks come
-   from the tool (``bound``, ``warp_bound``, ``scale_bound``,
-   ``chunk_bound``, ``farneback_kernel_work``, ``cnn_work``).
+   from the tool (``bound``, ``scale_bound``, ``chunk_bound``,
+   ``farneback_kernel_work``, ``cnn_work``).
 ``--only <phase>`` runs the build and that phase alone.
 
 Then it prints the kernel table (``{"kernels": [...]}``: for each kernel
@@ -249,7 +249,7 @@ under ``launches_distributed``, ``launches_warmup``,
 ``launches_compute_flow_bucketed``, ``launches_flow_quality``,
 ``launches_eval_breakdown`` and ``launches_roofline`` those of phases
 14-22;
-K-H, K-B (and its launches with the ε test) and ``fb_window_solve``,
+K-B (and its launches with the ε test) and ``fb_window_solve``,
 whose arithmetic the commands run inside ``tvl1_scale`` and
 ``fb_iteration`` or only at shapes no command here gives, are on no
 command's path: 0 launches, and
@@ -296,7 +296,6 @@ def load_tool(name: str):
 # The work counts and the card's peaks: one home, the roofline tool.
 ROOFLINE = load_tool("torch_roofline")
 bound = ROOFLINE.bound
-warp_bound = ROOFLINE.warp_bound
 scale_bound = ROOFLINE.scale_bound
 chunk_bound = ROOFLINE.chunk_bound
 
@@ -606,8 +605,7 @@ def flow_counters():
     from video_analytics_tpu_torch.ops.cuda.warp import warp_prep
 
     tv = {"tvl1_scale": ts.pd_solve_scale, "warp_prep": warp_prep,
-          "tvl1_pd_warp": ts.pd_solve_warp, "median5": ts.median5,
-          "tvl1_pd_step": ts.pd_step,
+          "median5": ts.median5, "tvl1_pd_step": ts.pd_step,
           "tvl1_pd_step_eps": TestLaunches(ts.pd_step),
           "tvl1_pd_chunk": ts.pd_chunk,
           "tvl1_pd_chunk_flags": TestLaunches(ts.pd_chunk)}
@@ -1290,49 +1288,49 @@ RAGGED = ((150, 201), (17, 40), (256, 256), (240, 320), (280, 300))
 
 
 def tvl1_warp_kernel_phase(torch, np, dev):
-    """K-H ``pd_solve_warp`` against ``pd_solve_plain``, ``tvl1_scale``
-    (``pd_solve_scale``: all the warps of a scale in one launch) against the
-    kernels it fuses and its plain version, and one warp of the serve path
-    through the three designs.  Returns {name: (max_abs_err, (ms, plain_ms,
-    None), bound, device_ms)} of one warp (K-H) and one scale
-    (``tvl1_scale``) of 15 pairs at 224² with ``TVL1Config()``."""
+    """K-H ``tvl1_scale`` (``pd_solve_scale``: all the warps of a scale in
+    one launch) against its plain version and the per-iteration chain it
+    replaces (K-A → K-B → K-C), its shared memory against the size rule's,
+    and one scale of the serve path through the launch, the chain and the
+    plain version.  Returns {"tvl1_scale": (max_abs_err, (ms, plain_ms,
+    None), bound, device_ms)} of one scale of 15 pairs at 224² with
+    ``TVL1Config()``."""
     from video_analytics_tpu_torch.config import TVL1Config
     from video_analytics_tpu_torch.ops.cuda import _build
     from video_analytics_tpu_torch.ops.cuda import tvl1_solve as ts
-    from video_analytics_tpu_torch.ops.cuda.warp import (
-        warp_prep, warp_prep_plain)
+    from video_analytics_tpu_torch.ops.cuda.warp import warp_prep
 
     cfg = TVL1Config()
     lib = _build.library()
-    report, max_err, scale_err, table = {}, 0.0, 0.0, {}
+    report, scale_err, table = {}, 0.0, {}
 
     def chain_scale(i13, i0, uv, c):
-        """One scale as the kernels ``tvl1_scale`` fuses: K-A and K-H per
-        warp, then K-C."""
+        """One scale as the per-iteration chain ``tvl1_scale`` replaces:
+        K-A and K-B per warp, then K-C."""
         for _ in range(c.warps):
-            uv = ts.pd_solve_warp(warp_prep(i13, i0, uv), uv, c)
+            uv = ts.pd_solve(warp_prep(i13, i0, uv), uv, c)
         if c.median_filtering > 1:
             uv = ts.median5(uv, c.median_filtering)
         return uv
     for h, w in [(s, s) for s in SIZES] + list(RAGGED):
         i0, i13, uv = tvl1_level_inputs(torch, np, dev, h, w, PAIRS)
-        prep = warp_prep_plain(i13, i0, uv)
         geom = ts.warp_geometry(h, w)
         check(geom is not None, f"{h}x{w} does not fit a cluster")
         rows, consts, smem, blocks = geom
-        check(lib.va_pd_warp_smem(h, w) == smem
-              and lib.va_pd_warp_consts_in_smem(h, w) == int(consts)
-              and lib.va_pd_warp_cluster(h, w) == blocks,
-              f"warp_geometry({h}, {w}) = {geom}, the library says "
-              f"{lib.va_pd_warp_smem(h, w)} B, constants in shared memory "
-              f"{lib.va_pd_warp_consts_in_smem(h, w)}, "
-              f"{lib.va_pd_warp_cluster(h, w)} blocks")
+        # The library's shared memory a block at every cluster size (-1
+        # where the strips do not fit) is strip_geometry's.
+        smem_by_size = {c: lib.va_pd_scale_smem(h, w, c)
+                        for c in SCALE_BLOCKS}
+        geoms = {c: ts.strip_geometry(h, w, c) for c in SCALE_BLOCKS}
+        check(smem_by_size == {c: -1 if g is None else g[2]
+                               for c, g in geoms.items()},
+              f"strip_geometry({h}, {w}) by size: {geoms}, the library "
+              f"says {smem_by_size} B")
         # cudaOccupancyMaxActiveClusters at every size where the strips fit
         # (a negative CUDA error where they do not), and what
         # pd_solve_scale asks once a process; the size it takes for a
         # request's pairs and for the eval batch's.
-        fit = [c for c in SCALE_BLOCKS
-               if ts.strip_geometry(h, w, c) is not None]
+        fit = [c for c in SCALE_BLOCKS if geoms[c] is not None]
         by_size = {cl: lib.va_pd_warp_max_clusters(h, w, PAIRS, cl)
                    for cl in SCALE_BLOCKS}
         check(all((by_size[c] >= 1) == (c in fit) for c in SCALE_BLOCKS)
@@ -1348,87 +1346,60 @@ def tvl1_warp_kernel_phase(torch, np, dev):
               f"tvl1_scale of {PAIRS} pairs at {h}x{w} takes {chosen} "
               f"blocks, the size rule {blocks}")
         entry = {"strip_rows": rows, "constants_in_shared_memory": consts,
-                 "smem_bytes": smem, "cluster_blocks": blocks,
-                 "max_active_clusters": clusters,
+                 "smem_bytes": smem, "smem_bytes_by_size": smem_by_size,
+                 "cluster_blocks": blocks, "max_active_clusters": clusters,
                  "max_active_clusters_by_size": by_size,
                  "scale_blocks_by_pairs": chosen}
-        rounds = torch.zeros(PAIRS, dtype=torch.int32, device=dev)
+        finest = (h, w) == (SIZES[0], SIZES[0])
 
-        def held(c, what, exact):
-            """K-H against the plain version under config c.  Returns
-            whether the two are equal to the bit."""
-            nonlocal max_err
-            n = ts.pd_solve_warp.launches
-            got = ts.pd_solve_warp(prep, uv, c, rounds)
-            check(ts.pd_solve_warp.launches == n + 1, "launch not counted")
-            want = ts.pd_solve_plain(prep, uv, c)
-            e = (got - want).abs().max().item()
-            equal = torch.equal(got, want)
-            # With the test engaged a round may flip at the threshold on
-            # the order of the sum: the reference's bound for that.
-            check(equal if exact else e <= 10 * c.epsilon,
-                  f"pd_solve_warp at {h}x{w}, {what}: max abs {e}")
-            max_err = max(max_err, e)
-            return equal
-
-        # epsilon = 0: no test can flip, every bit must agree.
+        # One warp: at epsilon = 0 no test can flip, and the launch is the
+        # plain prep, solve and median (pd_solve_scale_plain) to the bit.
+        orounds = torch.zeros((PAIRS, 1), dtype=torch.int32, device=dev)
         for k in (5, 3, 0):
-            held(dataclasses.replace(cfg, epsilon=0.0, outer_iterations=2,
-                                     median_filtering=k),
-                 f"epsilon 0, median {k}", True)
-            check(bool((rounds == 2).all()), f"rounds {rounds.tolist()}")
-        # The whole warp with the test engaged: on this scene to the bit at
-        # the finest serve size, as the native-resolution kernel is held.
-        entry["equal_with_epsilon"] = held(cfg, "TVL1Config()",
-                                           (h, w) == (SIZES[0], SIZES[0]))
-        entry["rounds"] = rounds.tolist()
-        check(min(entry["rounds"]) >= 1 and max(entry["rounds"])
-              <= cfg.outer_iterations, f"rounds {entry['rounds']}")
-        b_ms, b_by = warp_bound(entry["rounds"], h, w, cfg.inner_iterations,
-                                cfg.median_filtering)
-        exact = dataclasses.replace(cfg, epsilon=0.0)
-        entry.update(
-            ms=cuda_ms(torch, lambda: ts.pd_solve_warp(prep, uv, cfg), 5),
-            bound_ms=b_ms, bound_by=b_by,
-            ms_epsilon_0=cuda_ms(
-                torch, lambda: ts.pd_solve_warp(prep, uv, exact), 5),
-            bound_ms_epsilon_0=warp_bound(
-                [cfg.outer_iterations] * PAIRS, h, w, cfg.inner_iterations,
-                cfg.median_filtering)[0])
+            c = dataclasses.replace(cfg, epsilon=0.0, outer_iterations=2,
+                                    warps=1, median_filtering=k)
+            n = ts.pd_solve_scale.launches
+            got = ts.pd_solve_scale(i13, i0, uv, c, orounds)
+            check(ts.pd_solve_scale.launches == n + 1, "launch not counted")
+            want = ts.pd_solve_scale_plain(i13, i0, uv, c)
+            check(torch.equal(got, want),
+                  f"tvl1_scale of one warp at {h}x{w}, epsilon 0, median "
+                  f"{k}: max abs {(got - want).abs().max().item()} from the "
+                  f"plain versions")
+            check(bool((orounds == 2).all()), f"rounds {orounds.tolist()}")
+        # With the test engaged: on this scene to the bit at the finest
+        # serve size; elsewhere, and against the chain, a round may flip at
+        # the threshold on the order of the sum: the reference's bound for
+        # that.
+        one = dataclasses.replace(cfg, warps=1)
+        got = ts.pd_solve_scale(i13, i0, uv, one, orounds)
+        want = ts.pd_solve_scale_plain(i13, i0, uv, one)
+        e = (got - want).abs().max().item()
+        entry["one_warp_equal_with_epsilon"] = torch.equal(got, want)
+        check(entry["one_warp_equal_with_epsilon"] if finest
+              else e <= 10 * cfg.epsilon,
+              f"tvl1_scale of one warp at {h}x{w}, TVL1Config(): max abs "
+              f"{e} from the plain version")
+        scale_err = max(scale_err, e)
+        e = (got - chain_scale(i13, i0, uv, one)).abs().max().item()
+        check(e <= 10 * cfg.epsilon,
+              f"tvl1_scale of one warp at {h}x{w}, TVL1Config(): max abs "
+              f"{e} from the chain")
+        entry["one_warp_rounds"] = orounds[:, 0].tolist()
+        check(min(entry["one_warp_rounds"]) >= 1
+              and max(entry["one_warp_rounds"]) <= cfg.outer_iterations,
+              f"rounds {entry['one_warp_rounds']}")
         # A warp on which every image passes the test in round 1.
-        loose = dataclasses.replace(cfg, epsilon=100.0)
-        held(loose, "every image converged in round 1", True)
-        check(bool((rounds == 1).all()), f"rounds {rounds.tolist()}")
-        entry["ms_converged_in_round_1"] = cuda_ms(
-            torch, lambda: ts.pd_solve_warp(prep, uv, loose), 5)
-        if (h, w) == (SIZES[0], SIZES[0]):
-            # The same warp through the three designs.
-            band, chunk = ts.chunk_params(h, w, cfg)
-            chain = ts.pd_solve(prep, uv, cfg)
-            got = ts.pd_solve_warp(prep, uv, cfg)
-            entry["max_abs_vs_chain"] = (got - chain).abs().max().item()
-            check(entry["max_abs_vs_chain"] <= 10 * cfg.epsilon,
-                  f"pd_solve_warp vs the chain: {entry['max_abs_vs_chain']}")
-            entry.update(
-                chain_ms=cuda_ms(torch, lambda: ts.pd_solve(prep, uv, cfg), 3),
-                chunked_ms=cuda_ms(torch, lambda: ts.pd_solve_chunked(
-                    prep, uv, cfg, band, chunk, False), 3),
-                chunked_band_chunk=[band, chunk],
-                plain_ms=cuda_ms(
-                    torch, lambda: ts.pd_solve_plain(prep, uv, cfg), 1),
-                launches={"pd_solve_warp": 1,
-                          "chain": cfg.outer_iterations
-                          * (cfg.inner_iterations + 2),
-                          "chunked": cfg.outer_iterations
-                          * -(-cfg.inner_iterations // chunk) + 9})
-            table["tvl1_pd_warp"] = (
-                None, (entry["ms"], entry["plain_ms"], None), (b_ms, b_by),
-                device_ms(torch, lambda: ts.pd_solve_warp(prep, uv, cfg),
-                          "pd_warp_kernel"))
+        loose = dataclasses.replace(one, epsilon=100.0)
+        got = ts.pd_solve_scale(i13, i0, uv, loose, orounds)
+        check(torch.equal(got, ts.pd_solve_scale_plain(i13, i0, uv, loose))
+              and bool((orounds == 1).all()),
+              f"tvl1_scale of one warp at {h}x{w}, every image converged in "
+              f"round 1: rounds {orounds.tolist()}")
 
-        # tvl1_scale: every warp of the scale and the scale-end median in
-        # one launch, against the chain K-A -> K-H per warp -> K-C and the
-        # plain version.  epsilon = 0: every bit agrees with both.
+        # The whole scale, every warp and the scale-end median in one
+        # launch.  epsilon = 0: every bit agrees with the chain and the
+        # plain version.
         sc = {}
         srounds = torch.zeros((PAIRS, 2), dtype=torch.int32, device=dev)
         for k in (5, 3, 0):
@@ -1446,30 +1417,24 @@ def tvl1_warp_kernel_phase(torch, np, dev):
                   f"tvl1_scale at {h}x{w}, epsilon 0, median {k}: max abs "
                   f"{e} from the plain version")
             check(bool((srounds == 2).all()), f"rounds {srounds.tolist()}")
-        # One warp: K-A, K-H and K-C in one launch.
-        one = dataclasses.replace(cfg, warps=1)
-        check(torch.equal(ts.pd_solve_scale(i13, i0, uv, one),
-                          chain_scale(i13, i0, uv, one)),
-              f"tvl1_scale of one warp at {h}x{w} is not K-A, K-H, K-C")
-        # With the test engaged: the chain's flow to the bit (same strips,
-        # same order of the sums); against the plain version a round may
-        # flip at the threshold in any of the warps.
+        # With the test engaged a round may flip at the threshold in any of
+        # the warps, against the plain version and against the chain.
         srounds = torch.zeros((PAIRS, cfg.warps), dtype=torch.int32,
                               device=dev)
-        got = ts.pd_solve_scale(i13, i0, uv, cfg, srounds)
-        chain = chain_scale(i13, i0, uv, cfg)
-        check(torch.equal(got, chain),
-              f"tvl1_scale at {h}x{w}, TVL1Config(): max abs "
-              f"{(got - chain).abs().max().item()} from the chain")
+        ruled = ts.pd_solve_scale(i13, i0, uv, cfg, srounds)
         want = ts.pd_solve_scale_plain(i13, i0, uv, cfg)
-        e = (got - want).abs().max().item()
-        sc["equal_to_plain_with_epsilon"] = torch.equal(got, want)
-        check(sc["equal_to_plain_with_epsilon"]
-              if (h, w) == (SIZES[0], SIZES[0])
+        e = (ruled - want).abs().max().item()
+        sc["equal_to_plain_with_epsilon"] = torch.equal(ruled, want)
+        check(sc["equal_to_plain_with_epsilon"] if finest
               else e <= 10 * cfg.epsilon * cfg.warps,
               f"tvl1_scale at {h}x{w}, TVL1Config(): max abs {e} from the "
               f"plain version")
         scale_err = max(scale_err, e)
+        sc["max_abs_vs_chain"] = (ruled - chain_scale(
+            i13, i0, uv, cfg)).abs().max().item()
+        check(sc["max_abs_vs_chain"] <= 10 * cfg.epsilon * cfg.warps,
+              f"tvl1_scale at {h}x{w}, TVL1Config(): max abs "
+              f"{sc['max_abs_vs_chain']} from the chain")
         sc["rounds"] = srounds.tolist()
         # Forced to each size that fits: at epsilon = 0 the plain version
         # to the bit; with the test engaged, on this scene, the rounds of
@@ -1494,8 +1459,8 @@ def tvl1_warp_kernel_phase(torch, np, dev):
                   f"{forced_rounds.tolist()}, in {blocks} "
                   f"{srounds.tolist()}")
             sc["forced"][c] = {
-                "equal_to_size_rule_s_flow": torch.equal(got, chain),
-                "max_abs_vs_size_rule_s": (got - chain).abs().max().item()}
+                "equal_to_size_rule_s_flow": torch.equal(got, ruled),
+                "max_abs_vs_size_rule_s": (got - ruled).abs().max().item()}
         sb_ms, sb_by = scale_bound(sc["rounds"], h, w, cfg.inner_iterations,
                                    cfg.median_filtering)
         # In turns: the launch, the chain, the chain, the launch.
@@ -1506,13 +1471,14 @@ def tvl1_warp_kernel_phase(torch, np, dev):
             lambda: ts.pd_solve_scale(i13, i0, uv, cfg))]
         sc.update(ms=min(t[0], t[3]), ms_both=[t[0], t[3]],
                   chain_ms=min(t[1], t[2]), chain_ms_both=[t[1], t[2]],
-                  chain_launches=2 * cfg.warps + 1, bound_ms=sb_ms,
-                  bound_by=sb_by,
+                  chain_launches=cfg.warps * (1 + cfg.outer_iterations * (
+                      cfg.inner_iterations + 1)) + 1,
+                  bound_ms=sb_ms, bound_by=sb_by,
                   ms_one_warp=cuda_ms(
                       torch, lambda: ts.pd_solve_scale(i13, i0, uv, one), 5),
-                  ms_one_warp_three_launches=cuda_ms(
+                  ms_one_warp_chain=cuda_ms(
                       torch, lambda: chain_scale(i13, i0, uv, one), 5))
-        if (h, w) == (SIZES[0], SIZES[0]):
+        if finest:
             sc["plain_ms"] = cuda_ms(
                 torch, lambda: ts.pd_solve_scale_plain(i13, i0, uv, cfg), 1)
             sc["device_ms"] = device_ms(
@@ -1524,25 +1490,20 @@ def tvl1_warp_kernel_phase(torch, np, dev):
         report[f"{h}x{w}"] = entry
 
     # One image and three windows' worth (more clusters than the card holds
-    # at once), and a level that fits no cluster.
+    # at once), at the batch classify-clip --windows 3 gives the launch;
+    # and a level that fits no cluster.
     for B in (1, 45):
         i0, i13, uv = tvl1_level_inputs(torch, np, dev, SIZES[0], SIZES[0], B)
-        prep = warp_prep_plain(i13, i0, uv)
         short = dataclasses.replace(cfg, epsilon=0.0, outer_iterations=1,
                                     warps=2)
-        check(torch.equal(ts.pd_solve_warp(prep, uv, short),
-                          ts.pd_solve_plain(prep, uv, short)),
-              f"pd_solve_warp at batch {B}")
-        # The whole-scale launch at the batch classify-clip --windows 3
-        # gives it.
         got = ts.pd_solve_scale(i13, i0, uv, short)
         check(torch.equal(got, chain_scale(i13, i0, uv, short)),
               f"tvl1_scale at batch {B}: not the chain's flow")
         check(torch.equal(got, ts.pd_solve_scale_plain(i13, i0, uv, short)),
               f"tvl1_scale at batch {B}: not the plain version's flow")
     check(ts.warp_geometry(*CHAIN) is None
-          and lib.va_pd_warp_smem(*CHAIN) < 0
-          and lib.va_pd_warp_cluster(*CHAIN) < 0, f"{CHAIN} fits a cluster?")
+          and all(lib.va_pd_scale_smem(*CHAIN, c) < 0 for c in SCALE_BLOCKS),
+          f"{CHAIN} fits a cluster?")
     # The library refuses a cluster whose strips do not fit: 224² in 4, 2
     # or 1 blocks, and sizes the kernel does not take; 92² in one block
     # without the scratch its constants need.
@@ -1560,17 +1521,14 @@ def tvl1_warp_kernel_phase(torch, np, dev):
         refused[f"{h}x{w}/{c}"] = err
         check(err == 1, f"va_pd_scale at {h}x{w} in {c} blocks: {err}, "
                         f"not cudaErrorInvalidValue")
-    emit({"phase": "tvl1_warp_kernel", "pairs": PAIRS,
-          "max_abs_err": max_err, "tolerance": 0.0,
-          "tolerance_where_a_round_may_flip": 10 * cfg.epsilon,
+    emit({"phase": "tvl1_warp_kernel", "pairs": PAIRS, "tolerance": 0.0,
+          "tolerance_where_a_round_may_flip_per_warp": 10 * cfg.epsilon,
           "tvl1_scale_max_abs_err": scale_err,
-          "tvl1_scale_equal_to_chain": True,
           "va_pd_scale_refused": refused,
           "tvl1_scale_launches_by_blocks": dict(
               ts.pd_solve_scale.launches_by_blocks),
           "by_level": report})
-    return {"tvl1_pd_warp": (max_err, *table["tvl1_pd_warp"][1:]),
-            "tvl1_scale": (scale_err, *table["tvl1_scale"][1:])}
+    return {"tvl1_scale": (scale_err, *table["tvl1_scale"][1:])}
 
 
 # Finest levels under the size rule that fit no cluster of 8 blocks (PR 5's
@@ -1583,7 +1541,7 @@ CHAIN = (20, 4000)     # a level too wide for 16 strips: K-A, K-B, K-C
 def tvl1_midsize_phase(torch, np, dev):
     """``compute-flow --algo tvl1`` on frames of 280x300 and of 240x320:
     every level, the finest in 16-block clusters, is one launch of
-    ``tvl1_scale`` (counted, and K-A, K-B, K-C and K-H held to 0); the
+    ``tvl1_scale`` (counted, and K-A, K-B and K-C held to 0); the
     flow at ε = 0 against the plain path's; one flow call of 2 pairs
     timed.  Then a pair of 20x4000, whose finest level fits no cluster,
     through ``tvl1``: K-A, K-B (a round's last step with the ε test) and
@@ -1606,8 +1564,7 @@ def tvl1_midsize_phase(torch, np, dev):
     kernels = {"tvl1_pd_step": ts.pd_step,
                "tvl1_pd_step_eps": TestLaunches(ts.pd_step),
                "median5": ts.median5, "warp_prep": warp_prep,
-               "tvl1_scale": ts.pd_solve_scale,
-               "tvl1_pd_warp": ts.pd_solve_warp, "tvl1_pd_chunk": ts.pd_chunk}
+               "tvl1_scale": ts.pd_solve_scale, "tvl1_pd_chunk": ts.pd_chunk}
     exact = dataclasses.replace(cfg, epsilon=0.0, warps=2, outer_iterations=2)
     report, total = {}, dict.fromkeys(kernels, 0)
     for size in MIDS:
@@ -2226,7 +2183,6 @@ def tvl1_1080p_phase(torch, np, dev, work: str):
                "warp_prep": warp_prep, "median5": ts.median5,
                "tvl1_pd_step": ts.pd_step,
                "tvl1_pd_step_eps": TestLaunches(ts.pd_step),
-               "tvl1_pd_warp": ts.pd_solve_warp,
                "tvl1_scale": ts.pd_solve_scale}
     zero_counts(kernels)
     t0 = time.perf_counter()
@@ -2394,7 +2350,6 @@ def stage_chain_phase(torch, np, dev, work: str, frames_dir: str,
     # 2. The frames: both streams, TV-L1 on the 224² crop (every level
     # there fits a cluster: tvl1_scale, and nothing else).
     kernels = {"tvl1_scale": ts.pd_solve_scale, "warp_prep": warp_prep,
-               "tvl1_pd_warp": ts.pd_solve_warp,
                "median5": ts.median5, "tvl1_pd_step": ts.pd_step,
                "tvl1_pd_step_eps": TestLaunches(ts.pd_step),
                "tvl1_pd_chunk": ts.pd_chunk}
@@ -5197,11 +5152,7 @@ def main(argv=None) -> int:
           "ms_kernel_vs_plain": times,
           f"device_ms_at_{SIZES[0]}": dev_times})
 
-    # K-H is on no command's path since tvl1_scale: its launches are those
-    # of this phase, which holds it against its plain version.
-    ts.pd_solve_warp.launches = 0
     kh = tvl1_warp_kernel_phase(torch, np, dev)
-    own_check = {"tvl1_pd_warp": ts.pd_solve_warp.launches}
 
     # Per-image ε stop: an easy pair's flow must not depend on its batch.
     size = SIZES[0]
@@ -5242,10 +5193,9 @@ def main(argv=None) -> int:
 
     # Every level of a 224² crop fits a cluster: per request and level one
     # launch of tvl1_scale (its 5 warps and the scale-end median inside);
-    # K-A, K-H, K-C and the per-iteration kernels not at all.
+    # K-A, K-C and the per-iteration kernels not at all.
     kernels = {"tvl1_scale": ts.pd_solve_scale, "warp_prep": warp_prep,
-               "tvl1_pd_warp": ts.pd_solve_warp, "median5": ts.median5,
-               "tvl1_pd_step": ts.pd_step,
+               "median5": ts.median5, "tvl1_pd_step": ts.pd_step,
                "tvl1_pd_step_eps": TestLaunches(ts.pd_step)}
     request_ms, outs, launches = serve_requests(
         server, frames, lambda: zero_counts(kernels),
@@ -5270,7 +5220,7 @@ def main(argv=None) -> int:
     zero_fb_counts(fk)
     fb_errs, fb_times, fb_bounds, fb_dev = farneback_kernels_phase(
         torch, np, dev)
-    own_check.update(read_fb_counts(fk))
+    own_check = read_fb_counts(fk)
     fb_launches = farneback_serve_phase(torch, np, dev, model)
     cf_launches = compute_flow_phase(np)
     fhd_launches, fhd = farneback_1080p_phase(torch, np, dev)
@@ -5323,18 +5273,18 @@ def main(argv=None) -> int:
     # and reads and writes the flags and errors.  Operations per pixel: 3
     # bilinear samples and the prep (~45); one primal-dual step (~70); the
     # min/max of K-C's generated tile schedule per plane (median_ops).
-    # pd_solve_warp's and tvl1_scale's are those of the rounds their images
-    # took (warp_bound, scale_bound).  Launches are those of the serve
+    # tvl1_scale's are those of the rounds its images took (scale_bound).
+    # Launches are those of the serve
     # requests where the serve path runs the kernel; tvl1_scale's also on
     # the mid-size commands' path (launches_tvl1_midsize); K-A, K-C, K-G and
     # its launches with the bands' test on the 1080p TV-L1 command's; K-D's
     # blur pass on the 1080p Farneback command's (--fb-levels 4), K-E and
-    # sep_corr on its --fb-winsize 201 command's; K-H, K-B (with and
-    # without the ε test) and fb_window_solve are on no command's path
-    # (tvl1_scale and fb_iteration hold their arithmetic; K-B takes only a
-    # level too wide for a cluster; fb_window_solve only windows of 75-193
-    # taps): their launches are 0, and check_launches counts those of the
-    # phase that holds them against their plain versions.
+    # sep_corr on its --fb-winsize 201 command's; K-B (with and without
+    # the ε test) and fb_window_solve are on no command's path (tvl1_scale
+    # and fb_iteration hold their arithmetic; K-B takes only a level too
+    # wide for a cluster; fb_window_solve only windows of 75-193 taps):
+    # their launches are 0, and check_launches counts those of the phase
+    # that holds them against their plain versions.
     px = PAIRS * SIZES[0] * SIZES[0]
     blocks = ts.pd_blocks(SIZES[0], SIZES[0])
     bounds = {"warp_prep": bound(10 * 4 * px, ROOFLINE.TVL1_WARP_OPS * px),
@@ -5371,10 +5321,9 @@ def main(argv=None) -> int:
              [pallas + "tvl1_solve.py:191", pallas + "tvl1_solve.py:584"]),
             ("tvl1_pd_step_eps", "tvl1_pd.cu", pallas + "tvl1_solve.py:191",
              [pallas + "tvl1_solve.py:165", pallas + "tvl1_solve.py:415"]),
-            ("tvl1_pd_warp", "tvl1_pd_warp.cu", pallas + "tvl1_solve.py:191",
-             [pallas + "tvl1_solve.py:415", pallas + "tvl1_solve.py:584"]),
             ("tvl1_scale", "tvl1_pd_warp.cu", pallas + "tvl1_solve.py:584",
-             [pallas + "tvl1_solve.py:500"]),
+             [pallas + "tvl1_solve.py:500", pallas + "tvl1_solve.py:191",
+              pallas + "tvl1_solve.py:415"]),
             ("tvl1_pd_chunk", "tvl1_pd_chunk.cu", pallas + "tvl1_solve.py:890",
              [pallas + "tvl1_solve.py:720", pallas + "tvl1_solve.py:1001"]),
             ("tvl1_pd_chunk_flags", "tvl1_pd_chunk.cu",
@@ -5394,8 +5343,7 @@ def main(argv=None) -> int:
              [fbk + "263", fbk + "471", fbk + "697", fbk + "946"]),
             ("fb_iteration", "fb_window_solve.cu", fbk + "946",
              [fbk + "826"])]
-    off_path = ("tvl1_pd_warp", "tvl1_pd_step", "tvl1_pd_step_eps",
-                "fb_window_solve")
+    off_path = ("tvl1_pd_step", "tvl1_pd_step_eps", "fb_window_solve")
     for name, *_ in rows:
         if name in off_path:
             check(launches.get(name, 0) == 0 and own_check[name] > 0,

@@ -483,62 +483,13 @@ def test_solvers_launch_no_separate_test_kernel(dev):
                            rounds)
 
 
-# -- K-H: one warp in one launch, an image per thread-block cluster ----------
-
-@pytest.mark.parametrize("k", [0, 3, 5])
-@pytest.mark.parametrize("b,h,w", [
-    (1, 37, 53),         # strips of 5 rows, the last of 2
-    (3, 17, 40),         # strips of 3, 3, 3, 3, 3, 2 and two empty ones
-    (45, 19, 23),        # more clusters than the card holds; a 1-row strip
-    (2, 150, 201),       # 10 pixels a thread in registers
-    (1, 248, 296),       # over 8,192 px a strip: constants through L2
-])
-def test_pd_solve_warp_matches_plain(dev, b, h, w, k):
-    """ε = 0: bit for bit (same operations in the same order, no FMA
-    contraction).  With the test engaged a round may flip at the threshold
-    on the order of the sum, which moves the flow by less than 10·ε."""
-    cfg = dataclasses.replace(FAST, epsilon=0.0, median_filtering=k,
-                              outer_iterations=2)
-    i0, i13, uv = _level(dev, b, h, w)
-    prep = warp_prep_plain(i13, i0, uv)
-    rounds = torch.zeros(b, dtype=torch.int32, device=dev)
-    n = ts.pd_solve_warp.launches
-    got = ts.pd_solve_warp(prep, uv, cfg, rounds)
-    assert ts.pd_solve_warp.launches == n + 1
-    assert torch.equal(got, ts.pd_solve_plain(prep, uv, cfg))
-    assert (rounds == 2).all()
-    gated = dataclasses.replace(cfg, epsilon=0.05, outer_iterations=6)
-    got = ts.pd_solve_warp(prep, uv, gated, rounds)
-    want = ts.pd_solve_plain(prep, uv, gated)
-    assert (got - want).abs().max().item() <= 10 * gated.epsilon
-    assert (got - ts.pd_solve(prep, uv, gated)).abs().max().item() \
-        <= 10 * gated.epsilon
-    assert ((rounds >= 1) & (rounds <= 6)).all()
-
-
-def test_pd_solve_warp_refuses_what_it_cannot_launch(dev):
-    cfg = TVL1Config()
-    z = lambda *shape: torch.zeros(shape, device=dev)
-    n = ts.pd_solve_warp.launches
-    with pytest.raises(ValueError, match="does not fit"):
-        ts.pd_solve_warp(z(1, 4, 20, 4000), z(1, 2, 20, 4000), cfg)
-    with pytest.raises(ValueError, match="dtype"):
-        ts.pd_solve_warp(z(1, 4, 32, 32).double(), z(1, 2, 32, 32), cfg)
-    with pytest.raises(ValueError, match="median"):
-        ts.pd_solve_warp(z(1, 4, 32, 32), z(1, 2, 32, 32),
-                         TVL1Config(median_filtering=7))
-    with pytest.raises(ValueError, match="active"):
-        ts.pd_solve_warp(z(1, 4, 32, 32), z(1, 2, 32, 32), cfg,
-                         torch.zeros(2, dtype=torch.int32, device=dev))
-    assert ts.pd_solve_warp.launches == n
-
-
 # -- tvl1_scale: every warp of one pyramid scale in one launch ----------------
 
 def _chain_scale(i13, i0, uv, cfg):
-    """One scale as three kernels: K-A and K-H per warp, then K-C."""
+    """One scale as the per-iteration chain: K-A and K-B per warp, then
+    K-C."""
     for _ in range(cfg.warps):
-        uv = ts.pd_solve_warp(warp_prep(i13, i0, uv), uv, cfg)
+        uv = ts.pd_solve(warp_prep(i13, i0, uv), uv, cfg)
     if cfg.median_filtering > 1:
         uv = ts.median5(uv, cfg.median_filtering)
     return uv
@@ -556,20 +507,19 @@ def _chain_scale(i13, i0, uv, cfg):
 ])
 def test_pd_solve_scale_matches_plain(dev, b, h, w, k):
     """The whole-scale launch against its plain version and against the
-    three kernels it fuses.  ε = 0: bit for bit.  With the test engaged,
-    in the size rule's clusters, it still equals the three kernels to the
-    bit (same strips, same order of the ε sum); against the plain version,
-    in any clusters, a round may flip at the threshold, which moves the
-    flow by less than 10·ε a warp."""
+    per-iteration chain it replaces.  ε = 0: bit for bit.  With the test
+    engaged, in the size rule's clusters and in those chosen for the
+    batch, a round may flip at the threshold on the order of the ε sum,
+    which moves the flow by less than 10·ε a warp from either."""
     cfg = dataclasses.replace(FAST, epsilon=0.0, median_filtering=k,
                               outer_iterations=2, warps=3)
     i0, i13, uv = _level(dev, b, h, w)
     rounds = torch.zeros((b, 3), dtype=torch.int32, device=dev)
     before = (ts.pd_solve_scale.launches, warp_prep.launches,
-              ts.pd_solve_warp.launches, ts.median5.launches)
+              ts.pd_step.launches, ts.median5.launches)
     got = ts.pd_solve_scale(i13, i0, uv, cfg, rounds)
     assert (ts.pd_solve_scale.launches, warp_prep.launches,
-            ts.pd_solve_warp.launches, ts.median5.launches) \
+            ts.pd_step.launches, ts.median5.launches) \
         == (before[0] + 1,) + before[1:]
     assert torch.equal(got, ts.pd_solve_scale_plain(i13, i0, uv, cfg))
     assert torch.equal(got, _chain_scale(i13, i0, uv, cfg))
@@ -584,19 +534,15 @@ def test_pd_solve_scale_matches_plain(dev, b, h, w, k):
                        ts.pd_solve_scale_plain(i13, i0, uv, none))
     assert ts.pd_solve_scale.launches == n
     gated = dataclasses.replace(cfg, epsilon=0.05, outer_iterations=6)
-    # In the size rule's clusters: the chain's strips and order of the sum.
-    rule = ts.warp_geometry(h, w)[3]
-    got = ts.pd_solve_scale(i13, i0, uv, gated, rounds, rule)
-    assert torch.equal(got, _chain_scale(i13, i0, uv, gated))
     want = ts.pd_solve_scale_plain(i13, i0, uv, gated)
-    assert (got - want).abs().max().item() <= 10 * gated.epsilon * 3
-    assert ((rounds >= 1) & (rounds <= 6)).all()
-    # In the clusters chosen for the batch (45 images of 19x23 take
-    # fewer blocks than 8, so fewer passes), against the plain version
-    # alike.
-    got = ts.pd_solve_scale(i13, i0, uv, gated, rounds)
-    assert (got - want).abs().max().item() <= 10 * gated.epsilon * 3
-    assert ((rounds >= 1) & (rounds <= 6)).all()
+    chain = _chain_scale(i13, i0, uv, gated)
+    # In the size rule's clusters, and in those chosen for the batch (45
+    # images of 19x23 take fewer blocks than 8, so fewer passes).
+    for blocks in (ts.warp_geometry(h, w)[3], None):
+        got = ts.pd_solve_scale(i13, i0, uv, gated, rounds, blocks)
+        for ref in (want, chain):
+            assert (got - ref).abs().max().item() <= 10 * gated.epsilon * 3
+        assert ((rounds >= 1) & (rounds <= 6)).all()
 
 
 def test_pd_solve_scale_refuses_what_it_cannot_launch(dev):
@@ -654,7 +600,9 @@ def test_pd_solve_scale_at_every_cluster_size(dev, h, w):
 def test_va_pd_scale_refuses_a_cluster_its_strips_do_not_fit(dev):
     """The library itself refuses (cudaErrorInvalidValue, nothing
     launched) 224² in 4, 2 or 1 blocks, a size it does not take, and 92²
-    in one block without the scratch its constants need there."""
+    in one block without the scratch its constants need there.  Its
+    shared memory a block (``va_pd_scale_smem``) is ``strip_geometry``'s
+    at every size, -1 where the strips do not fit."""
     from video_analytics_tpu_torch.ops.cuda import _build
     lib = _build.library()
     i0, i13, uv = _level(dev, 1, 224, 224)
@@ -674,6 +622,11 @@ def test_va_pd_scale_refuses_a_cluster_its_strips_do_not_fit(dev):
     torch.cuda.synchronize()
     assert (out == 7.0).all()
     assert launch(224, 224, 8, None) == 0
+    for h, w in [(224, 224), (92, 92), (256, 256), (240, 320), (20, 4000)]:
+        for c in (1, 2, 3, 4, 8, 16, 32):
+            geom = ts.strip_geometry(h, w, c)
+            assert lib.va_pd_scale_smem(h, w, c) == \
+                (-1 if geom is None else geom[2]), (h, w, c)
 
 
 @pytest.mark.parametrize("batch", [120, 360])
@@ -698,8 +651,8 @@ def test_wrappers_refuse_batches_past_the_grid(dev):
     n = _build.GRID_YZ_MAX + 1
     z = lambda *shape: torch.zeros(shape, device=dev)
     taps = [1.0 / 3] * 3
-    counts = lambda: (ts.pd_solve_scale.launches, ts.pd_solve_warp.launches,
-                      warp_prep.launches, ts.median5.launches,
+    counts = lambda: (ts.pd_solve_scale.launches, warp_prep.launches,
+                      ts.median5.launches,
                       fk.fb_prologue.launches, fk.fb_warp_neq.launches,
                       fk.fb_window_solve.launches, fk.fb_iteration.launches,
                       fk.sep_corr.launches)
@@ -707,7 +660,6 @@ def test_wrappers_refuse_batches_past_the_grid(dev):
     calls = [
         lambda: ts.pd_solve_scale(z(n, 3, 8, 8), z(n, 8, 8), z(n, 2, 8, 8),
                                   FAST),
-        lambda: ts.pd_solve_warp(z(n, 4, 8, 8), z(n, 2, 8, 8), FAST),
         lambda: warp_prep(z(n, 3, 8, 8), z(n, 8, 8), z(n, 2, 8, 8)),
         lambda: ts.median5(z(n // 2 + 1, 2, 8, 8), 5),
         lambda: fk.fb_prologue(z(n, 16, 16), 1.0, (16, 16), 5, 1.1),
@@ -722,7 +674,7 @@ def test_wrappers_refuse_batches_past_the_grid(dev):
     assert counts() == before
     # At the limit the launch goes ahead.
     ts.median5(z(_build.GRID_YZ_MAX, 1, 8, 8), 3)
-    assert ts.median5.launches == before[3] + 1
+    assert ts.median5.launches == before[2] + 1
 
 
 @pytest.mark.parametrize("h,w", [(240, 320), (280, 300)])

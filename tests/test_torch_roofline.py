@@ -322,11 +322,6 @@ def test_bound_helpers_keep_their_values():
     assert [tool.bound(*a) for a in ((1e6, 1e9), (8e9, 1e9), (0, 3.3e11))] \
         == [(0.014925373134328358, "operations"),
             (2.388059701492537, "bytes"), (4.925373134328358, "operations")]
-    assert [tool.warp_bound(*a) for a in (
-        ([3, 4, 10], 224, 224, 30, 5), ([1] * 15, 150, 201, 30, 3),
-        ([2, 7], 17, 40, 10, 0))] == [
-        (0.032490083343283585, "operations"), (0.017226, "operations"),
-        (6.394029850746269e-05, "operations")]
     assert [tool.scale_bound(*a) for a in (
         ([[3, 2, 2, 1, 1], [10, 4, 3, 2, 1]], 224, 224, 30, 5),
         ([[2, 2]] * 15, 280, 300, 30, 0),
@@ -386,7 +381,7 @@ def test_chip_smoke_reads_the_tools_counts():
     """chip_smoke.py keeps no second copy: its bounds are the tool's
     functions and it defines no peak or CNN count of its own."""
     cs = _load(os.path.join(REPO, "chip_smoke.py"), "chip_smoke_counts")
-    for name in ("bound", "warp_bound", "scale_bound", "chunk_bound"):
+    for name in ("bound", "scale_bound", "chunk_bound"):
         assert getattr(cs, name) is getattr(cs.ROOFLINE, name), name
     for name in ("HBM_BYTES_PER_S", "F32_FLOP_PER_S", "BF16_FLOP_PER_S",
                  "BATCHER_25", "cnn_flops"):

@@ -1,13 +1,14 @@
-"""The cluster-resident TV-L1 solver (K-H ``pd_solve_warp``), the
-whole-scale launch built on it (``pd_solve_scale``) and the rounds'
-device-side convergence tests (in the last ``pd_chunk`` and ``pd_step``
-launch of a round) of the port, on the CPU.
+"""The cluster-resident TV-L1 solver (K-H, the whole-scale launch
+``pd_solve_scale``) and the rounds' device-side convergence tests (in the
+last ``pd_chunk`` and ``pd_step`` launch of a round) of the port, on the
+CPU.
 
 The CUDA kernels run only on a card (tests/test_torch_cuda.py,
 chip_smoke.py).  Here: the size rule that picks the solver of a pyramid
 level; the kernel's decomposition of an image into 8 or 16 strips, each
 phase reading only the neighbour rows the kernel reads, restated in plain
-PyTorch and held to ``pd_solve_plain`` to the bit; ``band_flags_plain``
+PyTorch and held to ``pd_solve_plain`` to the bit, and a whole scale of
+such warps to ``pd_solve_scale_plain``; ``band_flags_plain``
 (the plain version of the bands' test) against a numpy restatement of
 the reference's rule (video_analytics_tpu/ops/pallas/tvl1_solve.py:
 1054-1070); ``pd_solve_scale_plain`` against the loop of three calls it
@@ -123,7 +124,7 @@ def test_level_solver_honours_a_caller_s_size_rule():
 # -- the strip decomposition --------------------------------------------------
 
 def _strip_solve(prep, uv, cfg, blocks=None):
-    """``pd_solve_warp``'s algorithm in plain PyTorch, one image at a
+    """One warp of the cluster solver in plain PyTorch, one image at a
     time: `blocks` strips (``warp_geometry``'s, unless given) of
     ceil(H / blocks) rows, each holding only its own rows
     of the six state planes; phase A reads the last row of p12, p22 of the
@@ -278,6 +279,31 @@ def test_strip_decomposition_equals_plain_with_per_image_stops(h, w, blocks):
     assert r1 == rounds[1:2] and torch.equal(alone[0], got[1])
 
 
+@pytest.mark.parametrize("h,w,median,warps,epsilon,blocks", [
+    (37, 29, 5, 3, 0.0, None),    # eight strips, the last of 2 rows
+    (17, 24, 3, 2, 0.05, 4),      # four strips, per-image stops
+    (37, 29, 0, 2, 0.05, 16),     # sixteen strips, no median
+])
+def test_strip_decomposition_of_a_scale_equals_plain(h, w, median, warps,
+                                                     epsilon, blocks):
+    """A whole scale as the kernel runs it: each warp's constants from
+    the flow its strips hold (what the prologue gathers), the strips'
+    solve with the dual back at zero, and the closing median; the plain
+    version's flow and rounds to the bit."""
+    cfg = TVL1Config(warps=warps, inner_iterations=4, outer_iterations=3,
+                     epsilon=epsilon, median_filtering=median)
+    i13, i0, uv = _scale_inputs(h, 2, h, w)
+    got, rounds = uv, []
+    for _ in range(warps):
+        got, r = _strip_solve(warp_prep(i13, i0, got), got, cfg, blocks)
+        rounds.append(r)
+    if median > 1:
+        got = ts.median5_plain(got, median)
+    want = torch.zeros((2, warps), dtype=torch.int32)
+    assert torch.equal(got, ts.pd_solve_scale_plain(i13, i0, uv, cfg, want))
+    assert torch.tensor(rounds).T.tolist() == want.tolist()
+
+
 # -- the cluster size of the whole-scale launch -------------------------------
 
 # Clusters of each size the card holds at once at the cell's levels
@@ -429,20 +455,6 @@ def test_band_flags_plain_matches_reference_rule(h, w, band, n_part, adaptive):
 
 # -- the wrappers -------------------------------------------------------------
 
-def test_pd_solve_warp_takes_the_plain_version_on_cpu():
-    cfg = TVL1Config(inner_iterations=3, outer_iterations=2)
-    prep, uv = _warp_inputs(0, 2, 20, 24)
-    n = ts.pd_solve_warp.launches
-    assert torch.equal(ts.pd_solve_warp(prep, uv, cfg),
-                       ts.pd_solve_plain(prep, uv, cfg))
-    assert ts.pd_solve_warp.launches == n
-    # Even at a size no cluster holds: the rule is the CUDA launch's.
-    prep, uv = _warp_inputs(1, 1, 20, 4000)
-    one = dataclasses.replace(cfg, inner_iterations=1, outer_iterations=1)
-    assert torch.equal(ts.pd_solve_warp(prep, uv, one),
-                       ts.pd_solve_plain(prep, uv, one))
-
-
 def test_tvl1_takes_each_level_s_solver(monkeypatch):
     """``tvl1`` asks ``level_solver`` for every level and calls the solver
     it names: here the finest level the chain, once per warp, the coarser
@@ -487,12 +499,8 @@ def test_cuda_wrappers_refuse_what_they_cannot_launch():
     turns to the plain version.  A level that fits no cluster, and
     arguments the kernels do not take, raise before any launch."""
     cfg = TVL1Config()
-    n = (ts.pd_solve_warp.launches, ts.pd_chunk.launches,
-         ts.pd_step.launches)
+    n = (ts.pd_chunk.launches, ts.pd_step.launches)
     n_scale = ts.pd_solve_scale.launches
-    with pytest.raises(ValueError, match="does not fit"):
-        ts.pd_solve_warp(_OnCard(1, 4, 20, 4000), _OnCard(1, 2, 20, 4000),
-                         cfg)
     with pytest.raises(ValueError, match="does not fit"):
         ts.pd_solve_scale(_OnCard(1, 3, 20, 4000), _OnCard(1, 20, 4000),
                           _OnCard(1, 2, 20, 4000), cfg)
@@ -504,17 +512,13 @@ def test_cuda_wrappers_refuse_what_they_cannot_launch():
                           _OnCard(1, 2, 224, 224), cfg)
     assert ts.pd_solve_scale.launches == n_scale
     with pytest.raises(TypeError, match="expected a tensor"):
-        ts.pd_solve_warp(_OnCard(1, 4, 224, 224), _OnCard(1, 2, 224, 224),
-                         cfg)
-    with pytest.raises(TypeError, match="expected a tensor"):
         ts.pd_chunk(_OnCard(2, 4, 61, 96), _OnCard(2, 6, 61, 96), None, cfg,
                     3, 16, 16, 8, False, _OnCard(2, 6, 61, 96))
     with pytest.raises(TypeError, match="expected a tensor"):
         ts.pd_step(_OnCard(2, 4, 20, 24), _OnCard(2, 2, 20, 24),
                    _OnCard(2, 4, 20, 24), None, cfg, _OnCard(2, 2, 20, 24),
                    _OnCard(2, 4, 20, 24))
-    assert (ts.pd_solve_warp.launches, ts.pd_chunk.launches,
-            ts.pd_step.launches) == n
+    assert (ts.pd_chunk.launches, ts.pd_step.launches) == n
 
 
 class _CardTensor(torch.Tensor):
@@ -667,7 +671,7 @@ def test_pd_solve_scale_plain_is_the_three_call_loop(h, w, median, warps):
     i13, i0, uv = _scale_inputs(h, 2, h, w)
     want = uv
     for _ in range(warps):
-        want = ts.pd_solve_warp(warp_prep(i13, i0, want), want, cfg)
+        want = ts.pd_solve(warp_prep(i13, i0, want), want, cfg)
     if median > 1:
         want = ts.median5(want, median)
     n = ts.pd_solve_scale.launches

@@ -286,8 +286,8 @@ def kernel_counts():
     from video_analytics_tpu_torch.ops.cuda.warp import warp_prep
 
     wrappers = {"tvl1_scale": ts.pd_solve_scale, "warp_prep": warp_prep,
-                "tvl1_pd_warp": ts.pd_solve_warp, "median5": ts.median5,
-                "tvl1_pd_step": ts.pd_step, "tvl1_pd_chunk": ts.pd_chunk,
+                "median5": ts.median5, "tvl1_pd_step": ts.pd_step,
+                "tvl1_pd_chunk": ts.pd_chunk,
                 "fb_prologue": fk.fb_prologue, "fb_warp_neq": fk.fb_warp_neq,
                 "sep_corr": fk.sep_corr,
                 "fb_window_solve": fk.fb_window_solve,

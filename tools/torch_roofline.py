@@ -176,15 +176,6 @@ def scale_bound(rounds, h: int, w: int, inner: int, median_k: int):
     return bound(work.bytes, work.f32)
 
 
-def warp_bound(rounds, h: int, w: int, inner: int, median_k: int):
-    """Bound of one K-H launch: prep, u and v read and u, v written once,
-    against the solver's iterations and medians for the rounds each image
-    of this run took (`rounds`: one number per image)."""
-    px = h * w
-    per_round = TVL1_PD_OPS * inner + median_ops(median_k)
-    return bound(8 * 4 * px * len(rounds), per_round * px * sum(rounds))
-
-
 def chunk_bound(B: int, h: int, w: int, iters: int, median_k: int):
     """Bound of one K-G launch: 10 planes read and 6 written once, against
     `iters` primal-dual iterations a pixel plus, with the median, its

@@ -54,7 +54,7 @@
 // for ~60 flops: ~48 MB per launch at 15 pairs of 224^2, much of which
 // stays in the 50 MB L2 between launches.  What a request loses on this
 // chain is the host's time for ~320 launches a warp, not the kernel's:
-// tvl1_pd_warp.cu (one launch a warp) and tvl1_pd_chunk.cu (several
+// tvl1_pd_warp.cu (one launch a scale) and tvl1_pd_chunk.cu (several
 // iterations per launch, for the large planes) are the designs that
 // remove it.
 

@@ -1,27 +1,24 @@
-// K-H tvl1_pd_warp and tvl1_scale: the whole TV-L1 primal-dual solve of one
-// warp, or of all the warps of one pyramid scale, in one launch, one image
-// per thread-block cluster, the solver state resident in (distributed)
-// shared memory from the first iteration to the last.
+// K-H tvl1_scale: every warp of one TV-L1 pyramid scale in one launch, one
+// image per thread-block cluster, the solver state resident in (distributed)
+// shared memory from the scale's first iteration to its last.
 //
 // Replaces the solvers of video_analytics_tpu/ops/pallas/tvl1_solve.py
 // that keep an image's state on chip: tvl1_solve_warp,
 // tvl1_solve_warp_packed and tvl1_scale_pallas (kernel
 // _scale_kernel_packed), which runs the warp of (I1, I1x, I1y), the prep,
 // the solver of every warp of a scale and the scale-end median in one
-// launch.  Two entry points share the kernel:
-//   - va_pd_warp: one warp from the constants warp_prep.cu wrote (prep);
-//   - va_pd_scale: `warps` warps, each opening with warp_prep.cu's
-//     arithmetic as the kernel's prologue (the thread gathers I1, I1x, I1y
-//     at its own pixels moved by the u, v its strip holds, through L1/L2:
-//     they are read-only for the whole scale, so no strip needs to hold
-//     them), the dual and the round count reset as a fresh launch resets
-//     them, and after the last warp the k x k median once more (the
-//     scale-end median of flow/tvl1.py).  The constants never reach device
-//     memory where they fit shared memory; where they do not, a block
-//     writes its strip's three planes to a caller-given scratch and reads
-//     them back through L2 (each thread only what it wrote itself).
-// One warp computes what the per-iteration chain of tvl1_pd.cu + median.cu
-// computes
+// launch.  One entry point, va_pd_scale, runs `warps` warps, each opening
+// with warp_prep.cu's arithmetic as the kernel's prologue (the thread
+// gathers I1, I1x, I1y at its own pixels moved by the u, v its strip holds,
+// through L1/L2: they are read-only for the whole scale, so no strip needs
+// to hold them), the dual and the round count reset as a fresh warp resets
+// them, and after the last warp the k x k median once more (the scale-end
+// median of flow/tvl1.py).  The constants never reach device memory where
+// they fit shared memory; where they do not, a block writes its strip's
+// three planes to a caller-given scratch and reads them back through L2
+// (each thread only what it wrote itself).
+// Each warp computes what the per-iteration chain of tvl1_pd.cu + median.cu
+// computes from warp_prep.cu's constants
 // (ops/cuda/tvl1_solve.pd_solve): up to `outer` rounds, each the k x k
 // median of (u, v) (k in {0, 3, 5}, replicate border), `inner` iterations of
 //   rho = rho_c + I1wx*u + I1wy*v
@@ -30,29 +27,26 @@
 //   un  = u + d*I1wx + theta * div(p11, p12)   (vn likewise with p21, p22)
 //   p  <- (p + taut*grad(un)) / (1 + taut*|grad(un)|)
 // and the test  mean((un-u)^2 + (vn-v)^2) of the last iteration < eps^2,
-// after which the image's state is final.  The dual starts at zero.
+// after which the image's state is final for the warp.  The dual starts
+// each warp at zero.
 //
 // Design.  One block has 227 KB of shared memory, a 224^2 image's six state
 // planes are 1.2 MB; a cluster of eight blocks has 8 x 227 KB.  So:
 //   - grid (CL, B), cluster (CL, 1, 1).  CL is given with each launch
 //     (cudaLaunchKernelEx) and may be any of 1, 2, 4, 8 and 16 blocks
 //     whose strips fit (16 is Hopper's non-portable maximum, opted in per
-//     kernel: 16 SMs of one GPC at one block an SM).  va_pd_warp takes the
-//     size of cluster_of: 8 where the strips fit, else 16 (240x320,
-//     280x300 and every square level up to 295^2, the largest under the
-//     reference's size rule, fit 16 and not 8).  va_pd_scale takes the
-//     size its caller chose for the batch (ops/cuda/tvl1_solve.
-//     scale_blocks): a smaller cluster puts more images on the card at
-//     once, so a large batch runs in fewer passes of clusters over the
-//     card, each pass paying the latency of an iteration of a strip.  The
-//     per-pixel arithmetic is the same at every size.  Block r of an
-//     image's cluster owns the strip of RS = ceil(H / CL) rows from r * RS
-//     (a late block's strip may be short or empty; it still takes part in
-//     every barrier; a strip of a cluster of one is the image).  u, v, p11,
-//     p12, p21, p22 of the strip live in its shared memory for the whole
-//     warp: device memory is read once (prep, u, v) and written once (u, v),
-//     and for a whole scale u, v are read once and written once however
-//     many warps it has;
+//     kernel: 16 SMs of one GPC at one block an SM).  The caller chooses
+//     it for the batch (ops/cuda/tvl1_solve.scale_blocks, up to the size
+//     of warp_geometry: 8 where the strips fit, else 16): a smaller
+//     cluster puts more images on the card at once, so a large batch runs
+//     in fewer passes of clusters over the card, each pass paying the
+//     latency of an iteration of a strip.  The per-pixel arithmetic is the
+//     same at every size.  Block r of an image's cluster owns the strip of
+//     RS = ceil(H / CL) rows from r * RS (a late block's strip may be short
+//     or empty; it still takes part in every barrier; a strip of a cluster
+//     of one is the image).  u, v, p11, p12, p21, p22 of the strip live in
+//     its shared memory for the whole scale: u, v are read once and
+//     written once however many warps it has;
 //   - an iteration is two in-place phases.  Phase A forms (un, vn) from the
 //     pixel's own u, v and the dual of the pixel, its left and its upper
 //     neighbour; phase B forms the new dual from un of the pixel, its right
@@ -71,13 +65,13 @@
 //     interleaves a thread's pixels;
 //   - a thread owns the same pixels of the strip throughout (pixel tid +
 //     k * 512 of the strip as one flat array, so neighbouring threads read
-//     neighbouring words).  The constants of prep never change during a
-//     warp.  Each thread keeps l_t*grad and 1/max(grad, 1e-10) of its
-//     pixels in registers (2 x 13 at 224^2); I1wx, I1wy and rho_c of the
-//     strip lie in shared memory beside the state where nine planes fit
-//     (up to 224^2: 229,632 B), and are read from prep, through L2, each
-//     iteration where they do not (256^2; no slower per pixel there).  The
-//     kernel is instantiated for 4, 8, 13, 16 and 20 pixels a thread;
+//     neighbouring words).  The constants never change during a warp.
+//     Each thread keeps l_t*grad and 1/max(grad, 1e-10) of its pixels in
+//     registers (2 x 13 at 224^2); I1wx, I1wy and rho_c of the strip lie in
+//     shared memory beside the state where nine planes fit (up to 224^2
+//     in 8 blocks: 229,632 B), and in scratch, read through L2 each
+//     iteration, where they do not (256^2).  The kernel is instantiated
+//     for 4, 8, 13, 16 and 20 pixels a thread;
 //   - the unrolled phases must not let the compiler hoist what is invariant
 //     over the iterations (every pixel's addresses and edge predicates): it
 //     spills them, 544 B a thread at 13 pixels, and the warp takes 1.5 times
@@ -97,22 +91,21 @@
 //     read: a run repeats bit for bit and an image's result does not depend
 //     on its batch.  A last barrier keeps a block's shared memory alive
 //     until its neighbours have read it.
-//   - the scale's prologue runs once a warp, a pixel at a time in a scope
-//     of its own that ends before the iteration loop (the gather's
-//     addresses must not stay live through it), from an opaque copy of the
-//     thread index like the phases.  A cluster barrier stands between a
-//     warp's last phase and the next prologue's reset of the halo rows.
+//   - the prologue runs once a warp, a pixel at a time in a scope of its
+//     own that ends before the iteration loop (the gather's addresses must
+//     not stay live through it), from an opaque copy of the thread index
+//     like the phases.  A cluster barrier stands between a warp's last
+//     phase and the next prologue's reset of the halo rows.
 // The arithmetic and its order are those of warp_prep.cu, tvl1_pd.cu and
 // median.cu (no FMA contraction, IEEE division and square root), so the
 // state equals the plain versions' to the last bit; only the order of the
 // test's sum differs.
 //
-// Bound on the H100: operations.  The function reads 6 planes and writes 2
-// (32 B a pixel) for rounds * (inner * ~70 + 2 * 2 * 113 with the 5x5
-// median) float operations a pixel: at 15 pairs of 224^2 and 300 iterations
-// 15.8 GFLOP, 0.24 ms at 67 TFLOP/s, against 0.007 ms for the bytes.  A
-// scale reads 6 planes (I1, I1x, I1y, I0, u, v) and writes 2 for the sum of
-// its warps' operations and ~45 a pixel and warp for the prologue.
+// Bound on the H100: operations.  A scale reads 6 planes (I1, I1x, I1y, I0,
+// u, v) and writes 2 for, a pixel and warp, ~45 float operations of the
+// prologue and rounds * (inner * ~70 + 2 * 2 * 113 with the 5x5 median):
+// one warp of 15 pairs of 224^2 at 300 iterations is 15.8 GFLOP, 0.24 ms at
+// 67 TFLOP/s, against 0.007 ms for the bytes.
 
 #include <cooperative_groups.h>
 
@@ -123,8 +116,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int CL_SIZES[] = {8, 16};   // blocks per cluster of cluster_of,
-                                      // tried in order
 constexpr int WNT = 512;              // threads per block
 constexpr int WNW = WNT / 32;         // warps per block
 constexpr int SCRATCH = 64;           // floats: WNW warp sums, the block's sum,
@@ -160,7 +151,7 @@ struct WarpGeom {
   int inner;       // iterations per round
   int outer;       // rounds at most
   int median_k;    // 0, 3 or 5
-  int warps;       // warps in this launch (1 with prep)
+  int warps;       // warps in this launch
   float l_t, theta, taut;
   float eps2;      // the test's threshold, epsilon squared
   float n_px;      // H * W
@@ -175,8 +166,8 @@ struct Strip {
   float* sp21;
   float* sp12;     // a halo row (the last row of the strip above, stored by
   float* sp22;     //   its owner; zeros in the first strip), then n floats
-  const float* cwx;    // I1wx, I1wy, rho_c of the strip: shared memory or prep
-  const float* cwy;
+  const float* cwx;    // I1wx, I1wy, rho_c of the strip: shared memory or
+  const float* cwy;    //   scratch
   const float* crho;
   float* up_u;     // the halo rows of u, v of the block above
   float* up_v;
@@ -301,12 +292,11 @@ __device__ __forceinline__ void median_to_global(cg::cluster_group& cluster,
 
 // A thread owns up to PPT pixels of the strip (n <= PPT * WNT).  SC: I1wx,
 // I1wy and rho_c of the strip lie in shared memory; otherwise they are read
-// each iteration from prep or, where the kernel makes them itself, from
-// scratch.  With prep (one warp) the constants are loaded; without it they
-// come from i13, i0 and the strip's u, v at the start of every warp.
+// each iteration from scratch.  They come from i13, i0 and the strip's u, v
+// at the start of every warp.
 template <int PPT, bool SC>
 __global__ void __launch_bounds__(WNT, 1)
-pd_warp_kernel(const float* prep, const float* __restrict__ i13,
+pd_warp_kernel(const float* __restrict__ i13,
                const float* __restrict__ i0, const float* __restrict__ uv_in,
                float* __restrict__ uv_out, float* scratch,
                int* __restrict__ rounds_out, WarpGeom g) {
@@ -352,21 +342,16 @@ pd_warp_kernel(const float* prep, const float* __restrict__ i13,
   float* gv = gu + hw;
 
   // Where the strip's I1wx, I1wy and rho_c lie, cs floats apart: shared
-  // memory, the strip's rows of prep, or of scratch.
-  float* cw = nullptr;                // written by the prologue
-  size_t cs = hw;
-  if constexpr (SC) {
-    cw = consts;
-    cs = cap;
-    s.cwx = consts;
-  } else if (prep != nullptr) {
-    s.cwx = prep + (size_t)b * 4 * hw + strip0;
-  } else {
+  // memory, or the strip's rows of scratch.  The prologue writes them.
+  float* cw = consts;
+  size_t cs = cap;
+  if constexpr (!SC) {
     cw = scratch + (size_t)b * 3 * hw + strip0;
-    s.cwx = cw;
+    cs = hw;
   }
-  s.cwy = s.cwx + cs;
-  s.crho = prep != nullptr && !SC ? s.cwy + 2 * cs : s.cwy + cs;
+  s.cwx = cw;
+  s.cwy = cw + cs;
+  s.crho = cw + 2 * cs;
 
   float cth[PPT], cinv[PPT];
   constexpr int NF = (PPT + 15) / 16;
@@ -405,25 +390,7 @@ pd_warp_kernel(const float* prep, const float* __restrict__ i13,
       s.sp21[-1] = 0.0f;
     }
 
-    if (prep != nullptr) {
-      // The constants warp_prep.cu wrote: I1wx, I1wy, grad, rho_c.
-      const float* gwx = prep + (size_t)b * 4 * hw + strip0;
-      const float* ggr = gwx + 2 * hw;
-      if constexpr (SC) {
-        for (int i = tid; i < n; i += WNT) {
-          consts[i] = gwx[i];
-          consts[cap + i] = gwx[hw + i];
-          consts[2 * cap + i] = gwx[3 * hw + i];
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        const int i = tid + k * WNT;
-        const float gr = i < n ? ggr[i] : 0.0f;
-        cth[k] = g.l_t * gr;
-        cinv[k] = 1.0f / fmaxf(gr, 1e-10f);
-      }
-    } else {
+    {
       // warp_prep.cu at the thread's own pixels, from the u, v the strip
       // holds: the sample of (I1, I1x, I1y) at p + (u, v) with coordinates
       // clamped as ops/kernels.bilinear_sample clamps them, grad and rho_c
@@ -531,12 +498,11 @@ pd_warp_kernel(const float* prep, const float* __restrict__ i13,
   }
 
   // The barrier that ended the last phase has made every strip's u, v
-  // final: a whole scale ends with the median once more, which reads the
+  // final: the scale ends with the median once more, which reads the
   // neighbours' rows as the round-opening one does, and writes the output.
-  const bool scale_end = prep == nullptr;
-  if (scale_end && g.median_k == 3) {
+  if (g.median_k == 3) {
     median_to_global<3>(cluster, s, y0, n, H, RS, gu, gv);
-  } else if (scale_end && g.median_k == 5) {
+  } else if (g.median_k == 5) {
     median_to_global<5>(cluster, s, y0, n, H, RS, gu, gv);
   } else {
     for (int i = tid; i < n; i += WNT) {
@@ -547,8 +513,8 @@ pd_warp_kernel(const float* prep, const float* __restrict__ i13,
   cluster.sync();   // no block leaves while a neighbour may still read it
 }
 
-using WarpKernel = void (*)(const float*, const float*, const float*,
-                            const float*, float*, float*, int*, WarpGeom);
+using WarpKernel = void (*)(const float*, const float*, const float*, float*,
+                            float*, int*, WarpGeom);
 
 struct Variant {
   int ppt;             // pixels a thread at most
@@ -599,14 +565,6 @@ bool fits(int H, int W, int cl) {
          state_bytes(H, W, cl) <= MAX_SMEM && pick(H, W, cl) != nullptr;
 }
 
-// The cluster size of an (H, W) level for one warp: the first of CL_SIZES
-// whose strips fit, or 0 where none does.
-int cluster_of(int H, int W) {
-  for (int cl : CL_SIZES)
-    if (fits(H, W, cl)) return cl;
-  return 0;
-}
-
 int smem_of(int H, int W, int cl) {
   return (int)(state_bytes(H, W, cl) +
                (consts_fit(H, W, cl) ? consts_bytes(H, W, cl) : 0));
@@ -650,26 +608,11 @@ cudaLaunchConfig_t cluster_config(int cl, int B, int smem, cudaStream_t s,
 
 }  // namespace
 
-// Blocks per cluster of va_pd_warp for an (H, W) image: 8, 16, or -1 where
-// the level fits no cluster.
-VA_EXPORT int va_pd_warp_cluster(int H, int W) {
-  const int cl = cluster_of(H, W);
-  return cl > 0 ? cl : -1;
-}
-
-// Bytes of dynamic shared memory a block of va_pd_warp needs for an (H, W)
-// image, or -1 where that is more than a block may have: the level does not
-// fit a cluster.
-VA_EXPORT int va_pd_warp_smem(int H, int W) {
-  const int cl = cluster_of(H, W);
-  return cl > 0 ? smem_of(H, W, cl) : -1;
-}
-
-// 1 where I1wx, I1wy and rho_c of a strip of an (H, W) image lie in shared
-// memory in va_pd_warp's cluster, 0 where they are read through L2.
-VA_EXPORT int va_pd_warp_consts_in_smem(int H, int W) {
-  const int cl = cluster_of(H, W);
-  return cl > 0 && consts_fit(H, W, cl) ? 1 : 0;
+// Bytes of dynamic shared memory a block needs for an (H, W) image in a
+// cluster of `cl` blocks (the state, and the constants where they fit
+// beside it), or -1 where the strips do not fit at that size.
+VA_EXPORT int va_pd_scale_smem(int H, int W, int cl) {
+  return fits(H, W, cl) ? smem_of(H, W, cl) : -1;
 }
 
 // Clusters of `cl` blocks (1, 2, 4, 8 or 16) of this kernel that the card
@@ -695,25 +638,32 @@ VA_EXPORT int va_pd_warp_max_clusters(int H, int W, int B, int cl) {
   return clusters;
 }
 
-namespace {
-
-// One launch of the kernel in clusters of cl blocks: with prep one warp
-// from its constants, without it `warps` warps that make their own from i13
-// and i0.
-int launch(const float* prep, const float* i13, const float* i0,
-           const float* uv_in, float* uv_out, float* scratch, int* rounds_out,
-           int B, int H, int W, int cl, int warps, int inner, int outer,
-           int median_k, float l_t, float theta, float taut, float eps2,
-           void* stream) {
-  if (!fits(H, W, cl) || B < 1 || warps < 1 || inner < 1 || outer < 0 ||
+// One pyramid scale in clusters of `blocks` blocks (1, 2, 4, 8 or 16; the
+// strips of (H, W) must fit at that size).  i13: (B, 3, H, W) planes I1,
+// I1x, I1y; i0: (B, H, W); uv_in, uv_out: (B, 2, H, W), distinct buffers;
+// scratch: (B, 3, H, W), used only where the strip's constants do not fit
+// shared memory at that size (else it may be null); rounds_out: null, or
+// (B, warps) int32 that receives the rounds each image ran in each warp.
+// median_k in {0, 3, 5}; after the last warp the median is applied once
+// more.  H, W >= 2.
+VA_EXPORT int va_pd_scale(const float* i13, const float* i0,
+                          const float* uv_in, float* uv_out, float* scratch,
+                          int* rounds_out, int B, int H, int W, int blocks,
+                          int warps, int inner, int outer, int median_k,
+                          float l_t, float theta, float taut, float eps2,
+                          void* stream) {
+  if (i13 == nullptr || i0 == nullptr || H < 2 || W < 2 ||
+      !fits(H, W, blocks) ||
+      (scratch == nullptr && !consts_fit(H, W, blocks)) || B < 1 ||
+      warps < 1 || inner < 1 || outer < 0 ||
       (median_k != 0 && median_k != 3 && median_k != 5))
     return (int)cudaErrorInvalidValue;
-  const int smem = smem_of(H, W, cl);
+  const int smem = smem_of(H, W, blocks);
   WarpGeom g;
   g.H = H;
   g.W = W;
-  g.CL = cl;
-  g.RS = strip_rows(H, cl);
+  g.CL = blocks;
+  g.RS = strip_rows(H, blocks);
   g.inner = inner;
   g.outer = outer;
   g.median_k = median_k;
@@ -723,57 +673,20 @@ int launch(const float* prep, const float* i13, const float* i0,
   g.taut = taut;
   g.eps2 = eps2;
   g.n_px = (float)(H * W);
-  Variant* v = pick(H, W, cl);
-  cudaError_t err = opt_in(v, smem, cl);
+  Variant* v = pick(H, W, blocks);
+  cudaError_t err = opt_in(v, smem, blocks);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it: the next launch must not see it
     return (int)err;
   }
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t config =
-      cluster_config(cl, B, smem, (cudaStream_t)stream, &attr);
-  err = cudaLaunchKernelEx(&config, v->kernel, prep, i13, i0, uv_in, uv_out,
+      cluster_config(blocks, B, smem, (cudaStream_t)stream, &attr);
+  err = cudaLaunchKernelEx(&config, v->kernel, i13, i0, uv_in, uv_out,
                            scratch, rounds_out, g);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
   }
   return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// prep: (B, 4, H, W) I1wx, I1wy, grad, rho_c; uv_in, uv_out: (B, 2, H, W),
-// distinct buffers; rounds_out: null, or (B,) int32 that receives the rounds
-// each image ran.  median_k in {0, 3, 5}; the dual starts at zero.
-VA_EXPORT int va_pd_warp(const float* prep, const float* uv_in, float* uv_out,
-                         int* rounds_out, int B, int H, int W, int inner,
-                         int outer, int median_k, float l_t, float theta,
-                         float taut, float eps2, void* stream) {
-  if (prep == nullptr) return (int)cudaErrorInvalidValue;
-  return launch(prep, nullptr, nullptr, uv_in, uv_out, nullptr, rounds_out, B,
-                H, W, cluster_of(H, W), 1, inner, outer, median_k, l_t, theta,
-                taut, eps2, stream);
-}
-
-// One pyramid scale in clusters of `blocks` blocks (1, 2, 4, 8 or 16; the
-// strips of (H, W) must fit at that size).  i13: (B, 3, H, W) planes I1,
-// I1x, I1y; i0: (B, H, W); uv_in, uv_out: (B, 2, H, W), distinct buffers;
-// scratch: (B, 3, H, W), used only where the strip's constants do not fit
-// shared memory at that size (else it may be null); rounds_out: null, or
-// (B, warps) int32 that receives the rounds each image ran in each warp.
-// After the last warp the median_k median is applied once more.  H, W >= 2.
-VA_EXPORT int va_pd_scale(const float* i13, const float* i0,
-                          const float* uv_in, float* uv_out, float* scratch,
-                          int* rounds_out, int B, int H, int W, int blocks,
-                          int warps, int inner, int outer, int median_k,
-                          float l_t, float theta, float taut, float eps2,
-                          void* stream) {
-  if (i13 == nullptr || i0 == nullptr || H < 2 || W < 2 ||
-      !fits(H, W, blocks) ||
-      (scratch == nullptr && !consts_fit(H, W, blocks)))
-    return (int)cudaErrorInvalidValue;
-  return launch(nullptr, i13, i0, uv_in, uv_out, scratch, rounds_out, B, H, W,
-                blocks, warps, inner, outer, median_k, l_t, theta, taut, eps2,
-                stream);
 }

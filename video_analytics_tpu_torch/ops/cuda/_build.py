@@ -55,16 +55,13 @@ _SIGNATURES = {
     "va_sep_corr_smem": (_I,),
     "va_pd_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _I, _I, _F, _F, _F, _F, _I, _P),
-    "va_pd_warp": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
     "va_pd_scale": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                     _F, _F, _F, _P),
     "va_fb_window_solve": (_P, _P, _I, _I, _I, _P, _P, _I, _P),
     "va_fb_iteration": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P),
     "va_fb_window_smem": (_I, _I),
-    "va_pd_warp_smem": (_I, _I),
-    "va_pd_warp_consts_in_smem": (_I, _I),
+    "va_pd_scale_smem": (_I, _I, _I),
     "va_pd_warp_max_clusters": (_I, _I, _I, _I),
-    "va_pd_warp_cluster": (_I, _I),
     "va_error_string": (_I,),
 }
 

@@ -1,6 +1,7 @@
-"""K-B, K-C, K-G, K-H and ``tvl1_scale``: the TV-L1 primal-dual solver of
-one warp, its median, the chunked solver of large planes, the
-cluster-resident one and the whole pyramid scale in one launch.
+"""K-B, K-C, K-G and K-H ``tvl1_scale``: the TV-L1 primal-dual solver of
+one warp, its median, the chunked solver of large planes and the whole
+pyramid scale in one launch with an image's state resident in a
+thread-block cluster.
 
 Replaces the solvers of ``video_analytics_tpu/ops/pallas/tvl1_solve.py``
 (``tvl1_solve_warp``, ``tvl1_solve_warp_packed``, ``tvl1_scale_pallas``,
@@ -11,10 +12,10 @@ batch, which on a round's last step also runs the per-image convergence
 test), ``csrc/median.cu`` (``median5``), ``csrc/tvl1_pd_chunk.cu``
 (``pd_chunk``, several iterations per launch on shared-memory tiles, whose
 last launch of a round also runs the bands' convergence test) and
-``csrc/tvl1_pd_warp.cu`` (``pd_solve_warp``,
-a whole warp in one launch with an image's state resident in the shared
-memory of a thread-block cluster); their source notes give the design and
-what bounds each on the H100.
+``csrc/tvl1_pd_warp.cu`` (``pd_solve_scale``, every warp of a scale in one
+launch with an image's state resident in the shared memory of a
+thread-block cluster); their source notes give the design and what bounds
+each on the H100.
 
 ``pd_solve`` drives one warp: ``outer_iterations`` rounds, each a median
 of the images still active and ``inner_iterations`` primal-dual steps
@@ -25,11 +26,10 @@ XLA solver instead runs until the slowest image of the batch converges
 (ROADMAP F1).  The CUDA path keeps the per-image flags on the device and
 launches every round without reading them back, so the host never waits.
 
-``pd_solve_warp`` computes the same function in one launch, for the
-levels whose state fits a cluster's shared memory (``warp_geometry``).
-``pd_solve_scale`` runs all the warps of such a level in one launch of
-the same kernel: each warp opens with K-A's warp and prep as the
-kernel's prologue, and the scale-end median closes the launch;
+``pd_solve_scale`` runs all the warps of a level whose state fits a
+cluster's shared memory (``warp_geometry``) in one launch: each warp
+opens with K-A's warp and prep as the kernel's prologue and then computes
+what ``pd_solve`` computes, and the scale-end median closes the launch;
 ``flow/tvl1.py`` takes it wherever the level fits.  Its clusters are
 sized for the batch (``scale_blocks``).
 
@@ -322,7 +322,7 @@ def pd_solve(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config,
     return cur
 
 
-# -- K-H: one warp in one launch, an image per thread-block cluster ----------
+# -- K-H: an image per thread-block cluster, its strips and cluster size -----
 
 _CLUSTER_SIZES = (8, 16)     # blocks per cluster of the size rule: the
                              # portable maximum, then Hopper's non-portable one
@@ -365,12 +365,11 @@ def strip_geometry(h: int, w: int, blocks: int
 
 def warp_geometry(h: int, w: int
                   ) -> Optional[Tuple[int, bool, int, int]]:
-    """The size rule of ``pd_solve_warp`` and of which levels
-    ``pd_solve_scale`` takes: ``strip_geometry`` at 8 blocks where the
-    strips fit, else at 16 (a non-portable cluster size: one block on
-    each of 16 SMs of one GPC).  ``pd_solve_warp`` runs in clusters of
-    that size; ``pd_solve_scale`` chooses its size per launch, for the
-    batch (``scale_blocks``), where before it too took this one.
+    """The size rule of which levels ``level_solver`` sends to
+    ``pd_solve_scale``: ``strip_geometry`` at 8 blocks where the strips
+    fit, else at 16 (a non-portable cluster size: one block on each of 16
+    SMs of one GPC).  Its size is the cap under which ``scale_blocks``
+    chooses a launch's size for the batch.
 
     Returns (rows per strip, whether those constants lie in shared
     memory, bytes of shared memory a block, blocks per cluster), or None
@@ -429,60 +428,6 @@ def resident_clusters(device: int, h: int, w: int, blocks: int) -> int:
     return n
 
 
-def pd_solve_warp(prep: torch.Tensor, uv: torch.Tensor, cfg: TVL1Config,
-                  rounds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """All primal-dual iterations of one TV-L1 warp in one launch: the
-    function of ``pd_solve``, with each image's solver state resident in
-    the shared memory of a cluster of 8 or 16 thread blocks
-    (``warp_geometry``).  Its plain
-    version is ``pd_solve_plain``, which it equals bit for bit except
-    where the order of the ε test's sum flips a round at the threshold.
-
-    Args:
-      prep: (B, 4, H, W) from ``warp_prep`` (I1wx, I1wy, grad, rho_c).
-      uv: (B, 2, H, W) flow at the warp's start; not modified.
-      cfg: the TVL1Config (λ, θ, τ, ε, iteration counts, median size).
-      rounds: optional (B,) int32 tensor that receives the outer rounds
-        each image ran.
-
-    Returns:
-      (B, 2, H, W) float32 flow after the warp.
-
-    Raises ValueError for a CUDA tensor of a level that does not fit a
-    cluster (``warp_geometry``): the caller picks the solver by that rule.
-    """
-    if not uv.is_cuda:
-        return pd_solve_plain(prep, uv, cfg, rounds)
-    B, _, H, W = uv.shape
-    dev = uv.device
-    if warp_geometry(H, W) is None:
-        raise ValueError(f"pd_solve_warp: a {H}x{W} level does not fit the "
-                         f"shared memory of a cluster (warp_geometry); "
-                         f"pd_solve is the solver for it")
-    _build.expect(prep, "prep", (B, 4, H, W), dev)
-    _build.expect(uv, "uv", (B, 2, H, W), dev)
-    k = cfg.median_filtering if cfg.median_filtering > 1 else 0
-    if k not in (0, 3, 5):
-        raise ValueError(f"pd_solve_warp takes a median of 3 or 5, got {k}")
-    _build.expect_grid_batch(B, "pd_solve_warp")
-    if rounds is not None:
-        _expect_active(rounds, B, dev)
-    out = torch.empty_like(uv)
-    l_t, theta, taut = _solver_constants(cfg)
-    lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(lib.va_pd_warp(
-        prep.data_ptr(), uv.data_ptr(), out.data_ptr(),
-        None if rounds is None else rounds.data_ptr(), B, H, W,
-        cfg.inner_iterations, cfg.outer_iterations, k, l_t, theta, taut,
-        cfg.epsilon * cfg.epsilon, stream), "pd_solve_warp")
-    pd_solve_warp.launches += 1
-    return out
-
-
-pd_solve_warp.launches = 0
-
-
 # -- tvl1_scale: every warp of one pyramid scale in one launch ---------------
 
 def pd_solve_scale_plain(i13: torch.Tensor, i0: torch.Tensor,
@@ -507,7 +452,7 @@ def pd_solve_scale(i13: torch.Tensor, i0: torch.Tensor, uv: torch.Tensor,
     """One whole pyramid scale of TV-L1 in one launch: ``cfg.warps`` times
     the warp of (I1, ∂I1/∂x, ∂I1/∂y) by the current flow with the
     solver's prep (what ``warp_prep`` computes) and one warp's solve (what
-    ``pd_solve_warp`` computes), then the k×k median once more.  An
+    ``pd_solve`` computes), then the k×k median once more.  An
     image's state stays in the shared memory of its cluster from the first
     warp to the last.  Equal to ``pd_solve_scale_plain`` bit for bit
     except where the order of the ε test's sum flips a round at the
