@@ -42,8 +42,9 @@ Phases, each reported on a JSON line:
    every kernel's launch counter reset just before the requests and held
    to the expected numbers after them (5 ``tvl1_scale`` per request, one
    per pyramid scale, and none of K-A, K-C or the per-iteration
-   kernels); hold the fused probabilities against the same window run
-   through the plain versions;
+   kernels; 40 launches of the fused norm pass, 16 with a residual,
+   ``BN_PER_CLASSIFY``); hold the fused probabilities against the same
+   window run through the plain versions;
 4. profile: where one request's time goes.  Stage times on the host
    clock with a sync after each stage, then one request under
    ``torch.profiler``: device time per kernel name (every kernel of the
@@ -130,7 +131,8 @@ Phases, each reported on a JSON line:
    clips of 48 frames at 240x320, 8 of them test clips, and a truncated
    ``.avi`` added to the test list) and a full-width checkpoint from seed
    0, then ``tpuva-torch eval-ucf101`` four ways, the launch counts set to
-   0 just before each and held to the expected numbers just after:
+   0 just before each and held to the expected numbers just after (with
+   the fused norm pass's ``BN_PER_CLASSIFY`` a classify call):
    ``--batched --batch-clips 8`` (one batch, 120 frame pairs in one
    ``tvl1`` call: 5 ``tvl1_scale``, nothing else; twice, the second
    without the first calls at its shapes), with ``--windows 3``
@@ -184,14 +186,16 @@ Phases, each reported on a JSON line:
    flow entries at the sizes' 64-pixel buckets);
 16. sustained: BASELINE.json config #5, a 128-frame 1080x1920 stream
    through ``sliding_windows``, ``DevicePrefetcher`` and ``classify_batch``
-   with Farneback and TV-L1, the CNN in float32 and in bfloat16
-   (``sustained_phase``);
+   with Farneback and TV-L1, the CNN in float32 and in bfloat16, the
+   flow kernels' and the fused norm pass's launches held to their
+   numbers a batch (``sustained_phase``);
 17. async_checkpoint: ``AsyncCheckpointer`` between full-width train
    steps against the blocking ``save_variables``, restore on the card,
    the ``.prev`` fallback, a failed write raised at ``wait()``;
 18. bf16: the reference's reduced-precision CNN (``dtype=torch.bfloat16``:
    bfloat16 activations, float32 parameters) at full width on TV-L1 and
-   Farneback serve requests: launches as in float32, the answer against
+   Farneback serve requests: launches as in float32 (the fused norm
+   pass's too), the answer against
    the plain versions, the CNNs against the CPU's bfloat16, the float32
    model's answer beside it, each stream's ms in both dtypes, cuDNN's
    kernels, the fc's bfloat16 reductions, one train step against the
@@ -234,7 +238,21 @@ Phases, each reported on a JSON line:
    within 1 % of the kernels'; the rows and the tool's table
    (``roofline_phase``).  The bounds of this script's kernel checks come
    from the tool (``bound``, ``scale_bound``, ``chunk_bound``,
-   ``farneback_kernel_work``, ``cnn_work``).
+   ``farneback_kernel_work``, ``cnn_work``);
+23. bn_act: the fused norm pass (eval BatchNorm, the residual add, ReLU;
+   ``ops/cuda/bn_act``) at R(2+1)D-34's largest activation, stage 1's
+   midplanes at the benchmark's batch (16 × 144 × 32 × 56², bfloat16,
+   channels-last-3d), with and without a residual: bit for bit against
+   ``bn_act_plain``, timed beside its byte bound (counted here: the
+   activation read and written once, the residual read once, the
+   parameters), its plain version and ``nn.BatchNorm3d`` + add +
+   ``torch.relu``; then eval forwards of an R(2+1)D-34 stream (16 clips
+   of 32 × 112², bfloat16) and of a ResNet-18 stream (16 images of 224²,
+   bfloat16 and float32), each norm site held to the module path on its
+   own input (1 bfloat16 ulp, 3 with a residual; 16 float32 ulps), the
+   counters ``bn_act.launches`` / ``launches_residual`` to 69 / 16 and
+   20 / 8, and the logits to the same forward on the module path
+   (``bn_act_phase``).
 ``--only <phase>`` runs the build and that phase alone.
 
 Then it prints the kernel table (``{"kernels": [...]}``: for each kernel
@@ -248,7 +266,9 @@ under ``launches_distributed``, ``launches_warmup``,
 ``launches_sustained``, ``launches_async_checkpoint``, ``launches_bf16``,
 ``launches_compute_flow_bucketed``, ``launches_flow_quality``,
 ``launches_eval_breakdown`` and ``launches_roofline`` those of phases
-14-22;
+14-22; the fused norm pass's two rows (``bn_act``, ``bn_act_residual``)
+give its launches in the serve requests, in phases 11, 16 and 18, and
+in each stream forward of phase 23;
 K-B (and its launches with the ε test) and ``fb_window_solve``,
 whose arithmetic the commands run inside ``tvl1_scale`` and
 ``fb_iteration`` or only at shapes no command here gives, are on no
@@ -470,7 +490,7 @@ PORT_KERNELS = ("warp_prep_kernel", "pd_step_kernel",
                 "fb_prologue_kernel",
                 "fb_blur_sample_kernel",
                 "fb_warp_neq_kernel", "sep_corr_kernel",
-                "fb_window_solve_kernel")
+                "fb_window_solve_kernel", "bn_act_kernel")
 
 
 def port_kernel(name: str) -> bool:
@@ -533,20 +553,21 @@ def device_ms(torch, fn, kernel: str, reps: int = 5) -> float:
 
 
 class TestLaunches:
-    """The launches of a solver's wrapper (``pd_step``, ``pd_chunk``) that
-    ended with the round's convergence test, counted like a wrapper's
-    ``launches``: reads and sets the wrapper's ``launches_test``."""
+    """A share of a wrapper's launches that it counts apart, counted like
+    a wrapper's ``launches``: reads and sets the wrapper's `attr`.  By
+    default those of a solver's wrapper (``pd_step``, ``pd_chunk``) that
+    ended with the round's convergence test (``launches_test``)."""
 
-    def __init__(self, wrapper):
-        self.wrapper = wrapper
+    def __init__(self, wrapper, attr: str = "launches_test"):
+        self.wrapper, self.attr = wrapper, attr
 
     @property
     def launches(self) -> int:
-        return self.wrapper.launches_test
+        return getattr(self.wrapper, self.attr)
 
     @launches.setter
     def launches(self, n: int) -> None:
-        self.wrapper.launches_test = n
+        setattr(self.wrapper, self.attr, n)
 
 
 def zero_counts(kernels) -> None:
@@ -616,6 +637,43 @@ def flow_counters():
 
     def read():
         return {**read_counts(tv), **read_fb_counts(fk)}
+
+    return zero, read
+
+
+# The fused norm pass's launches in one classify call of the two-stream
+# ResNet-18 (both streams' eval forward; BN_LAUNCHES["resnet18"] each):
+# every launch, and those that add a block's residual.
+BN_PER_CLASSIFY = {"bn_act": 40, "bn_act_residual": 16}
+
+
+def norm_kernels():
+    """{row name: counter} of the fused norm pass (``ops/cuda/bn_act``):
+    ``bn_act`` every launch, ``bn_act_residual`` those with a residual."""
+    from video_analytics_tpu_torch.ops.cuda.bn_act import bn_act
+
+    return {"bn_act": bn_act,
+            "bn_act_residual": TestLaunches(bn_act, "launches_residual")}
+
+
+def norm_expected(calls: int):
+    """The fused norm pass's launches over `calls` two-stream ResNet-18
+    classify calls."""
+    return {k: calls * n for k, n in BN_PER_CLASSIFY.items()}
+
+
+def main_path_counters():
+    """``flow_counters`` with the fused norm pass's two counters beside
+    the flow kernels': (zero, read) over all of them."""
+    zero_flow, read_flow = flow_counters()
+    norm = norm_kernels()
+
+    def zero():
+        zero_flow()
+        zero_counts(norm)
+
+    def read():
+        return {**read_flow(), **read_counts(norm)}
 
     return zero, read
 
@@ -2448,7 +2506,7 @@ def eval_ucf101_phase(torch, np, dev):
     cfg = PipelineConfig()
     pairs = cfg.window - 1
     n_scales = len(SIZES)
-    zero, read = flow_counters()
+    zero, read = main_path_counters()
     nothing = dict.fromkeys(read(), 0)
     # What the batch function was called with in a command (one call a
     # batch), and the order in which the decode workers handed the clips
@@ -2524,7 +2582,8 @@ def eval_ucf101_phase(torch, np, dev):
             # 1. --batched: one batch of 8 clips, 120 pairs in one call.
             batched = ["--batched", "--batch-clips", str(EVAL_BATCH)]
             res, runs["batched"] = command(base, batched,
-                                           {"tvl1_scale": n_scales})
+                                           {"tvl1_scale": n_scales,
+                                            **norm_expected(1)})
             counts_ok(res, "--batched")
             check(len(calls) == 1 and tuple(calls[0][0].shape[:3])
                   == (n_clips, 1, cfg.window),
@@ -2536,12 +2595,13 @@ def eval_ucf101_phase(torch, np, dev):
             # Again: the first run's seconds hold the first calls at its
             # shapes (cuDNN's choice of algorithms, allocations).
             res_again, runs["batched_again"] = command(
-                base, batched, {"tvl1_scale": n_scales})
+                base, batched, {"tvl1_scale": n_scales, **norm_expected(1)})
             check(res_again == res, f"--batched again: {res_again} != {res}")
 
             # 2. --windows 3: 360 pairs in one call.
             res3, runs["batched_windows3"] = command(
-                base, batched + ["--windows", "3"], {"tvl1_scale": n_scales})
+                base, batched + ["--windows", "3"],
+                {"tvl1_scale": n_scales, **norm_expected(1)})
             counts_ok(res3, "--batched --windows 3")
             check(len(calls) == 1
                   and tuple(calls[0][0].shape[:2]) == (n_clips, 3),
@@ -2556,7 +2616,8 @@ def eval_ucf101_phase(torch, np, dev):
             seq = ["--predictions", preds_file, "--manifest",
                    os.path.join(work, "manifest.txt")]
             res_s, runs["sequential"] = command(
-                base, seq, {"tvl1_scale": n_scales * n_clips})
+                base, seq, {"tvl1_scale": n_scales * n_clips,
+                            **norm_expected(n_clips)})
             counts_ok(res_s, "sequential")
             with open(preds_file) as f:
                 seq_preds = {e["path"]: e["pred"]
@@ -2576,9 +2637,9 @@ def eval_ucf101_phase(torch, np, dev):
             fcfg = cfg.farneback
             res_f, runs["farneback_batched"] = command(
                 base, batched + ["--algo", "farneback"],
-                fb_expected(len(_level_sizes(cfg.preprocess.crop,
-                                             cfg.preprocess.crop, fcfg)),
-                            fcfg.iterations))
+                {**fb_expected(len(_level_sizes(cfg.preprocess.crop,
+                                                cfg.preprocess.crop, fcfg)),
+                               fcfg.iterations), **norm_expected(1)})
             counts_ok(res_f, "--batched --algo farneback")
             fb_one = calls[0]
             runs["farneback_batched"]["result"] = res_f
@@ -3993,7 +4054,7 @@ def sustained_phase(torch, np, dev):
         num_classes=101, flow_stack=10, dtype=dtype, width=64).init(
             torch.Generator().manual_seed(0)).to(dev).eval()
         for dtype in (torch.float32, torch.bfloat16)}
-    zero, read = flow_counters()
+    zero, read = main_path_counters()
     nothing = dict.fromkeys(read(), 0)
     total = dict(nothing)
     report = {"frames": n_frames, "frame_hw": list(FULL_HD),
@@ -4018,11 +4079,12 @@ def sustained_phase(torch, np, dev):
             suffix = "" if dtype == torch.float32 else "_bf16"
             cfg = PipelineConfig(flow_algo=algo, window=SUSTAINED_WINDOW)
             crop = cfg.preprocess.crop
-            per_batch = (fb_expected(len(_level_sizes(crop, crop,
-                                                      cfg.farneback)),
-                                     cfg.farneback.iterations)
-                         if algo == "farneback"
-                         else {"tvl1_scale": len(SIZES)})
+            per_batch = {**(fb_expected(len(_level_sizes(crop, crop,
+                                                         cfg.farneback)),
+                                        cfg.farneback.iterations)
+                            if algo == "farneback"
+                            else {"tvl1_scale": len(SIZES)}),
+                         **norm_expected(1)}
             want = {**nothing, **{k: v * len(batches)
                                   for k, v in per_batch.items()}}
             torch.cuda.reset_peak_memory_stats(dev)
@@ -4356,7 +4418,7 @@ def bf16_phase(torch, np, dev):
         bf.state_dict().values(), f32.state_dict().values())),
           "the bfloat16 and float32 models' seed-0 weights differ")
     cpu = copy.deepcopy(bf).eval()
-    zero, read = flow_counters()
+    zero, read = main_path_counters()
     nothing = dict.fromkeys(read(), 0)
     total = dict(nothing)
     report = {"card": CARD.get("card"), "width": 64,
@@ -4369,10 +4431,11 @@ def bf16_phase(torch, np, dev):
                                      for c in range(3)], axis=-1)
                            for t in range(16)]).round().astype(np.uint8)
         cfg = PipelineConfig(flow_algo=algo)
-        per_request = (
-            {"tvl1_scale": len(SIZES)} if algo == "tvl1" else fb_expected(
+        per_request = {
+            **({"tvl1_scale": len(SIZES)} if algo == "tvl1" else fb_expected(
                 len(_level_sizes(224, 224, cfg.farneback)),
-                cfg.farneback.iterations))
+                cfg.farneback.iterations)),
+            **norm_expected(1)}
         server = ClipServer(bf, cfg, dev)
         warm_s = server.warmup()
         request_ms, outs, launches = serve_requests(
@@ -4937,6 +5000,207 @@ def roofline_phase(torch, np, dev):
     return total
 
 
+# R(2+1)D-34's largest activation: stage 1's 144 midplanes over 16 clips
+# of 32 × 56² (the benchmark's batch), bfloat16.
+BN_STAGE1 = (16, 144, 32, 56, 56)
+# (launches, with a residual) of the fused norm pass in one eval forward
+# of a stream: every BatchNorm, and those that end a block.
+BN_LAUNCHES = {"r2plus1d_34": (69, 16), "resnet18": (20, 8)}
+# The full-width stream forwards of phase 23: (arch, dtype, input), 16
+# clips of 32 × 112² or 16 images of 224², seed-0 weights, 101 classes.
+BN_STREAMS = (("r2plus1d_34", "bfloat16", (16, 32, 112, 112, 3)),
+              ("resnet18", "bfloat16", (16, 224, 224, 3)),
+              ("resnet18", "float32", (16, 224, 224, 3)))
+# Each norm site of those forwards against the module path it replaces
+# (eval BatchNorm, ATen's add and ReLU) on the same input, per element in
+# ulps of the dtype (its mantissa bits, for the ulp) of the largest of the
+# operands (x's normalised value, bias, residual) and the two results.
+# bfloat16: the two float32 affine values differ by a few float32 ulps
+# (ATen fuses a multiply-add and takes rsqrtf), so their bfloat16
+# roundings are equal or neighbours (1 ulp); a residual add rounds again
+# after adding that difference (1 + 2 ulps).  float32: those few ulps,
+# with room.
+BN_SITE_ULPS = {"bfloat16": {"bits": 8, "norm": 1, "residual": 3},
+                "float32": {"bits": 24, "norm": 16, "residual": 16}}
+# The stream's logits with the fused norm pass against the module path, as
+# a share of the largest: bfloat16 the card-against-CPU bound of phase 18
+# (its streams differ in more roundings than these); float32 a hundred
+# times the float32 differences of 20 sites, with TF32 off.
+TOL_BN_LOGITS = {"bfloat16": TOL_BF16_LOGITS, "float32": 1e-4}
+
+
+def norm_site_ulps(torch, norm, x, residual, got, want, bits: int):
+    """The largest distance between `got` (the fused norm pass) and `want`
+    (the module path) on input `x`, in ulps (`bits` of mantissa) of the
+    largest of each element's operands and results, and the share of
+    elements equal."""
+    per = (1, -1) + (1,) * (x.dim() - 2)
+    largest = ((x.float() - norm.running_mean.view(per))
+               * torch.rsqrt(norm.running_var + norm.eps).view(per)
+               * norm.weight.view(per)).abs_()
+    largest = torch.maximum(largest, norm.bias.view(per).abs())
+    if residual is not None:
+        largest = torch.maximum(largest, residual.float().abs())
+    largest = torch.maximum(largest, torch.maximum(got.float().abs(),
+                                                   want.float().abs()))
+    ulp = torch.ldexp(torch.ones_like(largest),
+                      torch.frexp(largest)[1] - bits)
+    diff = (got.float() - want.float()).abs_()
+    return (float((diff / ulp).max()),
+            1 - int((diff != 0).sum()) / diff.numel())
+
+
+def bn_act_phase(torch, np, dev):
+    """Phase 23: the fused norm pass at ``BN_STAGE1``, with and without a
+    residual (ReLU on): bit for bit against ``bn_act_plain`` (its largest
+    absolute difference measured); its time paced by the host
+    (``cuda_ms``, in place over one activation), its device time, its
+    plain version's, the module path's (``nn.BatchNorm3d`` then ATen's
+    add and ReLU) and its byte bound.  Then the ``BN_STREAMS`` forwards
+    with every ``norm_act`` call held to the module path on its own input
+    (``BN_SITE_ULPS``), their counters to ``BN_LAUNCHES``, and their
+    logits to the same forward on the module path (``TOL_BN_LOGITS``).
+    Returns (the two kernel rows, the launches of each forward)."""
+    import torch.nn as nn
+
+    from video_analytics_tpu_torch.models import resnet, video_resnet
+    from video_analytics_tpu_torch.ops.cuda.bn_act import (
+        bn_act, bn_act_plain)
+
+    t0 = time.perf_counter()
+    g = torch.Generator(dev).manual_seed(23)
+    C = BN_STAGE1[1]
+
+    def act():
+        return (3 * torch.randn(BN_STAGE1, device=dev, generator=g)).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+
+    x, r = act(), act()
+    y = torch.empty_like(x)
+    norm = nn.BatchNorm3d(C).to(dev).eval()
+    with torch.no_grad():
+        norm.running_mean.uniform_(-1, 1, generator=g)
+        norm.running_var.uniform_(0.5, 2, generator=g)
+        norm.weight.uniform_(-1.5, 1.5, generator=g)
+        norm.bias.uniform_(-1, 1, generator=g)
+    params = (norm.running_mean, norm.running_var, norm.weight, norm.bias,
+              norm.eps)
+    rows = {}
+    with torch.no_grad():
+        for name, res in (("bn_act", None), ("bn_act_residual", r)):
+            want = bn_act_plain(x, *params, res, True)
+            got = bn_act(y.copy_(x), *params, res, True)
+            err = float((got.float() - want.float()).abs().max())
+            check(err == 0.0 and torch.equal(got, want),
+                  f"{name} at {BN_STAGE1} is not bit-exact ({err})")
+            del want, got
+
+            def kernel():
+                bn_act(y, *params, res, True)
+
+            def module():
+                z = norm(x)
+                return torch.relu(z if res is None else z + res)
+
+            y.copy_(x)
+            nbytes = (x.numel() * x.element_size() * (3 if res is not None
+                                                      else 2)
+                      + 4 * C * 4)
+            rows[name] = {
+                "max_abs_err": err,
+                "ms": cuda_ms(torch, kernel),
+                "device_ms": device_ms(torch, kernel, "bn_act_kernel"),
+                "plain_ms": cuda_ms(
+                    torch, lambda: bn_act_plain(x, *params, res, True), 5),
+                "library_ms": cuda_ms(torch, module, 5),
+                "bound_ms": 1e3 * nbytes / ROOFLINE.HBM_BYTES_PER_S,
+                "bytes": nbytes}
+            rows[name]["device_over_bound"] = (rows[name]["device_ms"]
+                                               / rows[name]["bound_ms"])
+    del x, r, y
+
+    fused = resnet.norm_act
+    check(video_resnet.norm_act is fused, "video_resnet's norm_act is not "
+          "resnet's")
+
+    def module_path(norm, y, residual=None, relu=True):
+        y = norm(y)
+        if residual is not None:
+            y = y + residual
+        return torch.relu(y) if relu else y
+
+    def route(fn):
+        resnet.norm_act = video_resnet.norm_act = fn
+
+    streams, launches = {}, {}
+    for arch, dtype_name, shape in BN_STREAMS:
+        key = f"{arch}_{dtype_name}"
+        ulps = BN_SITE_ULPS[dtype_name]
+        make = resnet.resnet18 if arch == "resnet18" else \
+            video_resnet.r2plus1d_34
+        model = make(101, dtype=getattr(torch, dtype_name))
+        model.init(torch.Generator().manual_seed(0))
+        model = model.to(dev).eval()
+        clips = torch.randn(shape, device=dev, generator=g)
+        sites = []
+
+        def checked(norm, y, residual=None, relu=True):
+            x = y.clone()
+            want = module_path(norm, x, residual, relu)
+            got = fused(norm, y, residual, relu)
+            worst, equal = norm_site_ulps(torch, norm, x, residual, got,
+                                          want, ulps["bits"])
+            sites.append({"channels": x.shape[1], "residual":
+                          residual is not None, "ulps": worst,
+                          "equal_share": equal})
+            check(worst <= ulps["norm" if residual is None else "residual"],
+                  f"{key}: a norm site of {tuple(x.shape)} is {worst} ulps "
+                  f"from the module path")
+            return got
+
+        with torch.no_grad():
+            model(clips)                # cuDNN's first calls at the shapes
+            n, nr = bn_act.launches, bn_act.launches_residual
+            try:
+                route(checked)
+                got = model(clips).float()
+                counts = (bn_act.launches - n,
+                          bn_act.launches_residual - nr)
+                route(module_path)
+                want = model(clips).float()
+            finally:
+                route(fused)
+            torch.cuda.synchronize()
+        launches[key] = counts
+        check(counts == BN_LAUNCHES[arch] and len(sites) == counts[0]
+              and bn_act.launches - n == counts[0],
+              f"{key}: bn_act launches {counts} over {len(sites)} sites "
+              f"({bn_act.launches - n} with the module path), expected "
+              f"{BN_LAUNCHES[arch]}")
+        scale = float(want.abs().max())
+        rel = float((got - want).abs().max()) / scale
+        check(scale > 0 and rel <= TOL_BN_LOGITS[dtype_name],
+              f"{key}: logits {rel} of the largest from the module path")
+        streams[key] = {
+            "input": list(shape), "launches": counts[0],
+            "launches_residual": counts[1],
+            "logits_rel_vs_module_path": rel,
+            "site_ulps_max": max(s["ulps"] for s in sites),
+            "site_ulps_max_residual": max(
+                (s["ulps"] for s in sites if s["residual"]), default=None),
+            "site_equal_share_min": min(s["equal_share"] for s in sites)}
+        del model, clips, got, want
+    emit({"phase": "bn_act", "seconds": time.perf_counter() - t0,
+          "shape": list(BN_STAGE1), "dtype": "bfloat16", "rows": rows,
+          "streams": streams,
+          "tolerances": {"site_ulps": BN_SITE_ULPS,
+                         "logits_rel": TOL_BN_LOGITS},
+          "counters": {"bn_act.launches": bn_act.launches,
+                       "bn_act.launches_residual":
+                           bn_act.launches_residual}, **CARD})
+    return rows, launches
+
+
 def native_phases(torch, np, dev, chain: bool = True):
     """The native-resolution flow command and, with `chain`, the stage
     commands that read what it wrote, in one temporary directory.  Returns
@@ -4971,7 +5235,7 @@ def main(argv=None) -> int:
                              "spynet", "distributed", "model_axis", "warmup",
                              "sustained", "async_checkpoint", "bf16",
                              "compute_flow_bucketed", "flow_quality",
-                             "eval_breakdown", "roofline"],
+                             "eval_breakdown", "roofline", "bn_act"],
                     help="run the build and this phase alone (stage_chain "
                          "with tvl1_1080p, whose directories it reads; "
                          "model_axis is the last part of distributed), for "
@@ -5055,6 +5319,8 @@ def main(argv=None) -> int:
         eval_breakdown_phase(torch, np, dev)
     elif args.only == "roofline":
         roofline_phase(torch, np, dev)
+    elif args.only == "bn_act":
+        bn_act_phase(torch, np, dev)
     elif args.only:
         native_phases(torch, np, dev, args.only == "stage_chain")
     if args.only:
@@ -5193,14 +5459,18 @@ def main(argv=None) -> int:
 
     # Every level of a 224² crop fits a cluster: per request and level one
     # launch of tvl1_scale (its 5 warps and the scale-end median inside);
-    # K-A, K-C and the per-iteration kernels not at all.
+    # K-A, K-C and the per-iteration kernels not at all.  The request's
+    # one classify call runs each BatchNorm of both CNNs as the fused
+    # norm pass (BN_PER_CLASSIFY).
     kernels = {"tvl1_scale": ts.pd_solve_scale, "warp_prep": warp_prep,
                "median5": ts.median5, "tvl1_pd_step": ts.pd_step,
-               "tvl1_pd_step_eps": TestLaunches(ts.pd_step)}
+               "tvl1_pd_step_eps": TestLaunches(ts.pd_step),
+               **norm_kernels()}
     request_ms, outs, launches = serve_requests(
         server, frames, lambda: zero_counts(kernels),
         lambda: read_counts(kernels),
-        {**dict.fromkeys(kernels, 0), "tvl1_scale": len(SIZES)})
+        {**dict.fromkeys(kernels, 0), "tvl1_scale": len(SIZES),
+         **norm_expected(1)})
     probs = outs[0]
     e = check_probs(torch, np, server, frames, probs)
     emit({"phase": "serve", "warmup_s": warm_s, "request_ms": request_ms,
@@ -5264,6 +5534,9 @@ def main(argv=None) -> int:
 
     # -- 22. the roofline of the hot programs ---------------------------------
     rl_launches = roofline_phase(torch, np, dev)
+
+    # -- 23. the fused norm pass of the CNNs' eval forward --------------------
+    bn_rows, bn_launches = bn_act_phase(torch, np, dev)
 
     # -- the kernel table -----------------------------------------------------
     # TV-L1 bounds at 224², 15 pairs.  Planes moved: warp_prep reads I1 and
@@ -5387,7 +5660,21 @@ def main(argv=None) -> int:
                        "launches_flow_quality": fq_launches.get(name, 0),
                        "launches_eval_breakdown": eb_launches.get(name, 0),
                        "launches_roofline": rl_launches.get(name, 0)}
-                      for name, source, replaces, also in rows]})
+                      for name, source, replaces, also in rows]
+                     + [{"name": name, "route": "cuda",
+                         "source": src + "bn_act.cu", "replaces": None,
+                         "launches": launches[name],
+                         "launches_from": launches_from.get(name),
+                         **{key: row[key] for key in (
+                             "max_abs_err", "ms", "device_ms", "plain_ms",
+                             "bound_ms", "library_ms")},
+                         "bound_by": "bytes",
+                         "launches_eval_ucf101": eval_launches[name],
+                         "launches_sustained": sustained_launches[name],
+                         "launches_bf16": bf16_launches[name],
+                         **{"launches_" + stream: n[k]
+                            for stream, n in bn_launches.items()}}
+                        for k, (name, row) in enumerate(bn_rows.items())]})
     emit({"phase": "profiler", **PROFILER})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

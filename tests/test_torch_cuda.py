@@ -1154,3 +1154,172 @@ def test_r2p1d_logits_on_the_card_equal_the_3d_call(dev, monkeypatch):
     scale = want.abs().max()
     assert scale > 0.05
     assert (got - want).abs().max() <= R2P1D_BF16_REL * scale
+
+
+# Every channel count R(2+1)D-34 and ResNet-18 normalise: widths 64-512,
+# the stem's 45, the midplanes 144-1152.
+BN_CHANNELS = [45, 64, 128, 144, 230, 256, 288, 460, 512, 576, 921, 1152]
+# (residual, relu): the kernel's forms; a residual add is always followed
+# by the ReLU.
+BN_CASES = [(False, False), (False, True), (True, True)]
+
+
+def _bn_inputs(dev, shape, dtype, seed=0):
+    """A channels-last activation of `shape`, a residual like it and a
+    BatchNorm's (mean, var, weight, bias, eps) away from the identity."""
+    g = torch.Generator(dev).manual_seed(seed)
+    C = shape[1]
+    fmt = torch.channels_last if len(shape) == 4 else torch.channels_last_3d
+
+    def act():
+        return (3 * torch.randn(shape, device=dev, generator=g)).to(
+            dtype).contiguous(memory_format=fmt)
+
+    def par(lo, hi):
+        return torch.empty(C, device=dev).uniform_(lo, hi, generator=g)
+
+    return (act(), act(),
+            (par(-1, 1), par(0.5, 2), par(-1.5, 1.5), par(-1, 1), 1e-5))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rank", [4, 5])
+@pytest.mark.parametrize("C", BN_CHANNELS)
+def test_bn_act_matches_plain(dev, C, rank, dtype):
+    """Bit for bit at every channel count, on 105 rows (an odd count, so
+    an odd C leaves a tail of elements past the last 16-byte vector)."""
+    from video_analytics_tpu_torch.ops.cuda.bn_act import (
+        bn_act, bn_act_plain)
+
+    shape = (3, C, 5, 7) if rank == 4 else (1, C, 3, 5, 7)
+    x, r, params = _bn_inputs(dev, shape, dtype, seed=C)
+    for residual, relu in BN_CASES:
+        res = r if residual else None
+        want = bn_act_plain(x, *params, res, relu)
+        n, nr = bn_act.launches, bn_act.launches_residual
+        y = x.clone()
+        got = bn_act(y, *params, res, relu)
+        assert got is y
+        assert bn_act.launches == n + 1
+        assert bn_act.launches_residual == nr + int(residual)
+        assert torch.equal(got, want), (residual, relu)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(16, 144, 8, 56, 56), (2, 921, 4, 14, 15),
+                                   (5, 45, 3, 17, 19), (4, 230, 29, 31)])
+def test_bn_act_matches_plain_on_large_tensors(dev, shape, dtype):
+    """Tensors with more vectors than the grid has threads, so every
+    thread walks several strides of the period."""
+    from video_analytics_tpu_torch.ops.cuda.bn_act import (
+        bn_act, bn_act_plain)
+
+    x, r, params = _bn_inputs(dev, shape, dtype, seed=len(shape))
+    for residual, relu in BN_CASES:
+        res = r if residual else None
+        want = bn_act_plain(x, *params, res, relu)
+        assert torch.equal(bn_act(x.clone(), *params, res, relu), want)
+
+
+@pytest.mark.parametrize("rank", [4, 5])
+@pytest.mark.parametrize("residual,relu", BN_CASES)
+def test_bn_act_keeps_one_ulp_of_aten(dev, rank, residual, relu):
+    """Against the module path it replaces on the card (eval BatchNorm,
+    ATen's add and ReLU) in bfloat16: within one bfloat16 ulp of the
+    largest operand of each element (ATen's kernel may fuse a multiply-add
+    where the kernel rounds twice), and equal almost everywhere."""
+    import torch.nn as nn
+
+    from video_analytics_tpu_torch.ops.cuda.bn_act import bn_act
+
+    shape = (4, 144, 9, 15) if rank == 4 else (2, 144, 3, 9, 15)
+    x, r, (mean, var, w, b, eps) = _bn_inputs(dev, shape, torch.bfloat16, 7)
+    norm = (nn.BatchNorm2d if rank == 4 else nn.BatchNorm3d)(144).to(dev)
+    with torch.no_grad():
+        for buf, val in ((norm.running_mean, mean), (norm.running_var, var),
+                         (norm.weight, w), (norm.bias, b)):
+            buf.copy_(val)
+        norm.eval()
+        res = r if residual else None
+        want = norm(x)
+        if residual:
+            want = want + res
+        want = (torch.relu(want) if relu else want).float()
+        got = bn_act(x.clone(), mean, var, w, b, eps, res, relu).float()
+    per = (1, -1) + (1,) * (rank - 2)
+    largest = torch.maximum(
+        ((x.float() - mean.view(per)) * torch.rsqrt(var + eps).view(per)
+         * w.view(per)).abs(), b.view(per).abs())
+    if residual:
+        largest = torch.maximum(largest, r.float().abs())
+    ulp = torch.ldexp(torch.ones_like(largest), torch.frexp(largest)[1] - 8)
+    diff = (got - want).abs()
+    assert (diff <= ulp).all(), diff.max()
+    assert (diff == 0).float().mean() > 0.95
+
+
+def test_bn_act_rejects_bad_tensors(dev):
+    from video_analytics_tpu_torch.ops.cuda import _build
+    from video_analytics_tpu_torch.ops.cuda.bn_act import bn_act
+
+    x, r, params = _bn_inputs(dev, (2, 64, 3, 5, 7), torch.bfloat16)
+    bad = [(x.contiguous(), params, None, True),      # not channels-last
+           (x.half(), params, None, True),            # dtype
+           (x, params, r.float(), True),              # residual dtype
+           (x, params, r.contiguous(), True),         # residual strides
+           (x, params, r, False),                     # residual, no ReLU
+           (x, (params[0][:32],) + params[1:], None, True),  # mean's shape
+           (x, (params[0].double(),) + params[1:], None, True),
+           (x, (params[0].cpu(),) + params[1:], None, True)]
+    for t, p, res, relu in bad:
+        n = bn_act.launches
+        with pytest.raises(ValueError):
+            bn_act(t, *p, res, relu)
+        assert bn_act.launches == n
+    # The entry point refuses the form the kernel lacks on its own.
+    mean, var, w, b, eps = params
+    y = x.clone()
+    err = _build.library().va_bn_act(
+        y.data_ptr(), r.data_ptr(), mean.data_ptr(), var.data_ptr(),
+        w.data_ptr(), b.data_ptr(), eps, y.numel(), 64, 1, 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert err != 0 and torch.equal(y, x)
+
+
+@pytest.mark.parametrize("arch,launches,residual", [
+    ("r2plus1d_34", 69, 16), ("resnet18", 20, 8)])
+def test_cnn_stream_runs_every_norm_as_bn_act(dev, arch, launches, residual):
+    """One eval forward of a bfloat16 stream on the card launches the fused
+    norm pass at each of its BatchNorms (R(2+1)D-34: 69, 16 with the
+    block's residual; ResNet-18: 20 and 8), and no ATen batch-norm or
+    clamp kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from video_analytics_tpu_torch.models.resnet import resnet18
+    from video_analytics_tpu_torch.models.video_resnet import r2plus1d_34
+    from video_analytics_tpu_torch.ops.cuda.bn_act import bn_act
+
+    if arch == "resnet18":
+        model = resnet18(7, dtype=torch.bfloat16)
+        x = torch.randn(2, 64, 64, 3)
+    else:
+        model = r2plus1d_34(7, width=16, dtype=torch.bfloat16)
+        x = torch.randn(2, 8, 32, 32, 3)
+    model.init(torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    x = x.to(dev)
+    with torch.no_grad():
+        model(x)
+        torch.cuda.synchronize()
+        n, nr = bn_act.launches, bn_act.launches_residual
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model(x)
+            torch.cuda.synchronize()
+    assert (bn_act.launches - n, bn_act.launches_residual - nr) == (
+        launches, residual)
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("bn_act_kernel" in k for k in names) == launches
+    aten = [k for k in names if "batch_norm" in k or "clamp" in k]
+    assert not aten, aten

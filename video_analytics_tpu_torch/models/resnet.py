@@ -16,6 +16,11 @@ statistics, the biased batch variance (``BatchNorm2d``).
 BatchNorm's shift, and the norm slots are identities;
 ``models/convert.fold_batchnorm`` makes its weights.
 
+In eval mode on the card, under ``no_grad``, every "BatchNorm, then maybe
+a residual add, then maybe ReLU" runs as one pass in place over the
+convolution's output (``norm_act``, the kernel ``ops/cuda/bn_act``), with
+the roundings of the three ATen ops it replaces.
+
 ``dtype`` is the reference's compute dtype: with ``torch.bfloat16`` the
 input is cast at entry and every convolution, ReLU, max-pool and residual
 add runs in bfloat16, while the parameters and BatchNorm's statistics stay
@@ -42,6 +47,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from video_analytics_tpu_torch.models.convert import torch_to_flax
+from video_analytics_tpu_torch.ops.cuda.bn_act import bn_act, layout_error
 from video_analytics_tpu_torch.ops.layers import Conv2d, Linear
 from video_analytics_tpu_torch.parallel.mesh import (
     all_reduce_sum, process_count)
@@ -129,6 +135,50 @@ class BatchNorm3d(_FlaxStatistics, nn.BatchNorm3d):
     """``BatchNorm2d``'s statistics and dtype rules over (N, C, T, H, W)."""
 
 
+def fusable(norm: nn.Module, y: torch.Tensor,
+            residual: Optional[torch.Tensor] = None,
+            relu: bool = True) -> bool:
+    """Whether ``norm_act`` may take the fused norm pass for `y`, the
+    device aside: `norm` an eval ``BatchNorm2d`` / ``BatchNorm3d`` with
+    running statistics and affine parameters, all float32 on `y`'s
+    device; `y` of its rank in the layout ``bn_act`` takes; the ReLU
+    after any residual add; and autograd recording none of them."""
+    if (not isinstance(norm, (nn.BatchNorm2d, nn.BatchNorm3d))
+            or norm.training or norm.running_mean is None or not norm.affine
+            or y.dim() != (4 if isinstance(norm, nn.BatchNorm2d) else 5)
+            or (residual is not None and not relu)):
+        return False
+    if any(t.dtype != torch.float32 or t.device != y.device
+           for t in (norm.running_mean, norm.running_var, norm.weight,
+                     norm.bias)):
+        return False
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (y, residual, norm.weight, norm.bias)):
+        return False
+    return layout_error(y, residual) is None
+
+
+def norm_act(norm: nn.Module, y: torch.Tensor,
+             residual: Optional[torch.Tensor] = None,
+             relu: bool = True) -> torch.Tensor:
+    """``relu(norm(y) + residual)``, the add and the ReLU each optional.
+
+    On the card, where ``fusable`` holds, one launch of the fused norm
+    pass overwrites `y` (a convolution's output, which nothing else
+    holds) with the result; the BatchNorm module is then not called, so
+    its hooks do not fire.  Elsewhere (the CPU, training, the folded
+    form's ``nn.Identity``, another layout) the module and ATen's add and
+    ReLU."""
+    if y.is_cuda and fusable(norm, y, residual, relu):
+        return bn_act(y, norm.running_mean, norm.running_var, norm.weight,
+                      norm.bias, norm.eps, residual, relu)
+    y = norm(y)
+    if residual is not None:
+        y = y + residual
+    return torch.relu(y) if relu else y
+
+
 def _norm(ch: int, fold_bn: bool, norm=BatchNorm2d) -> nn.Module:
     return nn.Identity() if fold_bn else norm(ch)
 
@@ -141,6 +191,15 @@ def _downsample(in_ch: int, out_ch: int, strides: int, dtype: torch.dtype,
     return nn.Sequential(
         _conv(in_ch, out_ch, 1, strides, 0, dtype, fold_bn, layer),
         _norm(out_ch, fold_bn, norm))
+
+
+def _shortcut(downsample: Optional[nn.Sequential], x: torch.Tensor
+              ) -> torch.Tensor:
+    """A block's residual: `x`, or its projection (convolution, norm)."""
+    if downsample is None:
+        return x
+    conv, norm = downsample
+    return norm_act(norm, conv(x), relu=False)
 
 
 class BasicBlock(nn.Module):
@@ -157,10 +216,9 @@ class BasicBlock(nn.Module):
                                       fold_bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        residual = x if self.downsample is None else self.downsample(x)
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        return torch.relu(y + residual)
+        residual = _shortcut(self.downsample, x)
+        y = norm_act(self.bn1, self.conv1(x))
+        return norm_act(self.bn2, self.conv2(y), residual)
 
 
 class BottleneckBlock(nn.Module):
@@ -181,11 +239,10 @@ class BottleneckBlock(nn.Module):
         self.downsample = _downsample(in_ch, out_ch, strides, dtype, fold_bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        residual = x if self.downsample is None else self.downsample(x)
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = torch.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        return torch.relu(y + residual)
+        residual = _shortcut(self.downsample, x)
+        y = norm_act(self.bn1, self.conv1(x))
+        y = norm_act(self.bn2, self.conv2(y))
+        return norm_act(self.bn3, self.conv3(y), residual)
 
 
 class ResNet(nn.Module):
@@ -275,7 +332,7 @@ class ResNet(nn.Module):
                              f"got {tuple(x.shape)}")
         x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+        x = self.maxpool(norm_act(self.bn1, self.conv1(x)))
         for stage in range(self.num_stages):
             x = getattr(self, f"layer{stage + 1}")(x)
         return self._head(x, return_features)

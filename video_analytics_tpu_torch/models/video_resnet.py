@@ -26,7 +26,8 @@ The rules of ``models/resnet`` hold: float32 parameters, the compute
 roundings with a bias), BatchNorm's statistics and normalization in
 float32 (``resnet.BatchNorm3d``), the global mean accumulated in float32;
 ``fold_bn=True`` is the folded inference form, its weights from
-``models/convert.fold_batchnorm``.
+``models/convert.fold_batchnorm``; eval on the card takes the fused norm
+pass (``resnet.norm_act``) at every BatchNorm.
 
 Input (N, T, H, W, C) at ``forward``: a clip volume, each of T frames
 (RGB) or flow fields (u, v); inside, (N, C, T, H, W) in PyTorch's
@@ -42,7 +43,7 @@ import torch
 import torch.nn as nn
 
 from video_analytics_tpu_torch.models.resnet import (
-    BasicBlock, BatchNorm3d, ResNet, _conv, _downsample, _norm)
+    BasicBlock, BatchNorm3d, ResNet, _conv, _downsample, _norm, norm_act)
 from video_analytics_tpu_torch.ops.layers import Conv3d
 from video_analytics_tpu_torch.utils.spans import span
 
@@ -71,7 +72,7 @@ class Conv2Plus1d(nn.Module):
                               (t // 2, 0, 0), dtype, fold_bn, Conv3d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.temporal(torch.relu(self.bn(self.spatial(x))))
+        return self.temporal(norm_act(self.bn, self.spatial(x)))
 
 
 class VideoBasicBlock(nn.Module):
@@ -128,7 +129,7 @@ class VideoResNet(ResNet):
         with span("va/r2p1d.stem"):
             x = x.to(self.dtype).permute(0, 4, 1, 2, 3).contiguous(
                 memory_format=torch.channels_last_3d)
-            x = torch.relu(self.bn1(self.conv1(x)))
+            x = norm_act(self.bn1, self.conv1(x))
         for stage in range(self.num_stages):
             with span("va/r2p1d.stage%d", stage + 1):
                 x = getattr(self, f"layer{stage + 1}")(x)

@@ -32,7 +32,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 SOURCES = ("warp_prep.cu", "tvl1_pd.cu", "median.cu", "fb_prologue.cu",
            "fb_warp_neq.cu", "sep_corr.cu", "fb_window_solve.cu",
-           "tvl1_pd_chunk.cu", "tvl1_pd_warp.cu")
+           "tvl1_pd_chunk.cu", "tvl1_pd_warp.cu", "bn_act.cu")
 HEADERS = ("common.cuh", "fb_neq.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -41,6 +41,7 @@ FLAGS = ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes of every entry point of the library (csrc/*.cu).
 _SIGNATURES = {
     "va_warp_prep": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -62,6 +63,7 @@ _SIGNATURES = {
     "va_fb_window_smem": (_I, _I),
     "va_pd_scale_smem": (_I, _I, _I),
     "va_pd_warp_max_clusters": (_I, _I, _I, _I),
+    "va_bn_act": (_P, _P, _P, _P, _P, _P, _F, _L, _I, _I, _I, _P),
     "va_error_string": (_I,),
 }
 
