@@ -253,6 +253,14 @@ Phases, each reported on a JSON line:
    counters ``bn_act.launches`` / ``launches_residual`` to 69 / 16 and
    20 / 8, and the logits to the same forward on the module path
    (``bn_act_phase``).
+24. timesformer: a full-width bfloat16 forward of both TimeSformer-Base
+   streams (``models/timesformer``; 8 frames at 224², seed-0 weights,
+   101 classes) on one clip, against the float32 plain reference
+   ``tests/torch_timesformer.py`` on the card (TF32 off), within
+   ``TOL_TSF_LOGITS`` of the largest logit; ``TimeSformer.attn_calls``
+   read (12 + 12 a stream); and the names of the kernels that
+   ``scaled_dot_product_attention`` runs in each half, at a batch's
+   shapes (16 clips), with the backend they show (``timesformer_phase``).
 ``--only <phase>`` runs the build and that phase alone.
 
 Then it prints the kernel table (``{"kernels": [...]}``: for each kernel
@@ -5201,6 +5209,96 @@ def bn_act_phase(torch, np, dev):
     return rows, launches
 
 
+# A stream's bfloat16 logits against the float32 reference, as a share of
+# the largest: the CPU tests' bound (tests/test_torch_timesformer.py,
+# ``BF16_REL``), whose small network reads 0.8 %.
+TOL_TSF_LOGITS = 0.03
+SDPA_MARKS = ("sdpa", "flash", "fmha", "attention", "attn", "softmax")
+
+
+def attention_kernels(torch, fn) -> list:
+    """The device kernels of one call of `fn` whose names look like
+    attention's (``SDPA_MARKS``), with their device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and any(
+                m in e.name.lower() for m in SDPA_MARKS):
+            out[e.name] = out.get(e.name, 0.0) + e.device_time_total / 1e3
+    return sorted(out.items(), key=lambda kv: -kv[1])
+
+
+def timesformer_phase(torch, np, dev):
+    """Phase 24: both full-width TimeSformer-Base streams in bfloat16 on
+    one clip (RGB frames, and flow fields in [-1, 1]) against the float32
+    plain reference on the card; the attention counter; the SDPA kernels
+    of each half at a batch's shapes."""
+    import importlib.util
+
+    from video_analytics_tpu_torch.models.timesformer import TimeSformer
+    from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+
+    # By path: an installed package named ``tests`` may shadow the repo's.
+    spec = importlib.util.spec_from_file_location(
+        "torch_timesformer", os.path.join(HERE, "tests",
+                                          "torch_timesformer.py"))
+    plain = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(plain)
+    t0 = time.perf_counter()
+    model = TwoStreamModel.create(arch="timesformer_base",
+                                  dtype=torch.bfloat16)
+    model.init(torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    g = torch.Generator(dev).manual_seed(24)
+    clips = {"spatial": torch.randn((1, 8, 224, 224, 3), device=dev,
+                                    generator=g),
+             "temporal": 2 * torch.rand((1, 8, 224, 224, 2), device=dev,
+                                        generator=g) - 1}
+    streams = {}
+    for name, x in clips.items():
+        net = getattr(model, name)
+        before = dict(TimeSformer.attn_calls)
+        with torch.no_grad():
+            got = net(x).float()
+        calls = {k: v - before[k] for k, v in TimeSformer.attn_calls.items()}
+        want = plain.TimeSformer(net.state_dict(), heads=net.heads)(x)
+        scale = float(want.abs().max())
+        rel = float((got - want).abs().max()) / scale
+        check(calls == {"time": 12, "space": 12},
+              f"timesformer {name}: attention calls {calls}")
+        check(scale > 0 and rel <= TOL_TSF_LOGITS,
+              f"timesformer {name}: logits {rel} of the largest from the "
+              f"float32 reference")
+        streams[name] = {"logits_rel_vs_reference": rel,
+                         "logit_sd": float(want.std()),
+                         "attn_calls": calls}
+    blk, D = model.spatial.blocks[0], model.spatial.width
+    B, T, P = 16, 8, model.spatial.num_patches
+    h = torch.randn((B * P, T, D), device=dev, generator=g).to(
+        torch.bfloat16)
+    s = torch.randn((B * T, P + 1, D), device=dev, generator=g).to(
+        torch.bfloat16)
+    sdpa = {"time": attention_kernels(torch, lambda: blk.temporal_attn(h)),
+            "space": attention_kernels(torch, lambda: blk.attn(s))}
+    check(all(sdpa.values()), f"timesformer: no attention kernel {sdpa}")
+    emit({"phase": "timesformer", "seconds": time.perf_counter() - t0,
+          "streams": streams, "tolerance": TOL_TSF_LOGITS,
+          "sdpa_kernels_ms": sdpa,
+          "sdpa_shapes": {"time": [B * P, 12, T, D // 12],
+                          "space": [B * T, 12, P + 1, D // 12]},
+          "attn_calls_total": dict(TimeSformer.attn_calls), **CARD})
+    del model, clips, h, s
+    torch.cuda.empty_cache()
+    return streams, sdpa
+
+
 def native_phases(torch, np, dev, chain: bool = True):
     """The native-resolution flow command and, with `chain`, the stage
     commands that read what it wrote, in one temporary directory.  Returns
@@ -5235,7 +5333,8 @@ def main(argv=None) -> int:
                              "spynet", "distributed", "model_axis", "warmup",
                              "sustained", "async_checkpoint", "bf16",
                              "compute_flow_bucketed", "flow_quality",
-                             "eval_breakdown", "roofline", "bn_act"],
+                             "eval_breakdown", "roofline", "bn_act",
+                             "timesformer"],
                     help="run the build and this phase alone (stage_chain "
                          "with tvl1_1080p, whose directories it reads; "
                          "model_axis is the last part of distributed), for "
@@ -5321,6 +5420,8 @@ def main(argv=None) -> int:
         roofline_phase(torch, np, dev)
     elif args.only == "bn_act":
         bn_act_phase(torch, np, dev)
+    elif args.only == "timesformer":
+        timesformer_phase(torch, np, dev)
     elif args.only:
         native_phases(torch, np, dev, args.only == "stage_chain")
     if args.only:
@@ -5537,6 +5638,9 @@ def main(argv=None) -> int:
 
     # -- 23. the fused norm pass of the CNNs' eval forward --------------------
     bn_rows, bn_launches = bn_act_phase(torch, np, dev)
+
+    # -- 24. the TimeSformer streams against their reference --------------
+    timesformer_phase(torch, np, dev)
 
     # -- the kernel table -----------------------------------------------------
     # TV-L1 bounds at 224², 15 pairs.  Planes moved: warp_prep reads I1 and

@@ -473,3 +473,99 @@ def test_eval_ucf101_batched_r2plus1d_34(tmp_path, r2p1d_checkpoint,
     correct = sum(int(np.argmax(_plain_clip_probs(r.path, model, 1))
                       == r.label) for r in records)
     assert serial["correct"] == correct and serial["total"] == len(records)
+
+
+# -- the video transformer: TimeSformer streams on clip volumes ---------------
+
+TSF = ["--arch", "timesformer_base", "--num-classes", "5", "--width", "48",
+       *ALGOS["farneback"]]
+
+
+@pytest.fixture(scope="module")
+def tsf_model():
+    """The two-stream TimeSformer that the commands build from TSF's flags
+    without --checkpoint: width 48 (12 heads of 4), 12 blocks, 8 frames
+    at 224², weights from seed 0."""
+    from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+    tm = TwoStreamModel.create(num_classes=5, width=48,
+                               arch="timesformer_base")
+    return tm.init(torch.Generator().manual_seed(0)).eval()
+
+
+def _plain_tsf_probs(video, model, num_windows):
+    """The plain pipeline's clip probabilities for `video` under TSF's
+    flags: the arch's own windows and crop (9 frames, 224² from a short
+    side of 224), then the reference model on the port's plain Farneback,
+    statistics 0.45 / 0.225, fusion 1 : 1."""
+    from tests.test_torch_timesformer import plain_clip_probs
+    from video_analytics_tpu_torch.cli.main import (
+        _pipeline_config, build_parser)
+    from video_analytics_tpu_torch.flow.farneback import farneback_sequence
+    from video_analytics_tpu_torch.ops import preprocess as pp
+    from video_analytics_tpu_torch.runtime.evaluate import load_clip_windows
+
+    cfg = _pipeline_config(build_parser().parse_args(
+        ["classify-clip", video, *TSF]))
+    pre = cfg.preprocess
+    assert (pre.resize_short, pre.crop, cfg.window) == (224, 224, 9)
+    assert pre.mean == (0.45,) * 3 and cfg.fusion_weights == (1.0, 1.0)
+    wins, cfg = load_clip_windows(video, cfg, num_windows=num_windows)
+    pre = cfg.preprocess
+    x = pp.resize_short_center_crop(torch.from_numpy(wins), pre.resize_short,
+                                    pre.crop, src_hw=pre.src_hw)
+    with torch.no_grad():
+        probs = plain_clip_probs(
+            x, model.spatial.state_dict(), model.temporal.state_dict(),
+            pre.mean, pre.std, pre.flow_bound, cfg.fusion_weights,
+            lambda g: farneback_sequence(g, cfg.farneback, plain=True),
+            heads=12)
+    return probs.mean(0).numpy()
+
+
+def test_classify_clip_timesformer_base(tiny_clip, tsf_model, capsys):
+    """--arch timesformer_base answers as the plain pipeline on the
+    weights of its seed."""
+    rc, res = run_cli(capsys, ["classify-clip", tiny_clip, *TSF,
+                               "--windows", "2", "--topk", "5", *CPU])
+    assert rc == 0
+    got = {e["class_id"]: e["prob"] for e in res["topk"]}
+    want = _plain_tsf_probs(tiny_clip, tsf_model, 2)
+    assert sorted(got) == list(range(5))
+    for i in range(5):
+        assert abs(got[i] - want[i]) <= 1e-5, (i, got, want)
+    assert res["top1"] == int(np.argmax(want))
+
+
+def test_eval_ucf101_batched_timesformer_base(tmp_path, tsf_model, capsys):
+    """eval-ucf101 --batched --arch timesformer_base counts as the
+    clip-by-clip command, whose correct count is the plain pipeline's."""
+    from video_analytics_tpu_torch.io.dataset import UCF101
+    from video_analytics_tpu_torch.io.synthetic import build_synthetic_ucf101
+    root = str(tmp_path / "ucf")
+    build_synthetic_ucf101(root, num_classes=2, clips_per_class=2,
+                           num_frames=12, h=96, w=128)
+    args = ["eval-ucf101", "--videos", f"{root}/videos", "--annotations",
+            f"{root}/annotations", *TSF, *CPU]
+    rc, batched = run_cli(capsys, [*args, "--batched", "--batch-clips", "2"])
+    assert rc == 0 and batched["failed"] == 0 and batched["total"] >= 2
+    rc, serial = run_cli(capsys, args)
+    assert rc == 0 and serial == batched
+    records = UCF101(videos_root=f"{root}/videos",
+                     annotations_root=f"{root}/annotations").test_records()
+    correct = sum(int(np.argmax(_plain_tsf_probs(r.path, tsf_model, 1))
+                      == r.label) for r in records)
+    assert serial["correct"] == correct and serial["total"] == len(records)
+
+
+def test_fold_bn_checkpoint_and_convert_weights_refuse_timesformer(
+        tiny_clip, tmp_path, capsys):
+    """TimeSformer has no BatchNorm to fold and no layout in the JAX
+    package's checkpoints: --fold-bn, --checkpoint and convert-weights
+    refuse it with a message that names it."""
+    for flag in (["--fold-bn"], ["--checkpoint", str(tmp_path / "x")]):
+        with pytest.raises(ValueError, match="timesformer_base"):
+            main(["classify-clip", tiny_clip, *TSF, *flag, *CPU])
+    with pytest.raises(SystemExit):
+        main(["convert-weights", str(tmp_path / "a.pth"),
+              str(tmp_path / "b.msgpack"), "--arch", "timesformer_base"])
+    assert "timesformer_base" in capsys.readouterr().err

@@ -29,19 +29,22 @@ PORT_ONLY = {
 }
 
 
-CLIP_ARCHS = ("adds the video arch r2plus1d_34 (models/video_resnet), which "
-              "the reference has not; classify-clip and eval-ucf101 run its "
-              "clip volumes")
+CLIP_ARCHS = ("adds the video archs r2plus1d_34 (models/video_resnet) and "
+              "timesformer_base (models/timesformer), which the reference "
+              "has not; classify-clip and eval-ucf101 run their clip "
+              "volumes")
 ARCH_GEOMETRY = ("left unset it is --arch's own (models.two_stream."
-                 "arch_input): the reference's default for its ResNets, "
-                 "112 / 128 / 33 for r2plus1d_34")
+                 "arch_input, and the arch's builder for --width): the "
+                 "reference's default for its ResNets, 112 / 128 / 33 / 64 "
+                 "for r2plus1d_34, 224 / 224 / 9 / 768 for timesformer_base")
 PORT_CHANGED = {
     **{(cmd, ("--arch",)): (CLIP_ARCHS, {"choices": [
-        "resnet18", "resnet34", "resnet50", "r2plus1d_34"]})
+        "resnet18", "resnet34", "resnet50", "r2plus1d_34",
+        "timesformer_base"]})
        for cmd in ("classify-clip", "eval-ucf101")},
     **{(cmd, (flag,)): (ARCH_GEOMETRY, {"default": None})
        for cmd in ("classify-clip", "eval-ucf101")
-       for flag in ("--crop", "--resize-short", "--window")},
+       for flag in ("--crop", "--resize-short", "--window", "--width")},
 }
 
 
@@ -95,18 +98,24 @@ def test_arch_geometry_resolves_to_the_reference_default(parsers, cmd,
                                                          arch):
     """The flags ``PORT_CHANGED`` leaves unset give the reference's
     defaults for the reference's archs."""
+    import torch
+
     from video_analytics_tpu_torch.cli.main import (
         _pipeline_config, build_parser)
+    from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
 
     ref = _actions(parsers[0][cmd])
     argv = {"classify-clip": ["classify-clip", "clip.mp4"],
             "eval-ucf101": ["eval-ucf101", "--videos", "v",
                             "--annotations", "a"]}[cmd]
-    cfg = _pipeline_config(build_parser().parse_args(argv + ["--arch",
-                                                             arch]))
+    args = build_parser().parse_args(argv + ["--arch", arch])
+    cfg = _pipeline_config(args)
     assert (cfg.preprocess.crop, cfg.preprocess.resize_short, cfg.window) \
         == (ref[("--crop",)]["default"], ref[("--resize-short",)]["default"],
             ref[("--window",)]["default"])
+    with torch.device("meta"):
+        model = TwoStreamModel.create(width=args.width, arch=arch)
+    assert model.spatial.width == ref[("--width",)]["default"]
 
 
 def test_train_accepts_fold_bn_and_ignores_it():

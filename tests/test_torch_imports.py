@@ -273,3 +273,22 @@ def test_r2plus1d_references_import_only_torch(rel):
             assert node.level == 0, rel
             names.add(node.module.split(".")[0])
     assert names and names <= {"__future__", "typing", "torch"}, names
+
+
+@pytest.mark.parametrize("rel", ["tests/torch_timesformer.py",
+                                 "bench_h100/reference/timesformer.py"])
+def test_timesformer_references_import_only_torch(rel):
+    """The plain TimeSformer references import nothing of the port, of
+    JAX, flax or the JAX package: only torch and the standard library."""
+    import ast
+
+    with open(os.path.join(REPO, rel)) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, rel
+            names.add(node.module.split(".")[0])
+    assert names and names <= {"__future__", "typing", "torch"}, names

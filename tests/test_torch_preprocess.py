@@ -189,3 +189,20 @@ def test_sample_window_matches():
         assert np.array_equal(
             sample_window(n, win, np.random.default_rng(3)),
             jax_sample(n, win, np.random.default_rng(3)))
+
+
+def test_normalize_and_gray_make_their_constants_once():
+    """``normalize`` and ``rgb_to_gray`` make their constants on a device
+    once: made from a host list on every call, each synchronised the
+    device's stream."""
+    x = torch.rand(2, 4, 4, 3, generator=torch.Generator().manual_seed(0))
+    x = x * 255
+    tp._constant.cache_clear()
+    for _ in range(2):
+        got = tp.normalize(x, (0.1, 0.2, 0.3), (0.5, 0.25, 0.5))
+        gray = tp.rgb_to_gray(x)
+    info = tp._constant.cache_info()
+    assert (info.misses, info.hits) == (3, 3)
+    torch.testing.assert_close(got, (x / 255.0 - torch.tensor([0.1, 0.2, 0.3]))
+                               / torch.tensor([0.5, 0.25, 0.5]))
+    torch.testing.assert_close(gray, x @ torch.tensor([0.299, 0.587, 0.114]))

@@ -204,3 +204,55 @@ def test_clip_results_are_bit_identical_with_the_profiler_on_and_off(
     on_flow, _ = _traced(lambda: fb_mod.farneback_sequence(
         gray, CLIP_CFG.farneback))
     assert torch.equal(off_flow, on_flow)
+
+
+# -- TimeSformer streams on Farneback ----------------------------------------
+
+TSF_SPANS = ("va/tsf.embed", "va/tsf.time", "va/tsf.space", "va/tsf.mlp",
+             "va/tsf.head")
+TSF_DEPTH = 2
+
+
+@pytest.fixture(scope="module")
+def tsf_setup(clip_setup):
+    from video_analytics_tpu_torch.models.timesformer import TimeSformer
+
+    torch.manual_seed(2)
+    kw = dict(num_classes=5, width=32, depth=TSF_DEPTH, heads=4, mlp=64,
+              frames=CLIP_CFG.window - 1, image_size=CLIP_CFG.preprocess.crop)
+    model = TwoStreamModel(TimeSformer(**kw),
+                           TimeSformer(in_channels=2, **kw), (1.0, 1.0))
+    for stream in (model.spatial, model.temporal):
+        stream.init(torch.Generator().manual_seed(3))
+    return model.eval(), clip_setup[1]
+
+
+def test_every_timesformer_span_is_traced_and_nested(tsf_setup):
+    """The five ``va/tsf.*`` spans in each stream's span: the embedding
+    and the head once a stream, the time, space and MLP spans once a
+    block."""
+    model, windows = tsf_setup
+    _, spans = _traced(lambda: pipeline.classify_batch(windows, model,
+                                                       CLIP_CFG))
+    by_name = {}
+    for e in spans:
+        by_name.setdefault(e.name, []).append(e)
+    spatial, temporal = by_name["va/spatial"], by_name["va/temporal"]
+    assert len(spatial) == len(temporal) == 1
+    for name in TSF_SPANS:
+        per_stream = 1 if name in ("va/tsf.embed", "va/tsf.head") \
+            else TSF_DEPTH
+        assert len(by_name.get(name, [])) == 2 * per_stream, name
+        assert sum(_inside(e, spatial) for e in by_name[name]) \
+            == sum(_inside(e, temporal) for e in by_name[name]) \
+            == per_stream, name
+    assert not {"va/r2p1d.stem", "va/stack"} & set(by_name)
+
+
+def test_timesformer_results_are_bit_identical_with_the_profiler_on_and_off(
+        tsf_setup):
+    model, windows = tsf_setup
+    off = pipeline.classify_batch(windows, model, CLIP_CFG)
+    on, _ = _traced(lambda: pipeline.classify_batch(windows, model,
+                                                    CLIP_CFG))
+    assert torch.equal(off, on)

@@ -50,7 +50,11 @@ ctypes launches of ``csrc/``.  Per stage:
     which can ride a convolution's epilogue, are not counted.  The same
     count of the port's R(2+1)D-34 over clip volumes (its 3-D
     convolutions): ``r2plus1d_work``, which ``bench_h100/work_r2p1d.py``
-    keeps frozen.
+    keeps frozen.  The port's TimeSformer: every product (the patch
+    embedding, each projection, the attention products Q·Kᵀ and
+    weights·V, the MLP, the head) as one operation, its bytes its
+    operands and output once (Q, K, V and the output for attention):
+    ``timesformer_ops``, which ``bench_h100/work_tsf.py`` keeps frozen.
 
 Bytes are per stage, each input read once and each output written once
 (a CNN layer's input, weights and output in the layer's dtype; a TV-L1
@@ -367,6 +371,52 @@ def r2plus1d_work(clips: int, frames: int, crop: int, in_channels: int,
         x = torch.empty((clips, frames, crop, crop, in_channels),
                         dtype=dtype)
     return cnn_work(net, x)
+
+
+def timesformer_ops(clips: int, in_channels: int, num_classes: int = 101,
+                    width: int = 768, dtype=None):
+    """[(name, Work)]: every product of one forward pass of the port's
+    TimeSformer-Base (``models/timesformer``) at `width` over `clips`
+    clips of its own frames and image size, in order: the patch
+    embedding; per block the time half's qkv, attention, proj and
+    temporal_fc, the space half's qkv, attention and proj, the MLP's fc1
+    and fc2 over the clip's 1 + T·P tokens; the head (float32).  The
+    shapes are read from the model, built on the meta device."""
+    import torch
+    from video_analytics_tpu_torch.models.timesformer import (
+        timesformer_base)
+
+    dtype = torch.bfloat16 if dtype is None else dtype
+    with torch.device("meta"):
+        net = timesformer_base(num_classes, in_channels, dtype, width)
+    size = torch.empty((), dtype=dtype).element_size()
+    D, T, P = net.width, net.frames, net.num_patches
+    unit = "bf16" if dtype == torch.bfloat16 else "f32"
+
+    def product(name, layer, rows, size=size, unit=unit):
+        n_in, n_out = layer.weight[0].numel(), layer.weight.shape[0]
+        params = sum(p.numel() for p in layer.parameters())
+        return (name, Work(bytes=size * (rows * (n_in + n_out) + params),
+                           **{unit: 2 * rows * n_in * n_out}))
+
+    def attention(name, seqs, length):
+        return (name, Work(bytes=size * 4 * seqs * length * D,
+                           **{unit: 4 * seqs * length * length * D}))
+
+    patches, frame_tokens = clips * T * P, clips * T * (P + 1)
+    ops = [product("patch", net.patch_embed.proj, patches)]
+    for b in net.blocks:
+        ops += [product("time.qkv", b.temporal_attn.qkv, patches),
+                attention("time.attn", clips * P, T),
+                product("time.proj", b.temporal_attn.proj, patches),
+                product("time.fc", b.temporal_fc, patches),
+                product("space.qkv", b.attn.qkv, frame_tokens),
+                attention("space.attn", clips * T, P + 1),
+                product("space.proj", b.attn.proj, frame_tokens),
+                product("mlp.fc1", b.mlp.fc1, clips * (1 + T * P)),
+                product("mlp.fc2", b.mlp.fc2, clips * (1 + T * P))]
+    ops.append(product("head", net.head, clips, 4, "f32"))
+    return ops
 
 
 def two_stream_work(model, cfg, seqs: int, T: int, src_hw, device,

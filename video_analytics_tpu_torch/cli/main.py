@@ -167,7 +167,9 @@ def _pipeline_config(args):
     """Build a PipelineConfig from the shared model/preprocess args
     (_add_model_args); --resize-short, --crop and --window left unset, the
     normalisation and the fusion weights are --arch's
-    (``models.two_stream.arch_input``); other fields keep their
+    (``models.two_stream.arch_input``); an arch whose streams take clip
+    volumes builds no flow stacks, so its stack is the window's T − 1
+    fields and asks no longer window; other fields keep their
     defaults."""
     from video_analytics_tpu_torch.config import (
         PipelineConfig, PreprocessConfig)
@@ -178,16 +180,18 @@ def _pipeline_config(args):
         value = getattr(args, name, None)
         return default if value is None else value
 
+    window = given("window", inp.window)
     pre = PreprocessConfig(resize_short=given("resize_short",
                                               inp.resize_short),
                            crop=given("crop", inp.crop), mean=inp.mean,
-                           std=inp.std, flow_stack=args.flow_stack)
+                           std=inp.std,
+                           flow_stack=window - 1 if inp.clip
+                           else args.flow_stack)
     fb, tv = _flow_configs(args)
     return PipelineConfig(preprocess=pre, num_classes=args.num_classes,
                           farneback=fb, tvl1=tv,
                           flow_algo=getattr(args, "algo", "tvl1"),
-                          fusion_weights=inp.fusion_weights,
-                          window=given("window", inp.window))
+                          fusion_weights=inp.fusion_weights, window=window)
 
 
 def _add_flow_args(p) -> None:
@@ -225,19 +229,21 @@ def _add_model_args(p, window: bool = True, inference: bool = True,
                     clip_archs: bool = False) -> None:
     """Args that determine the model/pipeline geometry: they must match
     whatever wrote the checkpoint.  `inference` adds the inference-only
-    ``--fold-bn`` and ``--checkpoint``; `clip_archs` the video arch
-    ``r2plus1d_34``, whose streams take clip volumes, and with it
-    ``--crop``, ``--resize-short`` and ``--window`` that default to the
-    arch's own."""
+    ``--fold-bn`` and ``--checkpoint``; `clip_archs` the video archs
+    ``r2plus1d_34`` and ``timesformer_base``, whose streams take clip
+    volumes, and with them ``--crop``, ``--resize-short``, ``--window``
+    and ``--width`` that default to the arch's own."""
     archs = ["resnet18", "resnet34", "resnet50"]
-    geometry = {"crop": 224, "resize_short": 256, "window": 16}
+    geometry = {"crop": 224, "resize_short": 256, "window": 16, "width": 64}
     arch_help = "backbone for both streams"
     if clip_archs:
-        archs.append("r2plus1d_34")
+        archs += ["r2plus1d_34", "timesformer_base"]
         geometry = dict.fromkeys(geometry)
-        arch_help += ("; --crop, --resize-short and --window default to its "
-                      "own: 224, 256, 16 for the ResNets, 112, 128, 33 for "
-                      "r2plus1d_34")
+        arch_help += ("; --crop, --resize-short, --window and --width "
+                      "default to its own: 224, 256, 16, 64 for the "
+                      "ResNets, 112, 128, 33, 64 for r2plus1d_34, 224, 224, "
+                      "9, 768 for timesformer_base (whose clips must have "
+                      "its 8 frames at 224x224)")
     p.add_argument("--num-classes", type=int, default=101)
     p.add_argument("--arch", choices=archs, default="resnet18",
                    help=arch_help)
@@ -246,8 +252,8 @@ def _add_model_args(p, window: bool = True, inference: bool = True,
     p.add_argument("--crop", type=int, default=geometry["crop"])
     p.add_argument("--resize-short", type=int,
                    default=geometry["resize_short"])
-    p.add_argument("--width", type=int, default=64,
-                   help="ResNet base width (64 = standard ResNet-18)")
+    p.add_argument("--width", type=int, default=geometry["width"],
+                   help="base width (64 = standard ResNet-18)")
     if inference:
         p.add_argument("--fold-bn", action="store_true",
                        help="fold BatchNorms into conv weights at load "

@@ -1,9 +1,10 @@
 """Two-stream action recognition: RGB stream + flow stream, temporal
 mean pooling, late fusion (Simonyan & Zisserman 2014).  With
 ``arch="r2plus1d_34"`` each stream is a video ResNet
-(``models/video_resnet``) that takes one clip volume: the RGB frames, or
-the clip's flow fields (2 channels a frame), and the model says so
-(``clip_input``).
+(``models/video_resnet``), with ``arch="timesformer_base"`` a
+divided space-time TimeSformer (``models/timesformer``); either takes
+one clip volume: the RGB frames, or the clip's flow fields (2 channels a
+frame), and the model says so (``clip_input``).
 
 Port of ``video_analytics_tpu/models/two_stream.py``.  The reference keeps
 flax modules and variables apart; here ``TwoStreamModel`` is an
@@ -13,7 +14,7 @@ flax modules and variables apart; here ``TwoStreamModel`` is an
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -22,19 +23,22 @@ from video_analytics_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
 from video_analytics_tpu_torch.models import convert
 from video_analytics_tpu_torch.models.resnet import (
     ResNet, resnet18, resnet34, resnet50)
+from video_analytics_tpu_torch.models.timesformer import timesformer_base
 from video_analytics_tpu_torch.models.video_resnet import r2plus1d_34
 from video_analytics_tpu_torch.parallel.mesh import ColumnParallelLinear
 
 _ARCHS = {"resnet18": resnet18, "resnet34": resnet34,
-          "resnet50": resnet50, "r2plus1d_34": r2plus1d_34}
+          "resnet50": resnet50, "r2plus1d_34": r2plus1d_34,
+          "timesformer_base": timesformer_base}
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchInput:
     """What an arch's published setup feeds it: the short side, crop and
     window of frames, the normalisation statistics and the late fusion's
-    (spatial, temporal) weights.  The defaults are the image ResNets'
-    (the ``PipelineConfig`` defaults)."""
+    (spatial, temporal) weights, and whether each stream takes the
+    window as one clip volume (``clip``: no flow stacks).  The defaults
+    are the image ResNets' (the ``PipelineConfig`` defaults)."""
 
     resize_short: int = 256
     crop: int = 224
@@ -42,15 +46,24 @@ class ArchInput:
     mean: Tuple[float, float, float] = IMAGENET_MEAN
     std: Tuple[float, float, float] = IMAGENET_STD
     fusion_weights: Tuple[float, float] = (1.0, 1.5)
+    clip: bool = False
 
 
 # R(2+1)D (arXiv:1711.11248): clips of 32 frames resized to 128×171 and
 # centre-cropped to 112² (33 frames make the 32 flow fields), the
 # Kinetics statistics of torchvision's video weights, streams averaged.
-_ARCH_INPUTS = {"r2plus1d_34": ArchInput(
-    resize_short=128, crop=112, window=33,
-    mean=(0.43216, 0.394666, 0.37645), std=(0.22803, 0.22145, 0.216989),
-    fusion_weights=(1.0, 1.0))}
+# TimeSformer (arXiv:2102.05095): 8 frames whose short side is 224, the
+# centre 224² (9 frames make the 8 flow fields), its 0.45 / 0.225
+# statistics, streams averaged.
+_ARCH_INPUTS = {
+    "r2plus1d_34": ArchInput(
+        resize_short=128, crop=112, window=33,
+        mean=(0.43216, 0.394666, 0.37645),
+        std=(0.22803, 0.22145, 0.216989), fusion_weights=(1.0, 1.0),
+        clip=True),
+    "timesformer_base": ArchInput(
+        resize_short=224, crop=224, window=9, mean=(0.45, 0.45, 0.45),
+        std=(0.225, 0.225, 0.225), fusion_weights=(1.0, 1.0), clip=True)}
 
 
 def arch_input(arch: str) -> ArchInput:
@@ -64,7 +77,7 @@ def arch_input(arch: str) -> ArchInput:
 class TwoStreamModel(nn.Module):
     """The two stream networks + fusion weights."""
 
-    def __init__(self, spatial: ResNet, temporal: ResNet,
+    def __init__(self, spatial: nn.Module, temporal: nn.Module,
                  fusion_weights: Tuple[float, float] = (1.0, 1.5)):
         super().__init__()
         self.spatial = spatial
@@ -74,21 +87,25 @@ class TwoStreamModel(nn.Module):
     @classmethod
     def create(cls, num_classes: int = 101, flow_stack: int = 10,
                fusion_weights: Tuple[float, float] = (1.0, 1.5),
-               dtype: torch.dtype = torch.float32, width: int = 64,
+               dtype: torch.dtype = torch.float32,
+               width: Optional[int] = None,
                arch: str = "resnet18") -> "TwoStreamModel":
         """Both streams of `arch`; `dtype` is their compute dtype (the
-        parameters are float32 either way, ``models/resnet``).  The flow
-        stream of an image arch takes 2·`flow_stack` channels; that of a
-        clip arch one field (u, v) a frame, and `flow_stack` is unused."""
+        parameters are float32 either way, ``models/resnet``); `width`
+        the arch's base width, None for its own (64 for the ResNets and
+        R(2+1)D, 768 for TimeSformer).  The flow stream of an image arch
+        takes 2·`flow_stack` channels; that of a clip arch one field (u,
+        v) a frame, and `flow_stack` is unused."""
         if arch not in _ARCHS:
             raise ValueError(f"unknown arch {arch!r}; "
                              f"choose from {sorted(_ARCHS)}")
         build = _ARCHS[arch]
-        spatial = build(num_classes=num_classes, dtype=dtype, width=width)
+        kw = {"num_classes": num_classes, "dtype": dtype}
+        if width is not None:
+            kw["width"] = width
+        spatial = build(**kw)
         flow_channels = 2 if spatial.clip_input else 2 * flow_stack
-        return cls(spatial,
-                   build(num_classes=num_classes, dtype=dtype, width=width,
-                         in_channels=flow_channels),
+        return cls(spatial, build(in_channels=flow_channels, **kw),
                    fusion_weights=fusion_weights)
 
     @property
@@ -98,6 +115,14 @@ class TwoStreamModel(nn.Module):
         return self.spatial.clip_input
 
     # -- variables in the reference's layout ----------------------------------
+
+    def _resnet_streams(self, what: str) -> None:
+        """Raise where the streams are not ResNets: the JAX package has
+        no variable tree, and no BatchNorm folding, for another arch."""
+        if not isinstance(self.spatial, ResNet):
+            raise ValueError(f"{what}: arch {self.spatial.arch!r} has no "
+                             f"layout in the JAX package's variable tree "
+                             f"and no BatchNorm to fold")
 
     def flax_variables(self) -> Dict[str, Any]:
         """Both streams' weights as the reference's variable tree
@@ -111,12 +136,14 @@ class TwoStreamModel(nn.Module):
                              "(shard_dense_over_model): each process holds "
                              "only its block, so it has no whole variable "
                              "tree to save; save the unsharded model")
+        self._resnet_streams("flax_variables")
         return convert.two_stream_torch_to_flax(self.state_dict())
 
     def load_flax_variables(self, variables: Mapping[str, Any]
                             ) -> "TwoStreamModel":
         """Take both streams' weights from the reference's variable tree,
         e.g. one read by ``runtime/checkpoint.load_variables``."""
+        self._resnet_streams("load_flax_variables")
         self.load_state_dict(convert.two_stream_flax_to_torch(variables))
         return self
 
@@ -125,6 +152,7 @@ class TwoStreamModel(nn.Module):
         preceding convolution (``models/convert.fold_batchnorm``): the
         reference's ``folded()`` and ``fold_variables`` in one step, since
         the module owns its weights.  The streams keep their dtype."""
+        self._resnet_streams("folded (--fold-bn)")
         out = TwoStreamModel(self.spatial.clone(fold_bn=True),
                              self.temporal.clone(fold_bn=True),
                              self.fusion_weights)
@@ -141,7 +169,8 @@ class TwoStreamModel(nn.Module):
                 for k, v in variables.items()}
 
     def init(self, generator: torch.Generator) -> "TwoStreamModel":
-        """Seeded initialisation of both streams (see ``ResNet.init``):
+        """Seeded initialisation of both streams (``ResNet.init``,
+        ``TimeSformer.init``):
         the spatial stream draws first, then the temporal one."""
         self.spatial.init(generator)
         self.temporal.init(generator)

@@ -1,5 +1,5 @@
-"""Convolution and dense layers that compute in a chosen dtype while their
-parameters stay float32.
+"""Convolution, dense and LayerNorm layers that compute in a chosen dtype
+while their parameters stay float32.
 
 The reference's CNNs take a compute ``dtype`` (flax's ``dtype=``, with
 ``param_dtype=float32``): with ``bfloat16`` the input, the kernel and the
@@ -117,3 +117,22 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return linear(x, self.weight, self.bias, self.dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` over the last axes computing in ``self.dtype``
+    (float32 parameters).  The input is cast to ``dtype``, and so are the
+    scale and shift, as the other layers cast their weights; ATen's kernel
+    then takes the mean and variance and normalises in float32 and rounds
+    the output once to ``dtype``.  In float32 it is ``nn.LayerNorm``."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == torch.float32:
+            return super().forward(x.float())
+        return F.layer_norm(x.to(self.dtype), self.normalized_shape,
+                            self.weight.to(self.dtype),
+                            self.bias.to(self.dtype), self.eps)

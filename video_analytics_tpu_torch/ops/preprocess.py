@@ -152,10 +152,21 @@ def resize_short_center_crop(x: torch.Tensor, short: int, crop: int,
     return torch.einsum("...hwc,ho,wp->...opc", sl, wh, ww)
 
 
+@functools.lru_cache(maxsize=32)
+def _constant(values: Tuple[float, ...], device: torch.device
+              ) -> torch.Tensor:
+    """A float32 vector of `values` on `device`, made once.  A tensor made
+    from a host list is copied from pageable memory, which synchronises
+    the device's stream: made on every call, the constants of
+    ``normalize`` and ``rgb_to_gray`` drained the launch queue twice a
+    ``classify_batch``."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def normalize(x: torch.Tensor, mean, std) -> torch.Tensor:
     """uint8/float [0,255] (..., C) → ImageNet-normalized float32."""
-    mean = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    std = torch.tensor(std, dtype=torch.float32, device=x.device)
+    mean = _constant(tuple(float(m) for m in mean), x.device)
+    std = _constant(tuple(float(s) for s in std), x.device)
     return (x.float() / 255.0 - mean) / std
 
 
@@ -242,8 +253,7 @@ def preprocess_clip(frames: torch.Tensor, cfg: PreprocessConfig,
 
 def rgb_to_gray(frames: torch.Tensor) -> torch.Tensor:
     """(..., 3) RGB → (...,) gray float32 with cv2's BT.601 weights."""
-    w = torch.tensor([0.299, 0.587, 0.114], dtype=torch.float32,
-                     device=frames.device)
+    w = _constant((0.299, 0.587, 0.114), frames.device)
     return torch.tensordot(frames.float(), w, dims=([-1], [0]))
 
 
