@@ -258,9 +258,15 @@ Phases, each reported on a JSON line:
    101 classes) on one clip, against the float32 plain reference
    ``tests/torch_timesformer.py`` on the card (TF32 off), within
    ``TOL_TSF_LOGITS`` of the largest logit; ``TimeSformer.attn_calls``
-   read (12 + 12 a stream); and the names of the kernels that
-   ``scaled_dot_product_attention`` runs in each half, at a batch's
-   shapes (16 clips), with the backend they show (``timesformer_phase``).
+   read (12 + 12 a stream) and ``short_attn.launches`` (12 a stream, the
+   time half); the short-sequence kernel (``ops/cuda/short_attn``) at a
+   batch's time-half shape (16 clips: 3136 sequences of 8 tokens at 768)
+   within one bfloat16 ulp of the float64 attention and no farther than
+   SDPA, timed (paced and device ms) beside its byte bound, its plain
+   version, SDPA alone (``library_ms``) and the path it replaced; and the
+   kernels each half launches at a batch's shapes: the time half the
+   kernel and nothing that looks like SDPA's, the space half SDPA
+   (``timesformer_phase``).
 ``--only <phase>`` runs the build and that phase alone.
 
 Then it prints the kernel table (``{"kernels": [...]}``: for each kernel
@@ -358,7 +364,8 @@ FB_FRAMES = 16
 CARD = {}              # nvidia-smi's "name, power.limit", set by main()
 # torch.profiler sessions that recorded too little, and the device_ms
 # taken with CUDA events instead (see device_profile_until).
-PROFILER = {"retaken_sessions": 0, "device_ms_from_cuda_events": []}
+PROFILER = {"retaken_sessions": 0, "device_ms_from_cuda_events": [],
+            "kernel_names_unrecorded": []}
 
 
 def median_ops(k: int) -> float:
@@ -498,7 +505,8 @@ PORT_KERNELS = ("warp_prep_kernel", "pd_step_kernel",
                 "fb_prologue_kernel",
                 "fb_blur_sample_kernel",
                 "fb_warp_neq_kernel", "sep_corr_kernel",
-                "fb_window_solve_kernel", "bn_act_kernel")
+                "fb_window_solve_kernel", "bn_act_kernel",
+                "short_mha_kernel")
 
 
 def port_kernel(name: str) -> bool:
@@ -5216,34 +5224,116 @@ TOL_TSF_LOGITS = 0.03
 SDPA_MARKS = ("sdpa", "flash", "fmha", "attention", "attn", "softmax")
 
 
-def attention_kernels(torch, fn) -> list:
-    """The device kernels of one call of `fn` whose names look like
-    attention's (``SDPA_MARKS``), with their device ms."""
+def sdpa_like(name: str) -> bool:
+    return any(m in name.lower() for m in SDPA_MARKS)
+
+
+def call_kernels(torch, fn, tries: int = 5) -> list:
+    """The device kernels of one call of `fn` (after a warm call), with
+    their device ms, longest first; the call profiled again, a little
+    later each time, while torch.profiler records no kernel (at most
+    `tries` times: ``device_profile_until``'s rule).  Empty where no
+    session recorded one."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad():
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and any(
-                m in e.name.lower() for m in SDPA_MARKS):
-            out[e.name] = out.get(e.name, 0.0) + e.device_time_total / 1e3
-    return sorted(out.items(), key=lambda kv: -kv[1])
+        for i in range(tries):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            out = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    out[e.name] = (out.get(e.name, 0.0)
+                                   + e.device_time_total / 1e3)
+            if out:
+                return sorted(out.items(), key=lambda kv: -kv[1])
+            PROFILER["retaken_sessions"] += 1
+            time.sleep(0.2 * (i + 1))
+    return []
+
+
+def short_attn_row(torch, dev, g, seqs: int, T: int, D: int, heads: int):
+    """The short-sequence kernel at the time half's shape: within one
+    bfloat16 ulp of the float64 attention (the card tests' rule), its
+    largest difference from its plain version and SDPA's from the float64
+    attention; its paced and device ms beside its byte bound (the product
+    read and the output written once, the float32 bias), its plain
+    version's, SDPA's alone on the biased q, k, v (``library_ms``) and
+    the path it replaced (the bias add, SDPA, the output's reshape)."""
+    import torch.nn.functional as F
+
+    from video_analytics_tpu_torch.ops.cuda.short_attn import (
+        short_attn, short_attn_plain)
+
+    W = 3 * D
+    y = torch.randn((seqs, T, W), device=dev, generator=g).to(torch.bfloat16)
+    bias = 0.3 * torch.randn(W, device=dev, generator=g)
+    with torch.no_grad():
+        got = short_attn(y, bias, heads)
+        plain = short_attn_plain(y, bias, heads)
+        qkv = y + bias.to(torch.bfloat16)
+        q, k, v = qkv.view(seqs, T, 3, heads, D // heads).permute(
+            2, 0, 3, 1, 4).unbind(0)
+        w = torch.softmax(q.double() @ k.double().transpose(-1, -2)
+                          * (D // heads) ** -0.5, -1)
+        want = (w @ v.double()).transpose(1, 2).reshape(seqs, T, D)
+        terms = (w @ v.double().abs()).transpose(1, 2).reshape(seqs, T, D)
+        sdpa = F.scaled_dot_product_attention(q, k, v).transpose(
+            1, 2).reshape(seqs, T, D)
+    at = torch.maximum(want.abs(), terms * 2.0 ** -12)
+    ulp = torch.ldexp(torch.ones_like(at), torch.frexp(at)[1] - 8)
+    err = (got.double() - want).abs()
+    kernel_err = float(err.max())
+    sdpa_err = float((sdpa.double() - want).abs().max())
+    check(bool((err <= ulp).all()) and kernel_err <= sdpa_err,
+          f"short_attn at {(seqs, T, D)}: {kernel_err} from the float64 "
+          f"attention (SDPA {sdpa_err})")
+    del w, want, terms, at, ulp, err
+
+    def replaced():
+        qkv = y + bias.to(torch.bfloat16)
+        q, k, v = qkv.view(seqs, T, 3, heads, D // heads).permute(
+            2, 0, 3, 1, 4).unbind(0)
+        o = F.scaled_dot_product_attention(q, k, v)
+        return o.transpose(1, 2).reshape(seqs, T, D)
+
+    nbytes = (y.numel() + seqs * T * D) * 2 + W * 4
+    with torch.no_grad():
+        row = {"shape": [seqs, T, D, heads],
+               "max_abs_err_vs_float64": kernel_err,
+               "max_abs_diff_vs_plain": float(
+                   (got.float() - plain.float()).abs().max()),
+               "sdpa_max_abs_err_vs_float64": sdpa_err,
+               "ms": cuda_ms(torch, lambda: short_attn(y, bias, heads)),
+               "device_ms": device_ms(
+                   torch, lambda: short_attn(y, bias, heads),
+                   "short_mha_kernel"),
+               "plain_ms": cuda_ms(
+                   torch, lambda: short_attn_plain(y, bias, heads), 5),
+               "library_ms": cuda_ms(
+                   torch, lambda: F.scaled_dot_product_attention(q, k, v)),
+               "replaced_path_ms": cuda_ms(torch, replaced),
+               "bound_ms": 1e3 * nbytes / ROOFLINE.HBM_BYTES_PER_S,
+               "bytes": nbytes}
+    row["device_over_bound"] = row["device_ms"] / row["bound_ms"]
+    return row
 
 
 def timesformer_phase(torch, np, dev):
     """Phase 24: both full-width TimeSformer-Base streams in bfloat16 on
     one clip (RGB frames, and flow fields in [-1, 1]) against the float32
-    plain reference on the card; the attention counter; the SDPA kernels
-    of each half at a batch's shapes."""
+    plain reference on the card, with the attention calls and the
+    short-sequence kernel's launches (``short_attn.launches``: the time
+    half, 12 a stream); the kernel's row at a batch's time-half shape (16
+    clips); the kernels each half launches there."""
     import importlib.util
 
     from video_analytics_tpu_torch.models.timesformer import TimeSformer
     from video_analytics_tpu_torch.models.two_stream import TwoStreamModel
+    from video_analytics_tpu_torch.ops.cuda.short_attn import short_attn
 
     # By path: an installed package named ``tests`` may shadow the repo's.
     spec = importlib.util.spec_from_file_location(
@@ -5265,35 +5355,64 @@ def timesformer_phase(torch, np, dev):
     for name, x in clips.items():
         net = getattr(model, name)
         before = dict(TimeSformer.attn_calls)
+        n = short_attn.launches
         with torch.no_grad():
             got = net(x).float()
         calls = {k: v - before[k] for k, v in TimeSformer.attn_calls.items()}
+        launches = short_attn.launches - n
         want = plain.TimeSformer(net.state_dict(), heads=net.heads)(x)
         scale = float(want.abs().max())
         rel = float((got - want).abs().max()) / scale
-        check(calls == {"time": 12, "space": 12},
-              f"timesformer {name}: attention calls {calls}")
+        check(calls == {"time": 12, "space": 12} and launches == 12,
+              f"timesformer {name}: attention calls {calls}, short_attn "
+              f"launches {launches}")
         check(scale > 0 and rel <= TOL_TSF_LOGITS,
               f"timesformer {name}: logits {rel} of the largest from the "
               f"float32 reference")
         streams[name] = {"logits_rel_vs_reference": rel,
                          "logit_sd": float(want.std()),
-                         "attn_calls": calls}
+                         "attn_calls": calls,
+                         "short_attn_launches": launches}
     blk, D = model.spatial.blocks[0], model.spatial.width
     B, T, P = 16, 8, model.spatial.num_patches
+    time_row = short_attn_row(torch, dev, g, B * P, T, D, blk.attn.heads)
     h = torch.randn((B * P, T, D), device=dev, generator=g).to(
         torch.bfloat16)
     s = torch.randn((B * T, P + 1, D), device=dev, generator=g).to(
         torch.bfloat16)
-    sdpa = {"time": attention_kernels(torch, lambda: blk.temporal_attn(h)),
-            "space": attention_kernels(torch, lambda: blk.attn(s))}
-    check(all(sdpa.values()), f"timesformer: no attention kernel {sdpa}")
+    n = short_attn.launches
+    halves = {"time": call_kernels(torch, lambda: blk.temporal_attn(h))}
+    time_launches = short_attn.launches - n
+    halves["space"] = call_kernels(torch, lambda: blk.attn(s))
+    check(time_launches >= 2 and short_attn.launches - n == time_launches,
+          f"timesformer: the time half launched short_attn "
+          f"{time_launches} times, the space half "
+          f"{short_attn.launches - n - time_launches}")
+    sdpa = {half: [kv for kv in ks if sdpa_like(kv[0])]
+            for half, ks in halves.items()}
+    ours = {half: [kv for kv in ks if "short_mha_kernel" in kv[0]]
+            for half, ks in halves.items()}
+    if all(halves.values()):
+        check(len(ours["time"]) == 1 and not sdpa["time"] and sdpa["space"]
+              and not ours["space"],
+              f"timesformer: the time half launched {halves['time']}, the "
+              f"space half {halves['space']}")
+    else:
+        print("torch.profiler recorded no kernel of a TimeSformer half: "
+              "its launches are held by the counter alone",
+              file=sys.stderr, flush=True)
+        PROFILER["kernel_names_unrecorded"].append("timesformer halves")
     emit({"phase": "timesformer", "seconds": time.perf_counter() - t0,
           "streams": streams, "tolerance": TOL_TSF_LOGITS,
+          "short_attn": time_row,
+          "half_kernels_ms": {half: [(short_kernel_name(k), ms)
+                                     for k, ms in ks]
+                              for half, ks in halves.items()},
           "sdpa_kernels_ms": sdpa,
-          "sdpa_shapes": {"time": [B * P, 12, T, D // 12],
-                          "space": [B * T, 12, P + 1, D // 12]},
-          "attn_calls_total": dict(TimeSformer.attn_calls), **CARD})
+          "shapes": {"time": [B * P, 12, T, D // 12],
+                     "space": [B * T, 12, P + 1, D // 12]},
+          "attn_calls_total": dict(TimeSformer.attn_calls),
+          "short_attn_launches_total": short_attn.launches, **CARD})
     del model, clips, h, s
     torch.cuda.empty_cache()
     return streams, sdpa

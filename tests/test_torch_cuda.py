@@ -1323,3 +1323,179 @@ def test_cnn_stream_runs_every_norm_as_bn_act(dev, arch, launches, residual):
     assert sum("bn_act_kernel" in k for k in names) == launches
     aten = [k for k in names if "batch_norm" in k or "clamp" in k]
     assert not aten, aten
+
+
+# Kernel names that look like attention's: chip_smoke.py's SDPA_MARKS.
+SDPA_MARKS = ("sdpa", "flash", "fmha", "attention", "attn", "softmax")
+# (L, heads) of the short-sequence kernel's tests: 1 token (every weight
+# 1), odd counts and the time half's 8 within one 8-key block, 13 and 16
+# in two (one tile of queries), 24 in three and the longest 32 in four
+# (two tiles); 1 head (three warps of the block idle), 12 and 16 (three
+# and four heads a warp).
+SHORT_ATTN_SHAPES = [(L, heads) for L in (1, 2, 7, 8, 13, 16, 24, 32)
+                     for heads in (1, 12, 16)]
+
+
+def _short_attn_inputs(dev, B, L, heads, seed=0):
+    g = torch.Generator(dev).manual_seed(seed)
+    W = 3 * 64 * heads
+    y = torch.randn((B, L, W), device=dev, generator=g).to(torch.bfloat16)
+    bias = 0.3 * torch.randn(W, device=dev, generator=g)
+    return y, bias
+
+
+def _short_attn_errors(y, bias, heads, got):
+    """(whether every element of `got` is within one bfloat16 ulp of the
+    float64 attention of the same rounded operands, `got`'s largest error,
+    SDPA's largest error on those operands); the ulp is taken at no less
+    than 2^-12 of the element's Σ_j w_ij·|v_j|, as
+    tests/test_torch_short_attn.within_one_ulp takes it."""
+    import torch.nn.functional as F
+
+    B, L, W = y.shape
+    D = W // 3
+    qkv = (y.float() + bias.to(torch.bfloat16).float()).to(torch.bfloat16)
+    q, k, v = qkv.view(B, L, 3, heads, 64).permute(2, 0, 3, 1, 4)
+    w = torch.softmax(q.double() @ k.double().transpose(-1, -2) * 0.125, -1)
+    want = (w @ v.double()).transpose(1, 2).reshape(B, L, D)
+    terms = (w @ v.double().abs()).transpose(1, 2).reshape(B, L, D)
+    at = torch.maximum(want.abs(), terms * 2.0 ** -12)
+    ulp = torch.ldexp(torch.ones_like(at), torch.frexp(at)[1] - 8)
+    err = (got.double() - want).abs()
+    with torch.no_grad():
+        sdpa = F.scaled_dot_product_attention(q, k, v).transpose(1, 2
+                                                                 ).reshape(
+            B, L, D)
+    return (bool((err <= ulp).all()), float(err.max()),
+            float((sdpa.double() - want).abs().max()))
+
+
+@pytest.mark.parametrize("B,L,heads", [(64, L, heads)
+                                        for L, heads in SHORT_ATTN_SHAPES]
+                         + [(3136, 8, 12)])
+def test_short_attn_is_within_one_ulp_and_no_worse_than_sdpa(dev, B, L,
+                                                              heads):
+    """Every output within one bfloat16 ulp of the float64 attention, and
+    the largest error no larger than SDPA's on the same operands; the last
+    case at the time half's full shape, 3136 sequences of 8 tokens at 768
+    widths."""
+    from video_analytics_tpu_torch.ops.cuda.short_attn import short_attn
+
+    y, bias = _short_attn_inputs(dev, B, L, heads, seed=L * 17 + heads)
+    n = short_attn.launches
+    got = short_attn(y, bias, heads)
+    torch.cuda.synchronize()
+    assert short_attn.launches == n + 1
+    assert got.shape == (B, L, 64 * heads) and got.is_contiguous()
+    ok, err, sdpa_err = _short_attn_errors(y, bias, heads, got)
+    assert ok, (err, sdpa_err)
+    assert err <= sdpa_err, (err, sdpa_err)
+
+
+def test_short_attn_adds_the_bias_with_two_roundings(dev):
+    """At L = 1 every weight is 1: the output is the v third of
+    round(y + round(bias)) bit for bit (-0 + 0 gives +0), and not that of
+    the one rounding round(y + bias)."""
+    from video_analytics_tpu_torch.ops.cuda.short_attn import (
+        short_attn, short_attn_plain)
+
+    y, bias = _short_attn_inputs(dev, 300, 1, 12, seed=3)
+    y[:7, 0, 1536:1600] = -0.0
+    bias[1536:1600] = 0.0
+    D = 768
+    got = short_attn(y, bias, 12)
+    want = (y.float() + bias.to(torch.bfloat16).float()).to(
+        torch.bfloat16)[..., 2 * D:]
+    once = (y.float() + bias).to(torch.bfloat16)[..., 2 * D:]
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert torch.equal(got.view(torch.int16),
+                       short_attn_plain(y, bias, 12).view(torch.int16))
+    assert not torch.equal(got, once)
+
+
+def test_short_attn_rejects_bad_tensors(dev):
+    from video_analytics_tpu_torch.ops.cuda import _build
+    from video_analytics_tpu_torch.ops.cuda.short_attn import short_attn
+
+    y, bias = _short_attn_inputs(dev, 4, 8, 12)
+    long = torch.cat([y] * 4 + [y[:, :1]], 1)
+    bad = [(y.float(), bias, 12),                   # dtype
+           (long, bias, 12),                        # 33 tokens
+           (y, bias, 24),                           # heads of 32
+           (y.transpose(0, 1).contiguous().transpose(0, 1), bias, 12),
+           (y, bias.double(), 12),                  # bias dtype
+           (y, bias[:768], 12),                     # bias shape
+           (y, bias.cpu(), 12),                     # bias device
+           (y, bias.clone().requires_grad_(), 12)]  # autograd on
+    for t, b, heads in bad:
+        n = short_attn.launches
+        with pytest.raises(ValueError):
+            short_attn(t, b, heads)
+        assert short_attn.launches == n
+    # The entry point refuses 33 tokens on its own.
+    out = torch.empty((4, 33, 768), dtype=torch.bfloat16, device=dev)
+    err = _build.library().va_short_attn(
+        long.data_ptr(), bias.data_ptr(), out.data_ptr(), 4, 33, 12,
+        torch.cuda.current_stream(dev).cuda_stream)
+    assert err != 0
+
+
+def _kernel_names(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    return [ev.name for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_time_half_launches_short_attn_and_no_sdpa(dev):
+    """A full-width bfloat16 TimeSformer block: its time half launches the
+    short-sequence kernel and no kernel that looks like SDPA's; its space
+    half (197 tokens) still launches SDPA's."""
+    from video_analytics_tpu_torch.models.timesformer import Block
+    from video_analytics_tpu_torch.ops.cuda.short_attn import short_attn
+
+    blk = Block(768, 12, 3072, torch.bfloat16).to(dev).eval()
+    g = torch.Generator(dev).manual_seed(0)
+    h = torch.randn((2 * 196, 8, 768), device=dev, generator=g).to(
+        torch.bfloat16)
+    s = torch.randn((2 * 8, 197, 768), device=dev, generator=g).to(
+        torch.bfloat16)
+    n = short_attn.launches
+    time_names = _kernel_names(lambda: blk.temporal_attn(h))
+    assert short_attn.launches == n + 2
+    space_names = _kernel_names(lambda: blk.attn(s))
+    assert short_attn.launches == n + 2
+    assert sum("short_mha_kernel" in k for k in time_names) == 1
+    sdpa = [k for k in time_names if any(m in k.lower() for m in SDPA_MARKS)]
+    assert not sdpa, sdpa
+    assert any(any(m in k.lower() for m in SDPA_MARKS) for k in space_names)
+    assert not any("short_mha_kernel" in k for k in space_names)
+
+
+def test_short_attn_counts_twelve_a_stream(dev):
+    """A full-width bfloat16 TimeSformer-Base stream's eval forward
+    launches the kernel once a block (the time half), 12 in all; with
+    autograd on it launches none."""
+    from video_analytics_tpu_torch.models.timesformer import (
+        TimeSformer, timesformer_base)
+    from video_analytics_tpu_torch.ops.cuda.short_attn import short_attn
+
+    net = timesformer_base(101, 2, dtype=torch.bfloat16)
+    net.init(torch.Generator().manual_seed(0))
+    net = net.to(dev).eval()
+    x = torch.rand((1, 8, 224, 224, 2), device=dev) * 2 - 1
+    n, calls = short_attn.launches, dict(TimeSformer.attn_calls)
+    with torch.no_grad():
+        logits = net(x)
+    assert short_attn.launches - n == 12
+    assert TimeSformer.attn_calls["time"] - calls["time"] == 12
+    with torch.enable_grad():
+        again = net(x)
+    assert short_attn.launches - n == 12
+    assert torch.isfinite(logits).all() and again.requires_grad

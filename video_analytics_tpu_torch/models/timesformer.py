@@ -36,9 +36,16 @@ is cast at entry and every projection (``ops/layers.Linear``, two
 roundings with a bias), the patch convolution, GELU, the attention
 products and each residual or embedding add run in bfloat16.  The
 LayerNorms take their statistics and normalise in float32 and round
-their output once (``ops/layers.LayerNorm``).  Attention is
-``F.scaled_dot_product_attention`` at scale 1/√(D/heads), with the
-softmax accumulated as its backend does (float32 in the fused kernels).
+their output once (``ops/layers.LayerNorm``).  Attention runs at scale
+1/√(D/heads) on one of two paths (``Attention``).  On the card in
+bfloat16 with autograd off, the time half (heads of 64, T ≤ 32 tokens)
+is one launch of ``ops/cuda/short_attn``: the ``qkv`` bias added to the
+product with ``Linear``'s two roundings, scores, softmax and weights in
+float32 (the weights not rounded), the weighted sum of v accumulated in
+float32 and rounded once.  The space half, the CPU, float32 and training
+take ``F.scaled_dot_product_attention``, accumulated as its backend does
+(float32 in the fused kernels, which round the weights to bfloat16
+before their product with v).
 The class token's mean over frames is taken in float32 and rounded
 once; the final LayerNorm and the head run in float32 and return float32
 logits.
@@ -57,7 +64,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from video_analytics_tpu_torch.ops.layers import Conv2d, LayerNorm, Linear
+from video_analytics_tpu_torch.ops.cuda.short_attn import (
+    layout_error, short_attn)
+from video_analytics_tpu_torch.ops.layers import (
+    Conv2d, LayerNorm, Linear, linear)
 from video_analytics_tpu_torch.utils.spans import span
 
 LN_EPS = 1e-6
@@ -65,7 +75,15 @@ EMBED_SD = 0.02
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention over (B, L, D): ``qkv``, SDPA, ``proj``."""
+    """Multi-head self-attention over (B, L, D): ``qkv``, attention,
+    ``proj``.
+
+    On the card outside float32 the ``qkv`` product is taken without its
+    bias.  Where ``short_attn.layout_error`` finds nothing against it
+    (bfloat16, heads of 64, at most 32 tokens, D ≤ 1024, autograd off:
+    the time half in eval) one launch of ``short_attn`` adds the bias and
+    attends.  Elsewhere the bias is added as ``Linear`` adds it and SDPA
+    attends, as on the CPU, in float32 and in training."""
 
     def __init__(self, dim: int, heads: int, dtype: torch.dtype):
         super().__init__()
@@ -78,8 +96,16 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, L, D = x.shape
-        q, k, v = self.qkv(x).view(B, L, 3, self.heads, D // self.heads
-                                   ).permute(2, 0, 3, 1, 4).unbind(0)
+        qkv = self.qkv
+        if x.is_cuda and qkv.dtype != torch.float32:
+            y = linear(x, qkv.weight, None, qkv.dtype)
+            if layout_error(y, qkv.bias, self.heads) is None:
+                return self.proj(short_attn(y, qkv.bias, self.heads))
+            y = y + qkv.bias.to(qkv.dtype)
+        else:
+            y = qkv(x)
+        q, k, v = y.view(B, L, 3, self.heads, D // self.heads
+                         ).permute(2, 0, 3, 1, 4).unbind(0)
         o = F.scaled_dot_product_attention(q, k, v)
         return self.proj(o.transpose(1, 2).reshape(B, L, D))
 

@@ -32,7 +32,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 SOURCES = ("warp_prep.cu", "tvl1_pd.cu", "median.cu", "fb_prologue.cu",
            "fb_warp_neq.cu", "sep_corr.cu", "fb_window_solve.cu",
-           "tvl1_pd_chunk.cu", "tvl1_pd_warp.cu", "bn_act.cu")
+           "tvl1_pd_chunk.cu", "tvl1_pd_warp.cu", "bn_act.cu",
+           "short_attn.cu")
 HEADERS = ("common.cuh", "fb_neq.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -64,6 +65,7 @@ _SIGNATURES = {
     "va_pd_scale_smem": (_I, _I, _I),
     "va_pd_warp_max_clusters": (_I, _I, _I, _I),
     "va_bn_act": (_P, _P, _P, _P, _P, _P, _F, _L, _I, _I, _I, _P),
+    "va_short_attn": (_P, _P, _P, _I, _I, _I, _P),
     "va_error_string": (_I,),
 }
 
