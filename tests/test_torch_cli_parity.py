@@ -29,18 +29,19 @@ PORT_ONLY = {
 }
 
 
-CLIP_ARCHS = ("adds the video archs r2plus1d_34 (models/video_resnet) and "
-              "timesformer_base (models/timesformer), which the reference "
-              "has not; classify-clip and eval-ucf101 run their clip "
-              "volumes")
+CLIP_ARCHS = ("adds the video archs r2plus1d_34 (models/video_resnet), "
+              "timesformer_base (models/timesformer) and swin3d_b "
+              "(models/video_swin), which the reference has not; "
+              "classify-clip and eval-ucf101 run their clip volumes")
 ARCH_GEOMETRY = ("left unset it is --arch's own (models.two_stream."
                  "arch_input, and the arch's builder for --width): the "
                  "reference's default for its ResNets, 112 / 128 / 33 / 64 "
-                 "for r2plus1d_34, 224 / 224 / 9 / 768 for timesformer_base")
+                 "for r2plus1d_34, 224 / 224 / 9 / 768 for timesformer_base, "
+                 "224 / 224 / 33 / 128 for swin3d_b")
 PORT_CHANGED = {
     **{(cmd, ("--arch",)): (CLIP_ARCHS, {"choices": [
         "resnet18", "resnet34", "resnet50", "r2plus1d_34",
-        "timesformer_base"]})
+        "timesformer_base", "swin3d_b"]})
        for cmd in ("classify-clip", "eval-ucf101")},
     **{(cmd, (flag,)): (ARCH_GEOMETRY, {"default": None})
        for cmd in ("classify-clip", "eval-ucf101")

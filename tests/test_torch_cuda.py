@@ -1499,3 +1499,42 @@ def test_short_attn_counts_twelve_a_stream(dev):
         again = net(x)
     assert short_attn.launches - n == 12
     assert torch.isfinite(logits).all() and again.requires_grad
+
+
+def test_video_swin_b_stream_equals_the_reference_at_published_widths(dev):
+    """One clip of 32 frames at 224² through a bfloat16 Video Swin-B flow
+    stream at published widths (tables of spread 4, so the relative
+    position bias weighs in every block) against the float32 reference on
+    the card, TF32 off: within the CPU tests' bfloat16 tolerance, 2 % of
+    the largest logit (``tests/test_torch_video_swin.py``, ``BF16_REL``),
+    12 unshifted and 12 shifted blocks and 3 merges."""
+    import importlib.util
+    import os
+
+    from video_analytics_tpu_torch.models.video_swin import (
+        VideoSwin, WindowAttention, video_swin_b)
+
+    path = os.path.join(os.path.dirname(__file__), "torch_video_swin.py")
+    spec = importlib.util.spec_from_file_location("torch_video_swin", path)
+    plain = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(plain)
+
+    net = video_swin_b(101, 2, dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(0)
+    net.init(g)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, WindowAttention):
+                m.relative_position_bias_table.normal_(0, 4, generator=g)
+    net = net.to(dev).eval()
+    x = torch.rand((1, 32, 224, 224, 2), device=dev,
+                   generator=torch.Generator(dev).manual_seed(1)) * 2 - 1
+    calls = dict(VideoSwin.calls)
+    with torch.no_grad():
+        got = net(x)
+        want = plain.VideoSwin(net.state_dict())(x)
+    assert {k: v - calls[k] for k, v in VideoSwin.calls.items()} == {
+        "window": 12, "shifted": 12, "merge": 3}
+    assert got.dtype == torch.float32 and got.shape == (1, 101)
+    gap = float((got - want).abs().max() / want.abs().max())
+    assert 0 < gap <= 0.02, gap

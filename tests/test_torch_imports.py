@@ -256,11 +256,8 @@ def test_every_reference_tool_is_mapped(name):
         assert os.path.isfile(os.path.join(REPO, "tools", target)), target
 
 
-@pytest.mark.parametrize("rel", ["tests/torch_r2plus1d.py",
-                                 "bench_h100/reference/r2plus1d.py"])
-def test_r2plus1d_references_import_only_torch(rel):
-    """The plain R(2+1)D references import nothing of the port, of JAX,
-    flax or the JAX package: only torch and the standard library."""
+def _imports_only_torch(rel: str) -> None:
+    """`rel` imports only torch, typing and __future__."""
     import ast
 
     with open(os.path.join(REPO, rel)) as f:
@@ -273,6 +270,14 @@ def test_r2plus1d_references_import_only_torch(rel):
             assert node.level == 0, rel
             names.add(node.module.split(".")[0])
     assert names and names <= {"__future__", "typing", "torch"}, names
+
+
+@pytest.mark.parametrize("rel", ["tests/torch_r2plus1d.py",
+                                 "bench_h100/reference/r2plus1d.py"])
+def test_r2plus1d_references_import_only_torch(rel):
+    """The plain R(2+1)D references import nothing of the port, of JAX,
+    flax or the JAX package: only torch and the standard library."""
+    _imports_only_torch(rel)
 
 
 @pytest.mark.parametrize("rel", ["tests/torch_timesformer.py",
@@ -280,15 +285,12 @@ def test_r2plus1d_references_import_only_torch(rel):
 def test_timesformer_references_import_only_torch(rel):
     """The plain TimeSformer references import nothing of the port, of
     JAX, flax or the JAX package: only torch and the standard library."""
-    import ast
+    _imports_only_torch(rel)
 
-    with open(os.path.join(REPO, rel)) as f:
-        tree = ast.parse(f.read())
-    names = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names.update(a.name.split(".")[0] for a in node.names)
-        elif isinstance(node, ast.ImportFrom):
-            assert node.level == 0, rel
-            names.add(node.module.split(".")[0])
-    assert names and names <= {"__future__", "typing", "torch"}, names
+
+@pytest.mark.parametrize("rel", ["tests/torch_video_swin.py",
+                                 "bench_h100/reference/video_swin.py"])
+def test_video_swin_references_import_only_torch(rel):
+    """The plain Video Swin references import nothing of the port, of
+    JAX, flax or the JAX package: only torch and the standard library."""
+    _imports_only_torch(rel)

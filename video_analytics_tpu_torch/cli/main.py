@@ -229,21 +229,28 @@ def _add_model_args(p, window: bool = True, inference: bool = True,
                     clip_archs: bool = False) -> None:
     """Args that determine the model/pipeline geometry: they must match
     whatever wrote the checkpoint.  `inference` adds the inference-only
-    ``--fold-bn`` and ``--checkpoint``; `clip_archs` the video archs
-    ``r2plus1d_34`` and ``timesformer_base``, whose streams take clip
-    volumes, and with them ``--crop``, ``--resize-short``, ``--window``
-    and ``--width`` that default to the arch's own."""
-    archs = ["resnet18", "resnet34", "resnet50"]
-    geometry = {"crop": 224, "resize_short": 256, "window": 16, "width": 64}
+    ``--fold-bn`` and ``--checkpoint``; `clip_archs` the video archs of
+    ``models.two_stream``'s registry, whose streams take clip volumes,
+    and with them ``--crop``, ``--resize-short``, ``--window`` and
+    ``--width`` that default to the arch's own (``arch_input``).  The
+    arch names and the help come from the registry."""
+    from video_analytics_tpu_torch.models import two_stream
+    archs = two_stream.arch_names(images_only=not clip_archs)
+    image = two_stream.ArchInput()
+    geometry = {"crop": image.crop, "resize_short": image.resize_short,
+                "window": image.window, "width": image.width}
     arch_help = "backbone for both streams"
     if clip_archs:
-        archs += ["r2plus1d_34", "timesformer_base"]
         geometry = dict.fromkeys(geometry)
+        own = []
+        for a in archs:
+            inp = two_stream.arch_input(a)
+            own.append(f"{inp.crop}, {inp.resize_short}, {inp.window}, "
+                       f"{inp.width} for {a}")
         arch_help += ("; --crop, --resize-short, --window and --width "
-                      "default to its own: 224, 256, 16, 64 for the "
-                      "ResNets, 112, 128, 33, 64 for r2plus1d_34, 224, 224, "
-                      "9, 768 for timesformer_base (whose clips must have "
-                      "its 8 frames at 224x224)")
+                      "default to its own: " + "; ".join(own)
+                      + " (a clip arch's window is its frames and one more "
+                        "for the flow)")
     p.add_argument("--num-classes", type=int, default=101)
     p.add_argument("--arch", choices=archs, default="resnet18",
                    help=arch_help)

@@ -58,7 +58,7 @@ a forward adds ``depth`` to ``"time"`` and to ``"space"``.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -83,7 +83,8 @@ class Attention(nn.Module):
     (bfloat16, heads of 64, at most 32 tokens, D ≤ 1024, autograd off:
     the time half in eval) one launch of ``short_attn`` adds the bias and
     attends.  Elsewhere the bias is added as ``Linear`` adds it and SDPA
-    attends, as on the CPU, in float32 and in training."""
+    attends, as on the CPU, in float32, in training and wherever scores
+    take an additive bias (``forward``'s `bias`, Video Swin's windows)."""
 
     def __init__(self, dim: int, heads: int, dtype: torch.dtype):
         super().__init__()
@@ -94,20 +95,32 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim, dtype=dtype)
         self.proj = Linear(dim, dim, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """`bias`, where given, is added to the scaled scores: (G, heads,
+        L, L) in the compute dtype with B a multiple of G, sequence b
+        taking ``bias[b % G]``.  q, k and v are laid out as (B / G,
+        G·heads, L, d) (one copy where G > 1; views where G = 1, as
+        without a bias), so that SDPA reads the bias as one (1, G·heads,
+        L, L) ``attn_mask`` broadcast over B / G, never copied per
+        sequence."""
         B, L, D = x.shape
         qkv = self.qkv
         if x.is_cuda and qkv.dtype != torch.float32:
             y = linear(x, qkv.weight, None, qkv.dtype)
-            if layout_error(y, qkv.bias, self.heads) is None:
+            if bias is None and layout_error(y, qkv.bias, self.heads) is None:
                 return self.proj(short_attn(y, qkv.bias, self.heads))
             y = y + qkv.bias.to(qkv.dtype)
         else:
             y = qkv(x)
-        q, k, v = y.view(B, L, 3, self.heads, D // self.heads
-                         ).permute(2, 0, 3, 1, 4).unbind(0)
-        o = F.scaled_dot_product_attention(q, k, v)
-        return self.proj(o.transpose(1, 2).reshape(B, L, D))
+        G = 1 if bias is None else bias.shape[0]
+        mask = None if bias is None else bias.reshape(1, G * self.heads, L, L)
+        q, k, v = y.view(B // G, G, L, 3, self.heads, D // self.heads
+                         ).permute(3, 0, 1, 4, 2, 5).reshape(
+            3, B // G, G * self.heads, L, D // self.heads).unbind(0)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        o = o.unflatten(1, (G, self.heads)).permute(0, 1, 3, 2, 4)
+        return self.proj(o.reshape(B, L, D))
 
 
 class Mlp(nn.Module):

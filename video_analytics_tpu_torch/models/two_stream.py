@@ -2,7 +2,8 @@
 mean pooling, late fusion (Simonyan & Zisserman 2014).  With
 ``arch="r2plus1d_34"`` each stream is a video ResNet
 (``models/video_resnet``), with ``arch="timesformer_base"`` a
-divided space-time TimeSformer (``models/timesformer``); either takes
+divided space-time TimeSformer (``models/timesformer``), with
+``arch="swin3d_b"`` a Video Swin-B (``models/video_swin``); each takes
 one clip volume: the RGB frames, or the clip's flow fields (2 channels a
 frame), and the model says so (``clip_input``).
 
@@ -14,7 +15,7 @@ flax modules and variables apart; here ``TwoStreamModel`` is an
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -25,20 +26,22 @@ from video_analytics_tpu_torch.models.resnet import (
     ResNet, resnet18, resnet34, resnet50)
 from video_analytics_tpu_torch.models.timesformer import timesformer_base
 from video_analytics_tpu_torch.models.video_resnet import r2plus1d_34
+from video_analytics_tpu_torch.models.video_swin import video_swin_b
 from video_analytics_tpu_torch.parallel.mesh import ColumnParallelLinear
 
 _ARCHS = {"resnet18": resnet18, "resnet34": resnet34,
           "resnet50": resnet50, "r2plus1d_34": r2plus1d_34,
-          "timesformer_base": timesformer_base}
+          "timesformer_base": timesformer_base, "swin3d_b": video_swin_b}
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchInput:
     """What an arch's published setup feeds it: the short side, crop and
     window of frames, the normalisation statistics and the late fusion's
-    (spatial, temporal) weights, and whether each stream takes the
-    window as one clip volume (``clip``: no flow stacks).  The defaults
-    are the image ResNets' (the ``PipelineConfig`` defaults)."""
+    (spatial, temporal) weights, whether each stream takes the window as
+    one clip volume (``clip``: no flow stacks), and the streams' base
+    width.  The defaults are the image ResNets' (the ``PipelineConfig``
+    defaults)."""
 
     resize_short: int = 256
     crop: int = 224
@@ -47,6 +50,7 @@ class ArchInput:
     std: Tuple[float, float, float] = IMAGENET_STD
     fusion_weights: Tuple[float, float] = (1.0, 1.5)
     clip: bool = False
+    width: int = 64
 
 
 # R(2+1)D (arXiv:1711.11248): clips of 32 frames resized to 128×171 and
@@ -54,7 +58,9 @@ class ArchInput:
 # Kinetics statistics of torchvision's video weights, streams averaged.
 # TimeSformer (arXiv:2102.05095): 8 frames whose short side is 224, the
 # centre 224² (9 frames make the 8 flow fields), its 0.45 / 0.225
-# statistics, streams averaged.
+# statistics, streams averaged.  Video Swin (arXiv:2106.13230): 32
+# frames whose short side is 224, the centre 224² (33 frames make the 32
+# flow fields), ImageNet's statistics, streams averaged.
 _ARCH_INPUTS = {
     "r2plus1d_34": ArchInput(
         resize_short=128, crop=112, window=33,
@@ -63,7 +69,11 @@ _ARCH_INPUTS = {
         clip=True),
     "timesformer_base": ArchInput(
         resize_short=224, crop=224, window=9, mean=(0.45, 0.45, 0.45),
-        std=(0.225, 0.225, 0.225), fusion_weights=(1.0, 1.0), clip=True)}
+        std=(0.225, 0.225, 0.225), fusion_weights=(1.0, 1.0), clip=True,
+        width=768),
+    "swin3d_b": ArchInput(
+        resize_short=224, crop=224, window=33, fusion_weights=(1.0, 1.0),
+        clip=True, width=128)}
 
 
 def arch_input(arch: str) -> ArchInput:
@@ -72,6 +82,12 @@ def arch_input(arch: str) -> ArchInput:
         raise ValueError(f"unknown arch {arch!r}; "
                          f"choose from {sorted(_ARCHS)}")
     return _ARCH_INPUTS.get(arch, ArchInput())
+
+
+def arch_names(images_only: bool = False) -> List[str]:
+    """The registered archs in their order; with `images_only`, those whose
+    streams take frames and flow stacks, not clip volumes."""
+    return [a for a in _ARCHS if not (images_only and arch_input(a).clip)]
 
 
 class TwoStreamModel(nn.Module):
@@ -92,17 +108,17 @@ class TwoStreamModel(nn.Module):
                arch: str = "resnet18") -> "TwoStreamModel":
         """Both streams of `arch`; `dtype` is their compute dtype (the
         parameters are float32 either way, ``models/resnet``); `width`
-        the arch's base width, None for its own (64 for the ResNets and
-        R(2+1)D, 768 for TimeSformer).  The flow stream of an image arch
+        the arch's base width, None for its own (``arch_input``: 64 for
+        the ResNets and R(2+1)D, 768 for TimeSformer, 128 for Video
+        Swin).  The flow stream of an image arch
         takes 2·`flow_stack` channels; that of a clip arch one field (u,
         v) a frame, and `flow_stack` is unused."""
         if arch not in _ARCHS:
             raise ValueError(f"unknown arch {arch!r}; "
                              f"choose from {sorted(_ARCHS)}")
         build = _ARCHS[arch]
-        kw = {"num_classes": num_classes, "dtype": dtype}
-        if width is not None:
-            kw["width"] = width
+        kw = {"num_classes": num_classes, "dtype": dtype,
+              "width": arch_input(arch).width if width is None else width}
         spatial = build(**kw)
         flow_channels = 2 if spatial.clip_input else 2 * flow_stack
         return cls(spatial, build(in_channels=flow_channels, **kw),
@@ -170,7 +186,7 @@ class TwoStreamModel(nn.Module):
 
     def init(self, generator: torch.Generator) -> "TwoStreamModel":
         """Seeded initialisation of both streams (``ResNet.init``,
-        ``TimeSformer.init``):
+        ``TimeSformer.init``, ``VideoSwin.init``):
         the spatial stream draws first, then the temporal one."""
         self.spatial.init(generator)
         self.temporal.init(generator)
